@@ -1,0 +1,93 @@
+"""Party transport: every inter-party data movement in one place.
+
+Port of ``repro/core/transport.py::LocalTransport`` only: the stacked
+single-program simulation, with shares on a leading axis of size 3, the
+neighbour share ``x_{i+1}`` as a roll, and openings as stack sums.  The
+communication is accounted (comm.py), never performed.  The integrity and
+telemetry hooks of the reference, and ``MeshTransport``, belong to later
+slices of the port.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Sequence
+
+import torch
+
+__all__ = ["LocalTransport", "current", "use_transport", "PARTIES"]
+
+PARTIES = 3
+
+
+class LocalTransport:
+    """Stacked-axis single-program simulation."""
+
+    @property
+    def rss_slots(self) -> int:
+        return PARTIES
+
+    @property
+    def parts_slots(self) -> int:
+        return PARTIES
+
+    # -- views -----------------------------------------------------------
+    def own_view(self, stack):
+        return stack
+
+    def next_view(self, stack):
+        """x_{i+1} aligned with x_i: the second half of P_i's pair."""
+        return torch.roll(stack, -1, dims=0)
+
+    def slot_view(self, stack, i: int):
+        return stack[i]
+
+    # -- movement --------------------------------------------------------
+    def complete(self, parts):
+        """Additive parts -> RSS stack (P_i sends z_i to P_{i-1}); the
+        stacked simulation already holds every slot."""
+        return parts
+
+    def send(self, x, frm: int, to: int):
+        return x
+
+    # -- openings --------------------------------------------------------
+    def open_parts(self, parts):
+        """All parties learn the sum of the additive parts."""
+        return parts[0] + parts[1] + parts[2]
+
+    def open_rss(self, stack):
+        """Reveal a shared value (P_i sends x_i to P_{i-1})."""
+        return stack[0] + stack[1] + stack[2]
+
+    # -- party-indexed construction --------------------------------------
+    def build_parts(self, vals: Sequence):
+        return torch.stack(list(vals))
+
+    # -- PRF layout ------------------------------------------------------
+    def prf_rss(self, keys, draw: Callable):
+        """RSS stack of PRF draws, slot i = F(keys[i]).  ``draw`` takes
+        the key list and returns the stacked draws (one batched PRF
+        evaluation instead of one per key)."""
+        return draw(list(keys))
+
+    def prf_parts_pair(self, keys, draw: Callable):
+        """(F(k_i), F(k_{i+1})) in additive alignment."""
+        f = draw(list(keys))
+        return f, torch.roll(f, -1, dims=0)
+
+
+_STACK: list = []
+_DEFAULT = LocalTransport()
+
+
+def current() -> LocalTransport:
+    return _STACK[-1] if _STACK else _DEFAULT
+
+
+@contextlib.contextmanager
+def use_transport(t: LocalTransport):
+    _STACK.append(t)
+    try:
+        yield t
+    finally:
+        _STACK.pop()

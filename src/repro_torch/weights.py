@@ -1,0 +1,52 @@
+"""Carrying weights and ring tensors across from the JAX package.
+
+``params_from_numpy`` takes a parameter dict as numpy arrays (the JAX
+package's ``init_bnn`` output or a trained checkpoint, ``np.asarray`` of
+each leaf) into the port's float32 tensors.  Ring tensors cross as raw
+bits: the reference's ``uint32`` words are the port's ``int32`` words.
+``grid_quantize`` is the grid-quantised weight trick of the reference's
+secure-vs-plaintext tests, under which the secure logits provably equal
+the plaintext forward's to within the fixed-point noise.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_numpy", "ring_from_numpy", "ring_to_numpy",
+           "grid_quantize"]
+
+
+def params_from_numpy(params: dict, device="cpu") -> dict:
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in params.items()}
+
+
+def ring_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
+    """uint32 ring words -> int32 tensor with the same bits."""
+    a = np.ascontiguousarray(np.asarray(a, np.uint32))
+    return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+
+def ring_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int32 ring tensor -> uint32 numpy words with the same bits."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def grid_quantize(params: dict) -> dict:
+    """Weights on a 1/8 grid (halved), biases on 1/8 plus a 1/256 half
+    step, identity BN: every pre-activation stays ≥ 1/256 away from the
+    Sign boundary for ±0.5 inputs, far outside the truncation noise."""
+    out = {}
+    for name, p in params.items():
+        if name.endswith("_var"):
+            out[name] = torch.full_like(p, 1.0 - 1e-5)
+        elif name.endswith(("_mu", "_beta")):
+            out[name] = torch.zeros_like(p)
+        elif name.endswith("_g"):
+            out[name] = torch.ones_like(p)
+        elif p.ndim > 1:
+            out[name] = torch.round(p * 0.5 * 8) / 8
+        else:
+            out[name] = torch.round(p * 8) / 8 + 1.0 / 256
+    return out

@@ -10,6 +10,11 @@ import pytest
 from repro.core import RING32, Parties
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips at run time without one")
+
+
 @pytest.hookimpl(wrapper=True)
 def pytest_runtest_call(item):
     """Per-test timeout fallback so a hung mesh collective fails the run
