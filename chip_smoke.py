@@ -197,6 +197,7 @@ def check_kernels(shapes: dict) -> list:
                   f"{ms:.5f} ms (bound {bound:.5f} ms, "
                   f"{100 * bound / ms:.1f}% of bound), plain on host "
                   f"{pms:.3f} ms, exact")
+            tot["err"] = max(tot["err"], err)
             tot["ms"] += per_query * ms
             tot["plain_ms"] += per_query * pms
             tot["bound_ms"] += per_query * bound
@@ -204,7 +205,7 @@ def check_kernels(shapes: dict) -> list:
             tot["ops_bound_ms"] += per_query * o_ms
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": 0,
-                     "max_abs_err": 0, "ms": tot["ms"],
+                     "max_abs_err": tot["err"], "ms": tot["ms"],
                      "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
                      "bound_by": ("bytes" if tot["bytes_bound_ms"]
                                   >= tot["ops_bound_ms"] else "operations"),

@@ -10,9 +10,11 @@ classifier path runs: ``reveal``, ``_reshare``, ``_mul_parts``, ``mul``,
 
 Multiplication identity (Araki et al.), fused-operand form: per party
     z_i = x_i·(y_i + y_{i+1}) + x_{i+1}·y_i + a_i,   Σ a_i = 0.
-With cached weights (``w_limbs``) the whole 3-party product of a layer is
-one kernel launch (kernels/ops.py); otherwise it is per-party torch integer
-matmuls, which exist on the CPU only.
+With cached weights (``w_limbs``, what ``compile_secure`` always builds)
+the whole 3-party product of a layer is one kernel launch (kernels/ops.py);
+a bare weight RSS takes per-party torch integer products, a plain route for
+CPU tensors only (torch has no integer matmul on CUDA), which raises on a
+CUDA tensor so that nothing on the card bypasses the kernels.
 
 The paper-faithful round structure (``set_fused_rounds(False)``) and the
 public-weight branches belong to later slices: the fused rounds are always
@@ -84,16 +86,26 @@ def mul(x: RSS, y: RSS, parties: Parties, tag: str = "mul") -> RSS:
     return _reshare(_mul_parts(xs, ys), x.ring, parties, tag)
 
 
+def _plain_route(x: RSS, what: str) -> None:
+    """The w_limbs=None products are for CPU tensors: on the card the
+    kernels are the only route."""
+    if x.shares.device.type == "cuda":
+        raise RuntimeError(f"{what} without cached weight limbs runs on CPU "
+                           f"tensors only; compile_secure caches them for "
+                           f"the CUDA kernels")
+
+
 def _matmul_parts(x: RSS, w: RSS | None, w_limbs) -> torch.Tensor:
     """Additive product stack z_i (parts layout): local compute, no comm.
 
     With ``w_limbs`` (a kernels.rss_matmul.WeightLimbs cached at model
     setup) the whole 3-party product is one kernel launch; otherwise the
-    fused-operand identity runs as per-party integer matmuls."""
+    fused-operand identity runs as per-party integer matmuls (CPU only)."""
     t = transport.current()
     if w_limbs is not None:
         from ..kernels.ops import rss_matmul_parts_op
         return rss_matmul_parts_op(t.own_view(x.shares), w_limbs)
+    _plain_route(x, "matmul")
     xo, wo = t.own_view(x.shares), t.own_view(w.shares)
     xn, wn = t.next_view(x.shares), t.next_view(w.shares)
     return torch.stack([xo[i] @ (wo[i] + wn[i]) + xn[i] @ wo[i]
@@ -184,7 +196,8 @@ def _grouped_conv_parts(x: RSS, w: RSS, stride: int, padding: int,
     """Additive per-channel (depthwise) product stack, fused-operand Alg 2:
     im2col patches contracted against each channel's own kernel.  Returns
     the (S, B, Ho, Wo, Cout) parts stack.  With ``w_limbs`` (a
-    GroupedWeightLimbs) the 3-party product is one kernel launch."""
+    GroupedWeightLimbs) the 3-party product is one kernel launch; without
+    it the contraction runs in plain torch, on CPU tensors only."""
     kh, kw, cin_g, cout = (int(d) for d in w.shape)
     b, cin = x.shape[0], x.shape[3]
     assert groups == cin and cin_g == 1 and cout % groups == 0
@@ -196,6 +209,7 @@ def _grouped_conv_parts(x: RSS, w: RSS, stride: int, padding: int,
         from ..kernels.ops import grouped_rss_matmul_op
         z = grouped_rss_matmul_op(t.own_view(cols4.shares), w_limbs)
         return z.reshape(z.shape[0], b, ho, wo, cout)
+    _plain_route(x, "depthwise conv")
     slots = t.rss_slots
     ws_full = w.shares.reshape(slots, kh * kw, cin, mult)
     xo, xn = t.own_view(cols4.shares), t.next_view(cols4.shares)

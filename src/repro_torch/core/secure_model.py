@@ -14,9 +14,9 @@ shared-weight deployment with the binary-domain engine and fused rounds:
     "bin-shared": post-Sign ±1 input, one reshare round), Sign through
     the fused MSB extraction, Sign→maxpool fused, and the logits opened.
 
-``weights="public"``, ``binary_linear="generic"|"off"``, the
-paper-faithful rounds, ReLU nets (``secure_maxpool``) and the offline tape
-pool belong to later slices and raise ``NotImplementedError``.
+Public weights, the generic/off binary engines, the paper-faithful rounds,
+ReLU nets (``secure_maxpool``) and the offline tape pool belong to later
+slices; the executor raises ``NotImplementedError`` on layers it cannot run.
 """
 from __future__ import annotations
 
@@ -44,18 +44,11 @@ from .rss import RSS, share
 __all__ = ["SecureModel", "compile_secure", "secure_infer",
            "secure_infer_cost"]
 
-WEIGHT_MODES = ("shared", "public")
-BINARY_LINEAR_MODES = ("auto", "generic", "off")
-
-
 @dataclasses.dataclass
 class SecureModel:
     ops: list
     ring: RingSpec
     net: str
-    use_kernel: bool = False
-    weights: str = "shared"
-    binary_linear: str = "auto"
 
 
 def _np(t) -> np.ndarray:
@@ -70,23 +63,13 @@ def _fold_bn(params, i):
 
 def compile_secure(params: dict, net: str, key: prf.Key,
                    ring: RingSpec | None = None,
-                   use_kernel_dot: bool = False,
-                   weights: str = "shared",
-                   binary_linear: str = "auto",
                    device=None) -> SecureModel:
     """Model-owner setup: fuse + share.  ``params`` are float32 tensors in
     the bnn.py layout; shares land on ``device`` (default: the params').
-
-    ``use_kernel_dot=True`` caches every linear weight-share stack and its
-    fused operand (``WeightLimbs`` / ``GroupedWeightLimbs``) so each layer
-    runs as one kernel launch; without it the layers use per-party integer
-    matmuls, which exist on the CPU only."""
-    assert weights in WEIGHT_MODES, weights
-    assert binary_linear in BINARY_LINEAR_MODES, binary_linear
-    if weights != "shared" or binary_linear != "auto":
-        raise NotImplementedError(
-            f'weights={weights!r}, binary_linear={binary_linear!r}: the port '
-            f'runs weights="shared" with binary_linear="auto" so far')
+    Every linear weight-share stack gets its kernel operands cached
+    (``WeightLimbs`` / ``GroupedWeightLimbs``), so each layer runs as one
+    kernel launch (the reference's ``use_kernel_dot=True``, with shared
+    weights and the binary engine on ``"auto"``)."""
     ring = ring or default_ring()
     if device is None:
         device = next(v.device for v in params.values()
@@ -131,9 +114,8 @@ def compile_secure(params: dict, net: str, key: prf.Key,
             op["b"] = shared(b)
             op["sign_threshold"] = (shared(sign_threshold)
                                     if sign_threshold is not None else None)
-            if use_kernel_dot:
-                op["wlimbs"] = [_weight_limbs_for(wr, l.kind, j)
-                                for j, wr in enumerate(op["w"])]
+            op["wlimbs"] = [_weight_limbs_for(wr, l.kind, j)
+                            for j, wr in enumerate(op["w"])]
             ops.append(op)
         elif l.kind == "act":
             ops.append({"op": "sign" if l.act == "sign" else "relu"})
@@ -149,27 +131,20 @@ def compile_secure(params: dict, net: str, key: prf.Key,
         elif l.kind == "flatten":
             ops.append({"op": "flatten"})
         i += 1
-    _annotate_binary_paths(ops, weights, binary_linear)
-    return SecureModel(ops=ops, ring=ring, net=net, use_kernel=use_kernel_dot,
-                       weights=weights, binary_linear=binary_linear)
+    _annotate_binary_paths(ops)
+    return SecureModel(ops=ops, ring=ring, net=net)
 
 
-def _annotate_binary_paths(ops: list, weights: str = "shared",
-                           binary_linear: str = "auto") -> None:
+def _annotate_binary_paths(ops: list) -> None:
     """Stamp every linear op with ``binary_in`` (its input is a Sign
-    layer's ±1 integers at scale 0) and its §11 ``path`` label; sepconv
-    gets a (depthwise, pointwise) pair.  The executor dispatches on
-    these, so routing is decided at compile time."""
-    public = weights == "public"
+    layer's ±1 integers at scale 0) and its §11 ``path`` label (shared
+    weights, binary engine on ``"auto"``); sepconv gets a (depthwise,
+    pointwise) pair.  The executor dispatches on these, so routing is
+    decided at compile time."""
     binary = False
 
     def label(binary_in: bool) -> str:
-        routed = binary_in and binary_linear != "off"
-        if public:
-            return "bin-public" if routed else "bin-public+trunc"
-        if routed and binary_linear == "auto":
-            return "bin-shared"
-        return "arith"
+        return "bin-shared" if binary_in else "arith"
 
     for op in ops:
         kind = op["op"]
@@ -207,7 +182,7 @@ def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
     bin-shared (product at scale f, bias in the parts, one reshare) or
     arith (fused matmul + Π_trunc opening at scale 2f)."""
     tp = transport.current()
-    wlimbs = op.get("wlimbs") or [None] * len(op["w"])
+    wlimbs = op["wlimbs"]
     kind = op["op"]
     if kind == "sepconv":
         cin = int(h.shape[-1])

@@ -42,8 +42,7 @@ def build(net: str, device=None, params=None):
     device = resolve_device(device)
     if params is None:
         params = init_bnn(0, net, device=device)
-    return compile_secure(params, net, prf.PRNGKey(1), RING32,
-                          use_kernel_dot=True, device=device)
+    return compile_secure(params, net, prf.PRNGKey(1), RING32, device=device)
 
 
 def make_runner(model):

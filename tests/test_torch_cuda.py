@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import linear
+from repro_torch.core.ring import RING32
+from repro_torch.core.rss import RSS
 from repro_torch.kernels import bin_rss_matmul as grp
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import rss_matmul as dense
@@ -66,3 +69,19 @@ def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
         torch.zeros((3, 5, 2), dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError):
         dense.rss_matmul_parts(x, wl._replace(ws=wl.ws.to(torch.int64)))
+
+
+@pytest.mark.cuda
+def test_cuda_shares_without_weight_limbs_raise(cuda):
+    """The protocols' plain products (no cached weight limbs) are for CPU
+    tensors: on the card they raise instead of bypassing the kernels."""
+    x = RSS(torch.zeros((3, 2, 6, 6, 4), dtype=torch.int32, device=cuda),
+            RING32)
+    w = RSS(torch.zeros((3, 3, 3, 1, 4), dtype=torch.int32, device=cuda),
+            RING32)
+    with pytest.raises(RuntimeError):
+        linear._grouped_conv_parts(x, w, 1, 1, 4)
+    cols = RSS(torch.zeros((3, 2, 9), dtype=torch.int32, device=cuda), RING32)
+    wm = RSS(torch.zeros((3, 9, 4), dtype=torch.int32, device=cuda), RING32)
+    with pytest.raises(RuntimeError):
+        linear._matmul_parts(cols, wm, None)

@@ -20,6 +20,8 @@ from repro_torch.core import prf, secure_model
 from repro_torch.core.randomness import Parties
 from repro_torch.core.ring import RING32
 from repro_torch.core.rss import share
+from repro_torch.kernels.bin_rss_matmul import GroupedWeightLimbs
+from repro_torch.kernels.rss_matmul import WeightLimbs
 from repro_torch.nn import bnn
 from repro_torch.weights import (grid_quantize, params_from_numpy,
                                  ring_to_numpy)
@@ -82,8 +84,7 @@ def _np_params(net, seed=0):
 @functools.lru_cache(maxsize=None)
 def _port_model(net):
     return secure_model.compile_secure(params_from_numpy(_np_params(net)),
-                                       net, prf.PRNGKey(2), RING32,
-                                       use_kernel_dot=True)
+                                       net, prf.PRNGKey(2), RING32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,9 +201,32 @@ def test_grid_quantize_matches_reference_trick():
 
 
 def test_unported_modes_raise():
-    params = params_from_numpy(_np_params("MnistNet1"))
-    for kw in ({"weights": "public"}, {"binary_linear": "generic"},
-               {"binary_linear": "off"}):
-        with pytest.raises(NotImplementedError):
-            secure_model.compile_secure(params, "MnistNet1", prf.PRNGKey(0),
-                                        **kw)
+    """ReLU nets (secure ReLU, secure_maxpool) wait for a later slice: the
+    executor refuses them instead of running something else."""
+    model = secure_model.compile_secure(
+        params_from_numpy(_np_params("MnistNet4")), "MnistNet4",
+        prf.PRNGKey(0), RING32)
+    with pytest.raises(NotImplementedError):
+        secure_model.secure_infer_cost(model, (1,) + bnn.INPUT_SHAPES[
+            "MnistNet4"])
+
+
+@pytest.mark.parametrize("net", ["MnistNet1", "CifarNet2"])
+def test_compile_caches_kernel_operands(net):
+    """Every linear weight part carries its kernel operands: dense parts a
+    WeightLimbs over the (K, N) share stack, depthwise parts a
+    GroupedWeightLimbs, so each layer on the card is one launch."""
+    tm = _port_model(net)
+    linear = [o for o in tm.ops if o["op"] in ("conv", "sepconv", "fc")]
+    assert linear
+    for op in linear:
+        assert len(op["wlimbs"]) == len(op["w"])
+        for j, (w, wl) in enumerate(zip(op["w"], op["wlimbs"])):
+            if op["op"] == "sepconv" and j == 0:
+                assert isinstance(wl, GroupedWeightLimbs)
+                kh, kw, _, c = w.shape
+                want = w.shares.reshape(3, kh * kw, c, 1).permute(0, 2, 1, 3)
+            else:
+                assert isinstance(wl, WeightLimbs)
+                want = w.shares.reshape(3, -1, w.shape[-1])
+            assert torch.equal(wl.ws, want)
