@@ -8,19 +8,25 @@ Phases, each fatal on failure:
              (one nvcc per source, started together); prints the build
              seconds, the ptxas report and the card's name and power limit.
 2. kernels - each kernel's wrapper runs on the card at every shape the main
-             path gives it (collected from a shape-only run of the path) and
-             must equal its plain PyTorch version, computed on CPU copies of
-             the same inputs (torch has no integer matmul on CUDA), exactly.
-             Times: CUDA events, median of 30 launches after warm-up.
-3. path    - the port's serving entry point on the card, CifarNet2 and
-             MnistNet1 at batch 32: build -> compile -> warm-up -> 4 queries.
-             The launch counts are zeroed just before each net and read just
-             after; each kernel of the path must have launched.  The
-             per-query ledger must equal the pinned rounds/bytes.
+             paths give it (collected from shape-only runs of the shared-
+             and public-weight paths) and must equal its plain PyTorch
+             version, computed on CPU copies of the same inputs (torch has
+             no integer matmul on CUDA), exactly.  Times: CUDA events,
+             median of 30 launches after warm-up.
+3. path    - the port's serving entry point on the card at batch 32:
+             CifarNet2 and MnistNet1 with shared weights (rss_matmul,
+             grouped_rss_matmul) and with public weights (bin_rss_matmul,
+             bin_grouped_matmul), build -> compile -> warm-up -> 4 queries;
+             then one MnistNet1 query each under public/"off" and
+             shared/"generic".  The launch counts are zeroed just before
+             each run and read just after: each kernel of the run's path
+             must have launched, and the other weight mode's kernels not at
+             all.  The per-query ledger must equal the pinned rounds/bytes.
 4. values  - with grid-quantised weights the secure logits of MnistNet1 and
-             MnistNet3-sep must be within 0.05 of the plaintext forward on
-             the card, and CifarNet2 logits on the card must equal the CPU
-             run of the port bit for bit.
+             MnistNet3-sep (shared and public weights) must be within 0.05
+             of the plaintext forward on the card, and CifarNet2 logits
+             (shared and public) on the card must equal the CPU run of the
+             port bit for bit.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 the result line.  Exits non-zero without a result when no CUDA device is
@@ -38,12 +44,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# per-query ledger at batch 32 (online rounds, bytes, offline rounds, bytes),
-# hardware-independent: the reference's secure_infer_cost gives the same
+# per-query ledger at batch 32 (online rounds, bytes, offline rounds, bytes)
+# of each (net, weights, binary_linear), hardware-independent: the
+# reference's secure_infer_cost gives the same
 PINNED = {
-    "CifarNet2": (33, 158_670_336, 48, 103_514_112),
-    "MnistNet1": (6, 351_744, 8, 294_912),
+    ("CifarNet2", "shared", "auto"): (33, 158_670_336, 48, 103_514_112),
+    ("MnistNet1", "shared", "auto"): (6, 351_744, 8, 294_912),
+    ("CifarNet2", "public", "auto"): (23, 102_043_392, 48, 103_514_112),
+    ("MnistNet1", "public", "auto"): (4, 249_600, 8, 294_912),
+    ("MnistNet1", "public", "off"): (6, 302_592, 8, 294_912),
+    ("MnistNet1", "shared", "generic"): (6, 351_744, 8, 294_912),
 }
+# the kernels each weight mode's path runs (the other mode's must not run)
+PATH_KERNELS = {"shared": ("rss_matmul", "grouped_rss_matmul"),
+                "public": ("bin_rss_matmul", "bin_grouped_matmul")}
 BATCH = 32
 QUERIES = 4
 HBM_BPS = 3.35e12          # H100 SXM memory rate
@@ -51,11 +65,10 @@ INT8_OPS = 1.979e15        # H100 SXM dense int8 tensor-core rate
 REPLACES = {
     "rss_matmul": "src/repro/kernels/rss_matmul.py:118",
     "grouped_rss_matmul": "src/repro/kernels/bin_rss_matmul.py:331",
+    "bin_rss_matmul": "src/repro/kernels/bin_rss_matmul.py:127",
+    "bin_grouped_matmul": "src/repro/kernels/bin_rss_matmul.py:440",
 }
-SOURCES = {
-    "rss_matmul": "src/repro_torch/csrc/rss_matmul.cu",
-    "grouped_rss_matmul": "src/repro_torch/csrc/grouped_rss_matmul.cu",
-}
+SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
 
 
 def fail(msg: str) -> None:
@@ -100,35 +113,57 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def path_shapes(net: str):
-    """Shapes (and the grouped kernel's x layout) each wrapper receives on
-    the main path, from a shape-only (meta) run of the same path."""
+def dots(n_limbs: int) -> int:
+    """int8 limb products a cell of a public-weight product needs on the
+    TPU's route: Σ_{q<L}(4 − q) (4 / 7 / 9 / 10 for L = 1..4)."""
+    return sum(4 - q for q in range(n_limbs))
+
+
+def path_shapes(net: str, weights: str):
+    """Shapes (the grouped kernels' x layout, the public limb count) each
+    wrapper receives on a main path, from a shape-only (meta) run of it."""
     import repro_torch.kernels.ops as kops
     from repro_torch.core.secure_model import secure_infer_cost
     from repro_torch.launch.serve_secure import build
     from repro_torch.nn.bnn import INPUT_SHAPES
 
-    seen = {"rss_matmul": {}, "grouped_rss_matmul": {}}
-    b1, b2 = kops.rss_matmul_parts, kops.grouped_rss_matmul_parts
+    seen = {name: {} for name in REPLACES}
+    wrappers = {"rss_matmul": "rss_matmul_parts",
+                "grouped_rss_matmul": "grouped_rss_matmul_parts",
+                "bin_rss_matmul": "bin_rss_matmul_parts",
+                "bin_grouped_matmul": "bin_grouped_matmul_parts"}
+    saved = {name: getattr(kops, fn) for name, fn in wrappers.items()}
 
-    def rec1(x, w):
-        key = (tuple(x.shape), w.n)
-        seen["rss_matmul"][key] = seen["rss_matmul"].get(key, 0) + 1
-        return b1(x, w)
+    def recorder(name):
+        def rec(x, w):
+            key = (tuple(x.shape), w.n)
+            if "grouped" in name:
+                key += (x.stride()[1] == 1,)
+            if name.startswith("bin_"):
+                key += (w.n_limbs,)
+            seen[name][key] = seen[name].get(key, 0) + 1
+            return saved[name](x, w)
+        return rec
 
-    def rec2(x, w):
-        key = (tuple(x.shape), w.n, x.stride()[1] == 1)
-        seen["grouped_rss_matmul"][key] = \
-            seen["grouped_rss_matmul"].get(key, 0) + 1
-        return b2(x, w)
-
-    kops.rss_matmul_parts, kops.grouped_rss_matmul_parts = rec1, rec2
+    for name, fn in wrappers.items():
+        setattr(kops, fn, recorder(name))
     try:
-        model = build(net, device="cpu")
+        model = build(net, device="cpu", weights=weights)
         secure_infer_cost(model, (BATCH,) + INPUT_SHAPES[net])
     finally:
-        kops.rss_matmul_parts, kops.grouped_rss_matmul_parts = b1, b2
+        for name, fn in wrappers.items():
+            setattr(kops, fn, saved[name])
     return seen
+
+
+def _grouped_x(words, s, c, m, k, c_contig):
+    """A host (S, C, M, K) view and its card copy in the path's layout."""
+    if c_contig:   # the path's im2col buffer: (S, M, K, C)
+        x = words(s, m, k, c).permute(0, 3, 1, 2)
+        return x, x.cuda().permute(0, 2, 3, 1).contiguous().permute(
+            0, 3, 1, 2)
+    x = words(s, c, m, k)
+    return x, x.cuda()
 
 
 def check_kernels(shapes: dict) -> list:
@@ -143,8 +178,16 @@ def check_kernels(shapes: dict) -> list:
         return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
                              generator=g)
 
+    def public(n_limbs, *shape):
+        """A public encoding whose minimal limb count is at most L."""
+        if n_limbs == 4:
+            return words(*shape)
+        half = 1 << (8 * n_limbs - 2)
+        return torch.randint(-half, half, shape, dtype=torch.int32,
+                             generator=g)
+
     rows = []
-    for name in ("rss_matmul", "grouped_rss_matmul"):
+    for name in REPLACES:
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0,
                "bytes_bound_ms": 0.0, "ops_bound_ms": 0.0}
         detail = []
@@ -160,15 +203,9 @@ def check_kernels(shapes: dict) -> list:
                 nbytes = 4 * (s * m * k + 2 * s * k * n + s * m * n)
                 ops = 40 * s * m * k * n
                 desc = {"S": s, "M": m, "K": k, "N": n}
-            else:
+            elif name == "grouped_rss_matmul":
                 (s, c, m, k), n, c_contig = key
-                if c_contig:   # the path's im2col buffer: (S, M, K, C)
-                    x = words(s, m, k, c).permute(0, 3, 1, 2)
-                    xd = x.cuda().permute(0, 2, 3, 1).contiguous() \
-                        .permute(0, 3, 1, 2)
-                else:
-                    x = words(s, c, m, k)
-                    xd = x.cuda()
+                x, xd = _grouped_x(words, s, c, m, k, c_contig)
                 wl = grp.grouped_weight_limbs(words(s, c, k, n))
                 wd = grp.GroupedWeightLimbs(*(a.cuda() for a in wl))
                 run = lambda: grp.grouped_rss_matmul_parts(xd, wd)
@@ -177,6 +214,31 @@ def check_kernels(shapes: dict) -> list:
                               + s * c * m * n)
                 ops = 40 * s * c * m * k * n
                 desc = {"S": s, "C": c, "M": m, "K": k, "N": n}
+            elif name == "bin_rss_matmul":
+                (s, m, k), n, n_limbs = key
+                x = words(s, m, k)
+                wl = grp.public_weight_limbs(public(n_limbs, k, n), n_limbs)
+                xd = x.cuda()
+                wd = grp.PublicWeightLimbs(wl.w.cuda(), wl.wl.cuda(),
+                                           n_limbs)
+                run = lambda: grp.bin_rss_matmul_parts(xd, wd)
+                plain = lambda: grp.bin_rss_matmul_ref(x, wl)
+                nbytes = 4 * (s * m * k + k * n + s * m * n)
+                ops = 2 * dots(n_limbs) * s * m * k * n
+                desc = {"S": s, "M": m, "K": k, "N": n, "L": n_limbs}
+            else:
+                (s, c, m, k), n, c_contig, n_limbs = key
+                x, xd = _grouped_x(words, s, c, m, k, c_contig)
+                wl = grp.public_grouped_limbs(public(n_limbs, c, k, n),
+                                              n_limbs)
+                wd = grp.PublicGroupedLimbs(wl.w.cuda(), wl.wl.cuda(),
+                                            n_limbs)
+                run = lambda: grp.bin_grouped_matmul_parts(xd, wd)
+                plain = lambda: grp.bin_grouped_matmul_ref(x, wl)
+                nbytes = 4 * (s * c * m * k + c * k * n + s * c * m * n)
+                ops = 2 * dots(n_limbs) * s * c * m * k * n
+                desc = {"S": s, "C": c, "M": m, "K": k, "N": n,
+                        "L": n_limbs}
             got = run()
             torch.cuda.synchronize()
             want = plain()
@@ -203,6 +265,8 @@ def check_kernels(shapes: dict) -> list:
             tot["bound_ms"] += per_query * bound
             tot["bytes_bound_ms"] += per_query * b_ms
             tot["ops_bound_ms"] += per_query * o_ms
+        if not detail:
+            fail(f"{name}: no main-path shape was collected")
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": 0,
                      "max_abs_err": tot["err"], "ms": tot["ms"],
@@ -239,35 +303,48 @@ def main() -> None:
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda}"
           f" on {torch.cuda.get_device_name(0)}")
 
-    # -- 2. kernels vs plain versions at the main path's shapes ------------
-    shapes = {"rss_matmul": {}, "grouped_rss_matmul": {}}
-    for net in PINNED:
-        for name, d in path_shapes(net).items():
+    # -- 2. kernels vs plain versions at the main paths' shapes ------------
+    # per-query counts: one query of each net under each weight mode
+    shapes = {name: {} for name in REPLACES}
+    for net, weights, binary_linear in PINNED:
+        if binary_linear != "auto":
+            continue   # the same shapes as the "auto" path of that mode
+        for name, d in path_shapes(net, weights).items():
             for key, cnt in d.items():
                 shapes[name][key] = shapes[name].get(key, 0) + cnt
     rows = check_kernels(shapes)
 
-    # -- 3. main path -------------------------------------------------------
+    # -- 3. main paths --------------------------------------------------------
     from repro_torch.launch.serve_secure import serve
     launches = {name: 0 for name in kbuild.LAUNCHES}
-    for net, pinned in PINNED.items():
+    for (net, weights, binary_linear), pinned in PINNED.items():
+        queries = QUERIES if binary_linear == "auto" else 1
         kbuild.reset_launches()
-        st = serve(net, BATCH, QUERIES, device="cuda")
+        st = serve(net, BATCH, queries, device="cuda", weights=weights,
+                   binary_linear=binary_linear)
         counts = dict(kbuild.LAUNCHES)
         got = (st["online_rounds"], st["online_bytes"], st["offline_rounds"],
                st["offline_bytes"])
-        print(f"[chip_smoke] {net} batch {BATCH} on {st['kind']}: "
-              f"{QUERIES} queries in {st['seconds']:.4f} s = "
-              f"{st['query_per_s']:.3f} q/s ({st['img_per_s']:.1f} img/s), "
-              f"compile {st['compile_s']:.3f} s; ledger {got}; "
+        print(f"[chip_smoke] {net} {weights}/{binary_linear} batch {BATCH} "
+              f"on {st['kind']}: {queries} queries in {st['seconds']:.4f} s "
+              f"= {st['query_per_s']:.3f} q/s ({st['img_per_s']:.1f} img/s),"
+              f" compile {st['compile_s']:.3f} s; ledger {got}; "
               f"launches {counts}")
         if got != pinned:
-            fail(f"{net} ledger {got} != pinned {pinned}")
-        need = ["rss_matmul"] + (["grouped_rss_matmul"]
-                                 if net == "CifarNet2" else [])
+            fail(f"{net} {weights}/{binary_linear}: ledger {got} != pinned "
+                 f"{pinned}")
+        dense_k, grouped_k = PATH_KERNELS[weights]
+        need = [dense_k] + ([grouped_k] if net == "CifarNet2" else [])
         for name in need:
             if counts[name] <= 0:
-                fail(f"{net}: kernel {name} was not launched on the path")
+                fail(f"{net} {weights}/{binary_linear}: kernel {name} was "
+                     f"not launched on the path")
+        other = "public" if weights == "shared" else "shared"
+        for name in PATH_KERNELS[other]:
+            if counts[name] != 0:
+                fail(f"{net} {weights}/{binary_linear}: kernel {name} of "
+                     f"the {other}-weight path launched {counts[name]} "
+                     f"times")
         lg = st["logits"]
         if lg.shape != (BATCH, 10) or not (abs(lg) < 1e6).all():
             fail(f"{net}: logits of shape {lg.shape} are not finite")
@@ -285,20 +362,28 @@ def main() -> None:
         rng = np.random.default_rng(1)
         x = rng.integers(0, 2, (BATCH,) + INPUT_SHAPES[net]) \
             .astype(np.float32) - 0.5
-        st = serve(net, BATCH, 1, device="cuda", params=params, x=x)
         plain, _ = bnn_forward(params, torch.as_tensor(x, device="cuda"), net)
-        err = float(np.abs(st["logits"] - plain.cpu().numpy()).max())
-        print(f"[chip_smoke] {net}: secure vs plaintext max |err| {err:.6f}")
-        if not err < 0.05:
-            fail(f"{net}: secure logits differ from the plaintext forward "
-                 f"by {err}")
+        for weights in PATH_KERNELS:
+            st = serve(net, BATCH, 1, device="cuda", params=params, x=x,
+                       weights=weights)
+            err = float(np.abs(st["logits"] - plain.cpu().numpy()).max())
+            print(f"[chip_smoke] {net} {weights}: secure vs plaintext "
+                  f"max |err| {err:.6f}")
+            if not err < 0.05:
+                fail(f"{net} {weights}: secure logits differ from the "
+                     f"plaintext forward by {err}")
     x = np.random.default_rng(2).integers(0, 2, (2, 32, 32, 3)) \
         .astype(np.float32) - 0.5
-    on_card = serve("CifarNet2", 2, 1, device="cuda", x=x)["logits"]
-    on_host = serve("CifarNet2", 2, 1, device="cpu", x=x)["logits"]
-    if not np.array_equal(on_card, on_host):
-        fail("CifarNet2 logits on the card differ from the CPU run")
-    print("[chip_smoke] CifarNet2 batch 2: card == CPU, bit for bit")
+    for weights in PATH_KERNELS:
+        on_card = serve("CifarNet2", 2, 1, device="cuda", x=x,
+                        weights=weights)["logits"]
+        on_host = serve("CifarNet2", 2, 1, device="cpu", x=x,
+                        weights=weights)["logits"]
+        if not np.array_equal(on_card, on_host):
+            fail(f"CifarNet2 {weights}: logits on the card differ from the "
+                 f"CPU run")
+        print(f"[chip_smoke] CifarNet2 {weights} batch 2: card == CPU, bit "
+              f"for bit")
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

@@ -5,8 +5,8 @@ classifier path runs: ``reveal``, ``_reshare``, ``_mul_parts``, ``mul``,
 ``_matmul_parts`` (kernel and fused-operand branches), ``mul_open``,
 ``matmul_truncate``, ``_trunc_pair``, ``_trunc_decode``, ``_open_shift``,
 ``_im2col``, ``_grouped_conv_parts``, ``conv2d``, ``_im2col_rss``,
-``conv2d_truncate``, the shared-weight branches of ``bin_matmul`` /
-``bin_conv2d``, ``truncate`` and ``fused_rounds``.
+``conv2d_truncate``, ``PublicTensor``, ``bin_matmul`` / ``bin_conv2d``
+(shared and public weights), ``truncate`` and ``fused_rounds``.
 
 Multiplication identity (Araki et al.), fused-operand form: per party
     z_i = x_i·(y_i + y_{i+1}) + x_{i+1}·y_i + a_i,   Σ a_i = 0.
@@ -14,14 +14,17 @@ With cached weights (``w_limbs``, what ``compile_secure`` always builds)
 the whole 3-party product of a layer is one kernel launch (kernels/ops.py);
 a bare weight RSS takes per-party torch integer products, a plain route for
 CPU tensors only (torch has no integer matmul on CUDA), which raises on a
-CUDA tensor so that nothing on the card bypasses the kernels.
+CUDA tensor so that nothing on the card bypasses the kernels.  Public
+weights (a :class:`PublicTensor`) follow the same rule: with their limb
+cache each slot's local product is one kernel launch, without it the plain
+product runs on CPU tensors only.
 
-The paper-faithful round structure (``set_fused_rounds(False)``) and the
-public-weight branches belong to later slices: the fused rounds are always
-on here.
+The paper-faithful round structure (``set_fused_rounds(False)``) belongs to
+a later slice: the fused rounds are always on here.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -33,8 +36,8 @@ from .ring import RingSpec, shr
 from .rss import RSS
 
 __all__ = ["reveal", "mul", "matmul", "conv2d", "truncate", "fused_rounds",
-           "mul_open", "matmul_truncate", "conv2d_truncate", "bin_matmul",
-           "bin_conv2d"]
+           "mul_open", "matmul_truncate", "conv2d_truncate", "PublicTensor",
+           "bin_matmul", "bin_conv2d"]
 
 
 def fused_rounds() -> bool:
@@ -251,26 +254,104 @@ def conv2d_truncate(x: RSS, w: RSS, parties: Parties, stride: int = 1,
 
 
 # ---------------------------------------------------------------------------
-# Binary-domain linear engine, shared weights (DESIGN.md §11)
+# Binary-domain linear engine (DESIGN.md §11)
 # ---------------------------------------------------------------------------
 
-def bin_matmul(x: RSS, w: RSS, parties: Parties, tag: str = "bin_matmul",
-               w_limbs=None, bias_parts=None) -> RSS:
-    """Post-Sign ±1 input (scale 0) × shared weights: the product sits at
-    scale f, so the layer is ONE reshare round with the scale-f bias riding
-    the additive parts (3 ring elements per output slot)."""
+@dataclasses.dataclass
+class PublicTensor:
+    """A PUBLIC model tensor in ring encoding (public-weight deployment):
+    no party axis, every party holds the same encoding, so products with
+    shares are local.  ``limbs`` carries the setup-time
+    ``PublicWeightLimbs`` / ``PublicGroupedLimbs`` kernel cache."""
+
+    enc: torch.Tensor            # ring-encoded public value, int32
+    limbs: object | None = None
+
+    @property
+    def shape(self):
+        return tuple(self.enc.shape)
+
+
+def bin_matmul(x: RSS, w: RSS | PublicTensor, parties: Parties,
+               tag: str = "bin_matmul", w_limbs=None, bias_parts=None,
+               bias_public=None) -> RSS:
+    """Post-Sign ±1 input (scale 0) times the weights.
+
+    Shared weights (``w: RSS``): the product sits at scale f, so the layer
+    is ONE reshare round with the scale-f bias riding the additive parts
+    (3 ring elements per output slot).
+
+    Public weights (``w: PublicTensor``): every slot's product
+    z_s = x_s @ W is local, so the RSS stack is rebuilt with zero rounds
+    and zero bytes (recorded as a 0-cost ledger row); ``bias_public`` is
+    added through slot 0."""
+    if isinstance(w, PublicTensor):
+        assert bias_parts is None, \
+            "public weights take bias_public, not additive bias_parts"
+        comm.record(tag, rounds=0, nbytes=0)
+        wl = w.limbs if w_limbs is None else w_limbs
+        if wl is not None:
+            from ..kernels.ops import bin_rss_matmul_op
+            z = bin_rss_matmul_op(x.shares, wl)
+        else:
+            _plain_route(x, "public matmul")
+            z = torch.stack([x.shares[i] @ w.enc
+                             for i in range(x.shares.shape[0])])
+        out = RSS(z, x.ring)
+        return out if bias_public is None else out.add_public(bias_public)
+    assert bias_public is None, \
+        "shared weights take additive bias_parts, not a public encoding"
     z = _matmul_parts(x, w, w_limbs)
     if bias_parts is not None:
         z = z + bias_parts
     return _reshare(z, x.ring, parties, tag)
 
 
-def bin_conv2d(x: RSS, w: RSS, parties: Parties, stride: int = 1,
-               padding: int = 0, groups: int = 1, tag: str = "bin_conv",
-               w_limbs=None, bias_parts=None) -> RSS:
-    """Post-Sign conv with shared weights: im2col + :func:`bin_matmul`, or
-    the per-channel grouped contraction (depthwise half of a sepconv);
-    one reshare round either way."""
+def _bin_conv2d_public(x: RSS, w: PublicTensor, parties: Parties,
+                       stride: int, padding: int, groups: int, tag: str,
+                       bias_public) -> RSS:
+    """Public-weight conv: im2col + the public :func:`bin_matmul`, or the
+    per-channel contraction against the public depthwise kernel on every
+    slot at once; zero communication either way."""
+    kh, kw, cin_g, cout = (int(d) for d in w.shape)
+    cols, ho, wo = _im2col_rss(x, kh, kw, stride, padding)
+    if groups == 1:
+        wmat = PublicTensor(w.enc.reshape(kh * kw * cin_g, cout), w.limbs)
+        return bin_matmul(cols, wmat, parties, tag=tag,
+                          bias_public=bias_public)
+    b, cin = x.shape[0], x.shape[3]
+    assert groups == cin and cin_g == 1 and cout % groups == 0
+    mult = cout // groups
+    slots = cols.shares.shape[0]
+    cols5 = cols.shares.reshape(slots, b, ho, wo, kh * kw, cin)
+    comm.record(tag, rounds=0, nbytes=0)
+    if w.limbs is not None:
+        from ..kernels.ops import bin_grouped_matmul_op
+        z = bin_grouped_matmul_op(cols5, w.limbs)
+    else:
+        _plain_route(x, "public depthwise conv")
+        # the per-channel contraction as broadcast multiply + sum; the
+        # sum's int64 wraps back below
+        wk = w.enc.reshape(kh * kw, cin, mult)
+        z = x.ring.wrap((cols5[..., None] * wk).sum(dim=-3))
+    out = RSS(z.reshape(slots, b, ho, wo, cout), x.ring)
+    return out if bias_public is None else out.add_public(bias_public)
+
+
+def bin_conv2d(x: RSS, w: RSS | PublicTensor, parties: Parties,
+               stride: int = 1, padding: int = 0, groups: int = 1,
+               tag: str = "bin_conv", w_limbs=None, bias_parts=None,
+               bias_public=None) -> RSS:
+    """Post-Sign conv: im2col + :func:`bin_matmul`, or the per-channel
+    grouped contraction (depthwise half of a sepconv); one reshare round
+    with shared weights, none with public weights."""
+    if isinstance(w, PublicTensor):
+        assert bias_parts is None, \
+            "public weights take bias_public, not additive bias_parts"
+        return _bin_conv2d_public(x, w, parties, stride, padding, groups,
+                                  tag, bias_public)
+    assert bias_public is None, \
+        "shared weights take additive bias_parts, not a public encoding"
     kh, kw, cin_g, cout = (int(d) for d in w.shape)
     if groups != 1:
         z = _grouped_conv_parts(x, w, stride, padding, groups,

@@ -1,22 +1,29 @@
 """Secure inference executor: a trained BNN under the CBNN protocol stack.
 
 Port of ``repro/core/secure_model.py`` (``SecureModel``,
-``compile_secure``, ``_annotate_binary_paths``, ``_weight_limbs_for``,
-``_infer_linear_shared``, ``secure_infer``, ``secure_infer_cost``) for the
-shared-weight deployment with the binary-domain engine and fused rounds:
+``compile_secure``, ``_annotate_binary_paths``, ``_public_weight``,
+``_weight_limbs_for``, ``_infer_linear_shared``, ``_infer_linear_public``,
+``secure_infer``, ``secure_infer_cost``) with fused rounds:
 
-  setup (model owner): walk the layer spec, fold BN→Sign into a shared
-    threshold (eq. 8) or BN into the linear's (W, b) (eqs. 10–11), share
-    every weight with the reference's ``fold_in(key, kidx)`` sequence and
-    cache the per-layer kernel operands.
+  setup (model owner): walk the layer spec, fold BN→Sign into a threshold
+    (eq. 8) or BN into the linear's (W, b) (eqs. 10–11), then either share
+    every weight with the reference's ``fold_in(key, kidx)`` sequence
+    (``weights="shared"``) or keep it public in ring encoding
+    (``weights="public"``), and cache the per-layer kernel operands.
   infer (all parties): every linear layer runs the path the compiler
-    assigned ("arith": fused matmul + Π_trunc, one opening round;
-    "bin-shared": post-Sign ±1 input, one reshare round), Sign through
-    the fused MSB extraction, Sign→maxpool fused, and the logits opened.
+    assigned (DESIGN.md §11): "arith" (fused matmul + Π_trunc, one opening
+    round), "bin-shared" (post-Sign ±1 input, one reshare round),
+    "bin-public" (local products, zero rounds) or "bin-public+trunc"
+    (local products, the truncation opening only).  ``binary_linear``
+    picks the post-Sign routing: "auto" the binary engine, "generic" the
+    plain Alg-2 round (shared weights only; the engine's bit-identity
+    reference), "off" the binarization-unaware ablation (±1 lifted to
+    scale f, full truncation paid).  Sign runs through the fused MSB
+    extraction, Sign→maxpool fused, and the logits are opened.
 
-Public weights, the generic/off binary engines, the paper-faithful rounds,
-ReLU nets (``secure_maxpool``) and the offline tape pool belong to later
-slices; the executor raises ``NotImplementedError`` on layers it cannot run.
+The paper-faithful rounds, ReLU nets (``secure_maxpool``), the bare-BN
+affine op and the offline tape pool belong to later slices; the executor
+raises ``NotImplementedError`` on layers it cannot run.
 """
 from __future__ import annotations
 
@@ -27,13 +34,17 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kernels.bin_rss_matmul import GroupedWeightLimbs, grouped_weight_limbs
+from ..kernels.bin_rss_matmul import (GroupedWeightLimbs, PublicGroupedLimbs,
+                                      PublicWeightLimbs, grouped_weight_limbs,
+                                      public_grouped_limbs,
+                                      public_weight_limbs)
 from ..kernels.rss_matmul import WeightLimbs, precompute_weight_limbs
 from ..nn.bnn import ALL_NETS
 from . import comm, prf, transport
 from .activation import sign_from_msb_arith
-from .linear import (bin_conv2d, bin_matmul, conv2d, conv2d_truncate,
-                     matmul_truncate, reveal, truncate)
+from .linear import (PublicTensor, bin_conv2d, bin_matmul, conv2d,
+                     conv2d_truncate, matmul, matmul_truncate, reveal,
+                     truncate)
 from .msb import msb_extract_arith
 from .norm import fuse_bn_linear, fuse_bn_sign_threshold
 from .pooling import sign_maxpool_fused
@@ -42,13 +53,19 @@ from .ring import RingSpec, default_ring
 from .rss import RSS, share
 
 __all__ = ["SecureModel", "compile_secure", "secure_infer",
-           "secure_infer_cost"]
+           "secure_infer_cost", "WEIGHT_MODES", "BINARY_LINEAR_MODES"]
+
+WEIGHT_MODES = ("shared", "public")
+BINARY_LINEAR_MODES = ("auto", "generic", "off")
+
 
 @dataclasses.dataclass
 class SecureModel:
     ops: list
     ring: RingSpec
     net: str
+    weights: str = "shared"        # "shared" | "public"  (DESIGN.md §11)
+    binary_linear: str = "auto"    # "auto" | "generic" | "off"
 
 
 def _np(t) -> np.ndarray:
@@ -62,18 +79,37 @@ def _fold_bn(params, i):
 
 
 def compile_secure(params: dict, net: str, key: prf.Key,
-                   ring: RingSpec | None = None,
-                   device=None) -> SecureModel:
-    """Model-owner setup: fuse + share.  ``params`` are float32 tensors in
-    the bnn.py layout; shares land on ``device`` (default: the params').
-    Every linear weight-share stack gets its kernel operands cached
-    (``WeightLimbs`` / ``GroupedWeightLimbs``), so each layer runs as one
-    kernel launch (the reference's ``use_kernel_dot=True``, with shared
-    weights and the binary engine on ``"auto"``)."""
+                   ring: RingSpec | None = None, device=None,
+                   weights: str = "shared",
+                   binary_linear: str = "auto") -> SecureModel:
+    """Model-owner setup: fuse + share (or publish).  ``params`` are
+    float32 tensors in the bnn.py layout; the model lands on ``device``
+    (default: the params').  Every linear weight gets its kernel operands
+    cached (``WeightLimbs`` / ``GroupedWeightLimbs`` for shares,
+    ``PublicWeightLimbs`` / ``PublicGroupedLimbs`` for public weights), so
+    each layer runs as one kernel launch (the reference's
+    ``use_kernel_dot=True``).
+
+    ``weights="public"`` keeps the parameters in the clear (private input,
+    public model): linear layers become local share algebra.
+    ``binary_linear`` selects the post-Sign routing ("auto", "generic",
+    "off"); "generic" is a shared-weights reference mode and is refused
+    with public weights, as in the reference."""
+    if weights not in WEIGHT_MODES:
+        raise ValueError(f"weights must be one of {WEIGHT_MODES}, "
+                         f"got {weights!r}")
+    if binary_linear not in BINARY_LINEAR_MODES:
+        raise ValueError(f"binary_linear must be one of "
+                         f"{BINARY_LINEAR_MODES}, got {binary_linear!r}")
+    if weights == "public" and binary_linear == "generic":
+        raise ValueError('binary_linear="generic" is a shared-weights '
+                         'reference mode; use "auto" or "off" with '
+                         'weights="public"')
     ring = ring or default_ring()
     if device is None:
         device = next(v.device for v in params.values()
                       if isinstance(v, torch.Tensor))
+    public = weights == "public"
     spec = ALL_NETS[net]
     ops: list[dict[str, Any]] = []
     i = 0
@@ -84,9 +120,14 @@ def compile_secure(params: dict, net: str, key: prf.Key,
         kidx += 1
         return prf.fold_in(key, kidx)
 
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
     def shared(a):
-        return share(torch.as_tensor(np.asarray(a, np.float32),
-                                     device=device), nk(), ring)
+        return share(tensor(a), nk(), ring)
+
+    def encoded(a):
+        return ring.encode(tensor(a))
 
     while i < len(spec):
         l = spec[i]
@@ -110,47 +151,70 @@ def compile_secure(params: dict, net: str, key: prf.Key,
                                                     mu, var)
                 i += 1  # consume bn
             op = {"op": l.kind, "k": l.k, "stride": l.stride, "pad": l.pad}
-            op["w"] = [shared(w) for w in w_parts]
-            op["b"] = shared(b)
-            op["sign_threshold"] = (shared(sign_threshold)
+            if public:
+                op["pub_w"] = [_public_weight(encoded(w), l.kind, j)
+                               for j, w in enumerate(w_parts)]
+                op["pub_b"] = encoded(b)
+                op["pub_thresh"] = (encoded(sign_threshold)
                                     if sign_threshold is not None else None)
-            op["wlimbs"] = [_weight_limbs_for(wr, l.kind, j)
-                            for j, wr in enumerate(op["w"])]
+            else:
+                op["w"] = [shared(w) for w in w_parts]
+                op["b"] = shared(b)
+                op["sign_threshold"] = (shared(sign_threshold)
+                                        if sign_threshold is not None
+                                        else None)
+                op["wlimbs"] = [_weight_limbs_for(wr, l.kind, j)
+                                for j, wr in enumerate(op["w"])]
             ops.append(op)
         elif l.kind == "act":
             ops.append({"op": "sign" if l.act == "sign" else "relu"})
         elif l.kind == "bn":
-            # un-fused BN (no preceding linear): shared affine
+            # un-fused BN (no preceding linear): affine op
             g, beta, mu, var = _fold_bn(params, i)
             scale = g / np.sqrt(var + 1e-5)
             shift = beta - mu * scale
-            ops.append({"op": "affine", "scale": shared(scale),
-                        "shift": shared(shift)})
+            if public:
+                ops.append({"op": "affine", "pub_scale": encoded(scale),
+                            "pub_shift": encoded(shift)})
+            else:
+                ops.append({"op": "affine", "scale": shared(scale),
+                            "shift": shared(shift)})
         elif l.kind == "maxpool":
             ops.append({"op": "maxpool"})
         elif l.kind == "flatten":
             ops.append({"op": "flatten"})
         i += 1
-    _annotate_binary_paths(ops)
-    return SecureModel(ops=ops, ring=ring, net=net)
+    _annotate_binary_paths(ops, weights, binary_linear)
+    return SecureModel(ops=ops, ring=ring, net=net, weights=weights,
+                       binary_linear=binary_linear)
 
 
-def _annotate_binary_paths(ops: list) -> None:
+def _annotate_binary_paths(ops: list, weights: str = "shared",
+                           binary_linear: str = "auto") -> None:
     """Stamp every linear op with ``binary_in`` (its input is a Sign
-    layer's ±1 integers at scale 0) and its §11 ``path`` label (shared
-    weights, binary engine on ``"auto"``); sepconv gets a (depthwise,
-    pointwise) pair.  The executor dispatches on these, so routing is
-    decided at compile time."""
+    layer's ±1 integers at scale 0; maxpool and flatten keep the domain)
+    and its §11 ``path`` label: "arith", "bin-shared", "bin-public" or
+    "bin-public+trunc"; sepconv gets a (depthwise, pointwise) pair.  The
+    executor dispatches on these, so routing is decided at compile time.
+    ``binary_in`` stays domain truth under "off", which lifts ±1 to scale
+    f at run time and so labels post-Sign layers as arith routes."""
+    public = weights == "public"
     binary = False
 
     def label(binary_in: bool) -> str:
-        return "bin-shared" if binary_in else "arith"
+        routed = binary_in and binary_linear != "off"
+        if public:
+            return "bin-public" if routed else "bin-public+trunc"
+        if routed and binary_linear == "auto":
+            return "bin-shared"
+        return "arith"
 
     for op in ops:
         kind = op["op"]
         if kind in ("conv", "sepconv", "fc"):
             op["binary_in"] = binary
             if kind == "sepconv":
+                # the pointwise input is the depthwise product at scale f
                 op["path"] = (label(binary), label(False))
             else:
                 op["path"] = label(binary)
@@ -159,6 +223,22 @@ def _annotate_binary_paths(ops: list) -> None:
             binary = True
         elif kind in ("relu", "affine"):
             binary = False
+
+
+def _public_weight(enc: torch.Tensor, kind: str,
+                   part_idx: int) -> PublicTensor:
+    """One public weight encoding with its kernel cache: dense layers get
+    ``PublicWeightLimbs`` over the (K, N) matrix, the depthwise half of a
+    sepconv the per-channel ``PublicGroupedLimbs`` (multiplier 1)."""
+    if kind == "fc":
+        return PublicTensor(enc, public_weight_limbs(enc))
+    kh, kw, cin_g, cout = (int(d) for d in enc.shape)
+    if kind == "conv" or (kind == "sepconv" and part_idx == 1):
+        return PublicTensor(
+            enc, public_weight_limbs(enc.reshape(kh * kw * cin_g, cout)))
+    assert cin_g == 1, "depthwise kernels are (kh, kw, 1, Cin)"
+    return PublicTensor(enc, public_grouped_limbs(
+        enc.reshape(kh * kw, cout, 1).permute(1, 0, 2)))
 
 
 def _weight_limbs_for(w: RSS, kind: str, part_idx: int):
@@ -177,16 +257,21 @@ def _weight_limbs_for(w: RSS, kind: str, part_idx: int):
 
 
 def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
-                         ring: RingSpec, binary_in: bool) -> RSS:
-    """One shared-weight linear layer, dispatched by input domain:
-    bin-shared (product at scale f, bias in the parts, one reshare) or
-    arith (fused matmul + Π_trunc opening at scale 2f)."""
+                         ring: RingSpec, binary_in: bool,
+                         binary_engine: bool) -> RSS:
+    """One shared-weight linear layer, dispatched by input domain.
+
+    ``binary_in`` with ``binary_engine``: bin-shared (product at scale f,
+    bias in the parts, one reshare).  Otherwise arith: the fused matmul +
+    Π_trunc opening at scale 2f, or, for a post-Sign input under the
+    "generic" routing, the plain Alg-2 round with a share-wise bias and no
+    truncation, bit-identical to bin-shared (its reference)."""
     tp = transport.current()
     wlimbs = op["wlimbs"]
     kind = op["op"]
     if kind == "sepconv":
         cin = int(h.shape[-1])
-        if binary_in:
+        if binary_in and binary_engine:
             h = bin_conv2d(h, op["w"][0], parties, stride=op["stride"],
                            padding=op["pad"], groups=cin,
                            tag=f"l{idx}.dwconv.bin", w_limbs=wlimbs[0])
@@ -194,31 +279,76 @@ def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
             h = conv2d(h, op["w"][0], parties, stride=op["stride"],
                        padding=op["pad"], groups=cin, tag=f"l{idx}.dwconv",
                        w_limbs=wlimbs[0])
-            h = truncate(h, parties, tag=f"l{idx}.dwtrunc")
+            if not binary_in:   # a post-Sign product already sits at f
+                h = truncate(h, parties, tag=f"l{idx}.dwtrunc")
         at_2f = True
         lin, w_rss, wl = "pw", op["w"][1], wlimbs[1]
     else:
         at_2f = not binary_in
         lin, w_rss, wl = kind, op["w"][0], wlimbs[0]
-    bias = tp.own_view(op["b"].shares).reshape(
-        (tp.parts_slots,) + (1,) * (h.ndim - 1) + (-1,))
-    if not at_2f:
+    if not at_2f and binary_engine:
+        bias = tp.own_view(op["b"].shares).reshape(
+            (tp.parts_slots,) + (1,) * (h.ndim - 1) + (-1,))
         if lin == "fc":
             return bin_matmul(h, w_rss, parties, tag=f"l{idx}.fc.bin",
                               w_limbs=wl, bias_parts=bias)
         return bin_conv2d(h, w_rss, parties, stride=op["stride"],
                           padding=op["pad"], tag=f"l{idx}.conv.bin",
                           w_limbs=wl, bias_parts=bias)
-    bias = bias * ring.scale
+    if at_2f:
+        bias = tp.own_view(op["b"].shares).reshape(
+            (tp.parts_slots,) + (1,) * (h.ndim - 1) + (-1,)) * ring.scale
+        if lin == "fc":
+            return matmul_truncate(h, w_rss, parties, tag=f"l{idx}.fc",
+                                   w_limbs=wl, bias_parts=bias)
+        if lin == "conv":
+            return conv2d_truncate(h, w_rss, parties, stride=op["stride"],
+                                   padding=op["pad"], tag=f"l{idx}.conv",
+                                   w_limbs=wl, bias_parts=bias)
+        return conv2d_truncate(h, w_rss, parties, tag=f"l{idx}.pwconv",
+                               w_limbs=wl, bias_parts=bias)
+    # generic route of a post-Sign fc / conv: Alg 2's reshare, then the
+    # scale-f bias share-wise on the full RSS
     if lin == "fc":
-        return matmul_truncate(h, w_rss, parties, tag=f"l{idx}.fc",
-                               w_limbs=wl, bias_parts=bias)
-    if lin == "conv":
-        return conv2d_truncate(h, w_rss, parties, stride=op["stride"],
-                               padding=op["pad"], tag=f"l{idx}.conv",
-                               w_limbs=wl, bias_parts=bias)
-    return conv2d_truncate(h, w_rss, parties, tag=f"l{idx}.pwconv",
-                           w_limbs=wl, bias_parts=bias)
+        z = matmul(h, w_rss, parties, tag=f"l{idx}.fc", w_limbs=wl)
+    else:
+        z = conv2d(h, w_rss, parties, stride=op["stride"], padding=op["pad"],
+                   tag=f"l{idx}.conv", w_limbs=wl)
+    bias = op["b"].shares.reshape(
+        (z.shares.shape[0],) + (1,) * (z.ndim - 1) + (-1,))
+    return RSS(z.shares + bias, ring)
+
+
+def _infer_linear_public(h: RSS, op: dict, parties: Parties, idx: int,
+                         ring: RingSpec, binary_in: bool) -> RSS:
+    """One public-weight linear layer (bin-public path): every product is
+    local share algebra, so the only protocol cost left is the truncation
+    opening where the input carries scale f (first layer, the depthwise →
+    pointwise seam, and every layer under "off"); post-Sign layers cost
+    zero rounds and zero bytes."""
+    kind = op["op"]
+    pub_b = op["pub_b"]
+    if kind == "sepconv":
+        cin = int(h.shape[-1])
+        h = bin_conv2d(h, op["pub_w"][0], parties, stride=op["stride"],
+                       padding=op["pad"], groups=cin,
+                       tag=f"l{idx}.dwconv.pub")
+        if not binary_in:
+            h = truncate(h, parties, tag=f"l{idx}.dwtrunc")
+        # the pointwise input carries scale f, so the product lands at 2f
+        h = bin_conv2d(h, op["pub_w"][1], parties, tag=f"l{idx}.pwconv.pub",
+                       bias_public=pub_b * ring.scale)
+        return truncate(h, parties, tag=f"l{idx}.trunc")
+    w = op["pub_w"][0]
+    bias = pub_b if binary_in else pub_b * ring.scale
+    if kind == "fc":
+        h = bin_matmul(h, w, parties, tag=f"l{idx}.fc.pub", bias_public=bias)
+    else:
+        h = bin_conv2d(h, w, parties, stride=op["stride"], padding=op["pad"],
+                       tag=f"l{idx}.conv.pub", bias_public=bias)
+    if not binary_in:
+        h = truncate(h, parties, tag=f"l{idx}.trunc")
+    return h
 
 
 def secure_infer(model: SecureModel, x_shares: RSS, parties: Parties,
@@ -233,16 +363,30 @@ def secure_infer(model: SecureModel, x_shares: RSS, parties: Parties,
     for idx, op in enumerate(model.ops):
         kind = op["op"]
         if kind in ("conv", "sepconv", "fc"):
-            h = _infer_linear_shared(h, op, parties, idx, ring,
-                                     op.get("binary_in", False))
+            binary_in = op.get("binary_in", False)
+            if model.binary_linear == "off" and binary_in:
+                # binarization-unaware ablation: lift ±1 to scale f and
+                # pay the full arithmetic opening
+                h = h.mul_public_int(ring.scale)
+                binary_in = False
+            if model.weights == "public":
+                h = _infer_linear_public(h, op, parties, idx, ring,
+                                         binary_in)
+                pending_sign_threshold = op.get("pub_thresh")
+            else:
+                h = _infer_linear_shared(
+                    h, op, parties, idx, ring, binary_in,
+                    binary_engine=model.binary_linear == "auto")
+                pending_sign_threshold = op.get("sign_threshold")
             prev_sign = False
-            pending_sign_threshold = op.get("sign_threshold")
         elif kind == "sign":
-            if pending_sign_threshold is not None:
-                t = pending_sign_threshold.shares
-                h = RSS(h.shares + t.reshape(
+            t = pending_sign_threshold
+            if isinstance(t, RSS):
+                h = RSS(h.shares + t.shares.reshape(
                     (h.shares.shape[0],) + (1,) * (h.ndim - 1) + (-1,)), ring)
-                pending_sign_threshold = None
+            elif t is not None:   # public threshold (ring encoding)
+                h = h.add_public(t)
+            pending_sign_threshold = None
             # 1 online round: multiply-open + local Alg-4
             _, msb_a = msb_extract_arith(h, parties, tag=f"sign{idx}.msb")
             bits = sign_from_msb_arith(msb_a)
@@ -276,8 +420,12 @@ def _to_device(obj, device):
         return obj.to(device)
     if isinstance(obj, RSS):
         return RSS(obj.shares.to(device), obj.ring)
-    if isinstance(obj, (WeightLimbs, GroupedWeightLimbs)):
-        return type(obj)(*(a.to(device) for a in obj))
+    if isinstance(obj, PublicTensor):
+        return PublicTensor(obj.enc.to(device),
+                            _to_device(obj.limbs, device))
+    if isinstance(obj, (WeightLimbs, GroupedWeightLimbs, PublicWeightLimbs,
+                        PublicGroupedLimbs)):
+        return type(obj)(*(_to_device(a, device) for a in obj))
     if isinstance(obj, dict):
         return {k: _to_device(v, device) for k, v in obj.items()}
     if isinstance(obj, list):

@@ -1,0 +1,147 @@
+// Public-weight dense product for every held share slot (Hopper, sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/bin_rss_matmul.py::_make_bin_kernel
+// (pallas_call in _bin_rss_matmul_call).  Under public weights every party
+// holds W, so each share slot's product is local:
+//
+//     z_s = x_s · W      (mod 2^32),   s = 0 .. S-1
+//
+// The TPU kernel split x into 4 balanced int8 limbs and W into its minimal
+// L limbs (the adaptive public limb count, 1..4) because the MXU has no
+// 32-bit integer multiply.  Hopper's CUDA cores do (IMAD), so this kernel
+// multiplies the 32-bit words directly and accumulates in uint32_t, whose
+// wrap is the ring arithmetic; L does not enter it.
+//
+// Layout: one block per (64-row, BN-col) output tile computes that tile for
+// ALL S slots, the Hopper counterpart of the reference's slot-free weight
+// BlockSpec: each W tile is staged in shared memory once and used S times.
+// A K loop stages 16-deep tiles of every slot's x and of W; each of the 256
+// threads owns a 4 x TN block of outputs per slot, strided by 16 so
+// shared-memory reads are conflict-free or broadcast.  BN follows N (16, 32
+// or 64) so the narrow layers of the classifiers (N = 10, 16, 32, 48) do not
+// idle most of the block.  Ragged M/K/N edges are masked in the loads and
+// the stores: no padding, every shape runs.
+//
+// What bounds it: bytes.  Each x word is read once and the contraction is
+// shallow, so the floor is 4·(S·M·K + K·N + S·M·N) bytes over 3.35 TB/s.
+// IMAD issue and the serial K loop limit this first version; at M = 32 (the
+// fc layers) a handful of blocks run, which split-K would fix.  The cached
+// limbs (PublicWeightLimbs.wl, n_limbs) are kept for an int8 tensor-core
+// redesign (Σ_{q<L}(4−q) int8 dots a cell, 4 for L = 1).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int MAX_S = 3;
+constexpr int BM = 64;
+constexpr int BK = 16;
+constexpr int TM = 4;   // outputs per thread along M (stride 16)
+constexpr int THREADS = 256;
+
+template <int TN>
+__global__ void __launch_bounds__(THREADS)
+bin_rss_matmul_kernel(const uint32_t* __restrict__ x,
+                      const uint32_t* __restrict__ w,
+                      uint32_t* __restrict__ z,
+                      int S, long long M, int K, int N) {
+  constexpr int BN = 16 * TN;
+  // +1 column: the transposed x stores spread over the banks
+  __shared__ uint32_t xs[MAX_S][BK][BM + 1];
+  __shared__ uint32_t wsh[BK][BN];
+
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+
+  uint32_t acc[MAX_S][TM][TN];
+#pragma unroll
+  for (int s = 0; s < MAX_S; ++s)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[s][i][j] = 0u;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // x tiles of every slot: BM x BK each, k fastest across threads
+    for (int e = tid; e < S * BM * BK; e += THREADS) {
+      const int s = e / (BM * BK);
+      const int r = (e / BK) % BM;
+      const int c = e % BK;
+      const long long gm = m0 + r;
+      const int gk = k0 + c;
+      xs[s][c][r] = (gm < M && gk < K) ? x[((long long)s * M + gm) * K + gk]
+                                       : 0u;
+    }
+    // the public weight tile, once for all slots: BK x BN, n fastest
+    for (int e = tid; e < BK * BN; e += THREADS) {
+      const int r = e / BN;
+      const int c = e % BN;
+      const int gk = k0 + r;
+      const int gn = n0 + c;
+      wsh[r][c] = (gk < K && gn < N) ? w[(long long)gk * N + gn] : 0u;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      uint32_t b[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = wsh[kk][tx + 16 * j];
+#pragma unroll
+      for (int s = 0; s < MAX_S; ++s) {
+        if (s < S) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const uint32_t a = xs[s][kk][ty + 16 * i];
+#pragma unroll
+            for (int j = 0; j < TN; ++j) acc[s][i][j] += a * b[j];
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int s = 0; s < MAX_S; ++s) {
+    if (s >= S) break;
+    uint32_t* zs = z + (long long)s * M * N;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const long long gm = m0 + ty + 16 * i;
+      if (gm >= M) continue;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int gn = n0 + tx + 16 * j;
+        if (gn < N) zs[gm * N + gn] = acc[s][i][j];
+      }
+    }
+  }
+}
+
+template <int TN>
+int launch(const void* x, const void* w, void* z, int S, long long M, int K,
+           int N, cudaStream_t stream) {
+  constexpr int BN = 16 * TN;
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
+  bin_rss_matmul_kernel<TN><<<grid, THREADS, 0, stream>>>(
+      (const uint32_t*)x, (const uint32_t*)w, (uint32_t*)z, S, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: (S, M, K) contiguous, S <= 3; w: (K, N) contiguous; z: (S, M, N)
+// contiguous; 32-bit words.
+extern "C" int bin_rss_matmul_launch(const void* x, const void* w, void* z,
+                                     int S, long long M, int K, int N,
+                                     void* stream) {
+  if (S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (N <= 16) return launch<1>(x, w, z, S, M, K, N, st);
+  if (N <= 32) return launch<2>(x, w, z, S, M, K, N, st);
+  return launch<4>(x, w, z, S, M, K, N, st);
+}

@@ -1,21 +1,40 @@
-"""The grouped (depthwise) 3-party RSS product: wrapper, plain version and
-weight cache.
+"""The public-weight products and the grouped (depthwise) 3-party RSS
+product: wrappers, plain versions and weight caches.
 
-Port of the grouped shared-weight family of
-``repro/kernels/bin_rss_matmul.py`` (``GroupedWeightLimbs``,
-``grouped_weight_limbs``, ``grouped_rss_matmul_ref``,
-``grouped_rss_matmul_parts``).  Per party i and channel c:
+Port of ``repro/kernels/bin_rss_matmul.py``:
 
-    z_i[c] = x_i[c]·(w_i[c] + w_{i+1}[c]) + x_{i+1}[c]·w_i[c]   (mod 2^32)
+* the public family (``PublicWeightLimbs``, ``min_public_limbs``,
+  ``public_weight_limbs``, ``bin_rss_matmul_ref``,
+  ``bin_rss_matmul_parts``; ``PublicGroupedLimbs``,
+  ``public_grouped_limbs``, ``bin_grouped_matmul_ref``,
+  ``bin_grouped_matmul_parts``).  A public weight W is held by every
+  party, so every share slot's product is local:
 
-On a CUDA tensor :func:`grouped_rss_matmul_parts` launches the
-hand-written kernel ``csrc/grouped_rss_matmul.cu`` (it replaces the TPU
-kernel ``repro/kernels/bin_rss_matmul.py::_make_grouped_shared_kernel``)
-or raises; on a CPU or meta tensor it runs the plain version.  The kernel
-reads x through its strides, so callers may pass a permuted view (the
-secure path hands it the im2col (S, M, K, C) buffer viewed as
+      z_s = x_s @ W            z_s[c] = x_s[c] @ W[c]      (mod 2^32)
+
+  On a CUDA tensor the wrappers launch the hand-written kernels
+  ``csrc/bin_rss_matmul.cu`` (replaces the TPU kernel
+  ``_make_bin_kernel``) and ``csrc/bin_grouped_matmul.cu`` (replaces
+  ``_make_grouped_public_kernel``), or raise.
+* the grouped shared-weight family (``GroupedWeightLimbs``,
+  ``grouped_weight_limbs``, ``grouped_rss_matmul_ref``,
+  ``grouped_rss_matmul_parts``).  Per party i and channel c:
+
+      z_i[c] = x_i[c]·(w_i[c] + w_{i+1}[c]) + x_{i+1}[c]·w_i[c]  (mod 2^32)
+
+  On a CUDA tensor :func:`grouped_rss_matmul_parts` launches
+  ``csrc/grouped_rss_matmul.cu`` (replaces ``_make_grouped_shared_kernel``)
+  or raises.
+
+On a CPU or meta tensor every wrapper runs its plain version.  The grouped
+kernels read x through its strides, so callers may pass a permuted view
+(the secure path hands them the im2col (S, M, K, C) buffer viewed as
 (S, C, M, K)) and get back an (S, C, M, N) view of an (S, M, C, N) buffer.
-The public-weight kernels of that module belong to a later slice.
+
+The public caches keep the reference's ``n_limbs`` (the adaptive limb
+count, 1–4) and the minimal limbs ``wl`` unpadded: the CUDA kernels
+multiply the 32-bit encoding ``w`` directly, and the limbs wait for an
+int8 tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -24,13 +43,192 @@ import typing
 import torch
 
 from . import build
-from .limbs import balanced_limbs
+from .limbs import N_LIMBS, balanced_limbs
 
-__all__ = ["GroupedWeightLimbs", "grouped_weight_limbs",
+__all__ = ["PublicWeightLimbs", "min_public_limbs", "public_weight_limbs",
+           "bin_rss_matmul_ref", "bin_rss_matmul_parts",
+           "PublicGroupedLimbs", "public_grouped_limbs",
+           "bin_grouped_matmul_ref", "bin_grouped_matmul_parts",
+           "GroupedWeightLimbs", "grouped_weight_limbs",
            "grouped_rss_matmul_ref", "grouped_rss_matmul_parts"]
 
 _SMEM_LIMIT = 48 * 1024
+_MAX_SLOTS = 3
 
+
+# ---------------------------------------------------------------------------
+# Public weights (the bin-public path)
+# ---------------------------------------------------------------------------
+
+class PublicWeightLimbs(typing.NamedTuple):
+    """Cached operands of one PUBLIC (K, N) ring weight matrix."""
+
+    w: torch.Tensor     # (K, N) int32 — public ring encoding
+    wl: torch.Tensor    # (L, K, N) int8 — minimal balanced limbs
+    n_limbs: int        # L ∈ {1..4}
+
+    @property
+    def k(self) -> int:
+        return self.w.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.w.shape[1]
+
+
+class PublicGroupedLimbs(typing.NamedTuple):
+    """Cached operands of a PUBLIC (C, K, N) grouped (depthwise) weight."""
+
+    w: torch.Tensor     # (C, K, N) int32 — public ring encoding
+    wl: torch.Tensor    # (L, C, K, N) int8 — minimal balanced limbs
+    n_limbs: int        # L ∈ {1..4}
+
+    @property
+    def channels(self) -> int:
+        return self.w.shape[0]
+
+    @property
+    def k(self) -> int:
+        return self.w.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.w.shape[2]
+
+
+def min_public_limbs(w_enc: torch.Tensor) -> int:
+    """Minimal balanced-limb count of a PUBLIC int32 ring encoding: the
+    index of its highest nonzero balanced limb, so dropping the trailing
+    limbs is exact (32767 -> [-1, -128, 1, 0] needs 3).  Bounded public
+    encodings need 1–3; a share (uniform mod 2^32) needs 4."""
+    l4 = balanced_limbs(w_enc)
+    n = N_LIMBS
+    while n > 1 and not bool(l4[n - 1].any()):
+        n -= 1
+    return n
+
+
+def _public_cache(cls, w_enc: torch.Tensor, n_limbs: int | None):
+    w = w_enc.contiguous()
+    if n_limbs is None:
+        n_limbs = min_public_limbs(w)
+    return cls(w=w, wl=balanced_limbs(w)[:n_limbs].contiguous(),
+               n_limbs=n_limbs)
+
+
+def public_weight_limbs(w_enc: torch.Tensor,
+                        n_limbs: int | None = None) -> PublicWeightLimbs:
+    """Cache a public (K, N) int32 weight encoding once, at model setup;
+    ``n_limbs`` defaults to the minimal exact count."""
+    return _public_cache(PublicWeightLimbs, w_enc, n_limbs)
+
+
+def public_grouped_limbs(w_enc: torch.Tensor,
+                         n_limbs: int | None = None) -> PublicGroupedLimbs:
+    """Cache a public (C, K, N) int32 grouped weight encoding once."""
+    return _public_cache(PublicGroupedLimbs, w_enc, n_limbs)
+
+
+def bin_rss_matmul_ref(x_stack: torch.Tensor,
+                       weights: PublicWeightLimbs) -> torch.Tensor:
+    """Plain version: per-slot int32 matmuls on the public encoding,
+    (S, M, K) -> (S, M, N) (CPU / meta only)."""
+    return torch.matmul(x_stack, weights.w)
+
+
+def bin_grouped_matmul_ref(x_stack: torch.Tensor,
+                           weights: PublicGroupedLimbs) -> torch.Tensor:
+    """Plain version: per-slot per-channel int32 batched matmuls,
+    (S, C, M, K) -> (S, C, M, N) (CPU / meta only)."""
+    return torch.matmul(x_stack, weights.w)
+
+
+def _check_public(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    if x.dtype != torch.int32:
+        raise ValueError(f"{name}: x must be int32")
+    if w.dtype != torch.int32 or not w.is_contiguous() \
+            or w.device != x.device:
+        raise ValueError(f"{name}: the public weight must be a contiguous "
+                         f"int32 tensor on {x.device}")
+    if not 1 <= x.shape[0] <= _MAX_SLOTS:
+        raise ValueError(f"{name}: {x.shape[0]} share slots; the kernel "
+                         f"takes 1 to {_MAX_SLOTS}")
+
+
+def _launch_bin(x_stack: torch.Tensor,
+                weights: PublicWeightLimbs) -> torch.Tensor:
+    s, m, k = x_stack.shape
+    n = weights.n
+    _check_public("bin_rss_matmul", x_stack, weights.w)
+    if not x_stack.is_contiguous():
+        raise ValueError("bin_rss_matmul: x must be contiguous")
+    out = torch.empty((s, m, n), dtype=torch.int32, device=x_stack.device)
+    if out.numel() == 0:
+        return out
+    fn = build.library("bin_rss_matmul")
+    err = fn(x_stack.data_ptr(), weights.w.data_ptr(), out.data_ptr(),
+             s, m, k, n, build.stream_ptr(x_stack.device))
+    build.check("bin_rss_matmul", err)
+    build.LAUNCHES["bin_rss_matmul"] += 1
+    return out
+
+
+def bin_rss_matmul_parts(x_stack: torch.Tensor,
+                         weights: PublicWeightLimbs) -> torch.Tensor:
+    """Every held slot's product with a public weight matrix,
+    (S, M, K) -> (S, M, N) int32: a valid RSS stack of x @ W with no
+    communication.  CUDA tensors launch the kernel (or raise); CPU and
+    meta tensors run the plain version."""
+    assert x_stack.shape[2] == weights.k, (x_stack.shape, weights.w.shape)
+    if x_stack.device.type == "cuda":
+        return _launch_bin(x_stack, weights)
+    if x_stack.device.type in ("cpu", "meta"):
+        return bin_rss_matmul_ref(x_stack, weights)
+    raise ValueError(f"bin_rss_matmul: unsupported device {x_stack.device}")
+
+
+def _launch_bin_grouped(x_stack: torch.Tensor,
+                        weights: PublicGroupedLimbs) -> torch.Tensor:
+    s, c, m, k = x_stack.shape
+    n = weights.n
+    _check_public("bin_grouped_matmul", x_stack, weights.w)
+    if 4 * c * k * n > _SMEM_LIMIT:
+        raise ValueError(f"bin_grouped_matmul: weight slab of {c}x{k}x{n} "
+                         f"exceeds the kernel's shared-memory stage")
+    # (S, M, C, N) buffer, returned as its (S, C, M, N) view
+    buf = torch.empty((s, m, c, n), dtype=torch.int32, device=x_stack.device)
+    out = buf.permute(0, 2, 1, 3)
+    if out.numel() == 0:
+        return out
+    fn = build.library("bin_grouped_matmul")
+    err = fn(x_stack.data_ptr(), weights.w.data_ptr(), out.data_ptr(),
+             s, c, m, k, n, *x_stack.stride(), *out.stride(),
+             build.stream_ptr(x_stack.device))
+    build.check("bin_grouped_matmul", err)
+    build.LAUNCHES["bin_grouped_matmul"] += 1
+    return out
+
+
+def bin_grouped_matmul_parts(x_stack: torch.Tensor,
+                             weights: PublicGroupedLimbs) -> torch.Tensor:
+    """Every held slot's grouped product with a public depthwise kernel,
+    (S, C, M, K) -> (S, C, M, N) int32, zero communication.  CUDA tensors
+    launch the kernel (or raise); CPU and meta tensors run the plain
+    version."""
+    s, c, m, k = x_stack.shape
+    assert (c, k) == (weights.channels, weights.k), \
+        (x_stack.shape, weights.w.shape)
+    if x_stack.device.type == "cuda":
+        return _launch_bin_grouped(x_stack, weights)
+    if x_stack.device.type in ("cpu", "meta"):
+        return bin_grouped_matmul_ref(x_stack, weights)
+    raise ValueError(f"bin_grouped_matmul: unsupported device "
+                     f"{x_stack.device}")
+
+
+# ---------------------------------------------------------------------------
+# Shared weights, grouped (the depthwise half of the bin-shared path)
+# ---------------------------------------------------------------------------
 
 class GroupedWeightLimbs(typing.NamedTuple):
     """Cached per-channel weight-share operands of a depthwise layer."""

@@ -37,6 +37,11 @@ KERNELS = {
     "grouped_rss_matmul": ("grouped_rss_matmul", "grouped_rss_matmul_launch",
                            [_P, _P, _P, _P, _I, _I, _L, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _P]),
+    "bin_rss_matmul": ("bin_rss_matmul", "bin_rss_matmul_launch",
+                       [_P, _P, _P, _I, _L, _I, _I, _P]),
+    "bin_grouped_matmul": ("bin_grouped_matmul", "bin_grouped_matmul_launch",
+                           [_P, _P, _P, _I, _I, _L, _I, _I,
+                            _L, _L, _L, _L, _L, _L, _L, _L, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

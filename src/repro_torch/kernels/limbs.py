@@ -3,8 +3,9 @@
 Port of ``repro/kernels/limbs.py::balanced_limbs``, bit-exact including the
 carry boundary (32767 -> [-1, -128, 1, 0]).  The CUDA kernels of this
 package multiply 32-bit words directly; the limbs are kept for the weight
-caches (``WeightLimbs`` / ``GroupedWeightLimbs``) that an int8 tensor-core
-kernel will read.
+caches (``WeightLimbs`` / ``GroupedWeightLimbs`` and the public
+``PublicWeightLimbs`` / ``PublicGroupedLimbs``) that an int8 tensor-core
+kernel will read, and give the public weights' adaptive limb count.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-"""Shape handling around the two linear-layer kernels.
+"""Shape handling around the four linear-layer kernels.
 
 Port of ``repro/kernels/ops.py`` (``_fold_grouped``, ``_unfold_grouped``,
-``grouped_rss_matmul_op``, ``rss_matmul_parts_op``).  The leading dims of
-a share stack fold into M.  Unlike the reference there is no 128-padding
+``grouped_rss_matmul_op``, ``rss_matmul_parts_op``, ``bin_rss_matmul_op``,
+``bin_grouped_matmul_op``).  The leading dims of a share stack fold into M.  Unlike the reference there is no 128-padding
 and no small-shape fallback: the CUDA kernels mask ragged edges and take
 every shape.  The grouped fold/unfold are views here (no copies): the
 grouped kernel reads and writes through strides.
@@ -11,10 +11,13 @@ from __future__ import annotations
 
 import torch
 
-from .bin_rss_matmul import GroupedWeightLimbs, grouped_rss_matmul_parts
+from .bin_rss_matmul import (GroupedWeightLimbs, PublicGroupedLimbs,
+                             PublicWeightLimbs, bin_grouped_matmul_parts,
+                             bin_rss_matmul_parts, grouped_rss_matmul_parts)
 from .rss_matmul import WeightLimbs, rss_matmul_parts
 
-__all__ = ["rss_matmul_parts_op", "grouped_rss_matmul_op"]
+__all__ = ["rss_matmul_parts_op", "grouped_rss_matmul_op",
+           "bin_rss_matmul_op", "bin_grouped_matmul_op"]
 
 
 def _fold_grouped(x: torch.Tensor) -> torch.Tensor:
@@ -48,3 +51,25 @@ def rss_matmul_parts_op(x_stack: torch.Tensor,
     x2 = x_stack.reshape(s, -1, x_stack.shape[-1]).contiguous()
     out = rss_matmul_parts(x2, weights)
     return out.reshape((s,) + tuple(lead) + (weights.n,))
+
+
+def bin_rss_matmul_op(x_stack: torch.Tensor,
+                      weights: PublicWeightLimbs) -> torch.Tensor:
+    """Local share-stack product with a PUBLIC weight matrix: z_s = x_s @ W
+    for every held slot, no communication.  x_stack: (S, ..., K);
+    returns (S, ..., N)."""
+    s = x_stack.shape[0]
+    lead = x_stack.shape[1:-1]
+    x2 = x_stack.reshape(s, -1, x_stack.shape[-1]).contiguous()
+    out = bin_rss_matmul_parts(x2, weights)
+    return out.reshape((s,) + tuple(lead) + (weights.n,))
+
+
+def bin_grouped_matmul_op(x_stack: torch.Tensor,
+                          weights: PublicGroupedLimbs) -> torch.Tensor:
+    """Local per-channel product with a PUBLIC depthwise kernel:
+    z_s[c] = x_s[c] @ W[c] for every held slot.  x_stack: (S, ..., K, C)
+    patches; returns (S, ..., C, N)."""
+    lead = x_stack.shape[1:-2]
+    out = bin_grouped_matmul_parts(_fold_grouped(x_stack), weights)
+    return _unfold_grouped(out, lead, weights.n)

@@ -3,13 +3,16 @@
 Port of ``repro/launch/serve_secure.py`` (``build``, ``make_runner`` with
 ``backend="local"`` and verification off, ``_serve_bnn`` with inline
 offline material, no deployment solver, no trace).  The model owner
-compiles once (BN folds, secret sharing, cached kernel operands); every
-query batch then runs the full CBNN protocol stack on the device, its
-linear layers on the two CUDA kernels.  Runs on the card unless
-``--device cpu`` is given.
+compiles once (BN folds, secret sharing or publication, cached kernel
+operands); every query batch then runs the full CBNN protocol stack on the
+device, its linear layers on the CUDA kernels: shared weights on the RSS
+products (rss_matmul, grouped_rss_matmul), public weights on the local
+public products (bin_rss_matmul, bin_grouped_matmul).  Runs on the card
+unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_secure --net CifarNet2 \
-      --batch 32 --queries 4 [--device cpu] [--json PATH]
+      --batch 32 --queries 4 [--weights shared|public] \
+      [--binary-linear auto|generic|off] [--device cpu] [--json PATH]
 
 Prints q/s and img/s, the per-query online/offline rounds and bytes, and
 the launches of each kernel.
@@ -27,7 +30,8 @@ from ..core import comm, prf
 from ..core.randomness import Parties
 from ..core.ring import RING32
 from ..core.rss import RSS, share
-from ..core.secure_model import compile_secure, secure_infer
+from ..core.secure_model import (BINARY_LINEAR_MODES, WEIGHT_MODES,
+                                 compile_secure, secure_infer)
 from ..device import resolve_device
 from ..kernels import build as kbuild
 from ..nn.bnn import INPUT_SHAPES, init_bnn
@@ -35,14 +39,17 @@ from ..nn.bnn import INPUT_SHAPES, init_bnn
 __all__ = ["build", "make_runner", "serve", "main"]
 
 
-def build(net: str, device=None, params=None):
+def build(net: str, device=None, params=None, weights: str = "shared",
+          binary_linear: str = "auto"):
     """Compile ``net`` for secure serving on the kernel route:
     ``init_bnn`` weights from seed 0 (or the given ``params``), shares
-    from ``PRNGKey(1)``."""
+    from ``PRNGKey(1)``; ``weights`` / ``binary_linear`` as in
+    ``compile_secure``."""
     device = resolve_device(device)
     if params is None:
         params = init_bnn(0, net, device=device)
-    return compile_secure(params, net, prf.PRNGKey(1), RING32, device=device)
+    return compile_secure(params, net, prf.PRNGKey(1), RING32, device=device,
+                          weights=weights, binary_linear=binary_linear)
 
 
 def make_runner(model):
@@ -93,7 +100,8 @@ def _profile(run, keys, x_stack, device, query_s: float,
 
 def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
           device=None, seed: int = 0, params=None, x=None,
-          profile: bool = False) -> dict:
+          profile: bool = False, weights: str = "shared",
+          binary_linear: str = "auto") -> dict:
     """Build, compile, one warm-up query, then ``queries`` timed queries
     (and, with ``profile``, one profiled query after them).  ``x`` (float
     (B, H, W, C)) defaults to random ±0.5 pixels from ``seed``.  Returns
@@ -106,7 +114,8 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
     device = resolve_device(device)
     shape = INPUT_SHAPES[net]
     t0 = time.perf_counter()
-    model = build(net, device=device, params=params)
+    model = build(net, device=device, params=params, weights=weights,
+                  binary_linear=binary_linear)
     _sync(device)
     compile_s = time.perf_counter() - t0
     parties = Parties.setup(prf.PRNGKey(seed + 7), device=device)
@@ -131,7 +140,9 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
                  for k, v in kbuild.LAUNCHES.items()}
     prof = (_profile(run, parties.keys, xs.shares, device, dt / queries)
             if profile else None)
-    return {"profile": prof, "net": net, "batch": batch, "queries": queries,
+    return {"profile": prof, "net": net, "weights": weights,
+            "binary_linear": binary_linear, "batch": batch,
+            "queries": queries,
             "device": str(device),
             "kind": (torch.cuda.get_device_name(device)
                      if device.type == "cuda" else "cpu"),
@@ -151,14 +162,22 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--weights", default="shared", choices=WEIGHT_MODES,
+                    help="secret-shared or public model weights")
+    ap.add_argument("--binary-linear", default="auto",
+                    choices=BINARY_LINEAR_MODES,
+                    help="post-Sign routing: binary engine, generic Alg-2 "
+                         "reference (shared weights only), or off")
     ap.add_argument("--json", default=None)
     ap.add_argument("--profile", action="store_true",
                     help="profile one more query: device time by kernel")
     args = ap.parse_args(argv)
     st = serve(args.net, args.batch, args.queries, args.device, args.seed,
-               profile=args.profile)
-    print(f"[serve_secure] {st['net']} device={st['device']} ({st['kind']}) "
-          f"batch={st['batch']}: {st['queries']} queries in "
+               profile=args.profile, weights=args.weights,
+               binary_linear=args.binary_linear)
+    print(f"[serve_secure] {st['net']} weights={st['weights']} "
+          f"binary_linear={st['binary_linear']} device={st['device']} "
+          f"({st['kind']}) batch={st['batch']}: {st['queries']} queries in "
           f"{st['seconds']:.4f}s = {st['query_per_s']:.3f} q/s "
           f"({st['img_per_s']:.1f} img/s)")
     print(f"[serve_secure] per-query comm: {st['online_bytes']:,} B online "

@@ -33,6 +33,25 @@ def test_serve_mnistnet1_on_cpu(tmp_path, capsys):
     assert "q/s" in printed and "kernel launches per query" in printed
 
 
+def test_serve_public_weights_on_cpu(tmp_path, capsys):
+    """--weights public: the public ledger of MnistNet1 (DESIGN.md §11,
+    7.80 KB and 4 rounds a query at batch 1), named in the printed line
+    and the stats."""
+    out = tmp_path / "stats.json"
+    st = serve_secure.main(["--weights", "public", "--binary-linear", "auto",
+                            "--net", "MnistNet1", "--batch", "2",
+                            "--queries", "1", "--device", "cpu",
+                            "--json", str(out)])
+    assert st["logits"].shape == (2, 10) and np.isfinite(st["logits"]).all()
+    assert (st["online_rounds"], st["online_bytes"]) == (4, 2 * 7_800)
+    assert (st["offline_rounds"], st["offline_bytes"]) == (8, 2 * 9_216)
+    stats = json.loads(out.read_text())
+    assert (stats["weights"], stats["binary_linear"]) == ("public", "auto")
+    assert "weights=public binary_linear=auto" in capsys.readouterr().out
+    with pytest.raises(SystemExit):   # argparse refuses an unknown mode
+        serve_secure.main(["--weights", "private", "--device", "cpu"])
+
+
 def test_serve_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
