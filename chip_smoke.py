@@ -4,29 +4,47 @@
 
 Phases, each fatal on failure:
 
-1. build   - nvcc builds every kernel of the port from src/repro_torch/csrc
-             (one nvcc per source, started together); prints the build
-             seconds, the ptxas report and the card's name and power limit.
-2. kernels - each kernel's wrapper runs on the card at every shape the main
-             paths give it (collected from shape-only runs of the shared-
-             and public-weight paths) and must equal its plain PyTorch
-             version, computed on CPU copies of the same inputs (torch has
-             no integer matmul on CUDA), exactly.  Times: CUDA events,
-             median of 30 launches after warm-up.
-3. path    - the port's serving entry point on the card at batch 32:
-             CifarNet2 and MnistNet1 with shared weights (rss_matmul,
-             grouped_rss_matmul) and with public weights (bin_rss_matmul,
-             bin_grouped_matmul), build -> compile -> warm-up -> 4 queries;
-             then one MnistNet1 query each under public/"off" and
-             shared/"generic".  The launch counts are zeroed just before
-             each run and read just after: each kernel of the run's path
-             must have launched, and the other weight mode's kernels not at
-             all.  The per-query ledger must equal the pinned rounds/bytes.
-4. values  - with grid-quantised weights the secure logits of MnistNet1 and
-             MnistNet3-sep (shared and public weights) must be within 0.05
-             of the plaintext forward on the card, and CifarNet2 logits
-             (shared and public) on the card must equal the CPU run of the
-             port bit for bit.
+1. build    - nvcc builds every kernel of the port from src/repro_torch/csrc
+              (one nvcc per source, started together); prints the build
+              seconds, the ptxas report and the card's name and power limit.
+2. kernels  - each linear-layer kernel's wrapper (B1-B4) runs on the card at
+              every shape the paths of phase 3 give it (collected from a
+              shape-only run of each), and the ring
+              kernels (B5 ring_matmul, B6 bin_weight_matmul, B7
+              bin_bin_matmul) at the reference's kernel-test shapes and
+              MnistNet4's layer shapes at batch 32; each must equal its
+              plain PyTorch version, computed on CPU copies of the same
+              inputs (torch has no integer matmul on CUDA), exactly.  Times:
+              CUDA events, median of 30 launches after warm-up; B7 also
+              times torch._int_mm (cuBLAS) where its shape rules hold.
+3. path     - the port's serving entry point on the card at batch 32, for
+              every path of PINNED: CifarNet2 and MnistNet1 with shared
+              weights (rss_matmul, grouped_rss_matmul) and with public
+              weights (bin_rss_matmul, bin_grouped_matmul), MnistNet1 under
+              public/"off" and shared/"generic", the ReLU teacher MnistNet4
+              under shared and public weights with fused rounds on and off,
+              and CifarNet7 (shared, fused); build -> compile -> warm-up ->
+              4 queries (1 off the "auto" route).  The launch counts are
+              zeroed just before each run and read just after: the run must
+              launch exactly the kernels its shape-only run called (so
+              never the other weight mode's nor B5-B7).  The per-query
+              ledger must equal the pinned rounds/bytes, and the ReLU nets'
+              logits (He-normal weights) must be within 0.25 of the
+              unbinarized plaintext forward on the card.
+4. values   - with grid-quantised weights the secure logits of MnistNet1 and
+              MnistNet3-sep (shared and public weights) must be within 0.05
+              of the plaintext forward on the card, and CifarNet2 and
+              CifarNet7 logits (shared and public) on the card must equal
+              the CPU run of the port bit for bit.
+5. per-dot  - one secure fc layer of MnistNet4's width (32 x 3136 -> 512)
+              through linear_layer(..., dot=ops.rss_matmul_dot) under the
+              "opt2" and "paper3" matmul modes, fused rounds on and off: it
+              must launch B5 only (6 / 9 times a layer) and open to the value
+              of the same layer on cached weight limbs (B1).
+6. binary   - the binarized-product API at MnistNet4's layer shapes: a
+              plaintext BNN layer (±1 x ±1, B7) and a public ±1-weight layer
+              on the three shares of a secret (B6), each held to a float64
+              product on the card.
 
 Prints the kernels' JSON line, then the card's name and power limit, then
 the result line.  Exits non-zero without a result when no CUDA device is
@@ -45,30 +63,52 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # per-query ledger at batch 32 (online rounds, bytes, offline rounds, bytes)
-# of each (net, weights, binary_linear), hardware-independent: the
-# reference's secure_infer_cost gives the same
+# of each served path (net, weights, binary_linear, fused rounds),
+# hardware-independent: the reference's secure_infer_cost gives the same
 PINNED = {
-    ("CifarNet2", "shared", "auto"): (33, 158_670_336, 48, 103_514_112),
-    ("MnistNet1", "shared", "auto"): (6, 351_744, 8, 294_912),
-    ("CifarNet2", "public", "auto"): (23, 102_043_392, 48, 103_514_112),
-    ("MnistNet1", "public", "auto"): (4, 249_600, 8, 294_912),
-    ("MnistNet1", "public", "off"): (6, 302_592, 8, 294_912),
-    ("MnistNet1", "shared", "generic"): (6, 351_744, 8, 294_912),
+    ("CifarNet2", "shared", "auto", True): (33, 158_670_336, 48, 103_514_112),
+    ("MnistNet1", "shared", "auto", True): (6, 351_744, 8, 294_912),
+    ("CifarNet2", "public", "auto", True): (23, 102_043_392, 48, 103_514_112),
+    ("MnistNet1", "public", "auto", True): (4, 249_600, 8, 294_912),
+    ("MnistNet1", "public", "off", True): (6, 302_592, 8, 294_912),
+    ("MnistNet1", "shared", "generic", True): (6, 351_744, 8, 294_912),
+    ("MnistNet4", "shared", "auto", True): (23, 105_762_048, 36, 76_455_936),
+    ("MnistNet4", "shared", "auto", False): (54, 156_732_672, 36, 76_455_936),
+    ("MnistNet4", "public", "auto", True): (23, 91_110_912, 36, 76_455_936),
+    ("MnistNet4", "public", "auto", False): (50, 142_081_536, 36, 76_455_936),
+    ("CifarNet7", "shared", "auto", True): (59, 626_208_000, 92, 418_185_216),
 }
-# the kernels each weight mode's path runs (the other mode's must not run)
-PATH_KERNELS = {"shared": ("rss_matmul", "grouped_rss_matmul"),
-                "public": ("bin_rss_matmul", "bin_grouped_matmul")}
+# the ReLU teachers: served with He-normal weights, held to the plaintext
+# forward within the reference's ReLU-net bound
+RELU_NETS = ("MnistNet4", "CifarNet7")
+WEIGHT_MODES = ("shared", "public")
 BATCH = 32
 QUERIES = 4
 HBM_BPS = 3.35e12          # H100 SXM memory rate
 INT8_OPS = 1.979e15        # H100 SXM dense int8 tensor-core rate
+LINEAR_KERNELS = ("rss_matmul", "grouped_rss_matmul", "bin_rss_matmul",
+                  "bin_grouped_matmul")
+# int8 limb products a cell of each ring kernel needs on the TPU's route
+RING_DOTS = {"ring_matmul": 10, "bin_weight_matmul": 4, "bin_bin_matmul": 1}
+# the reference's kernel-test shapes, and MnistNet4's layer shapes at batch
+# 32 (conv1, conv2 as im2col products; fc1, fc2): (M, K, N)
+RING_TEST_SHAPES = [(128, 128, 128), (256, 128, 384), (128, 512, 128),
+                    (64, 96, 32), (33, 17, 5), (1, 128, 1)]
+MNIST4_SHAPES = [(25088, 25, 32), (6272, 800, 64), (32, 3136, 512),
+                 (32, 512, 10)]
 REPLACES = {
     "rss_matmul": "src/repro/kernels/rss_matmul.py:118",
     "grouped_rss_matmul": "src/repro/kernels/bin_rss_matmul.py:331",
     "bin_rss_matmul": "src/repro/kernels/bin_rss_matmul.py:127",
     "bin_grouped_matmul": "src/repro/kernels/bin_rss_matmul.py:440",
+    "ring_matmul": "src/repro/kernels/ring_matmul.py:27",
+    "bin_weight_matmul": "src/repro/kernels/binary_matmul.py:22",
+    "bin_bin_matmul": "src/repro/kernels/binary_matmul.py:72",
 }
-SOURCES = {name: f"src/repro_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES = {**{name: f"src/repro_torch/csrc/{name}.cu"
+              for name in LINEAR_KERNELS + ("ring_matmul",)},
+           "bin_weight_matmul": "src/repro_torch/csrc/binary_matmul.cu",
+           "bin_bin_matmul": "src/repro_torch/csrc/binary_matmul.cu"}
 
 
 def fail(msg: str) -> None:
@@ -119,15 +159,16 @@ def dots(n_limbs: int) -> int:
     return sum(4 - q for q in range(n_limbs))
 
 
-def path_shapes(net: str, weights: str):
+def path_shapes(net: str, weights: str, binary_linear: str, fused: bool):
     """Shapes (the grouped kernels' x layout, the public limb count) each
-    wrapper receives on a main path, from a shape-only (meta) run of it."""
+    wrapper receives on a path, from a shape-only (meta) run of it."""
     import repro_torch.kernels.ops as kops
+    from repro_torch.core import linear
     from repro_torch.core.secure_model import secure_infer_cost
     from repro_torch.launch.serve_secure import build
     from repro_torch.nn.bnn import INPUT_SHAPES
 
-    seen = {name: {} for name in REPLACES}
+    seen = {name: {} for name in LINEAR_KERNELS}
     wrappers = {"rss_matmul": "rss_matmul_parts",
                 "grouped_rss_matmul": "grouped_rss_matmul_parts",
                 "bin_rss_matmul": "bin_rss_matmul_parts",
@@ -147,10 +188,13 @@ def path_shapes(net: str, weights: str):
 
     for name, fn in wrappers.items():
         setattr(kops, fn, recorder(name))
+    linear.set_fused_rounds(fused)
     try:
-        model = build(net, device="cpu", weights=weights)
+        model = build(net, device="cpu", weights=weights,
+                      binary_linear=binary_linear)
         secure_infer_cost(model, (BATCH,) + INPUT_SHAPES[net])
     finally:
+        linear.set_fused_rounds(True)
         for name, fn in wrappers.items():
             setattr(kops, fn, saved[name])
     return seen
@@ -187,7 +231,7 @@ def check_kernels(shapes: dict) -> list:
                              generator=g)
 
     rows = []
-    for name in REPLACES:
+    for name in LINEAR_KERNELS:
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0,
                "bytes_bound_ms": 0.0, "ops_bound_ms": 0.0}
         detail = []
@@ -277,6 +321,211 @@ def check_kernels(shapes: dict) -> list:
     return rows
 
 
+def check_ring_kernels() -> list:
+    """Phase 2, B5-B7: each ring kernel at the reference's kernel-test
+    shapes and MnistNet4's layer shapes == its plain version, exactly.
+    A row's times and bounds sum MnistNet4's four layer shapes (one launch
+    each); B7's library column sums torch._int_mm where its shape rules
+    (M > 16, K and N multiples of 8) hold."""
+    import torch
+    from repro_torch.kernels import binary_matmul as binmm
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ring_matmul as ringmm
+
+    g = torch.Generator().manual_seed(1)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             generator=g)
+
+    def binary(kind, *shape):
+        v = torch.randint(0, 2, shape, dtype=torch.int8, generator=g)
+        return 2 * v - 1 if kind == "pm1" else v
+
+    routes = {
+        "ring_matmul": (kops.ring_matmul_op, ringmm.ring_matmul_ref),
+        "bin_weight_matmul": (kops.binary_weight_matmul_op,
+                              binmm.binary_weight_matmul_ref),
+        "bin_bin_matmul": (kops.binary_binary_matmul_op,
+                           binmm.binary_binary_matmul_ref),
+    }
+    rows = []
+    for name, (op, plain) in routes.items():
+        cases = [(shape, "pm1") for shape in RING_TEST_SHAPES + MNIST4_SHAPES]
+        if name == "bin_weight_matmul":
+            cases += [((128, 256, 128), "pm1"), ((128, 256, 128), "01")]
+        detail = []
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+               "library_ms": 0.0, "ms_library_shapes": 0.0}
+        for (m, k, n), kind in cases:
+            if name == "ring_matmul":
+                a, b = words(m, k), words(k, n)
+                nbytes = 4 * (m * k + k * n + m * n)
+            elif name == "bin_weight_matmul":
+                a, b = words(m, k), binary(kind, k, n)
+                nbytes = 4 * m * k + k * n + 4 * m * n
+            else:
+                a, b = binary("pm1", m, k), binary(kind, k, n)
+                nbytes = m * k + k * n + 4 * m * n
+            ad, bd = a.cuda(), b.cuda()
+            run = lambda: op(ad, bd)
+            got = run()
+            torch.cuda.synchronize()
+            want = plain(a, b)
+            if not torch.equal(got.cpu(), want):
+                err = int((got.cpu().long() - want.long()).abs().max())
+                fail(f"{name} ({m}, {k}, {n}) {kind}: kernel != plain "
+                     f"version (max abs err {err})")
+            ms = median_ms(run)
+            pms = host_ms(lambda: plain(a, b))
+            lib = None
+            if name == "bin_bin_matmul" and m > 16 and k % 8 == 0 \
+                    and n % 8 == 0:
+                if not torch.equal(torch._int_mm(ad, bd).cpu(), want):
+                    fail(f"torch._int_mm ({m}, {k}, {n}) disagrees")
+                lib = median_ms(lambda: torch._int_mm(ad, bd))
+            b_ms = nbytes / HBM_BPS * 1e3
+            o_ms = 2 * RING_DOTS[name] * m * k * n / INT8_OPS * 1e3
+            bound = max(b_ms, o_ms)
+            detail.append({"M": m, "K": k, "N": n, "weights": kind,
+                           "ms": ms, "plain_ms": pms, "bound_ms": bound,
+                           "bound_by": "bytes" if b_ms >= o_ms
+                           else "operations", "library_ms": lib})
+            print(f"[chip_smoke] {name} ({m}, {k}, {n}) {kind}: {ms:.5f} ms "
+                  f"(bound {bound:.5f} ms, {100 * bound / ms:.1f}% of "
+                  f"bound), plain on host {pms:.3f} ms"
+                  + (f", torch._int_mm {lib:.5f} ms" if lib is not None
+                     else "") + ", exact")
+            if (m, k, n) in MNIST4_SHAPES and kind == "pm1":
+                tot["ms"] += ms
+                tot["plain_ms"] += pms
+                tot["bytes_ms"] += b_ms
+                tot["ops_ms"] += o_ms
+                if lib is not None:
+                    tot["library_ms"] += lib
+                    tot["ms_library_shapes"] += ms
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": 0, "max_abs_err": 0,
+               "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+               "bound_ms": max(tot["bytes_ms"], tot["ops_ms"]),
+               "bound_by": ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                            else "operations"),
+               "library_ms": (tot["library_ms"] if name == "bin_bin_matmul"
+                              else None),
+               "shapes": detail}
+        if name == "bin_bin_matmul":
+            row["ms_at_library_shapes"] = tot["ms_library_shapes"]
+        rows.append(row)
+    return rows
+
+
+def launched(kbuild) -> dict:
+    return {k: v for k, v in kbuild.LAUNCHES.items() if v}
+
+
+def per_dot_phase(kbuild) -> dict:
+    """Phase 5: a secure fc layer of MnistNet4's width on the per-dot route
+    (B5 only) == the same layer on cached weight limbs (B1)."""
+    import torch
+    from repro_torch.core import linear, prf
+    from repro_torch.core.randomness import Parties
+    from repro_torch.core.rss import reconstruct, share
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import rss_matmul as dense
+
+    g = torch.Generator().manual_seed(3)
+    xf = torch.randn(BATCH, 3136, generator=g)
+    wf = torch.randn(3136, 512, generator=g) * 0.02
+    bf = torch.randn(512, generator=g) * 0.1
+    x = share(xf.cuda(), prf.PRNGKey(11))
+    w = share(wf.cuda(), prf.PRNGKey(12))
+    b = share(bf.cuda(), prf.PRNGKey(13))
+    wl = dense.precompute_weight_limbs(w.shares)
+    parties = Parties.setup(prf.PRNGKey(14), device="cuda")
+    # float64 on the fixed-point encodings: only the truncation's few ulp
+    # separate it from the secure layer
+    enc = lambda t: x.ring.encode(t).double() / x.ring.scale
+    plain = (enc(xf) @ enc(wf) + enc(bf)).numpy()
+    total = 0
+    try:
+        for fused in (True, False):
+            linear.set_fused_rounds(fused)
+            kbuild.reset_launches()
+            want = reconstruct(linear.linear_layer(
+                x, None, b, parties.fresh(), w_limbs=wl), decode=False)
+            torch.cuda.synchronize()
+            if launched(kbuild) != {"rss_matmul": 1}:
+                fail(f"cached-limb layer launched {launched(kbuild)}")
+            err = float(abs(x.ring.decode(want).cpu().double().numpy()
+                            - plain).max())
+            if not err < 0.005:
+                fail(f"secure fc layer differs from float64 by {err}")
+            for mode, per in (("opt2", 6), ("paper3", 9)):
+                linear.set_matmul_mode(mode)
+                kbuild.reset_launches()
+                t0 = time.perf_counter()
+                got = linear.linear_layer(x, w, b, parties.fresh(),
+                                          dot=kops.rss_matmul_dot)
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                counts = launched(kbuild)
+                if counts != {"ring_matmul": per}:
+                    fail(f"per-dot layer {mode} fused={fused}: launches "
+                         f"{counts}, want ring_matmul {per}")
+                if not torch.equal(reconstruct(got, decode=False), want):
+                    fail(f"per-dot layer {mode} fused={fused} opens to "
+                         f"another value than the cached-limb layer")
+                total += per
+                print(f"[chip_smoke] per-dot fc (32, 3136) x (3136, 512) "
+                      f"{mode} fused={fused}: {per} B5 launches, {dt:.3f} "
+                      f"ms host clock, == B1 layer (|err| vs float64 "
+                      f"{err:.2e})")
+    finally:
+        linear.set_matmul_mode("opt2")
+        linear.set_fused_rounds(True)
+    return {"ring_matmul": total}
+
+
+def binary_phase(kbuild) -> dict:
+    """Phase 6: the binarized-product API at MnistNet4's layer shapes, held
+    to float64 products on the card: B7 as a plaintext BNN layer (±1 x ±1),
+    B6 as a public ±1-weight layer on each share of a secret."""
+    import torch
+    from repro_torch.core import prf
+    from repro_torch.core.rss import RSS, reconstruct, share
+    from repro_torch.kernels import ops as kops
+
+    g = torch.Generator().manual_seed(5)
+    kbuild.reset_launches()
+    for m, k, n in MNIST4_SHAPES:
+        a = (2 * torch.randint(0, 2, (m, k), dtype=torch.int8, generator=g)
+             - 1).cuda()
+        w = (2 * torch.randint(0, 2, (k, n), dtype=torch.int8, generator=g)
+             - 1).cuda()
+        want = a.double() @ w.double()
+        if not torch.equal(kops.binary_binary_matmul_op(a, w).double(),
+                           want):
+            fail(f"binary layer ({m}, {k}, {n}) != float64 product")
+        xf = torch.randn(m, k, generator=g).cuda()
+        x = share(xf, prf.PRNGKey(m))
+        z = torch.stack([kops.binary_weight_matmul_op(x.shares[i], w)
+                         for i in range(3)])
+        opened = reconstruct(RSS(z, x.ring), decode=False)
+        want = x.ring.encode(xf).double() @ w.double()
+        if not torch.equal(opened.double(), want):
+            fail(f"public ±1-weight layer ({m}, {k}, {n}) != float64 "
+                 f"product")
+    torch.cuda.synchronize()
+    counts = launched(kbuild)
+    want = {"bin_bin_matmul": len(MNIST4_SHAPES),
+            "bin_weight_matmul": 3 * len(MNIST4_SHAPES)}
+    if counts != want:
+        fail(f"binarized layers launched {counts}, want {want}")
+    print(f"[chip_smoke] binarized layers at MnistNet4's shapes: == float64, "
+          f"launches {counts}")
+    return counts
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -303,67 +552,87 @@ def main() -> None:
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda}"
           f" on {torch.cuda.get_device_name(0)}")
 
-    # -- 2. kernels vs plain versions at the main paths' shapes ------------
-    # per-query counts: one query of each net under each weight mode
-    shapes = {name: {} for name in REPLACES}
-    for net, weights, binary_linear in PINNED:
-        if binary_linear != "auto":
-            continue   # the same shapes as the "auto" path of that mode
-        for name, d in path_shapes(net, weights).items():
+    # -- 2. kernels vs plain versions at the paths' shapes -----------------
+    # per-query counts: one query of each path of PINNED
+    t0 = time.perf_counter()
+    paths = {key: path_shapes(*key) for key in PINNED}
+    shapes = {name: {} for name in LINEAR_KERNELS}
+    for seen in paths.values():
+        for name, d in seen.items():
             for key, cnt in d.items():
                 shapes[name][key] = shapes[name].get(key, 0) + cnt
-    rows = check_kernels(shapes)
+    rows = check_kernels(shapes) + check_ring_kernels()
+    print(f"[chip_smoke] kernels phase {time.perf_counter() - t0:.1f} s")
 
-    # -- 3. main paths --------------------------------------------------------
+    # -- 3. the serving paths ---------------------------------------------
+    import numpy as np
+    from repro_torch.core import linear
     from repro_torch.launch.serve_secure import serve
+    from repro_torch.nn.bnn import INPUT_SHAPES, bnn_forward, init_bnn
+    t0 = time.perf_counter()
+    relu_in = {}
+    for net in RELU_NETS:
+        # He-normal weights: ReLU is continuous, so no grid is needed
+        params = init_bnn(0, net, device="cuda")
+        x = np.random.default_rng(1).normal(0, 0.3, (BATCH,)
+                                            + INPUT_SHAPES[net]) \
+            .astype(np.float32)
+        plain, _ = bnn_forward(params, torch.as_tensor(x, device="cuda"),
+                               net, binarize=False)
+        relu_in[net] = (params, x, plain.cpu().numpy())
     launches = {name: 0 for name in kbuild.LAUNCHES}
-    for (net, weights, binary_linear), pinned in PINNED.items():
+    for key, pinned in PINNED.items():
+        net, weights, binary_linear, fused = key
         queries = QUERIES if binary_linear == "auto" else 1
-        kbuild.reset_launches()
-        st = serve(net, BATCH, queries, device="cuda", weights=weights,
-                   binary_linear=binary_linear)
-        counts = dict(kbuild.LAUNCHES)
+        given = ({"params": relu_in[net][0], "x": relu_in[net][1]}
+                 if net in RELU_NETS else {})
+        linear.set_fused_rounds(fused)
+        try:
+            kbuild.reset_launches()
+            st = serve(net, BATCH, queries, device="cuda", weights=weights,
+                       binary_linear=binary_linear, **given)
+            counts = dict(kbuild.LAUNCHES)
+        finally:
+            linear.set_fused_rounds(True)
         got = (st["online_rounds"], st["online_bytes"], st["offline_rounds"],
                st["offline_bytes"])
-        print(f"[chip_smoke] {net} {weights}/{binary_linear} batch {BATCH} "
-              f"on {st['kind']}: {queries} queries in {st['seconds']:.4f} s "
-              f"= {st['query_per_s']:.3f} q/s ({st['img_per_s']:.1f} img/s),"
-              f" compile {st['compile_s']:.3f} s; ledger {got}; "
-              f"launches {counts}")
+        what = f"{net} {weights}/{binary_linear} fused={fused}"
+        print(f"[chip_smoke] {what} batch {BATCH} on {st['kind']}: {queries} "
+              f"queries in {st['seconds']:.4f} s = {st['query_per_s']:.3f} "
+              f"q/s ({st['img_per_s']:.1f} img/s), compile "
+              f"{st['compile_s']:.3f} s; ledger {got}; launches "
+              f"{launched(kbuild)}")
         if got != pinned:
-            fail(f"{net} {weights}/{binary_linear}: ledger {got} != pinned "
-                 f"{pinned}")
-        dense_k, grouped_k = PATH_KERNELS[weights]
-        need = [dense_k] + ([grouped_k] if net == "CifarNet2" else [])
-        for name in need:
-            if counts[name] <= 0:
-                fail(f"{net} {weights}/{binary_linear}: kernel {name} was "
-                     f"not launched on the path")
-        other = "public" if weights == "shared" else "shared"
-        for name in PATH_KERNELS[other]:
-            if counts[name] != 0:
-                fail(f"{net} {weights}/{binary_linear}: kernel {name} of "
-                     f"the {other}-weight path launched {counts[name]} "
-                     f"times")
+            fail(f"{what}: ledger {got} != pinned {pinned}")
+        want = sorted(name for name, d in paths[key].items() if d)
+        ran = sorted(name for name, c in counts.items() if c)
+        if ran != want:
+            fail(f"{what}: launched {ran}, its path calls {want}")
         lg = st["logits"]
-        if lg.shape != (BATCH, 10) or not (abs(lg) < 1e6).all():
-            fail(f"{net}: logits of shape {lg.shape} are not finite")
+        if lg.shape != (BATCH, 10) or not (np.abs(lg) < 1e6).all():
+            fail(f"{what}: logits of shape {lg.shape} are not finite")
+        if net in RELU_NETS:
+            err = float(np.abs(lg - relu_in[net][2]).max())
+            print(f"[chip_smoke] {what}: secure vs plaintext max |err| "
+                  f"{err:.6f}")
+            if not err < 0.25:
+                fail(f"{what}: secure logits differ from the plaintext "
+                     f"forward by {err}")
         for name in launches:
             launches[name] += counts[name]
-    for row in rows:
-        row["launches"] = launches[row["name"]]
+    by_phase = {"path": launches}
+    print(f"[chip_smoke] path phase {time.perf_counter() - t0:.1f} s")
 
     # -- 4. values ----------------------------------------------------------
-    import numpy as np
-    from repro_torch.nn.bnn import INPUT_SHAPES, bnn_forward, init_bnn
     from repro_torch.weights import grid_quantize
+    t0 = time.perf_counter()
     for net in ("MnistNet1", "MnistNet3-sep"):
         params = grid_quantize(init_bnn(0, net, device="cuda"))
         rng = np.random.default_rng(1)
         x = rng.integers(0, 2, (BATCH,) + INPUT_SHAPES[net]) \
             .astype(np.float32) - 0.5
         plain, _ = bnn_forward(params, torch.as_tensor(x, device="cuda"), net)
-        for weights in PATH_KERNELS:
+        for weights in WEIGHT_MODES:
             st = serve(net, BATCH, 1, device="cuda", params=params, x=x,
                        weights=weights)
             err = float(np.abs(st["logits"] - plain.cpu().numpy()).max())
@@ -374,16 +643,31 @@ def main() -> None:
                      f"plaintext forward by {err}")
     x = np.random.default_rng(2).integers(0, 2, (2, 32, 32, 3)) \
         .astype(np.float32) - 0.5
-    for weights in PATH_KERNELS:
-        on_card = serve("CifarNet2", 2, 1, device="cuda", x=x,
-                        weights=weights)["logits"]
-        on_host = serve("CifarNet2", 2, 1, device="cpu", x=x,
-                        weights=weights)["logits"]
-        if not np.array_equal(on_card, on_host):
-            fail(f"CifarNet2 {weights}: logits on the card differ from the "
-                 f"CPU run")
-        print(f"[chip_smoke] CifarNet2 {weights} batch 2: card == CPU, bit "
-              f"for bit")
+    for net in ("CifarNet2", "CifarNet7"):
+        for weights in WEIGHT_MODES:
+            on_card = serve(net, 2, 1, device="cuda", x=x,
+                            weights=weights)["logits"]
+            on_host = serve(net, 2, 1, device="cpu", x=x,
+                            weights=weights)["logits"]
+            if not np.array_equal(on_card, on_host):
+                fail(f"{net} {weights}: logits on the card differ from the "
+                     f"CPU run")
+            print(f"[chip_smoke] {net} {weights} batch 2: card == CPU, bit "
+                  f"for bit")
+    print(f"[chip_smoke] values phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 5.-6. the per-dot route, the binarized products ---------------------
+    t0 = time.perf_counter()
+    by_phase["per-dot"] = per_dot_phase(kbuild)
+    by_phase["binary"] = binary_phase(kbuild)
+    print(f"[chip_smoke] per-dot + binary phases {time.perf_counter() - t0:.1f}"
+          f" s")
+    for row in rows:
+        row["launches_by_phase"] = {ph: c.get(row["name"], 0)
+                                    for ph, c in by_phase.items()}
+        row["launches"] = sum(row["launches_by_phase"].values())
+        if row["launches"] <= 0:
+            fail(f"{row['name']} was launched on no path")
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))

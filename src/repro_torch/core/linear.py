@@ -1,26 +1,32 @@
 """Linear-layer protocols over RSS (paper Algorithm 2) + truncation + reveal.
 
-Port of the functions of ``repro/core/linear.py`` that the secure
-classifier path runs: ``reveal``, ``_reshare``, ``_mul_parts``, ``mul``,
-``_matmul_parts`` (kernel and fused-operand branches), ``mul_open``,
-``matmul_truncate``, ``_trunc_pair``, ``_trunc_decode``, ``_open_shift``,
-``_im2col``, ``_grouped_conv_parts``, ``conv2d``, ``_im2col_rss``,
-``conv2d_truncate``, ``PublicTensor``, ``bin_matmul`` / ``bin_conv2d``
-(shared and public weights), ``truncate`` and ``fused_rounds``.
+Port of ``repro/core/linear.py`` except ``truncate_probabilistic`` (RING64
+and the probabilistic truncation belong to a later slice): ``reveal``,
+``_reshare``, ``_mul_parts``, ``mul``, ``square``, ``_matmul_parts``,
+``matmul``, ``mul_open``, ``matmul_truncate``, ``mul_truncate``,
+``square_truncate``, the convolutions, ``PublicTensor``, ``bin_matmul`` /
+``bin_conv2d``, ``truncate``, ``linear_layer`` and the two protocol
+toggles ``set_matmul_mode`` / ``set_fused_rounds`` (process globals, as in
+the reference).
 
-Multiplication identity (Araki et al.), fused-operand form: per party
-    z_i = x_i·(y_i + y_{i+1}) + x_{i+1}·y_i + a_i,   Σ a_i = 0.
+Multiplication identity (Araki et al.): per party
+    z_i = x_i·y_i + x_{i+1}·y_i + x_i·y_{i+1} + a_i,   Σ a_i = 0
+("paper3", Algorithm 2 verbatim, 3 products per party), or in the default
+fused-operand form ("opt2", 2 products per party)
+    z_i = x_i·(y_i + y_{i+1}) + x_{i+1}·y_i + a_i.
 With cached weights (``w_limbs``, what ``compile_secure`` always builds)
-the whole 3-party product of a layer is one kernel launch (kernels/ops.py);
-a bare weight RSS takes per-party torch integer products, a plain route for
-CPU tensors only (torch has no integer matmul on CUDA), which raises on a
-CUDA tensor so that nothing on the card bypasses the kernels.  Public
-weights (a :class:`PublicTensor`) follow the same rule: with their limb
-cache each slot's local product is one kernel launch, without it the plain
-product runs on CPU tensors only.
+the whole 3-party product of a layer is one kernel launch (kernels/ops.py),
+whatever the mode.  Otherwise each per-party product goes through ``dot``:
+``kernels.ops.rss_matmul_dot`` runs it on the ring-matmul kernel; with no
+``dot`` the plain torch product runs, on CPU tensors only (torch has no
+integer matmul on CUDA), and raises on a CUDA tensor so that nothing on
+the card bypasses the kernels.  Public weights (a :class:`PublicTensor`)
+follow the same rule.
 
-The paper-faithful round structure (``set_fused_rounds(False)``) belongs to
-a later slice: the fused rounds are always on here.
+``set_fused_rounds(False)`` restores the paper-faithful round structure
+(here: a linear layer's truncation as its own opening round after the
+reshare, in ``linear_layer``; the MSB, Sign, ReLU and executor modules
+read :func:`fused_rounds` too).
 """
 from __future__ import annotations
 
@@ -35,14 +41,34 @@ from .randomness import Parties
 from .ring import RingSpec, shr
 from .rss import RSS
 
-__all__ = ["reveal", "mul", "matmul", "conv2d", "truncate", "fused_rounds",
-           "mul_open", "matmul_truncate", "conv2d_truncate", "PublicTensor",
-           "bin_matmul", "bin_conv2d"]
+__all__ = ["reveal", "mul", "matmul", "conv2d", "truncate", "linear_layer",
+           "square", "set_matmul_mode", "set_fused_rounds", "fused_rounds",
+           "mul_open", "matmul_truncate", "conv2d_truncate", "mul_truncate",
+           "square_truncate", "PublicTensor", "bin_matmul", "bin_conv2d"]
+
+# "opt2" = fused-operand (2 products per party); "paper3" = Algorithm 2
+# verbatim (3 per party).
+_MATMUL_MODE = "opt2"
+# Round-fused protocol variants (mul_open, matmul_truncate, the local Sign
+# conversion): on by default; False restores the paper's round structure.
+_FUSED_ROUNDS = True
+
+
+def set_matmul_mode(mode: str) -> None:
+    global _MATMUL_MODE
+    if mode not in ("opt2", "paper3"):
+        raise ValueError(f"matmul mode must be 'opt2' or 'paper3', "
+                         f"got {mode!r}")
+    _MATMUL_MODE = mode
+
+
+def set_fused_rounds(on: bool) -> None:
+    global _FUSED_ROUNDS
+    _FUSED_ROUNDS = bool(on)
 
 
 def fused_rounds() -> bool:
-    """Round-fused protocol variants are the port's only mode so far."""
-    return True
+    return _FUSED_ROUNDS
 
 
 def _numel(shape) -> int:
@@ -76,11 +102,13 @@ def _align_party_axis(xs, ys):
 
 
 def _mul_parts(xs, ys):
-    """Elementwise additive product stack z_i (fused-operand form)."""
+    """Elementwise additive product stack z_i, in the matmul mode."""
     t = transport.current()
     xo, yo = t.own_view(xs), t.own_view(ys)
     xn, yn = t.next_view(xs), t.next_view(ys)
-    return xo * (yo + yn) + xn * yo
+    if _MATMUL_MODE == "opt2":
+        return xo * (yo + yn) + xn * yo
+    return xo * yo + xn * yo + xo * yn
 
 
 def mul(x: RSS, y: RSS, parties: Parties, tag: str = "mul") -> RSS:
@@ -89,36 +117,56 @@ def mul(x: RSS, y: RSS, parties: Parties, tag: str = "mul") -> RSS:
     return _reshare(_mul_parts(xs, ys), x.ring, parties, tag)
 
 
+def _square_parts(x: RSS):
+    t = transport.current()
+    xo, xn = t.own_view(x.shares), t.next_view(x.shares)
+    return xo * xo + 2 * xo * xn
+
+
+def square(x: RSS, parties: Parties, tag: str = "square") -> RSS:
+    """x^2 with one fewer local product: z_i = x_i^2 + 2·x_i·x_{i+1}."""
+    return _reshare(_square_parts(x), x.ring, parties, tag)
+
+
 def _plain_route(x: RSS, what: str) -> None:
-    """The w_limbs=None products are for CPU tensors: on the card the
-    kernels are the only route."""
+    """The products without cached weight limbs and without a ``dot`` are
+    for CPU tensors: on the card the kernels are the only route."""
     if x.shares.device.type == "cuda":
-        raise RuntimeError(f"{what} without cached weight limbs runs on CPU "
-                           f"tensors only; compile_secure caches them for "
-                           f"the CUDA kernels")
+        raise RuntimeError(f"{what} without cached weight limbs or a kernel "
+                           f"dot runs on CPU tensors only; compile_secure "
+                           f"caches the limbs for the CUDA kernels")
 
 
-def _matmul_parts(x: RSS, w: RSS | None, w_limbs) -> torch.Tensor:
+def _matmul_parts(x: RSS, w: RSS | None, w_limbs=None,
+                  dot=None) -> torch.Tensor:
     """Additive product stack z_i (parts layout): local compute, no comm.
 
     With ``w_limbs`` (a kernels.rss_matmul.WeightLimbs cached at model
-    setup) the whole 3-party product is one kernel launch; otherwise the
-    fused-operand identity runs as per-party integer matmuls (CPU only)."""
+    setup) the whole 3-party product is one kernel launch, whatever the
+    matmul mode or ``dot``.  Otherwise the mode's identity runs as
+    per-party products through ``dot`` (``kernels.ops.rss_matmul_dot``:
+    one ring-matmul launch each), or as plain integer matmuls (CPU only)."""
     t = transport.current()
     if w_limbs is not None:
         from ..kernels.ops import rss_matmul_parts_op
         return rss_matmul_parts_op(t.own_view(x.shares), w_limbs)
-    _plain_route(x, "matmul")
+    if dot is None:
+        _plain_route(x, "matmul")
+        dot = torch.matmul
     xo, wo = t.own_view(x.shares), t.own_view(w.shares)
     xn, wn = t.next_view(x.shares), t.next_view(w.shares)
-    return torch.stack([xo[i] @ (wo[i] + wn[i]) + xn[i] @ wo[i]
-                        for i in range(xo.shape[0])])
+    slots = xo.shape[0]
+    if _MATMUL_MODE == "opt2":
+        return torch.stack([dot(xo[i], wo[i] + wn[i]) + dot(xn[i], wo[i])
+                            for i in range(slots)])
+    return torch.stack([dot(xo[i], wo[i]) + dot(xn[i], wo[i])
+                        + dot(xo[i], wn[i]) for i in range(slots)])
 
 
 def matmul(x: RSS, w: RSS | None, parties: Parties, tag: str = "matmul",
-           w_limbs=None) -> RSS:
+           w_limbs=None, dot=None) -> RSS:
     """Secure matmul z = x @ w (x: (..., K), w: (K, N)), one reshare."""
-    return _reshare(_matmul_parts(x, w, w_limbs), x.ring, parties, tag)
+    return _reshare(_matmul_parts(x, w, w_limbs, dot), x.ring, parties, tag)
 
 
 def mul_open(x: RSS, y: RSS, parties: Parties, tag: str = "mul_open"):
@@ -133,11 +181,11 @@ def mul_open(x: RSS, y: RSS, parties: Parties, tag: str = "mul_open"):
 
 def matmul_truncate(x: RSS, w: RSS | None, parties: Parties,
                     tag: str = "matmul_tr", w_limbs=None,
-                    bias_parts=None) -> RSS:
+                    bias_parts=None, dot=None) -> RSS:
     """Fused Alg-2 matmul + Π_trunc in ONE online round; ``bias_parts``
     (additive, at the product's 2f scale) rides the opening."""
     ring = x.ring
-    z = _matmul_parts(x, w, w_limbs)
+    z = _matmul_parts(x, w, w_limbs, dot)
     if bias_parts is not None:
         z = z + bias_parts
     return _open_shift(z, parties, ring, ring.frac, tag)
@@ -166,6 +214,22 @@ def _open_shift(z, parties: Parties, ring: RingSpec, f: int, tag: str) -> RSS:
     comm.record(tag, rounds=1, nbytes=6 * _numel(z.shape[1:]) * ring.nbytes)
     c = t.open_parts(c_parts) + (1 << (ring.bits - 2))
     return rp.add_public(_trunc_decode(c, ring, f))
+
+
+def mul_truncate(x: RSS, y: RSS, parties: Parties, frac: int | None = None,
+                 tag: str = "mul_tr") -> RSS:
+    """Fused elementwise multiply + truncate, one online round."""
+    ring = x.ring
+    xs, ys = _align_party_axis(x.shares, y.shares)
+    return _open_shift(_mul_parts(xs, ys), parties, ring,
+                       ring.frac if frac is None else frac, tag)
+
+
+def square_truncate(x: RSS, parties: Parties, frac: int | None = None,
+                    tag: str = "sq_tr") -> RSS:
+    ring = x.ring
+    return _open_shift(_square_parts(x), parties, ring,
+                       ring.frac if frac is None else frac, tag)
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +338,7 @@ class PublicTensor:
 
 def bin_matmul(x: RSS, w: RSS | PublicTensor, parties: Parties,
                tag: str = "bin_matmul", w_limbs=None, bias_parts=None,
-               bias_public=None) -> RSS:
+               bias_public=None, dot=None) -> RSS:
     """Post-Sign ±1 input (scale 0) times the weights.
 
     Shared weights (``w: RSS``): the product sits at scale f, so the layer
@@ -284,7 +348,8 @@ def bin_matmul(x: RSS, w: RSS | PublicTensor, parties: Parties,
     Public weights (``w: PublicTensor``): every slot's product
     z_s = x_s @ W is local, so the RSS stack is rebuilt with zero rounds
     and zero bytes (recorded as a 0-cost ledger row); ``bias_public`` is
-    added through slot 0."""
+    added through slot 0.  Without a limb cache the slot products go
+    through ``dot`` (or the plain product, CPU only)."""
     if isinstance(w, PublicTensor):
         assert bias_parts is None, \
             "public weights take bias_public, not additive bias_parts"
@@ -294,14 +359,16 @@ def bin_matmul(x: RSS, w: RSS | PublicTensor, parties: Parties,
             from ..kernels.ops import bin_rss_matmul_op
             z = bin_rss_matmul_op(x.shares, wl)
         else:
-            _plain_route(x, "public matmul")
-            z = torch.stack([x.shares[i] @ w.enc
+            if dot is None:
+                _plain_route(x, "public matmul")
+                dot = torch.matmul
+            z = torch.stack([dot(x.shares[i], w.enc)
                              for i in range(x.shares.shape[0])])
         out = RSS(z, x.ring)
         return out if bias_public is None else out.add_public(bias_public)
     assert bias_public is None, \
         "shared weights take additive bias_parts, not a public encoding"
-    z = _matmul_parts(x, w, w_limbs)
+    z = _matmul_parts(x, w, w_limbs, dot)
     if bias_parts is not None:
         z = z + bias_parts
     return _reshare(z, x.ring, parties, tag)
@@ -379,3 +446,34 @@ def truncate(x: RSS, parties: Parties, frac: int | None = None,
     r, rp = _trunc_pair(x.shape, parties, ring, f)
     c = reveal(x.add_public(1 << (ring.bits - 2)) - r, tag=tag)
     return rp.add_public(_trunc_decode(c, ring, f))
+
+
+# ---------------------------------------------------------------------------
+# Algorithm 2: complete linear layer (matmul + bias + trunc)
+# ---------------------------------------------------------------------------
+
+def linear_layer(x: RSS, w: RSS | None, b: RSS | None, parties: Parties,
+                 truncate_out: bool = True, tag: str = "linear",
+                 dot=None, w_limbs=None) -> RSS:
+    """z = x @ w + b, truncated back to scale 2^f.  With fused rounds the
+    truncation's masked opening rides the matmul's round (1 online round);
+    paper-faithful, the reshare and the truncation are 2 rounds."""
+    t = transport.current()
+    scale = x.ring.scale
+    if truncate_out and _FUSED_ROUNDS:
+        bias_parts = None
+        if b is not None:
+            # the product carries scale 2^{2f}: lift the scale-f bias
+            bias_parts = t.own_view(b.shares).reshape(
+                (t.parts_slots,) + (1,) * (x.ndim - 1) + (-1,)) * scale
+        return matmul_truncate(x, w, parties, tag=tag, w_limbs=w_limbs,
+                               bias_parts=bias_parts, dot=dot)
+    z = matmul(x, w, parties, tag=tag, w_limbs=w_limbs, dot=dot)
+    if b is not None:
+        bsh = b.shares.reshape((t.rss_slots,) + (1,) * (z.ndim - 1) + (-1,))
+        if truncate_out:
+            bsh = bsh * scale
+        z = RSS(z.shares + bsh, z.ring)
+    if truncate_out:
+        z = truncate(z, parties, tag=tag + ".trunc")
+    return z

@@ -2,12 +2,14 @@
 B2A share conversion (paper §3.3) via the 3-party OT.
 
 Port of ``repro/core/msb.py`` (``b2a``, ``_msb_core``, ``msb_extract``,
-``msb_extract_arith``, ``DEFAULT_BOUND_BITS``), fused rounds:
+``msb_extract_arith``, ``DEFAULT_BOUND_BITS``):
 
   offline : random bit [β]^B, its B2A conversion [β]^A, a positive odd
             bounded mask [r], and [ρ] = [(−1)^β · r];
-  online  : y = 2x + 1, u = y·ρ multiplied and opened in ONE round,
-            β' = MSB(u) public, [MSB(x)]^B = [β]^B ⊕ β'.
+  online  : y = 2x + 1, u = y·ρ multiplied and opened in ONE round with
+            fused rounds (``mul_open``), or paper-faithful in two
+            (``mul`` then ``reveal``); β' = MSB(u) public,
+            [MSB(x)]^B = [β]^B ⊕ β'.
 
 Correctness needs |2x+1|·r < 2^{l-1}: r < 2^{r_bits} with
 r_bits = l − 2 − (bound_bits + 1) for |x| < 2^bound_bits.
@@ -17,7 +19,7 @@ from __future__ import annotations
 import math
 
 from . import comm, transport
-from .linear import mul_open
+from .linear import fused_rounds, mul, mul_open, reveal
 from .ot import ot3
 from .randomness import Parties
 from .ring import RingSpec
@@ -58,7 +60,11 @@ def _msb_core(x: RSS, parties: Parties, bound_bits: int, tag: str):
         raise ValueError(f"bound_bits={bound_bits} too large for l={ring.bits}")
     beta, beta_a, rho = parties.msb_material(x.shape, ring, r_bits, tag=tag)
     y = x.mul_public_int(2).add_public(1)              # 2x+1, odd
-    u_pub = mul_open(y, rho, parties, tag=tag + ".mulopen")
+    if fused_rounds():
+        u_pub = mul_open(y, rho, parties, tag=tag + ".mulopen")
+    else:
+        u = mul(y, rho, parties, tag=tag + ".mul")
+        u_pub = reveal(u, tag=tag + ".reveal")
     return beta, beta_a, ring.msb(u_pub)
 
 

@@ -3,7 +3,7 @@
 Port of ``repro/core/secure_model.py`` (``SecureModel``,
 ``compile_secure``, ``_annotate_binary_paths``, ``_public_weight``,
 ``_weight_limbs_for``, ``_infer_linear_shared``, ``_infer_linear_public``,
-``secure_infer``, ``secure_infer_cost``) with fused rounds:
+``secure_infer``, ``secure_infer_cost``):
 
   setup (model owner): walk the layer spec, fold BN→Sign into a threshold
     (eq. 8) or BN into the linear's (W, b) (eqs. 10–11), then either share
@@ -18,12 +18,14 @@ Port of ``repro/core/secure_model.py`` (``SecureModel``,
     picks the post-Sign routing: "auto" the binary engine, "generic" the
     plain Alg-2 round (shared weights only; the engine's bit-identity
     reference), "off" the binarization-unaware ablation (±1 lifted to
-    scale f, full truncation paid).  Sign runs through the fused MSB
-    extraction, Sign→maxpool fused, and the logits are opened.
+    scale f, full truncation paid).  Sign and ReLU run through the MSB
+    extraction, maxpool after a Sign through the §3.6 fusion and after a
+    ReLU through the pairwise-max tournament, a bare BN as the affine op,
+    and the logits are opened.
 
-The paper-faithful rounds, ReLU nets (``secure_maxpool``), the bare-BN
-affine op and the offline tape pool belong to later slices; the executor
-raises ``NotImplementedError`` on layers it cannot run.
+``linear.set_fused_rounds(False)`` switches every layer to the paper's
+round structure (linear + its own truncation round, Sign and ReLU by OT),
+as in the reference.  The offline tape pool belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -41,13 +43,14 @@ from ..kernels.bin_rss_matmul import (GroupedWeightLimbs, PublicGroupedLimbs,
 from ..kernels.rss_matmul import WeightLimbs, precompute_weight_limbs
 from ..nn.bnn import ALL_NETS
 from . import comm, prf, transport
-from .activation import sign_from_msb_arith
+from .activation import (relu_from_msb, relu_from_msb_arith, sign_from_msb,
+                         sign_from_msb_arith)
 from .linear import (PublicTensor, bin_conv2d, bin_matmul, conv2d,
-                     conv2d_truncate, matmul, matmul_truncate, reveal,
-                     truncate)
-from .msb import msb_extract_arith
+                     conv2d_truncate, fused_rounds, matmul, matmul_truncate,
+                     mul, mul_truncate, reveal, truncate)
+from .msb import msb_extract, msb_extract_arith
 from .norm import fuse_bn_linear, fuse_bn_sign_threshold
-from .pooling import sign_maxpool_fused
+from .pooling import secure_maxpool, sign_maxpool_fused
 from .randomness import Parties
 from .ring import RingSpec, default_ring
 from .rss import RSS, share
@@ -295,7 +298,9 @@ def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
         return bin_conv2d(h, w_rss, parties, stride=op["stride"],
                           padding=op["pad"], tag=f"l{idx}.conv.bin",
                           w_limbs=wl, bias_parts=bias)
-    if at_2f:
+    if at_2f and fused_rounds():
+        # product + bias + Π_trunc in the one opening round; the bias rides
+        # the additive parts, so only the own share
         bias = tp.own_view(op["b"].shares).reshape(
             (tp.parts_slots,) + (1,) * (h.ndim - 1) + (-1,)) * ring.scale
         if lin == "fc":
@@ -307,16 +312,24 @@ def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
                                    w_limbs=wl, bias_parts=bias)
         return conv2d_truncate(h, w_rss, parties, tag=f"l{idx}.pwconv",
                                w_limbs=wl, bias_parts=bias)
-    # generic route of a post-Sign fc / conv: Alg 2's reshare, then the
-    # scale-f bias share-wise on the full RSS
+    # Alg 2's reshare, then the bias share-wise on the full RSS: the generic
+    # route of a post-Sign layer (scale f, no truncation), or a fixed-point
+    # layer paper-faithful (scale 2f, then its own truncation round)
     if lin == "fc":
         z = matmul(h, w_rss, parties, tag=f"l{idx}.fc", w_limbs=wl)
-    else:
+    elif lin == "conv":
         z = conv2d(h, w_rss, parties, stride=op["stride"], padding=op["pad"],
                    tag=f"l{idx}.conv", w_limbs=wl)
+    else:
+        z = conv2d(h, w_rss, parties, tag=f"l{idx}.pwconv", w_limbs=wl)
     bias = op["b"].shares.reshape(
         (z.shares.shape[0],) + (1,) * (z.ndim - 1) + (-1,))
-    return RSS(z.shares + bias, ring)
+    if at_2f:
+        bias = bias * ring.scale
+    z = RSS(z.shares + bias, ring)
+    if at_2f:
+        z = truncate(z, parties, tag=f"l{idx}.trunc")
+    return z
 
 
 def _infer_linear_public(h: RSS, op: dict, parties: Parties, idx: int,
@@ -349,6 +362,32 @@ def _infer_linear_public(h: RSS, op: dict, parties: Parties, idx: int,
     if not binary_in:
         h = truncate(h, parties, tag=f"l{idx}.trunc")
     return h
+
+
+def _infer_affine(h: RSS, op: dict, parties: Parties, idx: int,
+                  ring: RingSpec, weights: str) -> RSS:
+    """A bare BN (no preceding linear to fold into): h·scale + shift.
+
+    Public weights: a local multiply by the encoded scale, the truncation
+    opening, the public shift.  Shared weights: ``mul_truncate`` (fused)
+    or ``mul`` + ``truncate`` (paper-faithful) on the shared scale, then
+    the shared shift added with the party axis kept, shaped
+    ``(3,) + (1,)*(ndim-1) + (C,)`` as every other bias.  (The reference
+    adds the (3, C) shift stack to the (3, B, ..., C) activation as it is,
+    which fails to broadcast or, at batch 1 with a 2-D activation, mixes
+    the party and batch axes.)"""
+    if weights == "public":
+        h = RSS(h.shares * op["pub_scale"], ring)
+        h = truncate(h, parties, tag=f"aff{idx}.tr")
+        return h.add_public(op["pub_shift"])
+    if fused_rounds():
+        h = mul_truncate(h, op["scale"], parties, tag=f"aff{idx}")
+    else:
+        h = truncate(mul(h, op["scale"], parties, tag=f"aff{idx}"), parties,
+                     tag=f"aff{idx}.tr")
+    shift = op["shift"].shares.reshape(
+        (h.shares.shape[0],) + (1,) * (h.ndim - 1) + (-1,))
+    return RSS(h.shares + shift, ring)
 
 
 def secure_infer(model: SecureModel, x_shares: RSS, parties: Parties,
@@ -387,28 +426,38 @@ def secure_infer(model: SecureModel, x_shares: RSS, parties: Parties,
             elif t is not None:   # public threshold (ring encoding)
                 h = h.add_public(t)
             pending_sign_threshold = None
-            # 1 online round: multiply-open + local Alg-4
-            _, msb_a = msb_extract_arith(h, parties, tag=f"sign{idx}.msb")
-            bits = sign_from_msb_arith(msb_a)
+            if fused_rounds():
+                # 1 online round: multiply-open + local Alg 4
+                _, msb_a = msb_extract_arith(h, parties, tag=f"sign{idx}.msb")
+                bits = sign_from_msb_arith(msb_a)
+            else:
+                msb = msb_extract(h, parties, tag=f"sign{idx}.msb")
+                bits = sign_from_msb(msb, parties, ring, tag=f"sign{idx}")
             nxt = model.ops[idx + 1]["op"] if idx + 1 < len(model.ops) else None
             if nxt == "maxpool":
                 h = bits  # the §3.6 fusion consumes the indicator bits
             else:
                 h = bits.mul_public_int(2).add_public(-1)
             prev_sign = True
+        elif kind == "relu":
+            if fused_rounds():
+                _, msb_a = msb_extract_arith(h, parties, tag=f"relu{idx}.msb")
+                h = relu_from_msb_arith(h, msb_a, parties, tag=f"relu{idx}")
+            else:
+                msb = msb_extract(h, parties, tag=f"relu{idx}.msb")
+                h = relu_from_msb(h, msb, parties, tag=f"relu{idx}")
+            prev_sign = False
+        elif kind == "affine":
+            h = _infer_affine(h, op, parties, idx, ring, model.weights)
+            prev_sign = False
         elif kind == "maxpool":
-            if not prev_sign:
-                raise NotImplementedError(
-                    "secure_maxpool (maxpool after a non-Sign layer) belongs "
-                    "to a later slice of the port")
-            bits = sign_maxpool_fused(h, parties, tag=f"mp{idx}")
-            h = bits.mul_public_int(2).add_public(-1)
+            if prev_sign:
+                bits = sign_maxpool_fused(h, parties, tag=f"mp{idx}")
+                h = bits.mul_public_int(2).add_public(-1)
+            else:
+                h = secure_maxpool(h, parties, tag=f"mp{idx}")
         elif kind == "flatten":
             h = h.reshape(h.shape[0], math.prod(h.shape[1:]))
-        else:
-            raise NotImplementedError(
-                f"{kind!r} layers (ReLU nets, bare BN) belong to a later "
-                f"slice of the port")
     if reveal_output:
         return reveal(h, tag="output", decode=True)
     return h

@@ -50,6 +50,10 @@ class LocalTransport:
     def send(self, x, frm: int, to: int):
         return x
 
+    def merge_recv(self, primary, received, holder: int):
+        """A sender-side value with its received copy: one tensor here."""
+        return primary
+
     # -- openings --------------------------------------------------------
     def open_parts(self, parts):
         """All parties learn the sum of the additive parts."""
@@ -60,6 +64,11 @@ class LocalTransport:
         return stack[0] + stack[1] + stack[2]
 
     # -- party-indexed construction --------------------------------------
+    def build_rss(self, vals: Sequence):
+        """RSS stack from per-slot values (vals[i] known to both holders
+        of slot i)."""
+        return torch.stack(list(vals))
+
     def build_parts(self, vals: Sequence):
         return torch.stack(list(vals))
 

@@ -1,8 +1,9 @@
 """Build, load and count the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by nvcc
-into ``build/repro_torch/lib<name>-<hash>.so`` at the checkout's root at
-first use, then loaded with ``ctypes`` (no PyTorch headers: a build takes
+Each ``csrc/<stem>.cu`` has a plain C interface (one or more entry points;
+shared device code lives in ``csrc/*.cuh``) and is compiled by nvcc into
+``build/repro_torch/lib<name>-<hash>.so`` at the checkout's root at first
+use, then loaded with ``ctypes`` (no PyTorch headers: a build takes
 seconds).  :func:`build_all` starts one nvcc per source at once.
 
 ``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds one
@@ -42,6 +43,12 @@ KERNELS = {
     "bin_grouped_matmul": ("bin_grouped_matmul", "bin_grouped_matmul_launch",
                            [_P, _P, _P, _I, _I, _L, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _P]),
+    "ring_matmul": ("ring_matmul", "ring_matmul_launch",
+                    [_P, _P, _P, _L, _I, _I, _P]),
+    "bin_weight_matmul": ("binary_matmul", "bin_weight_matmul_launch",
+                          [_P, _P, _P, _L, _I, _I, _P]),
+    "bin_bin_matmul": ("binary_matmul", "bin_bin_matmul_launch",
+                       [_P, _P, _P, _L, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -64,8 +71,12 @@ def _nvcc() -> str:
 
 
 def _target(stem: str) -> Path:
-    digest = hashlib.sha256((SOURCE_DIR / f"{stem}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    # the shared headers (csrc/*.cuh) are part of every source's hash
+    text = b"".join(p.read_bytes() for p in
+                    [SOURCE_DIR / f"{stem}.cu",
+                     *sorted(SOURCE_DIR.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()) \
+        .hexdigest()[:12]
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
 

@@ -1,11 +1,15 @@
-"""Shape handling around the four linear-layer kernels.
+"""Shape handling around the integer kernels.
 
-Port of ``repro/kernels/ops.py`` (``_fold_grouped``, ``_unfold_grouped``,
+Port of ``repro/kernels/ops.py`` (``ring_matmul_op``,
+``binary_weight_matmul_op``, ``binary_binary_matmul_op``,
+``rss_matmul_dot``, ``_fold_grouped``, ``_unfold_grouped``,
 ``grouped_rss_matmul_op``, ``rss_matmul_parts_op``, ``bin_rss_matmul_op``,
-``bin_grouped_matmul_op``).  The leading dims of a share stack fold into M.  Unlike the reference there is no 128-padding
-and no small-shape fallback: the CUDA kernels mask ragged edges and take
-every shape.  The grouped fold/unfold are views here (no copies): the
-grouped kernel reads and writes through strides.
+``bin_grouped_matmul_op``; the float ``flash_attention_op`` belongs to a
+later slice).  The leading dims of a share stack fold into M.  Unlike the
+reference there is no 128-padding and no small-shape fallback: the CUDA
+kernels mask ragged edges and take every shape.  The grouped fold/unfold
+are views here (no copies): the grouped kernel reads and writes through
+strides.
 """
 from __future__ import annotations
 
@@ -14,10 +18,38 @@ import torch
 from .bin_rss_matmul import (GroupedWeightLimbs, PublicGroupedLimbs,
                              PublicWeightLimbs, bin_grouped_matmul_parts,
                              bin_rss_matmul_parts, grouped_rss_matmul_parts)
+from .binary_matmul import binary_binary_matmul, binary_weight_matmul
+from .ring_matmul import ring_matmul
 from .rss_matmul import WeightLimbs, rss_matmul_parts
 
-__all__ = ["rss_matmul_parts_op", "grouped_rss_matmul_op",
+__all__ = ["ring_matmul_op", "binary_weight_matmul_op",
+           "binary_binary_matmul_op", "rss_matmul_dot",
+           "rss_matmul_parts_op", "grouped_rss_matmul_op",
            "bin_rss_matmul_op", "bin_grouped_matmul_op"]
+
+
+def ring_matmul_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B mod 2^32 for any (M, K) x (K, N) int32 ring words."""
+    return ring_matmul(a.contiguous(), b.contiguous())
+
+
+def binary_weight_matmul_op(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A (int32 ring words) @ W (int8 ±1 / {0, 1}) mod 2^32."""
+    return binary_weight_matmul(a.contiguous(), w.contiguous())
+
+
+def binary_binary_matmul_op(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plaintext BNN layer: int8 @ int8 -> int32."""
+    return binary_binary_matmul(a.contiguous(), w.contiguous())
+
+
+def rss_matmul_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The ``dot`` of the linear protocols on the ring-matmul kernel: one
+    launch per per-party product (6 per secure matmul under "opt2", 9
+    under "paper3"); leading dims of ``a`` fold into M."""
+    lead = a.shape[:-1]
+    out = ring_matmul_op(a.reshape(-1, a.shape[-1]), b)
+    return out.reshape(tuple(lead) + (b.shape[-1],))
 
 
 def _fold_grouped(x: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,11 @@ compiles once (BN folds, secret sharing or publication, cached kernel
 operands); every query batch then runs the full CBNN protocol stack on the
 device, its linear layers on the CUDA kernels: shared weights on the RSS
 products (rss_matmul, grouped_rss_matmul), public weights on the local
-public products (bin_rss_matmul, bin_grouped_matmul).  Runs on the card
-unless ``--device cpu`` is given.
+public products (bin_rss_matmul, bin_grouped_matmul).  Every net of the
+zoo is served, the ReLU teachers (MnistNet4, CifarNet7) included.  Runs on
+the card unless ``--device cpu`` is given.  The round structure is an API
+toggle, as in the reference (``repro_torch.core.linear.set_fused_rounds``),
+not a flag.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_secure --net CifarNet2 \
       --batch 32 --queries 4 [--weights shared|public] \

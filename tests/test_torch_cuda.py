@@ -14,9 +14,14 @@ import torch
 from repro_torch.core import linear
 from repro_torch.core.ring import RING32
 from repro_torch.core.rss import RSS
+from repro_torch.core import prf
+from repro_torch.core.randomness import Parties
+from repro_torch.core.rss import reconstruct, share
 from repro_torch.kernels import bin_rss_matmul as grp
+from repro_torch.kernels import binary_matmul as binmm
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops
+from repro_torch.kernels import ring_matmul as ringmm
 from repro_torch.kernels import rss_matmul as dense
 from repro_torch.weights import ring_from_numpy
 
@@ -165,3 +170,102 @@ def test_cuda_public_tensor_without_limbs_raises(cuda):
                                          device=cuda))
     with pytest.raises(RuntimeError):
         linear.bin_matmul(cols, wm, None)
+
+
+# -- B5–B7: the per-dot ring product and the binarized products ---------------
+
+RAGGED = [(33, 17, 5), (1, 128, 1), (65, 70, 67), (130, 784, 10),
+          (7, 3, 1), (257, 129, 65)]
+
+
+def _int8(shape, seed, lo=-128, hi=128):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        lo, hi, shape).astype(np.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", RAGGED)
+def test_ring_kernels_cuda_equal_plain(cuda, m, k, n):
+    a = ring_from_numpy(_words((m, k), 11))
+    b = ring_from_numpy(_words((k, n), 12))
+    w = _int8((k, n), 13)
+    a8 = _int8((m, k), 14, -1, 2)
+    cases = [("ring_matmul", ops.ring_matmul_op, ringmm.ring_matmul_ref,
+              a, b),
+             ("bin_weight_matmul", ops.binary_weight_matmul_op,
+              binmm.binary_weight_matmul_ref, a, w),
+             ("bin_bin_matmul", ops.binary_binary_matmul_op,
+              binmm.binary_binary_matmul_ref, a8, w)]
+    for name, op, plain, x, y in cases:
+        launches = kbuild.LAUNCHES[name]
+        got = op(x.to(cuda), y.to(cuda))
+        torch.cuda.synchronize()
+        assert kbuild.LAUNCHES[name] == launches + 1, name
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), plain(x, y)), name
+
+
+@pytest.mark.cuda
+def test_new_ops_never_take_the_plain_version(cuda, monkeypatch):
+    """On a card the three ops launch their kernels or raise; the plain
+    versions never run."""
+    for mod, fn in ((ringmm, "ring_matmul_ref"),
+                    (binmm, "binary_weight_matmul_ref"),
+                    (binmm, "binary_binary_matmul_ref")):
+        monkeypatch.setattr(mod, fn,
+                            lambda *a: pytest.fail("plain version on a card"))
+    i32 = torch.ones((4, 5), dtype=torch.int32, device=cuda)
+    i8 = torch.ones((5, 3), dtype=torch.int8, device=cuda)
+    # refused operands raise
+    with pytest.raises(ValueError):
+        ops.ring_matmul_op(i32, i8)
+    with pytest.raises(ValueError):
+        ops.binary_weight_matmul_op(i32, i8.to(torch.int32))
+    with pytest.raises(ValueError):
+        ops.binary_binary_matmul_op(i32, i8)
+    with pytest.raises(ValueError):
+        ops.rss_matmul_dot(i32, i8)
+    # accepted operands launch
+    assert int(ops.ring_matmul_op(i32, i32.T.contiguous())[0, 0]) == 5
+    assert int(ops.binary_weight_matmul_op(i32, i8)[0, 0]) == 5
+    assert int(ops.binary_binary_matmul_op(i8.T.contiguous(),
+                                           i8)[0, 0]) == 5
+    assert tuple(ops.rss_matmul_dot(
+        torch.ones((2, 3, 5), dtype=torch.int32, device=cuda),
+        i32.T.contiguous()).shape) == (2, 3, 4)
+
+
+@pytest.fixture
+def matmul_mode():
+    """Sets the port's matmul mode for one test; restores "opt2"."""
+    try:
+        yield linear.set_matmul_mode
+    finally:
+        linear.set_matmul_mode("opt2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,launches", [("opt2", 6), ("paper3", 9)])
+def test_per_dot_layer_runs_on_b5_only(cuda, matmul_mode, mode, launches):
+    """A secure fc layer with dot=rss_matmul_dot launches B5 once per
+    per-party product and nothing else, and opens to the value of the
+    same layer on cached weight limbs (B1)."""
+    matmul_mode(mode)
+    rng = np.random.default_rng(15)
+    x = share(torch.as_tensor(rng.normal(0, 1, (4, 40)), dtype=torch.float32,
+                              device=cuda), prf.PRNGKey(1))
+    w = share(torch.as_tensor(rng.normal(0, 0.2, (40, 9)),
+                              dtype=torch.float32, device=cuda),
+              prf.PRNGKey(2))
+    b = share(torch.zeros(9, device=cuda), prf.PRNGKey(3))
+    parties = Parties.setup(prf.PRNGKey(4), device=cuda)
+    before = dict(kbuild.LAUNCHES)
+    got = linear.linear_layer(x, w, b, parties.fresh(), dot=ops.rss_matmul_dot)
+    torch.cuda.synchronize()
+    diff = {k: v - before[k] for k, v in kbuild.LAUNCHES.items()
+            if v != before[k]}
+    assert diff == {"ring_matmul": launches}
+    wl = dense.precompute_weight_limbs(w.shares)
+    want = linear.linear_layer(x, None, b, parties.fresh(), w_limbs=wl)
+    assert torch.equal(reconstruct(got, decode=False),
+                       reconstruct(want, decode=False))

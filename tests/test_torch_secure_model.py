@@ -200,15 +200,15 @@ def test_grid_quantize_matches_reference_trick():
         assert np.array_equal(got[k].numpy(), np.asarray(v)), k
 
 
-def test_unported_modes_raise():
-    """ReLU nets (secure ReLU, secure_maxpool) wait for a later slice: the
-    executor refuses them instead of running something else."""
-    model = secure_model.compile_secure(
-        params_from_numpy(_np_params("MnistNet4")), "MnistNet4",
-        prf.PRNGKey(0), RING32)
-    with pytest.raises(NotImplementedError):
-        secure_model.secure_infer_cost(model, (1,) + bnn.INPUT_SHAPES[
-            "MnistNet4"])
+@pytest.mark.parametrize("batch", [1, 32])
+def test_mnistnet4_ledger_matches_reference(batch):
+    """The ReLU teacher net (secure ReLU, secure_maxpool, BN folded into
+    the linears) runs, with the reference's compile-time shares and
+    per-query ledger rows.  Both round structures and public weights are
+    in test_torch_secure_relu.py."""
+    jm, tm, _ = _models("MnistNet4")
+    _assert_same_model(jm, tm)
+    _assert_same_ledger("MnistNet4", jm, tm, batch)
 
 
 @pytest.mark.parametrize("net", ["MnistNet1", "CifarNet2"])

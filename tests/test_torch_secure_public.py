@@ -193,9 +193,15 @@ def test_public_secure_matches_plaintext(net, binary_linear):
     assert float((got - want).abs().max()) < 0.05
 
 
-def test_public_relu_net_raises():
-    """ReLU nets wait for a later slice under public weights too."""
-    model = _port_model("MnistNet4", "public", "auto")
-    with pytest.raises(NotImplementedError):
-        secure_model.secure_infer_cost(model,
-                                       (1,) + bnn.INPUT_SHAPES["MnistNet4"])
+def test_public_relu_net_ledger_matches_reference():
+    """ReLU nets run under public weights too: MnistNet4's per-query
+    ledger rows == the reference's."""
+    shape = (1,) + bnn.INPUT_SHAPES["MnistNet4"]
+    got = secure_model.secure_infer_cost(
+        _port_model("MnistNet4", "public", "auto"), shape)
+    want = jsm.secure_infer_cost(_ref_model("MnistNet4", "public", "auto"),
+                                 shape)
+    assert (_ledger(got), sorted((k, tuple(v)) for k, v in
+                                 got.by_tag.items())) == \
+        (_ledger(want), sorted((k, tuple(v)) for k, v in
+                               want.by_tag.items()))

@@ -52,6 +52,15 @@ def test_serve_public_weights_on_cpu(tmp_path, capsys):
         serve_secure.main(["--weights", "private", "--device", "cpu"])
 
 
+def test_serve_relu_net_on_cpu():
+    """The ReLU teacher MnistNet4 through the entry point: its batch-1
+    ledger is 1/32 of the pinned batch-32 rows (test_torch_secure_relu)."""
+    st = serve_secure.main(["--net", "MnistNet4", "--batch", "1",
+                            "--queries", "1", "--device", "cpu"])
+    assert st["logits"].shape == (1, 10) and np.isfinite(st["logits"]).all()
+    assert (st["online_rounds"], 32 * st["online_bytes"]) == (23, 105_762_048)
+
+
 def test_serve_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
