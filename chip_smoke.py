@@ -45,10 +45,32 @@ Phases, each fatal on failure:
               plaintext BNN layer (±1 x ±1, B7) and a public ±1-weight layer
               on the three shares of a secret (B6), each held to a float64
               product on the card.
+7. lm kernels - B8 flash_attention at the reference's kernel-test shapes
+              (float32, its 2e-5), a ragged S = 1000, and TinyLlama-1.1B's
+              prefill shape (2, 2048, 32, 4, 64) in bf16 (within one bf16
+              rounding of each value); B9 ssd_scan at the reference's three
+              kernel-test shapes and at Mamba2-1.3B's layer shape (2, 2048,
+              64, 64, 128; chunk 256) on the inputs of a full-width Mamba2
+              layer, all at the reference's 5e-4.  The plain versions run on
+              the host CPU.  Times as in phase 2; B8's library column is
+              scaled_dot_product_attention (causal, GQA) at the same shape.
+8. lm paths - Mamba2-1.3B at full width and depth (48 layers): a 2 x 2048
+              prefill layer by layer, each layer's scan on B9 (48 launches)
+              and its output held to ssd_prefill's within 2^-6 of its scale
+              (only bf16 roundings of the scan's output before w_out can
+              differ), then serve (batch 4, prompt 16, gen 16).  Then
+              TinyLlama-1.1B (22 layers): the prefill step at batch 2 x 2048
+              through flash_impl=flash_attention_op launches B8 exactly 22
+              times and its last-position logits are within 3% of their
+              scale of the flash_impl=None (_sdpa) route's (bf16 attention
+              outputs differ by an ulp here and there, and 22 layers carry
+              it on); then the same serve.  One model is on the card at a
+              time.  Prints prefill and decode tok/s and peak memory.
 
-Prints the kernels' JSON line, then the card's name and power limit, then
-the result line.  Exits non-zero without a result when no CUDA device is
-available or when the port's sources are not beside this script.
+Prints the kernels' JSON line (nine kernels, each with its launches by
+phase), then the card's name and power limit, then the result line.  Exits
+non-zero without a result when no CUDA device is available or when the
+port's sources are not beside this script.
 """
 from __future__ import annotations
 
@@ -86,6 +108,8 @@ BATCH = 32
 QUERIES = 4
 HBM_BPS = 3.35e12          # H100 SXM memory rate
 INT8_OPS = 1.979e15        # H100 SXM dense int8 tensor-core rate
+BF16_OPS = 989e12          # H100 SXM dense bf16 tensor-core rate
+FP32_OPS = 67e12           # H100 SXM float32 rate outside the tensor cores
 LINEAR_KERNELS = ("rss_matmul", "grouped_rss_matmul", "bin_rss_matmul",
                   "bin_grouped_matmul")
 # int8 limb products a cell of each ring kernel needs on the TPU's route
@@ -104,11 +128,34 @@ REPLACES = {
     "ring_matmul": "src/repro/kernels/ring_matmul.py:27",
     "bin_weight_matmul": "src/repro/kernels/binary_matmul.py:22",
     "bin_bin_matmul": "src/repro/kernels/binary_matmul.py:72",
+    "flash_attention": "src/repro/kernels/flash_attention.py:23",
+    "ssd_scan": "src/repro/kernels/ssd.py:20",
 }
 SOURCES = {**{name: f"src/repro_torch/csrc/{name}.cu"
-              for name in LINEAR_KERNELS + ("ring_matmul",)},
+              for name in LINEAR_KERNELS + ("ring_matmul", "flash_attention",
+                                            "ssd_scan")},
            "bin_weight_matmul": "src/repro_torch/csrc/binary_matmul.cu",
            "bin_bin_matmul": "src/repro_torch/csrc/binary_matmul.cu"}
+
+
+# B8: the reference's kernel-test shapes (B, S, H, Hkv, hd) in float32, a
+# ragged S, and TinyLlama-1.1B's prefill at batch 2 x 2048 in bf16 (last)
+FLASH_SHAPES = [(2, 256, 4, 4, 64, "float32"), (2, 256, 8, 2, 64, "float32"),
+                (2, 128, 4, 1, 32, "float32"), (2, 1000, 4, 2, 64, "float32"),
+                (2, 2048, 32, 4, 64, "bfloat16")]
+# B9: the reference's kernel-test shapes (B, S, H, hd, N, chunk); Mamba2's
+# layer shape comes from a full-width layer
+SSD_SHAPES = [(2, 128, 2, 32, 16, 64), (2, 256, 1, 64, 32, 64),
+              (2, 64, 4, 16, 8, 32)]
+LM_BATCH, LM_SEQ = 2, 2048                  # prefill at full width
+SERVE = dict(batch=4, prompt_len=16, gen=16)
+LM_TOL, SSD_LAYER_TOL = 0.03, 2.0 ** -6
+# B9 vs its plain version, relative to max |y|: both sides run the same
+# float32 chunk math; the largest reading of a sound kernel is 7.7e-6 (at
+# Mamba2's layer, whose terms cancel to a max |y| of 0.07), so 2e-5 keeps
+# a 2.6x margin for the plain side's summation order on another host CPU
+SSD_REL_TOL = 2e-5
+SSD_REPEATS = 200          # repeats at each test shape (5 at Mamba2's)
 
 
 def fail(msg: str) -> None:
@@ -526,6 +573,248 @@ def binary_phase(kbuild) -> dict:
     return counts
 
 
+def _row(name, ms, pms, b_ms, o_ms, lib, err, detail) -> dict:
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": pms, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": lib, "shapes": detail}
+
+
+def check_flash() -> dict:
+    """Phase 7, B8: kernel == plain version (host CPU) at FLASH_SHAPES; the
+    row's numbers are TinyLlama's shape (the last), the main path's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    g = torch.Generator().manual_seed(7)
+    detail, err_max = [], 0.0
+    for b, s, h, hkv, hd, dtype in FLASH_SHAPES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((b, s, n, hd), generator=g).to(dt)
+                   for n in (h, hkv, hkv))
+        qd, kd, vd = q.cuda(), k.cuda(), v.cuda()
+        run = lambda: kops.flash_attention_op(qd, kd, vd)
+        got = run().cpu().float()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = flash_attention_ref(q, k, v).float()
+        pms = (time.perf_counter() - t0) * 1e3
+        err = float((got - want).abs().max())
+        if dtype == "float32":
+            ok = err < 2e-5                  # the reference's tolerance
+        else:   # one bf16 rounding of float32 values that agree to ~1e-6
+            ok = bool(((got - want).abs()
+                       <= 2.0 ** -7 * want.abs() + 1e-5).all())
+        if not ok:
+            fail(f"flash_attention {(b, s, h, hkv, hd, dtype)}: kernel != "
+                 f"plain version (max abs err {err})")
+        err_max = max(err_max, err)
+        ms = median_ms(run)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+        lib = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+        size = q.element_size()
+        b_ms = size * (2 * q.numel() + 2 * k.numel()) / HBM_BPS * 1e3
+        ops = 4 * b * h * hd * s * (s + 1) // 2    # the causal triangle
+        o_ms = ops / (BF16_OPS if dtype == "bfloat16" else FP32_OPS) * 1e3
+        detail.append({"B": b, "S": s, "H": h, "Hkv": hkv, "hd": hd,
+                       "dtype": dtype, "ms": ms, "plain_ms": pms,
+                       "bound_ms": max(b_ms, o_ms), "library_ms": lib,
+                       "max_abs_err": err})
+        print(f"[chip_smoke] flash_attention {(b, s, h, hkv, hd)} {dtype}: "
+              f"{ms:.5f} ms (bound {max(b_ms, o_ms):.5f} ms, "
+              f"{100 * max(b_ms, o_ms) / ms:.1f}% of bound), plain on host "
+              f"{pms:.3f} ms, sdpa {lib:.5f} ms ({ms / lib:.1f}x), max |err| "
+              f"{err:.3g}")
+    return _row("flash_attention", ms, pms, b_ms, o_ms, lib, err_max,
+                detail)
+
+
+def mamba_layer_inputs(cfg, params, tokens):
+    """The scan's inputs of layer 0 of a full-width Mamba2 on ``tokens``:
+    (x, B, C, da, dt) in float32, as the reference's module test takes
+    them."""
+    import torch
+    from repro_torch.nn import ssm
+    from repro_torch.nn.layers import apply_norm, embed
+    with torch.no_grad():
+        lp = params.layers[0]
+        hin = apply_norm(cfg.norm, lp.norm1, embed(params.embed, tokens))
+        _, x, bm, cm, da, dt = ssm.ssd_inputs(lp.mamba, hin, cfg)
+    return tuple(t.float() for t in (x, bm, cm, da, dt))
+
+
+def check_ssd(layer_inputs) -> dict:
+    """Phase 7, B9: kernel == plain version (host CPU) at the reference's
+    test shapes and at Mamba2-1.3B's layer inputs (the row's numbers)."""
+    import torch
+    from repro_torch.kernels import ssd
+    from repro_torch.nn.ssm import CHUNK
+
+    g = torch.Generator().manual_seed(8)
+    cases = []
+    for b, s, h, hd, n, chunk in SSD_SHAPES:
+        cases.append(((torch.randn((b, s, h, hd), generator=g) * 0.5,
+                       torch.randn((b, s, n), generator=g) * 0.5,
+                       torch.randn((b, s, n), generator=g) * 0.5,
+                       -torch.rand((b, s, h), generator=g) * 0.5,
+                       torch.rand((b, s, h), generator=g) * 0.9 + 0.1),
+                      chunk, SSD_REPEATS))
+    cases.append((tuple(t.cpu() for t in layer_inputs), CHUNK, 5))
+    detail, err_max = [], 0.0
+    for host, chunk, reps in cases:
+        dev = tuple(t.cuda() for t in host)
+        run = lambda: ssd.ssd_scan(*dev, chunk=chunk)
+        got = run()
+        # the kernel's sums run in a fixed order: a repeat that differs in
+        # any bit is a race between its threads
+        (b, s, h, hd), n = host[0].shape, host[1].shape[-1]
+        for _ in range(reps):
+            if not torch.equal(run(), got):
+                fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: repeats of one "
+                     f"launch differ")
+        got = got.cpu()
+        t0 = time.perf_counter()
+        want = ssd.ssd_scan_ref(*host, chunk=chunk)
+        pms = (time.perf_counter() - t0) * 1e3
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        if not err <= SSD_REL_TOL * scale:
+            fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: kernel != plain "
+                 f"version (max abs err {err}, max |y| {scale})")
+        err_max = max(err_max, err)
+        ms = median_ms(run)
+        b_ms = 4 * (2 * b * s * h * hd + 2 * b * s * n + 2 * b * s * h) \
+            / HBM_BPS * 1e3
+        # per (b, chunk): the causal triangle of C·Bᵀ (B and C are shared
+        # across heads); per (b, h, chunk): its decayed product with x·dt,
+        # the carried-state term and the state update
+        tri = chunk * (chunk + 1) // 2
+        ops = 2 * b * (s // chunk) * (tri * n + h * (tri * hd
+                                                      + 2 * chunk * n * hd))
+        o_ms = ops / FP32_OPS * 1e3
+        detail.append({"B": b, "S": s, "H": h, "hd": hd, "N": n,
+                       "chunk": chunk, "ms": ms, "plain_ms": pms,
+                       "bound_ms": max(b_ms, o_ms), "max_abs_err": err,
+                       "max_abs_y": scale, "repeats": reps})
+        print(f"[chip_smoke] ssd_scan {(b, s, h, hd, n)} chunk {chunk}: "
+              f"{ms:.5f} ms (bound {max(b_ms, o_ms):.5f} ms, "
+              f"{100 * max(b_ms, o_ms) / ms:.1f}% of bound), plain on host "
+              f"{pms:.3f} ms, max |err| {err:.3g} (max |y| {scale:.3g}); "
+              f"{reps} repeats bit-identical; {b * h} blocks")
+    # no single PyTorch call computes the SSD scan
+    return _row("ssd_scan", ms, pms, b_ms, o_ms, None, err_max, detail)
+
+
+def lm_tokens(vocab: int):
+    import torch
+    return torch.randint(0, vocab, (LM_BATCH, LM_SEQ),
+                         generator=torch.Generator().manual_seed(1)).cuda()
+
+
+def print_serve(st) -> None:
+    if st["tokens"].shape != (SERVE["batch"], SERVE["gen"]):
+        fail(f"{st['arch']} served tokens of shape {st['tokens'].shape}")
+    print(f"[chip_smoke] serve {st['arch']} batch {st['batch']} prompt "
+          f"{st['prompt_len']} gen {st['gen']} on {st['kind']}: prefill "
+          f"{st['prefill_tok_s']:.1f} tok/s ({st['prefill_s']:.4f} s), "
+          f"decode {st['decode_tok_s']:.1f} tok/s ({st['decode_s']:.4f} s), "
+          f"peak memory {st['peak_mem_bytes'] / 2**30:.3f} GiB")
+
+
+def tinyllama_phase(kbuild, params, cfg) -> dict:
+    """Phase 8: TinyLlama-1.1B's prefill step on B8 (22 launches) == the
+    _sdpa route; then serve."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_prefill_step
+
+    batch = {"tokens": lm_tokens(cfg.vocab)}
+    routes = {"sdpa": make_prefill_step(cfg),
+              "flash": make_prefill_step(cfg,
+                                         flash_impl=kops.flash_attention_op)}
+    out, secs = {}, {}
+    for name, step in routes.items():
+        step(params, batch)                     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        out[name] = step(params, batch).float()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        counts = launched(kbuild)
+        want = {"flash_attention": cfg.n_layers} if name == "flash" else {}
+        if counts != want:
+            fail(f"TinyLlama prefill ({name}) launched {counts}, want {want}")
+        print(f"[chip_smoke] TinyLlama-1.1B prefill step {LM_BATCH}x{LM_SEQ} "
+              f"({name} route): {secs[name]:.4f} s = "
+              f"{LM_BATCH * LM_SEQ / secs[name]:.0f} tok/s, launches "
+              f"{counts}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    got, want = out["flash"], out["sdpa"]
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if got.shape != (LM_BATCH, cfg.vocab) or not torch.isfinite(got).all() \
+            or not err <= LM_TOL * scale:
+        fail(f"TinyLlama prefill: flash route differs from the _sdpa route "
+             f"by {err} (logits scale {scale})")
+    print(f"[chip_smoke] TinyLlama-1.1B last-position logits: flash route vs "
+          f"_sdpa route max |err| {err:.4g} of scale {scale:.4g}")
+    print_serve(serve("tinyllama-1.1b", device="cuda", params=params,
+                      **SERVE))
+    return {"flash_attention": cfg.n_layers}
+
+
+def mamba_phase(kbuild, params, cfg) -> dict:
+    """Phase 8: Mamba2-1.3B's 2 x 2048 prefill layer by layer, each scan on
+    B9 (48 launches) and held to ssd_prefill's output; then serve."""
+    import torch
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.serve import serve
+    from repro_torch.nn import ssm
+    from repro_torch.nn.layers import apply_norm, embed
+
+    tokens = lm_tokens(cfg.vocab)
+    errs = []
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h = embed(params.embed, tokens)
+        for lp in params.layers:
+            hin = apply_norm(cfg.norm, lp.norm1, h)
+            z, x, bm, cm, da, dt = ssm.ssd_inputs(lp.mamba, hin, cfg)
+            y = ssd.ssd_scan(x.float(), bm.float(), cm.float(), da, dt,
+                             chunk=ssm.CHUNK)
+            got = ssm.ssd_output(lp.mamba, y, x, z, cfg).float()
+            want, _ = ssm.ssd_prefill(lp.mamba, hin, cfg)
+            errs.append((float((got - want.float()).abs().max()),
+                         float(want.float().abs().max())))
+            h = h + want
+        h = apply_norm(cfg.norm, params.final_norm, h)
+        logits = h[:, -1] @ params.embed.T.to(h.dtype)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launched(kbuild)
+    if counts != {"ssd_scan": cfg.n_layers}:
+        fail(f"Mamba2 prefill launched {counts}, want ssd_scan "
+             f"{cfg.n_layers}")
+    worst = max(e / sc for e, sc in errs)
+    if not worst <= SSD_LAYER_TOL or not torch.isfinite(logits).all():
+        fail(f"Mamba2 prefill: a layer on B9 differs from ssd_prefill by "
+             f"{worst:.4g} of its scale")
+    print(f"[chip_smoke] Mamba2-1.3B prefill {LM_BATCH}x{LM_SEQ}, "
+          f"{cfg.n_layers} layers, "
+          f"each on B9 and on ssd_prefill: {secs:.3f} s, launches {counts}, "
+          f"worst layer max |err| {worst:.3g} of its scale")
+    print_serve(serve("mamba2-1.3b", device="cuda", params=params, **SERVE))
+    return {"ssd_scan": cfg.n_layers}
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -662,6 +951,26 @@ def main() -> None:
     by_phase["binary"] = binary_phase(kbuild)
     print(f"[chip_smoke] per-dot + binary phases {time.perf_counter() - t0:.1f}"
           f" s")
+
+    # -- 7.-8. the LM kernels and paths ------------------------------------
+    from repro_torch.configs import get_config
+    from repro_torch.nn.transformer import init_params
+    t0 = time.perf_counter()
+    mamba_cfg = get_config("mamba2-1.3b")
+    mamba = init_params(mamba_cfg, 0, "cuda")
+    rows.append(check_flash())
+    rows.append(check_ssd(mamba_layer_inputs(mamba_cfg, mamba,
+                                             lm_tokens(mamba_cfg.vocab))))
+    print(f"[chip_smoke] lm kernels phase {time.perf_counter() - t0:.1f} s")
+    # one model on the card at a time, so each serve's peak memory is its own
+    t0 = time.perf_counter()
+    by_phase["mamba2-prefill"] = mamba_phase(kbuild, mamba, mamba_cfg)
+    del mamba
+    torch.cuda.empty_cache()
+    llama_cfg = get_config("tinyllama-1.1b")
+    by_phase["tinyllama-prefill"] = tinyllama_phase(
+        kbuild, init_params(llama_cfg, 0, "cuda"), llama_cfg)
+    print(f"[chip_smoke] lm paths phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_phase"] = {ph: c.get(row["name"], 0)
                                     for ph, c in by_phase.items()}

@@ -31,7 +31,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> (source stem, C entry point, ctypes argtypes)
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
 KERNELS = {
     "rss_matmul": ("rss_matmul", "rss_matmul_launch",
                    [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
@@ -49,6 +50,11 @@ KERNELS = {
                           [_P, _P, _P, _L, _I, _I, _P]),
     "bin_bin_matmul": ("binary_matmul", "bin_bin_matmul_launch",
                        [_P, _P, _P, _L, _I, _I, _P]),
+    "flash_attention": ("flash_attention", "flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         *[_L] * 9, _F, _P]),
+    "ssd_scan": ("ssd_scan", "ssd_scan_launch",
+                 [*[_P] * 6, *[_I] * 7, *[_L] * 13, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -1,0 +1,89 @@
+"""Causal GQA flash attention (kernel B8): wrapper and plain version.
+
+Port of ``repro/kernels/flash_attention.py`` (``flash_attention``) and of
+its oracle ``repro/kernels/ref.py::flash_attention_ref``.  It is the
+``flash_impl`` of the LM prefill step (``kernels.ops.flash_attention_op``):
+one launch per attention layer.
+
+On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
+``csrc/flash_attention.cu`` (it replaces the TPU kernel
+``repro/kernels/flash_attention.py::_flash_kernel``) at every sequence
+length, ragged ones included, or raises; on a CPU tensor it runs the plain
+version.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build
+
+__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
+
+HEAD_DIMS = (32, 64)      # the kernel's instantiated head widths
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain version: q (B,S,H,hd), k/v (B,S,Hkv,hd) -> (B,S,H,hd) in q's
+    dtype; softmax attention in float32 over the whole row (GQA)."""
+    b, s, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    qg = (q.float() / math.sqrt(hd)).reshape(b, s, hkv, g, hd)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, -1e9)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
+    return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, s, h, hd = q.shape
+    if k.shape[0] != b or k.shape[1] != s or k.shape[3] != hd \
+            or h % k.shape[2]:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k/v {tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _DTYPES or t.dtype != q.dtype \
+                or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name} must be float32 or "
+                             f"bfloat16 like q, on {q.device}, with a "
+                             f"contiguous last dim")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    _check(q, k, v)
+    b, s, h, hd = q.shape
+    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    fn = build.library("flash_attention")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             b, s, h, k.shape[2], hd, _DTYPES[q.dtype],
+             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+             ctypes.c_float(1.0 / math.sqrt(hd)), build.stream_ptr(q.device))
+    build.check("flash_attention", err)
+    build.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA attention, q (B,S,H,hd), k/v (B,S,Hkv,hd), read through
+    strides; returns a contiguous (B,S,H,hd) in q's dtype."""
+    if q.device.type == "cuda":
+        return _launch(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=True)
+    raise ValueError(f"flash_attention: unsupported device {q.device}")

@@ -1,15 +1,18 @@
-"""Shape handling around the integer kernels.
+"""Shape handling around the kernels.
 
 Port of ``repro/kernels/ops.py`` (``ring_matmul_op``,
 ``binary_weight_matmul_op``, ``binary_binary_matmul_op``,
 ``rss_matmul_dot``, ``_fold_grouped``, ``_unfold_grouped``,
 ``grouped_rss_matmul_op``, ``rss_matmul_parts_op``, ``bin_rss_matmul_op``,
-``bin_grouped_matmul_op``; the float ``flash_attention_op`` belongs to a
-later slice).  The leading dims of a share stack fold into M.  Unlike the
+``bin_grouped_matmul_op``, ``flash_attention_op``).  The leading dims of
+a share stack fold into M.  Unlike the
 reference there is no 128-padding and no small-shape fallback: the CUDA
 kernels mask ragged edges and take every shape.  The grouped fold/unfold
 are views here (no copies): the grouped kernel reads and writes through
-strides.
+strides.  ``flash_attention_op`` launches at every sequence length: the
+reference's fallback to its oracle for lengths that are not a multiple of
+its tile (``ops.py:76-77``) has no counterpart, the kernel masks the
+ragged tile.  The SSD scan's op is ``kernels.ssd.ssd_scan`` itself.
 """
 from __future__ import annotations
 
@@ -19,13 +22,15 @@ from .bin_rss_matmul import (GroupedWeightLimbs, PublicGroupedLimbs,
                              PublicWeightLimbs, bin_grouped_matmul_parts,
                              bin_rss_matmul_parts, grouped_rss_matmul_parts)
 from .binary_matmul import binary_binary_matmul, binary_weight_matmul
+from .flash_attention import flash_attention
 from .ring_matmul import ring_matmul
 from .rss_matmul import WeightLimbs, rss_matmul_parts
 
 __all__ = ["ring_matmul_op", "binary_weight_matmul_op",
            "binary_binary_matmul_op", "rss_matmul_dot",
            "rss_matmul_parts_op", "grouped_rss_matmul_op",
-           "bin_rss_matmul_op", "bin_grouped_matmul_op"]
+           "bin_rss_matmul_op", "bin_grouped_matmul_op",
+           "flash_attention_op"]
 
 
 def ring_matmul_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -105,3 +110,10 @@ def bin_grouped_matmul_op(x_stack: torch.Tensor,
     lead = x_stack.shape[1:-2]
     out = bin_grouped_matmul_parts(_fold_grouped(x_stack), weights)
     return _unfold_grouped(out, lead, weights.n)
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> torch.Tensor:
+    """Causal GQA flash attention, the ``flash_impl`` of the prefill step:
+    q (B,S,H,hd), k/v (B,S,Hkv,hd) -> (B,S,H,hd) in q's dtype."""
+    return flash_attention(q, k, v)

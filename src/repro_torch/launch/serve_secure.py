@@ -38,6 +38,7 @@ from ..core.secure_model import (BINARY_LINEAR_MODES, WEIGHT_MODES,
 from ..device import resolve_device
 from ..kernels import build as kbuild
 from ..nn.bnn import INPUT_SHAPES, init_bnn
+from .profiling import print_profile, profile_once, sync
 
 __all__ = ["build", "make_runner", "serve", "main"]
 
@@ -65,42 +66,6 @@ def make_runner(model):
     return run
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _profile(run, keys, x_stack, device, query_s: float,
-             top: int = 12) -> dict:
-    """One more query under ``torch.profiler``: device time by kernel name,
-    and the device's busy share of an unprofiled query (``query_s``; the
-    profiler's own overhead inflates the profiled query's wall time)."""
-    from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
-        run(keys, x_stack)
-        _sync(device)
-    rows = []
-    for e in prof.key_averages():
-        # device-side rows only: operator rows repeat their kernels' time
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev = getattr(e, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(e, "self_cuda_time_total", 0)
-        if dev > 0:
-            rows.append((float(dev), e.key, int(e.count)))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    return {"query_us": query_s * 1e6, "device_us": busy,
-            "busy_share": busy / (query_s * 1e6),
-            "device_kernels": sum(r[2] for r in rows),
-            "top": [{"name": k[:80], "device_us": d, "calls": c}
-                    for d, k, c in rows[:top]]}
-
-
 def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
           device=None, seed: int = 0, params=None, x=None,
           profile: bool = False, weights: str = "shared",
@@ -119,7 +84,7 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
     t0 = time.perf_counter()
     model = build(net, device=device, params=params, weights=weights,
                   binary_linear=binary_linear)
-    _sync(device)
+    sync(device)
     compile_s = time.perf_counter() - t0
     parties = Parties.setup(prf.PRNGKey(seed + 7), device=device)
     if x is None:
@@ -131,18 +96,18 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
     launches0 = dict(kbuild.LAUNCHES)
     with comm.track() as led:            # the warm-up query's ledger
         out = run(parties.keys, xs.shares)
-    _sync(device)
+    sync(device)
     assert tuple(out.shape) == (batch, 10), out.shape
     t0 = time.perf_counter()
     for _ in range(queries):
         out = run(parties.keys, xs.shares)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     qps = queries / dt
     per_query = {k: (v - launches0[k]) // (queries + 1)
                  for k, v in kbuild.LAUNCHES.items()}
-    prof = (_profile(run, parties.keys, xs.shares, device, dt / queries)
-            if profile else None)
+    prof = (profile_once(lambda: run(parties.keys, xs.shares), device,
+                         dt / queries) if profile else None)
     return {"profile": prof, "net": net, "weights": weights,
             "binary_linear": binary_linear, "batch": batch,
             "queries": queries,
@@ -189,14 +154,7 @@ def main(argv=None):
     print("[serve_secure] kernel launches per query: "
           + ", ".join(f"{k}={v}" for k, v in st["launches_per_query"].items()))
     if st["profile"] is not None:
-        pr = st["profile"]
-        print(f"[serve_secure] profiled query: device busy "
-              f"{pr['device_us']:.0f} us of a {pr['query_us']:.0f} us query "
-              f"({100 * pr['busy_share']:.1f}%), "
-              f"{pr['device_kernels']} device kernels")
-        for r in pr["top"]:
-            print(f"[serve_secure]   {r['device_us']:10.1f} us "
-                  f"{r['calls']:6d}x  {r['name']}")
+        print_profile("serve_secure", "query", st["profile"])
     if args.json:
         stats = {k: v for k, v in st.items() if k != "logits"}
         with open(args.json, "w") as f:

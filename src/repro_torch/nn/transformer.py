@@ -1,0 +1,216 @@
+"""Model assembly of the plaintext LM path: parameters, the prefill forward
+and the one-token decode step, for the dense GQA and the SSM families.
+
+Port of ``repro/nn/transformer.py`` (``layer_groups``, ``_layer_init``,
+``init_params``, ``_ffn_apply``, ``_block_fwd``, ``_embed_inputs`` for text
+tokens, ``forward``, ``_layer_cache``/``init_cache``, ``_block_decode``,
+``decode_step``, ``prefill_step``).  The reference stacks each group's
+layers on a leading axis and runs them with ``lax.scan`` under
+``jax.checkpoint``; here the layers are an ``nn.ModuleList`` walked by a
+Python loop, and there is no remat (a training concern) and no sharding
+hint (identity on one card).  Caches are one dict per layer, updated in
+place by the decode step.  MoE, MLA, the jamba interleave, the audio and
+vision frontends and the MTP head raise ``NotImplementedError``: they are
+queued in ROADMAP.md §A item 8.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn as nn
+
+from ..configs import ArchConfig
+from ..device import resolve_device
+from . import attention as attn
+from . import ssm as ssm_mod
+from .layers import (COMPUTE_DTYPE, apply_norm, dense_init, embed,
+                     embedding_init, mlp, mlp_init, norm_init, param)
+
+__all__ = ["Group", "layer_groups", "Block", "MambaLayer", "LM",
+           "init_params", "forward", "init_cache", "decode_step",
+           "prefill_step"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    kind: str   # block | mamba
+    count: int
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    missing = [what for what, on in (
+        ("MoE", cfg.moe), ("MLA", cfg.mla), ("jamba_period", cfg.attn_period),
+        (f"{cfg.frontend} frontend", cfg.frontend != "none"),
+        ("MTP", cfg.mtp)) if on]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported yet "
+            f"(ROADMAP.md §A item 8)")
+
+
+def layer_groups(cfg: ArchConfig) -> list[Group]:
+    _check_ported(cfg)
+    if cfg.family == "ssm":
+        return [Group("mamba", cfg.n_layers)]
+    return [Group("block", cfg.n_layers)]
+
+
+class Block(nn.Module):
+    """A pre-norm attention + MLP layer."""
+
+    def __init__(self, cfg: ArchConfig, device=None, gen=None):
+        super().__init__()
+        d = cfg.d_model
+        self.norm1 = norm_init(cfg.norm, d, device)
+        self.norm2 = norm_init(cfg.norm, d, device)
+        self.attn = attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, device)
+        self.ffn = mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, device)
+
+
+class MambaLayer(nn.Module):
+    """A pre-norm Mamba-2 layer."""
+
+    def __init__(self, cfg: ArchConfig, device=None, gen=None):
+        super().__init__()
+        self.norm1 = norm_init(cfg.norm, cfg.d_model, device)
+        self.mamba = ssm_mod.mamba2_init(
+            gen, cfg.d_model, cfg.mamba_expand, cfg.mamba_head_dim,
+            cfg.ssm_state, cfg.mamba_d_conv, device)
+
+
+_LAYERS = {"block": Block, "mamba": MambaLayer}
+
+
+def _layer_init(gen, cfg: ArchConfig, kind: str, device=None) -> nn.Module:
+    return _LAYERS[kind](cfg, device, gen)
+
+
+class LM(nn.Module):
+    """The parameters of one model: embedding, layers in order, final norm
+    and (untied) head.  ``kinds[i]`` is layer i's group kind."""
+
+    def __init__(self, cfg: ArchConfig, device=None, gen=None):
+        super().__init__()
+        self.embed = param(embedding_init(gen, cfg.vocab, cfg.d_model,
+                                          device))
+        self.final_norm = norm_init(cfg.norm, cfg.d_model, device)
+        self.head = None if cfg.tie_embeddings else \
+            param(dense_init(gen, cfg.d_model, cfg.vocab, device))
+        self.kinds = [g.kind for g in layer_groups(cfg)
+                      for _ in range(g.count)]
+        self.layers = nn.ModuleList(_layer_init(gen, cfg, kind, device)
+                                    for kind in self.kinds)
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
+    """Random parameters with the reference's distributions (uniform
+    ±1/sqrt(d_in) weights, N(0, 0.02²) embedding, N(0, 0.1²) conv taps,
+    unit norms), drawn by a ``torch.Generator`` on ``device`` from
+    ``seed``: not the reference's bits."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return LM(cfg, device, gen)
+
+
+# ---------------------------------------------------------------------------
+# Forward pieces
+# ---------------------------------------------------------------------------
+
+def _ffn_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return mlp(p, x, cfg.act, cfg.gated_mlp)
+
+
+def _block_fwd(p, h: torch.Tensor, cfg: ArchConfig, kind: str,
+               flash_impl=None) -> torch.Tensor:
+    """One layer, prefill mode. h: (B,S,d)."""
+    if kind == "mamba":
+        y, _ = ssm_mod.ssd_prefill(p.mamba, apply_norm(cfg.norm, p.norm1, h),
+                                   cfg)
+        return h + y
+    hin = apply_norm(cfg.norm, p.norm1, h)
+    y, _ = attn.gqa_prefill(p.attn, hin, cfg, causal=not cfg.encoder_only,
+                            flash_impl=flash_impl)
+    h = h + y
+    return h + _ffn_apply(p.ffn, apply_norm(cfg.norm, p.norm2, h), cfg)
+
+
+def _embed_inputs(params: LM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    _check_ported(cfg)
+    return embed(params.embed, batch["tokens"])
+
+
+def _head(params: LM) -> torch.Tensor:
+    return params.embed.T if params.head is None else params.head
+
+
+def forward(params: LM, batch: dict, cfg: ArchConfig,
+            flash_impl=None) -> torch.Tensor:
+    """Full-sequence forward -> logits (B,S,V) in the compute dtype."""
+    h = _embed_inputs(params, batch, cfg)
+    for lp, kind in zip(params.layers, params.kinds):
+        h = _block_fwd(lp, h, cfg, kind, flash_impl)
+    h = apply_norm(cfg.norm, params.final_norm, h)
+    return h.to(COMPUTE_DTYPE) @ _head(params).to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Decode path (KV / state caches)
+# ---------------------------------------------------------------------------
+
+def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
+                 device=None) -> dict:
+    if kind == "block":
+        shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+                "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+    if kind == "mamba":
+        di = cfg.mamba_expand * cfg.d_model
+        h = di // cfg.mamba_head_dim
+        return {"state": torch.zeros((batch, h, cfg.mamba_head_dim,
+                                      cfg.ssm_state), dtype=torch.float32,
+                                     device=device),
+                "conv": torch.zeros((batch, cfg.mamba_d_conv - 1,
+                                     di + 2 * cfg.ssm_state),
+                                    dtype=COMPUTE_DTYPE, device=device)}
+    raise ValueError(kind)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
+               device=None) -> list[dict]:
+    """One cache dict per layer, in layer order."""
+    device = resolve_device(device)
+    return [_layer_cache(cfg, g.kind, batch, max_seq, device)
+            for g in layer_groups(cfg) for _ in range(g.count)]
+
+
+def _block_decode(p, c: dict, h: torch.Tensor, pos: int, cfg: ArchConfig,
+                  kind: str):
+    if kind == "mamba":
+        y, c2 = ssm_mod.ssd_decode(p.mamba, apply_norm(cfg.norm, p.norm1, h),
+                                   c, cfg)
+        return h + y, c2
+    y, c2 = attn.gqa_decode(p.attn, apply_norm(cfg.norm, p.norm1, h), c, pos,
+                            cfg)
+    h = h + y
+    return h + _ffn_apply(p.ffn, apply_norm(cfg.norm, p.norm2, h), cfg), c2
+
+
+def decode_step(params: LM, cache: list[dict], tokens: torch.Tensor,
+                pos: int, cfg: ArchConfig):
+    """One serving step: tokens (B,1) at position ``pos`` -> (logits
+    (B,1,V) in float32, cache)."""
+    h = embed(params.embed, tokens)
+    new_cache = []
+    for lp, lc, kind in zip(params.layers, cache, params.kinds):
+        h, c2 = _block_decode(lp, lc, h, pos, cfg, kind)
+        new_cache.append(c2)
+    h = apply_norm(cfg.norm, params.final_norm, h)
+    return h.float() @ _head(params).float(), new_cache
+
+
+def prefill_step(params: LM, batch: dict, cfg: ArchConfig,
+                 flash_impl=None) -> torch.Tensor:
+    """Prefill: forward over the prompt, last-position logits (B,V)."""
+    return forward(params, batch, cfg, flash_impl)[:, -1]

@@ -7,19 +7,51 @@ bits: the reference's ``uint32`` words are the port's ``int32`` words.
 ``grid_quantize`` is the grid-quantised weight trick of the reference's
 secure-vs-plaintext tests, under which the secure logits provably equal
 the plaintext forward's to within the fixed-point noise.
+``lm_params_from_numpy`` takes the JAX package's LM parameters (its
+``nn.transformer.init_params`` output as numpy arrays) into the port's
+``LM`` module, splitting each stacked layer group along its first axis.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "ring_from_numpy", "ring_to_numpy",
-           "grid_quantize"]
+from .nn.transformer import LM, layer_groups
+
+__all__ = ["params_from_numpy", "lm_params_from_numpy", "ring_from_numpy",
+           "ring_to_numpy", "grid_quantize"]
 
 
 def params_from_numpy(params: dict, device="cpu") -> dict:
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in params.items()}
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", np.asarray(v, np.float32)
+
+
+def lm_params_from_numpy(params: dict, cfg, device="cpu") -> LM:
+    """The reference's nested LM parameter dict (``group{i}`` leaves stacked
+    over the group's layers) -> the port's ``LM`` on ``device``."""
+    state, first = {}, 0
+    for gi, g in enumerate(layer_groups(cfg)):
+        for name, arr in _leaves(params[f"group{gi}"]):
+            assert arr.shape[0] == g.count, (name, arr.shape, g.count)
+            for i in range(g.count):
+                state[f"layers.{first + i}.{name}"] = arr[i]
+        first += g.count
+    state.update(_leaves({k: v for k, v in params.items()
+                          if not k.startswith("group")}))
+    model = LM(cfg, device="meta")
+    model.load_state_dict({k: torch.tensor(v, device=device)
+                           for k, v in state.items()}, strict=True,
+                          assign=True)
+    return model
 
 
 def ring_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:

@@ -269,3 +269,93 @@ def test_per_dot_layer_runs_on_b5_only(cuda, matmul_mode, mode, launches):
     want = linear.linear_layer(x, None, b, parties.fresh(), w_limbs=wl)
     assert torch.equal(reconstruct(got, decode=False),
                        reconstruct(want, decode=False))
+
+
+# -- B8 / B9: the float kernels of the LM path --------------------------------
+
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import ssd  # noqa: E402
+
+
+def _normal(shape, seed, scale=1.0):
+    return torch.as_tensor(np.random.default_rng(seed).normal(0, scale,
+                                                              shape),
+                           dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,hkv,hd", [(256, 4, 4, 64), (256, 8, 2, 64),
+                                        (128, 4, 1, 32), (1000, 4, 2, 64),
+                                        (33, 2, 1, 32), (70, 2, 2, 32)])
+def test_flash_attention_cuda_equals_plain(cuda, s, h, hkv, hd):
+    """fp32 at the reference's 2e-5 (its kernel-test tolerance), any S."""
+    q = _normal((2, s, h, hd), 1)
+    k, v = _normal((2, s, hkv, hd), 2), _normal((2, s, hkv, hd), 3)
+    launches = kbuild.LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q.to(cuda), k.to(cuda), v.to(cuda))
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["flash_attention"] == launches + 1
+    want = flash.flash_attention_ref(q, k, v)
+    assert float((got.cpu() - want).abs().max()) < 2e-5
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_bf16_strided(cuda):
+    """bf16 q/k/v read through strides (slices of one fused qkv buffer, as
+    a projection gives them): within one bf16 rounding of the plain
+    version, whose float32 math the kernel repeats."""
+    b, s, h, hkv, hd = 2, 300, 8, 2, 64
+    qkv = _normal((b, s, (h + 2 * hkv) * hd), 4).to(torch.bfloat16)
+    q = qkv[..., :h * hd].reshape(b, s, h, hd)
+    k = qkv[..., h * hd:(h + hkv) * hd].reshape(b, s, hkv, hd)
+    v = qkv[..., (h + hkv) * hd:].reshape(b, s, hkv, hd)
+    got = ops.flash_attention_op(q.to(cuda), k.to(cuda), v.to(cuda)).cpu()
+    want = flash.flash_attention_ref(q, k, v)
+    assert got.dtype == torch.bfloat16
+    bound = 2.0 ** -7 * want.float().abs() + 1e-5
+    assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,hd,n,chunk", [
+    (128, 2, 32, 16, 64), (256, 1, 64, 32, 64), (64, 4, 16, 8, 32),
+    (512, 2, 64, 128, 256)])
+def test_ssd_scan_cuda_equals_plain(cuda, s, h, hd, n, chunk):
+    """Both sides run the same float32 chunk math: within 2e-5 of max |y|
+    (the reference's 5e-4 is its kernel-against-recurrence tolerance), and
+    a repeat is bit-identical (the kernel sums in a fixed order)."""
+    x = _normal((2, s, h, hd), 5, 0.5)
+    bm, cm = _normal((2, s, n), 6, 0.5), _normal((2, s, n), 7, 0.5)
+    da = -_normal((2, s, h), 8, 0.3).abs()
+    dt = _normal((2, s, h), 9, 0.3).abs() + 0.1
+    dev = [t.to(cuda) for t in (x, bm, cm, da, dt)]
+    launches = kbuild.LAUNCHES["ssd_scan"]
+    got = ssd.ssd_scan(*dev, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["ssd_scan"] == launches + 1
+    assert torch.equal(ssd.ssd_scan(*dev, chunk=chunk), got)
+    want = ssd.ssd_scan_ref(x, bm, cm, da, dt, chunk=chunk)
+    assert float((got.cpu() - want).abs().max()) \
+        <= 2e-5 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_float_kernels_never_take_the_plain_version(cuda, monkeypatch):
+    """On a card B8 and B9 launch or raise; the plain versions never run."""
+    monkeypatch.setattr(flash, "flash_attention_ref",
+                        lambda *a, **k: pytest.fail("plain version on a card"))
+    monkeypatch.setattr(ssd, "ssd_chunked",
+                        lambda *a, **k: pytest.fail("plain version on a card"))
+    q = torch.zeros((1, 5, 2, 48), device=cuda)
+    with pytest.raises(ValueError):     # head dim 48 is not instantiated
+        ops.flash_attention_op(q, q, q)
+    x = torch.zeros((1, 192, 2, 16), device=cuda)
+    bm = torch.zeros((1, 192, 8), device=cuda)
+    da = torch.zeros((1, 192, 2), device=cuda)
+    with pytest.raises(ValueError):     # chunk 96: neither <= 64 nor 64k
+        ssd.ssd_scan(x, bm, bm, da, da, chunk=96)
+    with pytest.raises(AssertionError):  # S % chunk != 0
+        ssd.ssd_scan(x, bm, bm, da, da, chunk=128)
+    out = ops.flash_attention_op(q[..., :32], q[..., :32], q[..., :32])
+    assert out.shape == (1, 5, 2, 32)
+    assert ssd.ssd_scan(x, bm, bm, da, da, chunk=32).shape == x.shape

@@ -1,0 +1,161 @@
+"""Port kernel B9 and the Mamba-2 block: the plain ``ssd_scan`` against the
+reference's ``kernels/ssd.py::ssd_scan`` (its Pallas kernel in interpret
+mode) and against the float64 recurrence, and ``ssd_prefill`` /
+``ssd_decode`` against the reference's.  The CUDA cases (kernel == plain
+version) are in test_torch_cuda.py.
+
+Tolerances: the scan in float32 at the reference's 5e-4 (its kernel test
+against the recurrence); the port's scan against the Pallas kernel at 1e-5
+(both float32, same chunk math, other summation orders); the block's bf16
+output within one bf16 ulp of its largest value (2^-7 of the scale: the
+output projection sums one-ulp differences of its bf16 input); the decode
+step's bf16 conv cache (the input projection's output) within one bf16
+rounding of each value; the float32 SSM state at 1e-5 of its scale."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_config
+from repro.kernels.ssd import ssd_scan as jssd_scan
+from repro.nn import ssm as jssm
+from repro_torch.configs import get_config
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import ssd
+from repro_torch.nn import ssm
+
+torch.set_num_threads(1)
+
+SHAPES = [(128, 2, 32, 16, 64), (256, 1, 64, 32, 64), (64, 4, 16, 8, 32)]
+
+
+def _recurrence(x, bmat, cmat, da, dt):
+    """The sequential SSM recurrence in float64 (the reference's
+    ``tests/test_ssd_kernel.py::_ssd_reference``)."""
+    x, bmat, cmat, da, dt = (np.asarray(a, np.float64)
+                             for a in (x, bmat, cmat, da, dt))
+    bsz, s, h, hd = x.shape
+    state = np.zeros((bsz, h, hd, bmat.shape[-1]))
+    y = np.zeros_like(x)
+    for t in range(s):
+        xdt = x[:, t] * dt[:, t][..., None]
+        state = state * np.exp(da[:, t])[:, :, None, None] \
+            + xdt[..., None] * bmat[:, t][:, None, None, :]
+        y[:, t] = np.einsum("bhdn,bn->bhd", state, cmat[:, t])
+    return y
+
+
+def _inputs(s, h, hd, n, seed, bsz=2):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return (rng.normal(0, 0.5, (bsz, s, h, hd)).astype(f),
+            rng.normal(0, 0.5, (bsz, s, n)).astype(f),
+            rng.normal(0, 0.5, (bsz, s, n)).astype(f),
+            -rng.uniform(0, 0.5, (bsz, s, h)).astype(f),
+            rng.uniform(0.1, 1.0, (bsz, s, h)).astype(f))
+
+
+@pytest.mark.parametrize("s,h,hd,n,chunk", SHAPES)
+def test_plain_ssd_scan_matches_pallas_and_recurrence(s, h, hd, n, chunk):
+    xs = _inputs(s, h, hd, n, s + h)
+    before = dict(kbuild.LAUNCHES)
+    got = ssd.ssd_scan(*map(torch.as_tensor, xs), chunk=chunk).numpy()
+    assert kbuild.LAUNCHES == before      # CPU tensors: the plain version
+    pallas = np.asarray(jssd_scan(*map(jnp.asarray, xs), chunk=chunk))
+    assert np.abs(got - pallas).max() < 1e-5
+    assert np.abs(got - _recurrence(*xs)).max() < 5e-4
+
+
+def test_ssd_scan_requires_whole_chunks():
+    xs = map(torch.as_tensor, _inputs(48, 1, 16, 8, 0))
+    with pytest.raises(AssertionError):
+        ssd.ssd_scan(*xs, chunk=32)
+
+
+def _cfgs(chunk=32):
+    return (dataclasses.replace(get_config("mamba2-1.3b").reduced(),
+                                ssd_chunk=chunk),
+            dataclasses.replace(ref_config("mamba2-1.3b").reduced(),
+                                ssd_chunk=chunk))
+
+
+def _mamba(cfg, rcfg, seed):
+    jp = jssm.mamba2_init(jax.random.PRNGKey(seed), rcfg.d_model,
+                          rcfg.mamba_expand, rcfg.mamba_head_dim,
+                          rcfg.ssm_state, rcfg.mamba_d_conv)
+    # A_log, dt_bias and D off their zero / one init, so every term counts
+    rng = np.random.default_rng(seed)
+    jp = {**jp, **{k: jnp.asarray(rng.uniform(lo, hi, jp[k].shape),
+                                  jnp.float32)
+                   for k, lo, hi in (("A_log", -1.0, 1.0),
+                                     ("dt_bias", -1.0, 1.0),
+                                     ("D", 0.5, 1.5))}}
+    p = ssm.Mamba2(cfg.d_model, cfg.mamba_expand, cfg.mamba_head_dim,
+                   cfg.ssm_state, cfg.mamba_d_conv, device="meta")
+    p.load_state_dict({k: torch.tensor(np.asarray(v)) for k, v in jp.items()},
+                      assign=True)
+    return jp, p
+
+
+def _close(got: torch.Tensor, want, rel: float) -> bool:
+    want = torch.tensor(np.asarray(want, np.float32))
+    return float((got.float() - want).abs().max()) \
+        <= rel * float(want.abs().max())
+
+
+def _within_bf16(got: torch.Tensor, want) -> bool:
+    want = torch.tensor(np.asarray(want, np.float32))
+    return bool(((got.float() - want).abs()
+                 <= 2.0 ** -7 * want.abs() + 1e-6).all())
+
+
+@pytest.mark.parametrize("s", [64, 50])     # whole chunks, and padded
+def test_ssd_prefill_matches_reference(s):
+    cfg, rcfg = _cfgs()
+    jp, p = _mamba(cfg, rcfg, 0)
+    u = np.random.default_rng(1).normal(0, 0.3, (2, s, cfg.d_model)) \
+        .astype(np.float32)
+    want, wstate = jssm.ssd_prefill(jp, jnp.asarray(u), rcfg)
+    got, state = ssm.ssd_prefill(p, torch.as_tensor(u), cfg)
+    assert got.shape == (2, s, cfg.d_model) and got.dtype == torch.bfloat16
+    assert _close(got, want.astype(jnp.float32), 2.0 ** -7)
+    assert _close(state, wstate, 1e-5)
+
+
+def test_ssd_scan_matches_ssm_module_inputs():
+    """The reference's ``test_ssd_kernel_matches_ssm_module``: the scan on
+    the inputs the module feeds its chunk scan, against the recurrence."""
+    cfg, rcfg = _cfgs()
+    _, p = _mamba(cfg, rcfg, 2)
+    u = torch.as_tensor(np.random.default_rng(3).normal(
+        0, 0.3, (2, 64, cfg.d_model)).astype(np.float32))
+    _, x, bmat, cmat, da, dt = ssm.ssd_inputs(p, u, cfg)
+    xs = (x.float(), bmat.float(), cmat.float(), da, dt)
+    got = ssd.ssd_scan(*xs, chunk=32).numpy()
+    assert np.abs(got - _recurrence(*(t.numpy() for t in xs))).max() < 5e-4
+
+
+def test_ssd_decode_matches_reference():
+    """Five one-token steps from a zero cache: outputs, state, conv."""
+    cfg, rcfg = _cfgs()
+    jp, p = _mamba(cfg, rcfg, 4)
+    d_inner = cfg.mamba_expand * cfg.d_model
+    h = d_inner // cfg.mamba_head_dim
+    shapes = {"state": ((2, h, cfg.mamba_head_dim, cfg.ssm_state),
+                        np.float32),
+              "conv": ((2, cfg.mamba_d_conv - 1, d_inner + 2 * cfg.ssm_state),
+                       jnp.bfloat16)}
+    jc = {k: jnp.zeros(s, dt) for k, (s, dt) in shapes.items()}
+    c = {"state": torch.zeros(shapes["state"][0]),
+         "conv": torch.zeros(shapes["conv"][0], dtype=torch.bfloat16)}
+    us = np.random.default_rng(5).normal(0, 0.3, (2, 5, cfg.d_model)) \
+        .astype(np.float32)
+    for t in range(5):
+        want, jc = jssm.ssd_decode(jp, jnp.asarray(us[:, t:t + 1]), jc, rcfg)
+        got, c = ssm.ssd_decode(p, torch.as_tensor(us[:, t:t + 1]), c, cfg)
+        assert _close(got, want.astype(jnp.float32), 2.0 ** -7)
+        assert _close(c["state"], jc["state"], 1e-5)
+        assert _within_bf16(c["conv"], jc["conv"])
