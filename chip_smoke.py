@@ -14,9 +14,12 @@ Phases, each fatal on failure:
               bin_bin_matmul) at the reference's kernel-test shapes and
               MnistNet4's layer shapes at batch 32; each must equal its
               plain PyTorch version, computed on CPU copies of the same
-              inputs (torch has no integer matmul on CUDA), exactly.  Times:
-              CUDA events, median of 30 launches after warm-up; B7 also
-              times torch._int_mm (cuBLAS) where its shape rules hold.
+              inputs (torch has no integer matmul on CUDA), exactly, and B7
+              must repeat bit for bit at MnistNet4's shapes (fc1 splits K
+              over blocks that add with atomics: a repeat that differs is a
+              race).  Times: CUDA events, median of 30 launches after
+              warm-up; B7 also times torch._int_mm (cuBLAS) where its shape
+              rules hold, and prints its factor to it.
 3. path     - the port's serving entry point on the card at batch 32, for
               every path of PINNED: CifarNet2 and MnistNet1 with shared
               weights (rss_matmul, grouped_rss_matmul) and with public
@@ -46,12 +49,15 @@ Phases, each fatal on failure:
               on the three shares of a secret (B6), each held to a float64
               product on the card.
 7. lm kernels - B8 flash_attention at the reference's kernel-test shapes
-              (float32, its 2e-5), a ragged S = 1000, and TinyLlama-1.1B's
-              prefill shape (2, 2048, 32, 4, 64) in bf16 (within one bf16
-              rounding of each value); B9 ssd_scan at the reference's three
-              kernel-test shapes and at Mamba2-1.3B's layer shape (2, 2048,
-              64, 64, 128; chunk 256) on the inputs of a full-width Mamba2
-              layer, all at the reference's 5e-4.  The plain versions run on
+              and a ragged S = 1000 in float32 (the CUDA-core route, at the
+              reference's 2e-5), then in bf16 (the tensor-core route, each
+              value within one bf16 rounding of the plain version's) a
+              ragged S = 1000 with GQA, hd 32, MHA, and TinyLlama-1.1B's
+              prefill shape (2, 2048, 32, 4, 64); B9 ssd_scan at the
+              reference's three kernel-test shapes and at Mamba2-1.3B's
+              layer shape (2, 2048, 64, 64, 128; chunk 256) on the inputs
+              of a full-width Mamba2 layer, all within 2e-5 of max |y| and
+              bit-identical on repeats.  The plain versions run on
               the host CPU.  Times as in phase 2; B8's library column is
               scaled_dot_product_attention (causal, GQA) at the same shape.
 8. lm paths - Mamba2-1.3B at full width and depth (48 layers): a 2 x 2048
@@ -138,11 +144,15 @@ SOURCES = {**{name: f"src/repro_torch/csrc/{name}.cu"
            "bin_bin_matmul": "src/repro_torch/csrc/binary_matmul.cu"}
 
 
-# B8: the reference's kernel-test shapes (B, S, H, Hkv, hd) in float32, a
-# ragged S, and TinyLlama-1.1B's prefill at batch 2 x 2048 in bf16 (last)
+# B8: the reference's kernel-test shapes (B, S, H, Hkv, hd) in float32 and
+# a ragged S; in bf16 a ragged S with GQA, hd 32, MHA, and TinyLlama-1.1B's
+# prefill at batch 2 x 2048 (last: the row's numbers)
 FLASH_SHAPES = [(2, 256, 4, 4, 64, "float32"), (2, 256, 8, 2, 64, "float32"),
                 (2, 128, 4, 1, 32, "float32"), (2, 1000, 4, 2, 64, "float32"),
+                (2, 1000, 8, 2, 64, "bfloat16"),
+                (2, 128, 4, 1, 32, "bfloat16"), (2, 256, 4, 4, 64, "bfloat16"),
                 (2, 2048, 32, 4, 64, "bfloat16")]
+BB_REPEATS = 5             # B7 repeats at MnistNet4's shapes, bit for bit
 # B9: the reference's kernel-test shapes (B, S, H, hd, N, chunk); Mamba2's
 # layer shape comes from a full-width layer
 SSD_SHAPES = [(2, 128, 2, 32, 16, 64), (2, 256, 1, 64, 32, 64),
@@ -423,6 +433,11 @@ def check_ring_kernels() -> list:
                 err = int((got.cpu().long() - want.long()).abs().max())
                 fail(f"{name} ({m}, {k}, {n}) {kind}: kernel != plain "
                      f"version (max abs err {err})")
+            if name == "bin_bin_matmul" and (m, k, n) in MNIST4_SHAPES:
+                for _ in range(BB_REPEATS):
+                    if not torch.equal(run(), got):
+                        fail(f"{name} ({m}, {k}, {n}): repeats of one "
+                             f"launch differ")
             ms = median_ms(run)
             pms = host_ms(lambda: plain(a, b))
             lib = None
@@ -441,8 +456,11 @@ def check_ring_kernels() -> list:
             print(f"[chip_smoke] {name} ({m}, {k}, {n}) {kind}: {ms:.5f} ms "
                   f"(bound {bound:.5f} ms, {100 * bound / ms:.1f}% of "
                   f"bound), plain on host {pms:.3f} ms"
-                  + (f", torch._int_mm {lib:.5f} ms" if lib is not None
-                     else "") + ", exact")
+                  + (f", torch._int_mm {lib:.5f} ms ({ms / lib:.2f}x)"
+                     if lib is not None else "") + ", exact"
+                  + (f", {BB_REPEATS} repeats bit-identical"
+                     if name == "bin_bin_matmul" and (m, k, n) in MNIST4_SHAPES
+                     else ""))
             if (m, k, n) in MNIST4_SHAPES and kind == "pm1":
                 tot["ms"] += ms
                 tot["plain_ms"] += pms

@@ -7,122 +7,280 @@
 // A into 4 balanced int8 limbs for 4 int8 MXU dots.  Here each word is
 // multiplied by the sign-extended weight with IMAD and accumulated in
 // uint32_t, whose wrap is the ring arithmetic: exact for any int8 weight.
+// It is ring_tile.cuh's tile loop (shared with ring_matmul.cu) on int8
+// weights.
 //
 // bin_bin_matmul replaces _bb_kernel (pallas_call in binary_binary_matmul):
-// the plaintext BNN layer, int8 A (M, K) times int8 W (K, N) into int32.
-// K is packed 4 bytes to a word and contracted with __dp4a (four signed
-// byte products and their sum per instruction), accumulating in int32 with
-// wraparound, as the reference's int32 accumulator does.
+// the plaintext BNN layer, int8 A (M, K) times int8 W (K, N) into int32,
+// on the int8 tensor cores: mma.sync m16n8k32 .s32.s8.s8.s32 with no
+// .satfinite, so the int32 sums wrap as the reference's int32 accumulator
+// does and the result is exact for any int8 operands.  (wgmma's 64-row
+// tiles would waste half of the M = 32 fc layers, hence mma.sync.)
 //
-// Layout: bin_weight_matmul is ring_tile.cuh's tile loop (shared with
-// ring_matmul.cu) on int8 weights.  bin_bin_matmul has the same tiling: one
-// block per (64-row, 64-col) output tile, 256 threads owning 4 x 4 outputs
-// each, strided by 16 so shared-memory reads are conflict-free, a K loop
-// staging slabs of both operands in shared memory.  Ragged M/K/N edges are
-// masked in the loads (zero bytes) and the stores: no padding, every shape
-// launches the kernel.
+//  * Tiles: a block of 4 warps owns a 32 x 64 output tile, each warp 16 x
+//    32 (four m16n8 accumulators), and walks K in 128-byte slabs.
+//  * Staging: A is K-contiguous, W is N-contiguous.  When K and N are
+//    multiples of 16 and the bases 16-byte aligned, both slabs are copied
+//    by 16-byte cp.async into a three-stage ring (zero-filled past the
+//    edges); each W slab is then transposed in shared memory, 4 x 4 bytes a
+//    thread with byte permutes, into K-contiguous columns.  Otherwise
+//    (conv1's K = 25, fc2's N = 10, the ragged test shapes) the slabs are
+//    gathered byte by byte, masked with zeros, straight into the same
+//    layouts.  Both layouts XOR-swizzle their 16-byte chunks by row, so
+//    every ldmatrix, and the cp.async path's transposed stores, are free
+//    of bank conflicts.  A warp multiplies only the 32-byte K steps that
+//    hold data, and a warp whose columns all lie past N none.
+//  * Split-K: where the (m, n) tile grid has fewer blocks than the card
+//    has SMs (MnistNet4's fc1, 32 x 3136 x 512, has 8), K is split over
+//    grid.z and the partial sums are added with int32 atomics into an
+//    output zeroed first (cudaMemsetAsync on the same stream).  Integer
+//    addition mod 2^32 does not depend on order, so every run is
+//    bit-identical.
 //
 // What bounds them: at the classifier's shapes, bytes (each input read once,
 // the output written once, over 3.35 TB/s) or, for the deepest fc layer,
 // the int8 operation count the TPU route needs (4 dots a cell for
-// bin_weight_matmul, 1 for bin_bin_matmul).  CUDA-core issue limits these
-// first versions; the int8 tensor cores (wgmma .s8) are the redesign.
+// bin_weight_matmul, 1 for bin_bin_matmul).
 
 #include "ring_tile.cuh"
 
 namespace {
 
-using ring_tile::BM;
-using ring_tile::BN;
-using ring_tile::TM;
-using ring_tile::TN;
-using ring_tile::THREADS;
-using ring_tile::tile_grid;
-
 // ---------------------------------------------------------------------------
-// int8 x int8 -> int32 with __dp4a over 4-packed K
+// bin_bin_matmul: int8 x int8 -> int32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int BK_B = 64;          // K per slab
-constexpr int GK = BK_B / 4;      // packed words per slab row
+namespace bb {
 
-__device__ __forceinline__ uint32_t pack_byte(int8_t v, int t) {
-  return (uint32_t)(uint8_t)v << (8 * t);
+constexpr int BM = 32;          // output rows of a block
+constexpr int BN = 64;          // output cols of a block
+constexpr int BK = 128;         // K bytes of a slab (8 chunks of 16)
+constexpr int THREADS = 128;    // 4 warps: 2 (m) x 2 (n) of 16 x 32
+constexpr int STAGES = 3;       // slabs in flight (aligned path)
+constexpr int WPITCH = BN + 16; // raw W slab row, bytes (2-way reads)
+constexpr int A_BYTES = BM * BK;
+constexpr int WRAW_BYTES = BK * WPITCH;
+constexpr int WT_BYTES = BN * BK;
+constexpr int SMEM_ALIGNED = STAGES * (A_BYTES + WRAW_BYTES) + WT_BYTES;
+constexpr int SMEM_GATHER = A_BYTES + WT_BYTES;
+
+// byte offset of 16-byte chunk `ch` of row `r` in a 128-byte-row tile
+__device__ __forceinline__ int a_off(int r, int ch) {
+  return r * BK + ((ch ^ (r & 7)) << 4);
+}
+__device__ __forceinline__ int w_off(int n, int ch) {
+  return n * BK + ((ch ^ ((n ^ (n >> 3)) & 7)) << 4);
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+// d += a (16x32 s8, row) * b (32x8 s8, col); int32 sums wrap mod 2^32
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// one slab: each warp's 16 x 32 outputs over the slab's first 32 * ksteps
+// bytes of K (the rest of a ragged last slab is zeros)
+__device__ __forceinline__ void slab_mma(int32_t (&acc)[4][4],
+                                         const uint8_t* as,
+                                         const uint8_t* wt, int wm, int wn,
+                                         int lane, int ksteps) {
+#pragma unroll
+  for (int ks = 0; ks < BK / 32; ++ks) {
+    if (ks >= ksteps) break;
+    uint32_t af[4];
+    const int r = wm * 16 + (lane & 15);
+    ldsm_x4(af, as + a_off(r, 2 * ks + (lane >> 4)));
+#pragma unroll
+    for (int jp = 0; jp < 2; ++jp) {
+      uint32_t bf[4];
+      const int n = wn * 32 + jp * 16 + (lane & 7) + ((lane >> 4) << 3);
+      ldsm_x4(bf, wt + w_off(n, 2 * ks + ((lane >> 3) & 1)));
+      mma_s8(acc[2 * jp], af, bf[0], bf[1]);
+      mma_s8(acc[2 * jp + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// aligned path: raw W slab [k][n] -> wt [n][k], 4 x 4 bytes a thread
+__device__ __forceinline__ void transpose_w(const uint8_t* wraw, uint8_t* wt,
+                                            int tid) {
+  const int lane = tid & 31;
+#pragma unroll
+  for (int j = 0; j < (BK / 4) * (BN / 4) / THREADS; ++j) {
+    const int grp = j * (THREADS / 32) + tid / 32;   // 16 groups of 32
+    const int nb = (grp & 1) * 8 + (lane & 7);       // 4 columns from 4nb
+    const int kb = (grp >> 1) * 4 + (lane >> 3);     // 4 rows from 4kb
+    uint32_t w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      w[r] = *reinterpret_cast<const uint32_t*>(
+          wraw + (4 * kb + r) * WPITCH + 4 * nb);
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+    const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+    const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+    const uint32_t col[4] = {__byte_perm(t0, t2, 0x5410),
+                             __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410),
+                             __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<uint32_t*>(wt + w_off(4 * nb + c, kb >> 2)
+                                   + (kb & 3) * 4) = col[c];
+  }
+}
+
+template <bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
 bin_bin_matmul_kernel(const int8_t* __restrict__ a,
                       const int8_t* __restrict__ w,
-                      int32_t* __restrict__ c,
-                      long long M, int K, int N) {
-  __shared__ int32_t as[GK][BM + 1];   // 4 consecutive k of one row
-  __shared__ int32_t ws[GK][BN];       // 4 consecutive k of one column
-
+                      int32_t* __restrict__ c, long long M, int K, int N,
+                      int k_split) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int kbeg = blockIdx.z * k_split;
+  const int kend = min(K, kbeg + k_split);
+  const int n_slabs = (kend - kbeg + BK - 1) / BK;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp & 1, wn = warp >> 1;
+  // a warp whose 32 columns all lie past N (N = 32 or less) multiplies
+  // nothing but still stages and syncs with the block
+  const bool live = n0 + wn * 32 < N;
 
-  int32_t acc[TM][TN];
+  int32_t acc[4][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0;
 
-  for (int k0 = 0; k0 < K; k0 += BK_B) {
-    for (int e = tid; e < BM * GK; e += THREADS) {
-      const int r = e / GK;
-      const int g = e % GK;
-      const long long gm = m0 + r;
-      uint32_t word = 0u;
+  if constexpr (ALIGNED) {
+    uint8_t* as = smem;                               // STAGES A slabs
+    uint8_t* wraw = smem + STAGES * A_BYTES;          // STAGES raw W slabs
+    uint8_t* wt = wraw + STAGES * WRAW_BYTES;         // transposed W slab
+    auto load_slab = [&](int slab, int stage) {
+      const int k0 = kbeg + slab * BK;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int gk = k0 + 4 * g + t;
-        if (gm < M && gk < K) word |= pack_byte(a[gm * K + gk], t);
+      for (int j = 0; j < BM * (BK / 16) / THREADS; ++j) {
+        const int i = tid + j * THREADS;
+        const int r = i >> 3, ch = i & 7;
+        const long long gm = m0 + r;
+        const int gk = k0 + ch * 16;
+        const bool ok = gm < M && gk < kend;
+        cp_async16(as + stage * A_BYTES + a_off(r, ch),
+                   a + (ok ? gm * K + gk : 0), ok);
       }
-      as[g][r] = (int32_t)word;
-    }
-    for (int e = tid; e < GK * BN; e += THREADS) {
-      const int g = e / BN;
-      const int col = e % BN;
-      const int gn = n0 + col;
-      uint32_t word = 0u;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int gk = k0 + 4 * g + t;
-        if (gk < K && gn < N)
-          word |= pack_byte(w[(long long)gk * N + gn], t);
+      for (int j = 0; j < BK * (BN / 16) / THREADS; ++j) {
+        const int i = tid + j * THREADS;
+        const int r = i >> 2, ch = i & 3;
+        const int gk = k0 + r, gn = n0 + ch * 16;
+        const bool ok = gk < kend && gn < N;
+        cp_async16(wraw + stage * WRAW_BYTES + r * WPITCH + ch * 16,
+                   w + (ok ? (long long)gk * N + gn : 0), ok);
       }
-      ws[g][col] = (int32_t)word;
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < n_slabs) load_slab(s, s);
+      cp_async_commit();
     }
-    __syncthreads();
-#pragma unroll
-    for (int g = 0; g < GK; ++g) {
-      int32_t x[TM], y[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) x[i] = as[g][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) y[j] = ws[g][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(x[i], y[j], acc[i][j]);
+    for (int t = 0; t < n_slabs; ++t) {
+      const int nxt = t + STAGES - 1;
+      if (nxt < n_slabs) load_slab(nxt, nxt % STAGES);
+      cp_async_commit();
+      cp_async_wait<STAGES - 1>();   // slab t has landed
+      __syncthreads();
+      transpose_w(wraw + (t % STAGES) * WRAW_BYTES, wt, tid);
+      __syncthreads();
+      if (live)
+        slab_mma(acc, as + (t % STAGES) * A_BYTES, wt, wm, wn, lane,
+                 (min(BK, kend - kbeg - t * BK) + 31) / 32);
+      __syncthreads();   // wt and this stage are rewritten next
     }
-    __syncthreads();
+  } else {
+    uint8_t* as = smem;
+    uint8_t* wt = smem + A_BYTES;
+    for (int t = 0; t < n_slabs; ++t) {
+      const int k0 = kbeg + t * BK;
+      // only the k32 steps that hold data are staged and multiplied
+      const int ksteps = (min(BK, kend - k0) + 31) / 32;
+      const int words = 8 * ksteps;   // 4-byte words of K a row or column
+      // A: BM rows, 4 consecutive k of one row a word
+      for (int i = tid; i < BM * words; i += THREADS) {
+        const int r = i / words, kw = i % words;
+        const long long gm = m0 + r;
+        uint32_t word = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gk = k0 + 4 * kw + e;
+          if (gm < M && gk < kend)
+            word |= (uint32_t)(uint8_t)a[gm * K + gk] << (8 * e);
+        }
+        *reinterpret_cast<uint32_t*>(as + a_off(r, kw >> 2) + (kw & 3) * 4)
+            = word;
+      }
+      // W: BN columns, 4 consecutive k of one column a word
+      for (int i = tid; i < BN * words; i += THREADS) {
+        const int n = i % BN, kw = i / BN;
+        const int gn = n0 + n;
+        uint32_t word = 0u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gk = k0 + 4 * kw + e;
+          if (gn < N && gk < kend)
+            word |= (uint32_t)(uint8_t)w[(long long)gk * N + gn] << (8 * e);
+        }
+        *reinterpret_cast<uint32_t*>(wt + w_off(n, kw >> 2) + (kw & 3) * 4)
+            = word;
+      }
+      __syncthreads();
+      if (live) slab_mma(acc, as, wt, wm, wn, lane, ksteps);
+      __syncthreads();
+    }
   }
 
+  // C fragment: rows lane/4 (+8), cols 2 * (lane % 4) (+1) of each n8 tile
+  const bool split = gridDim.z > 1;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) c[gm * N + gn] = acc[i][j];
+    for (int e = 0; e < 4; ++e) {
+      const long long gm = m0 + wm * 16 + lane / 4 + (e / 2) * 8;
+      const int gn = n0 + wn * 32 + j * 8 + 2 * (lane % 4) + (e % 2);
+      if (gm >= M || gn >= N) continue;
+      if (split)
+        atomicAdd(c + gm * N + gn, acc[j][e]);
+      else
+        c[gm * N + gn] = acc[j][e];
     }
-  }
 }
+
+}  // namespace bb
 
 }  // namespace
 
@@ -130,7 +288,8 @@ bin_bin_matmul_kernel(const int8_t* __restrict__ a,
 extern "C" int bin_weight_matmul_launch(const void* a, const void* w, void* c,
                                         long long M, int K, int N,
                                         void* stream) {
-  ring_tile::ring_tile_kernel<int8_t>
+  using namespace ring_tile;
+  ring_tile_kernel<int8_t>
       <<<tile_grid(M, N), THREADS, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)a, (const int8_t*)w, (uint32_t*)c, M, K, N);
   return (int)cudaGetLastError();
@@ -140,8 +299,42 @@ extern "C" int bin_weight_matmul_launch(const void* a, const void* w, void* c,
 extern "C" int bin_bin_matmul_launch(const void* a, const void* w, void* c,
                                      long long M, int K, int N,
                                      void* stream) {
-  bin_bin_matmul_kernel<<<tile_grid(M, N), THREADS, 0,
-                          (cudaStream_t)stream>>>(
-      (const int8_t*)a, (const int8_t*)w, (int32_t*)c, M, K, N);
+  using namespace bb;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (K == 0)
+    return (int)cudaMemsetAsync(c, 0, (size_t)M * N * sizeof(int32_t), st);
+  const long long m_tiles = (M + BM - 1) / BM;
+  const int n_tiles = (N + BN - 1) / BN;
+  const long long tiles = m_tiles * n_tiles;
+  const int n_slabs = (K + BK - 1) / BK;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // split K until the grid has about one block per SM
+  int per = n_slabs;
+  if (tiles < sms) {
+    const int want = (int)((sms + tiles - 1) / tiles);
+    per = (n_slabs + want - 1) / want;
+  }
+  const int splits = (n_slabs + per - 1) / per;
+  if (splits > 1) {
+    const cudaError_t e =
+        cudaMemsetAsync(c, 0, (size_t)M * N * sizeof(int32_t), st);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)m_tiles, n_tiles, splits);
+  const bool aligned = K % 16 == 0 && N % 16 == 0
+      && (uintptr_t)a % 16 == 0 && (uintptr_t)w % 16 == 0;
+  if (aligned) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        bin_bin_matmul_kernel<true>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_ALIGNED);
+    if (e != cudaSuccess) return (int)e;
+    bin_bin_matmul_kernel<true><<<grid, THREADS, SMEM_ALIGNED, st>>>(
+        (const int8_t*)a, (const int8_t*)w, (int32_t*)c, M, K, N, per * BK);
+  } else {
+    bin_bin_matmul_kernel<false><<<grid, THREADS, SMEM_GATHER, st>>>(
+        (const int8_t*)a, (const int8_t*)w, (int32_t*)c, M, K, N, per * BK);
+  }
   return (int)cudaGetLastError();
 }

@@ -4,54 +4,81 @@
 // (pallas_call in flash_attention).  It is the flash_impl of the LM prefill
 // step (kernels/ops.py::flash_attention_op): one launch per attention layer.
 //
-// q (B, S, H, hd), k/v (B, S, Hkv, hd), float32 or bfloat16, read through
+// q (B, S, H, hd), k/v (B, S, Hkv, hd), bfloat16 or float32, read through
 // their strides (the last dim contiguous); out (B, S, H, hd) contiguous, in
-// q's dtype.  All arithmetic is float32.
+// q's dtype.  Four instantiations: bf16 at hd 32 and 64 on the tensor
+// cores, and float32 (hd 32 and 64) on the CUDA cores.
 //
-// Design: one block per (q tile of BQ rows, head, batch), one thread per
-// query row.  A thread keeps its scaled query row, the running max m, sum
-// l and output accumulator of the online softmax in registers (the
-// Pallas kernel's (m, l, acc) carry); the block walks the K/V tiles up to
-// its causal frontier min(S, (tile + 1) * BQ), staging BK keys and values
-// at a time in shared memory as float32 (bf16 is converted while staging),
-// and ends with acc / max(l, 1e-30).  The score tile never leaves the SM.
-// GQA: the kv head is h / (H / Hkv), so K/V are never repeated per q head.
-// The ragged last tile is masked, so every S launches (the reference falls
-// back to its oracle when S is not a multiple of its tile).  Tiles are
-// walked longest first (the last q tile has the most keys).
+// Common to both routes: one block per (q tile, head, batch).  The block
+// walks the K/V tiles up to its causal frontier min(S, (tile + 1) * 64)
+// with an online softmax (the Pallas kernel's (m, l, acc) carry), and ends
+// with acc / max(l, 1e-30); the score tile never leaves the SM.  GQA: the
+// kv head is h / (H / Hkv), so K/V are never repeated per q head.  The
+// ragged last tile is masked, so every S launches (the reference falls back
+// to its oracle when S is not a multiple of its tile).  The longest tiles
+// (the last q tiles, which see the most keys) are launched first.
+//
+// bf16 route (flash_bf16_kernel, the prefill step's): one warpgroup (four
+// warps, 16 query rows each) per 64-row tile; 64-key tiles.
+//  * Q·Kᵀ: wgmma m64n64k16 bf16 -> f32 with both operands in shared memory
+//    by descriptor (Q and the K tile are hd-contiguous: K-major).  bf16
+//    products are exact in f32, so the scores are the float32 dot products
+//    up to summation order.  The 1/sqrt(hd) scale (times log2 e) is applied
+//    to the float32 scores inside exp2's argument, not to bf16 q.
+//  * Online softmax on the accumulator fragments: each thread holds two
+//    rows (lane/4 and lane/4 + 8); row maxima are reduced over the four
+//    lanes of a row with shuffles; l is summed from float32 p.
+//  * P·V twice: wgmma m64n{hd}k16 with A = p_hi = bf16(p) and A = p_lo =
+//    bf16(p - p_hi), both from the score registers, B = the V tile
+//    (hd-contiguous: MN-major, transposed by the descriptor).  Rounding P
+//    once to bf16 (the usual FlashAttention-2 step) puts outputs near zero
+//    outside one bf16 rounding of the float32 result; hi + lo carries p to
+//    ~16 bits and keeps every output within it (the check is
+//    tests/test_torch_flash.py's P-split test).  The extra product is this
+//    kernel's cost: 1.5x the tensor-core work of the function.
+//  * K/V staging: a two-stage shared-memory ring filled by 16-byte
+//    cp.async (rows past S are zero-filled), so tile t+1 loads while tile t
+//    multiplies; fence.proxy.async hands the tiles to wgmma.  Tiles are in
+//    the GMMA 128-byte (hd 64) or 64-byte (hd 32) swizzle, which also keeps
+//    the copies free of bank conflicts.  The wrapper checks the 16-byte
+//    alignment the copies need (base pointers, strides multiples of 8).
+//  * Masks: only a block's last K/V tile (the diagonal one, also the
+//    ragged one) is masked, key > row -> -inf.  Key 0 is in every row's
+//    first tile, so the running max is finite after it.
+//  * Registers: each wgmma's accumulator and A registers are pinned around
+//    its fence and wait (reg_fence).  Q stays in shared memory: A fragments
+//    held in registers across loop iterations were corrupted at hd 64.
+//
+// float32 route (flash_f32_kernel): the reference's kernel-test shapes, held
+// to its 2e-5, which no bf16 or TF32 tensor-core product can meet.  One
+// thread per query row keeps its scaled q row and acc in registers; 32-key
+// K/V tiles in shared memory as float32; FMAs on the CUDA cores.  No path
+// of the system passes float32 here.
 //
 // What bounds it: the work is 4 * B * H * hd * S(S+1)/2 flops; at the
 // TinyLlama shape (2, 2048, 32, 4, 64) in bf16 the tensor cores would take
-// ~35 us for it.  This first version multiplies on the CUDA cores in
-// float32 (two FMAs per shared-memory float4, broadcast across the warp),
-// so it is bound by the FP32 pipe and shared-memory issue, far above
-// that; wgmma on bf16 tiles is the redesign.  Head widths 32 and 64 are
-// instantiated (64 takes 241 registers a thread, no spill); 128 would keep
-// 2 x 128 floats per thread and spill, and no path uses it.
+// ~35 us for it (989 TFLOP/s).  The p_lo product adds half again, and the
+// softmax between the two products is instruction-bound; see PERF.md.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// float32: CUDA cores, one thread per query row
+// ---------------------------------------------------------------------------
 
 constexpr int BQ = 64;   // query rows of a block, one thread each
 constexpr int BK = 32;   // keys staged in shared memory at a time
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);   // round to nearest even, as torch's cast
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(BQ) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, int S, int H, int Hkv,
-    long long sqb, long long sqs, long long sqh, long long skb,
+template <int HD>
+__global__ void __launch_bounds__(BQ) flash_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int S, int H,
+    int Hkv, long long sqb, long long sqs, long long sqh, long long skb,
     long long sks, long long skh, long long svb, long long svs,
     long long svh, float scale) {
   __shared__ __align__(16) float ks[BK][HD];
@@ -63,28 +90,26 @@ __global__ void __launch_bounds__(BQ) flash_kernel(
   const bool valid = row < S;
 
   float qr[HD], acc[HD];
-  const T* qp = q + b * sqb + (long long)(valid ? row : 0) * sqs + h * sqh;
+  const float* qp = q + b * sqb + (long long)(valid ? row : 0) * sqs
+      + h * sqh;
 #pragma unroll
   for (int d = 0; d < HD; ++d) {
-    qr[d] = valid ? to_f(qp[d]) * scale : 0.f;
+    qr[d] = valid ? qp[d] * scale : 0.f;
     acc[d] = 0.f;
   }
-  // The mask constant does not matter under causal masking: key 0 is in
-  // every row's first tile, so m is finite from then on, and a masked
-  // score (-inf) contributes exp(-inf - m) = 0.  Rows past S (the ragged
-  // tile) compute on zeros and are not stored.
+  // Rows past S (the ragged tile) compute on zeros and are not stored.
   float m = -INFINITY, l = 0.f;
 
   const int n_keys = min(S, (qt + 1) * BQ);   // causal frontier of the tile
-  const T* kb = k + b * skb + hk * skh;
-  const T* vb = v + b * svb + hk * svh;
+  const float* kb = k + b * skb + hk * skh;
+  const float* vb = v + b * svb + hk * svh;
   for (int k0 = 0; k0 < n_keys; k0 += BK) {
     __syncthreads();   // the previous tile's readers are done
     for (int idx = threadIdx.x; idx < BK * HD; idx += BQ) {
       const int j = idx / HD, d = idx % HD;
       const int key = k0 + j;
-      ks[j][d] = key < S ? to_f(kb[key * sks + d]) : 0.f;
-      vs[j][d] = key < S ? to_f(vb[key * svs + d]) : 0.f;
+      ks[j][d] = key < S ? kb[key * sks + d] : 0.f;
+      vs[j][d] = key < S ? vb[key * svs + d] : 0.f;
     }
     __syncthreads();
     float s[BK];
@@ -123,53 +148,397 @@ __global__ void __launch_bounds__(BQ) flash_kernel(
     m = m_new;
   }
   if (valid) {
-    T* op = o + (((long long)b * S + row) * H + h) * HD;
+    float* op = o + (((long long)b * S + row) * H + h) * HD;
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < HD; ++d) store(op + d, acc[d] / den);
+    for (int d = 0; d < HD; ++d) op[d] = acc[d] / den;
   }
 }
 
-template <typename T, int HD>
-void launch(const void* q, const void* k, const void* v, void* o, int B,
-            int S, int H, int Hkv, long long sqb, long long sqs,
-            long long sqh, long long skb, long long sks, long long skh,
-            long long svb, long long svs, long long svh, float scale,
-            cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), cp.async K/V ring
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TQ = 64;           // query rows of a block: one warpgroup
+constexpr int TK = 64;           // keys of a K/V tile
+constexpr int THREADS = 128;     // 4 warps, 16 query rows each
+constexpr int STAGES = 2;        // K/V tiles in flight
+
+// Shared tiles hold rows of hd bf16 (ROWB bytes) in the canonical GMMA
+// layout with the 128-byte (hd 64) or 64-byte (hd 32) swizzle: 16-byte
+// chunk c of row r sits at chunk c ^ ((r >> SHIFT) % CHUNKS), and eight rows
+// form one swizzle atom.  The same layout is K-major for Kᵀ (B of Q·Kᵀ)
+// and MN-major for V (B of P·V, transposed by the descriptor).
+template <int HD>
+struct Tile {
+  static constexpr int ROWB = HD * 2;               // bytes of a row
+  static constexpr int CHUNKS = ROWB / 16;
+  static constexpr int SHIFT = HD == 64 ? 0 : 1;
+  static constexpr int ATOM = 8 * ROWB;             // bytes of 8 rows
+  static constexpr int LAYOUT = HD == 64 ? 1 : 2;   // 128B / 64B swizzle
+  static constexpr int BYTES = TK * ROWB;           // one Q, K or V tile
+  static constexpr int SMEM = (1 + 2 * STAGES) * BYTES + 1024;  // + align
+  __device__ static int off(int r, int c) {
+    return r * ROWB + ((c ^ ((r >> SHIFT) & (CHUNKS - 1))) << 4);
+  }
+};
+static_assert(TQ == TK, "a block's last K/V tile is its only diagonal one");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// make this thread's generic-proxy writes (cp.async) visible to wgmma
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// GMMA shared-memory descriptor: start address, leading / stride byte
+// offsets (16-byte units), layout (1 = 128B swizzle, 2 = 64B swizzle)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int sbo,
+                                              int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+      | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
+      | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers in program order: writes before the fence are done by it,
+// reads after it happen after it.  Every register a wgmma reads or writes
+// is fenced before its wgmma.fence and after its wait_group, so no plain
+// instruction touches it while the product is in flight.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+// d (64 x N f32, this warp's 16 rows) (+)= a (64 x 16 bf16, registers) *
+// b (16 x N bf16, MN-major in shared memory by descriptor)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int accumulate);
+
+#define WG_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                 "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "{%16,%17,%18,%19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+// d (64 x 64 f32) (+)= a (64 x 16 bf16) * b (16 x 64 bf16), both K-major in
+// shared memory by descriptor
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+#undef WG_D8
+
+// 2^x in one MUFU op (results below 2^-126 flush to 0: p that small adds
+// nothing to a row sum of at least 1)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [r0, r0 + 64) of one head's (S, HD) slice -> a swizzled shared tile.
+// Thread tid copies chunk tid % CHUNKS of rows tid / CHUNKS + j * RSTEP, so
+// its swizzled chunk is the same in every row it copies.
+template <int HD>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long stride, int r0, int S,
+                                          int tid) {
+  using T = Tile<HD>;
+  constexpr int RSTEP = THREADS / T::CHUNKS;
+  const int r = tid / T::CHUNKS, c = tid % T::CHUNKS;
+  const bf16* p = src + (long long)(r0 + r) * stride + c * 8;
+  dst += T::off(r, c);
+#pragma unroll
+  for (int j = 0; j < TK / RSTEP; ++j) {
+    const bool ok = r0 + r + j * RSTEP < S;
+    cp_async16(dst + j * RSTEP * T::ROWB, ok ? p + j * RSTEP * stride : src,
+               ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS) flash_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int S, int H, int Hkv,
+    long long sqb, long long sqs, long long sqh, long long skb,
+    long long sks, long long skh, long long svb, long long svs,
+    long long svh, float scale_log2) {
+  using T = Tile<HD>;
+  constexpr int NT = TK / 8;     // n8 column blocks of the score tile
+  constexpr int DT = HD / 8;     // n8 column blocks of the output
+  extern __shared__ unsigned char smem_raw[];
+  // swizzle atoms must sit on 1024-byte boundaries
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t qs = base;
+  const uint32_t ks = qs + T::BYTES;                  // STAGES K tiles
+  const uint32_t vs = ks + STAGES * T::BYTES;         // STAGES V tiles
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;   // longest tiles first
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int q0 = qt * TQ;
+  const int n_tiles = (min(S, q0 + TQ) + TK - 1) / TK;
+  const bf16* kb = k + b * skb + hk * skh;
+  const bf16* vb = v + b * svb + hk * svh;
+
+  load_tile<HD>(qs, q + b * sqb + h * sqh, sqs, q0, S, tid);
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_tiles) {
+      load_tile<HD>(ks + s * T::BYTES, kb, sks, s * TK, S, tid);
+      load_tile<HD>(vs + s * T::BYTES, vb, svs, s * TK, S, tid);
+    }
+    cp_async_commit();            // group s (group 0 holds Q too)
+  }
+
+  float acc[HD / 2];             // this warp's 16 output rows, DT blocks
+  float sc[TK / 2];              // its 16 rows of the score tile
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < TK / 2; ++i) sc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};   // running max of rows g, g + 8
+  float l[2] = {0.f, 0.f};               // this thread's partial row sums
+  const int row0 = q0 + warp * 16 + g;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int nxt = t + STAGES - 1;
+    if (nxt < n_tiles) {
+      load_tile<HD>(ks + (nxt % STAGES) * T::BYTES, kb, sks, nxt * TK, S,
+                    tid);
+      load_tile<HD>(vs + (nxt % STAGES) * T::BYTES, vb, svs, nxt * TK, S,
+                    tid);
+    }
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();   // tile t (and Q) have landed
+    fence_async_shared();
+    __syncthreads();
+    const uint32_t kt = ks + (t % STAGES) * T::BYTES;
+    const uint32_t vt = vs + (t % STAGES) * T::BYTES;
+
+    // S = Q Kᵀ: 64 rows x 64 keys, hd / 16 steps of k16 (32 bytes a row)
+    reg_fence(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss(sc, gmma_desc(qs + 32 * kk, T::ATOM, T::LAYOUT),
+               gmma_desc(kt + 32 * kk, T::ATOM, T::LAYOUT), kk);
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(sc);
+
+    // online softmax on the unscaled scores (the scale is folded into
+    // exp2's argument); sc[4j + e] is row g + 8 (e / 2), key 8j + 2 t4 + e % 2
+    // of the tile.  The diagonal (= last) tile starts at key q0: mask key >
+    // row there.
+    if (t == n_tiles - 1) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j * 8 + 2 * t4 + (e % 2) > warp * 16 + g + (e / 2) * 8)
+            sc[4 * j + e] = -INFINITY;
+    }
+    float mt[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mt[e / 2] = fmaxf(mt[e / 2], sc[4 * j + e]);
+    float mc[2];                           // the row max, scaled
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+      // 0 on the first tile
+      const float alpha = ex2((m[r] - mt[r]) * scale_log2);
+      m[r] = mt[r];
+      mc[r] = mt[r] * scale_log2;
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        acc[4 * j + 2 * r] *= alpha;
+        acc[4 * j + 2 * r + 1] *= alpha;
+      }
+    }
+
+    // P as bf16 hi + lo, in the A-fragment order of each 16-key step
+    uint32_t ph[TK / 16][4], pl[TK / 16][4];
+#pragma unroll
+    for (int kc = 0; kc < TK / 16; ++kc)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)       // keys +0..7, +8..15
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {            // rows g, g + 8
+          const float* s = sc + 4 * (2 * kc + half) + 2 * r;
+          const float p0 = ex2(fmaf(s[0], scale_log2, -mc[r]));
+          const float p1 = ex2(fmaf(s[1], scale_log2, -mc[r]));
+          l[r] += p0 + p1;
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+          ph[kc][2 * half + r] = *reinterpret_cast<const uint32_t*>(&hi);
+          pl[kc][2 * half + r] = pack_bf16(p0 - __low2float(hi),
+                                           p1 - __high2float(hi));
+        }
+
+    // O += P V: V's 16-key steps are two swizzle atoms apart
+    reg_fence(ph);
+    reg_fence(pl);
+    reg_fence(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < TK / 16; ++kc) {
+      const uint64_t dv =
+          gmma_desc(vt + kc * 2 * T::ATOM, T::ATOM, T::LAYOUT);
+      wgmma_rs<HD>(acc, ph[kc], dv, 1);
+      wgmma_rs<HD>(acc, pl[kc], dv, 1);
+    }
+    wgmma_commit();
+    wgmma_wait();
+    reg_fence(ph);
+    reg_fence(pl);
+    reg_fence(acc);
+    __syncthreads();   // this stage is refilled next iteration
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    bf16* op = o + (((long long)b * S + row) * H + h) * HD + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(op + j * 8) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv,
+                                acc[4 * j + 2 * r + 1] * inv);
+  }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int S, int H, int Hkv, const long long* st, float scale,
+               cudaStream_t stream) {
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_kernel<T, HD><<<grid, BQ, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, Hkv, sqb, sqs,
-      sqh, skb, sks, skh, svb, svs, svh, scale);
+  flash_f32_kernel<HD><<<grid, BQ, 0, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H,
+      Hkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int S, int H, int Hkv, const long long* st, float scale,
+                cudaStream_t stream) {
+  constexpr int smem = Tile<HD>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (S + TQ - 1) / TQ);
+  flash_bf16_kernel<HD><<<grid, THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, S, H, Hkv,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      scale * 1.4426950408889634f);   // log2 e: the softmax runs on exp2
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; hd in {32, 64}; strides in
-// elements of (batch, seq, head) for q, k, v.
+// dtype: 0 float32, 1 bfloat16; hd in {32, 64}; strides in elements of
+// (batch, seq, head) for q, k, v.  bfloat16 needs 16-byte aligned bases and
+// strides that are multiples of 8 (the wrapper checks).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int B, int S,
     int H, int Hkv, int hd, int dtype, long long sqb, long long sqs,
     long long sqh, long long skb, long long sks, long long skh,
     long long svb, long long svs, long long svh, float scale,
     void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define FLASH_CASE(T, HD)                                                 \
-  launch<T, HD>(q, k, v, o, B, S, H, Hkv, sqb, sqs, sqh, skb, sks, skh,   \
-                svb, svs, svh, scale, st)
-#define FLASH_DIMS(T)                      \
-  switch (hd) {                            \
-    case 32: FLASH_CASE(T, 32); break;     \
-    case 64: FLASH_CASE(T, 64); break;     \
-    default: return (int)cudaErrorInvalidValue; \
-  }
-  if (dtype == 0) {
-    FLASH_DIMS(float)
-  } else if (dtype == 1) {
-    FLASH_DIMS(__nv_bfloat16)
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef FLASH_DIMS
-#undef FLASH_CASE
-  return (int)cudaGetLastError();
+  const long long st[9] = {sqb, sqs, sqh, skb, sks, skh, svb, svs, svh};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0 && hd == 32)
+    return launch_f32<32>(q, k, v, o, B, S, H, Hkv, st, scale, s);
+  if (dtype == 0 && hd == 64)
+    return launch_f32<64>(q, k, v, o, B, S, H, Hkv, st, scale, s);
+  if (dtype == 1 && hd == 32)
+    return launch_bf16<32>(q, k, v, o, B, S, H, Hkv, st, scale, s);
+  if (dtype == 1 && hd == 64)
+    return launch_bf16<64>(q, k, v, o, B, S, H, Hkv, st, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

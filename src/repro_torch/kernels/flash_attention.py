@@ -9,7 +9,9 @@ On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
 ``csrc/flash_attention.cu`` (it replaces the TPU kernel
 ``repro/kernels/flash_attention.py::_flash_kernel``) at every sequence
 length, ragged ones included, or raises; on a CPU tensor it runs the plain
-version.
+version.  bfloat16 (the prefill step's dtype) runs on the tensor cores and
+needs 16-byte aligned q/k/v (:func:`check_aligned`); float32 runs on the
+CUDA cores.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import torch
 
 from . import build
 
-__all__ = ["flash_attention", "flash_attention_ref", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_ref", "check_aligned",
+           "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64)      # the kernel's instantiated head widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,8 +65,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"contiguous last dim")
 
 
+def check_aligned(t: torch.Tensor, name: str) -> None:
+    """The bf16 kernel copies rows by 16-byte cp.async: the base must be
+    16-byte aligned and every (batch, seq, head) stride a multiple of 8
+    elements (a dim of size 1 is never stepped)."""
+    bad = [s for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1 and s % 8]
+    if t.data_ptr() % 16 or bad:
+        raise ValueError(f"flash_attention: bf16 {name} must be 16-byte "
+                         f"aligned with strides that are multiples of 8; "
+                         f"got strides {t.stride()}, offset "
+                         f"{t.data_ptr() % 16} bytes")
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            check_aligned(t, name)
     b, s, h, hd = q.shape
     out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
     if out.numel() == 0:

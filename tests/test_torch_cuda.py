@@ -316,6 +316,70 @@ def test_flash_attention_cuda_bf16_strided(cuda):
     assert bool(((got.float() - want.float()).abs() <= bound).all())
 
 
+def _bf16_gate(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Every element within one bf16 rounding of the plain version (itself
+    rounded once to bf16): 2^-7 of |want| + 1e-5."""
+    bound = 2.0 ** -7 * want.float().abs() + 1e-5
+    return bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [33, 70, 1000])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_flash_attention_cuda_bf16(cuda, s, hd, group):
+    """The tensor-core route at ragged S (the diagonal tile is also the
+    ragged one), both head widths and GQA groups 1, 2 and 8, under the
+    bf16 gate."""
+    hkv = 2
+    q = _normal((2, s, group * hkv, hd), 21).to(torch.bfloat16)
+    k = _normal((2, s, hkv, hd), 22).to(torch.bfloat16)
+    v = _normal((2, s, hkv, hd), 23).to(torch.bfloat16)
+    launches = kbuild.LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q.to(cuda), k.to(cuda), v.to(cuda)).cpu()
+    assert kbuild.LAUNCHES["flash_attention"] == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert _bf16_gate(got, flash.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.cuda
+def test_flash_attention_cuda_bf16_misaligned_raises(cuda):
+    """The bf16 kernel's 16-byte copies need strides that are multiples of
+    8 elements and aligned bases: anything else raises before a launch."""
+    b, s, h, hd = 2, 40, 2, 64
+    buf = torch.zeros((b, s, h * hd + 4), dtype=torch.bfloat16, device=cuda)
+    q = buf[..., :h * hd].reshape(b, s, h, hd)          # seq stride 132
+    kv = torch.zeros((b, s, 1, hd), dtype=torch.bfloat16, device=cuda)
+    shifted = torch.zeros((b, s * h * hd + 1), dtype=torch.bfloat16,
+                          device=cuda)[:, 1:].reshape(b, s, h, hd)
+    launches = kbuild.LAUNCHES["flash_attention"]
+    for bad in (q, shifted):
+        with pytest.raises(ValueError):
+            ops.flash_attention_op(bad, kv, kv)
+    assert kbuild.LAUNCHES["flash_attention"] == launches
+
+
+MNIST4 = [(25088, 25, 32), (6272, 800, 64), (32, 3136, 512), (32, 512, 10)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", MNIST4)
+def test_bin_bin_matmul_cuda_mnist4_exact_and_repeatable(cuda, m, k, n):
+    """B7 at MnistNet4's layer shapes (conv1, conv2 as im2col products; fc1,
+    whose 8 output tiles split K over grid.z and add with atomics; fc2) on
+    any int8 operands: equal to the plain version, and bit-identical on
+    repeats."""
+    a, w = _int8((m, k), 31), _int8((k, n), 32)
+    ad, wd = a.to(cuda), w.to(cuda)
+    launches = kbuild.LAUNCHES["bin_bin_matmul"]
+    got = ops.binary_binary_matmul_op(ad, wd)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["bin_bin_matmul"] == launches + 1
+    assert torch.equal(got.cpu(), binmm.binary_binary_matmul_ref(a, w))
+    for _ in range(5):
+        assert torch.equal(ops.binary_binary_matmul_op(ad, wd), got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,h,hd,n,chunk", [
     (128, 2, 32, 16, 64), (256, 1, 64, 32, 64), (64, 4, 16, 8, 32),

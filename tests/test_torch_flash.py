@@ -10,6 +10,8 @@ roundings to bf16 of nearly equal values differ by at most one ulp); a
 projection of such values (``wo``) within one bf16 ulp of its largest
 value (2^-7 of the scale), since one-ulp differences of its inputs add up
 over the contraction."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +23,8 @@ from repro.nn import attention as jattn
 from repro_torch.configs import get_config
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import (check_aligned,
+                                                 flash_attention_ref)
 from repro_torch.nn import attention as attn
 
 torch.set_num_threads(1)
@@ -173,3 +176,66 @@ def test_gqa_decode_matches_reference():
         assert _close(got, want.astype(jnp.float32))
     for name in ("k", "v"):
         assert _within_bf16(c[name], jc[name].astype(jnp.float32))
+
+
+def _kernel_arithmetic(q, k, v, split_p: bool, tile: int = 64):
+    """The bf16 CUDA kernel's arithmetic in float32 torch: 64-key tiles, an
+    online softmax on float32 scores (exact bf16 products, the 1/sqrt(hd)
+    scale applied to the scores), P·V with P as bf16(p) + bf16(p - bf16(p))
+    (``split_p``) or rounded once to bf16, the output rounded to bf16."""
+    b, s, h, hd = q.shape
+    g = h // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf = k.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(g, dim=2).permute(0, 2, 1, 3)
+    m = torch.full((b, h, s), -math.inf)
+    l = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, hd))
+    rows = torch.arange(s)
+    for k0 in range(0, s, tile):
+        kt, vt = kf[:, :, k0:k0 + tile], vf[:, :, k0:k0 + tile]
+        sc = (qf @ kt.transpose(-1, -2)) / math.sqrt(hd)
+        keys = torch.arange(k0, k0 + kt.shape[2])
+        sc = sc.masked_fill(keys[None, :] > rows[:, None], -math.inf)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)     # 0 on the first tile
+        p = torch.exp(sc - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    return (acc / l[..., None]).permute(0, 2, 1, 3).bfloat16()
+
+
+@pytest.mark.parametrize("split_p,holds", [(True, True), (False, False)])
+def test_p_split_keeps_the_bf16_gate(split_p, holds):
+    """Why the kernel multiplies P·V twice: with P split into two bf16
+    terms its arithmetic meets the bf16 gate that chip_smoke.py and
+    test_torch_cuda.py hold it to (every element within 2^-7 of |want| +
+    1e-5 of the plain version rounded once to bf16); with P rounded once to
+    bf16, as FlashAttention-2 does, outputs near zero fall outside it."""
+    q, k, v = _t(*_qkv(1024, 4, 1, 64, 11, b=1), dtype=torch.bfloat16)
+    want = flash_attention_ref(q, k, v).float()
+    got = _kernel_arithmetic(q, k, v, split_p).float()
+    inside = (got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-5
+    assert bool(inside.all()) == holds
+    if not holds:
+        assert int((~inside).sum()) > 1000
+
+
+def test_bf16_alignment_check():
+    """The bf16 kernel's 16-byte cp.async needs aligned bases and strides
+    that are multiples of 8 elements; the wrapper raises on anything else
+    (a dim of size 1 is never stepped, so its stride is free)."""
+    buf = torch.zeros((2, 40, 3 * 64 + 8), dtype=torch.bfloat16)
+    check_aligned(buf[..., :64].reshape(2, 40, 1, 64), "q")
+    check_aligned(torch.zeros((1, 40, 1, 64), dtype=torch.bfloat16)
+                  .as_strided((1, 40, 1, 64), (3, 64, 5, 1)), "q")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        check_aligned(torch.zeros((2, 40, 2 * 64 + 4), dtype=torch.bfloat16)
+                      [..., :64].reshape(2, 40, 1, 64), "q")
+    with pytest.raises(ValueError, match="16-byte"):
+        check_aligned(buf[..., 1:65].reshape(2, 40, 1, 64), "k")
