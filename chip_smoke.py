@@ -9,7 +9,14 @@ Phases, each fatal on failure:
               seconds, the ptxas report and the card's name and power limit.
 2. kernels  - each linear-layer kernel's wrapper (B1-B4) runs on the card at
               every shape the paths of phase 3 give it (collected from a
-              shape-only run of each), and the ring
+              shape-only run of each); B1 and B3 print the route each shape
+              takes (int8 tensor cores, or CUDA cores at K <= 16) and its
+              split-K factor, repeat every split-K shape
+              bit for bit (its blocks add with atomics), and also run and
+              time the route not taken (on the CUDA cores that is the
+              kernels' earlier IMAD design, so each total has it beside
+              it); and
+              the ring
               kernels (B5 ring_matmul, B6 bin_weight_matmul, B7
               bin_bin_matmul) at the reference's kernel-test shapes and
               MnistNet4's layer shapes at batch 32; each must equal its
@@ -153,6 +160,7 @@ FLASH_SHAPES = [(2, 256, 4, 4, 64, "float32"), (2, 256, 8, 2, 64, "float32"),
                 (2, 128, 4, 1, 32, "bfloat16"), (2, 256, 4, 4, 64, "bfloat16"),
                 (2, 2048, 32, 4, 64, "bfloat16")]
 BB_REPEATS = 5             # B7 repeats at MnistNet4's shapes, bit for bit
+SPLIT_REPEATS = 5          # B1 / B3 repeats at their split-K shapes
 # B9: the reference's kernel-test shapes (B, S, H, hd, N, chunk); Mamba2's
 # layer shape comes from a full-width layer
 SSD_SHAPES = [(2, 128, 2, 32, 16, 64), (2, 256, 1, 64, 32, 64),
@@ -267,11 +275,21 @@ def _grouped_x(words, s, c, m, k, c_contig):
     return x, x.cuda()
 
 
+def on_card(cache):
+    """A weight cache (a NamedTuple of tensors and ints) on the card."""
+    import torch
+    return type(cache)(*(a.cuda() if isinstance(a, torch.Tensor) else a
+                         for a in cache))
+
+
 def check_kernels(shapes: dict) -> list:
     """Phase 2: every kernel at every main-path shape == plain version."""
     import torch
     from repro_torch.kernels import bin_rss_matmul as grp
+    from repro_torch.kernels import limbs
     from repro_torch.kernels import rss_matmul as dense
+
+    sms = limbs.sm_count(torch.device("cuda"))
 
     g = torch.Generator().manual_seed(0)
 
@@ -290,17 +308,21 @@ def check_kernels(shapes: dict) -> list:
     rows = []
     for name in LINEAR_KERNELS:
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0,
-               "bytes_bound_ms": 0.0, "ops_bound_ms": 0.0}
+               "bytes_bound_ms": 0.0, "ops_bound_ms": 0.0,
+               "word_bound_ms": 0.0}
         detail = []
         for key, per_query in sorted(shapes[name].items()):
+            plan = other = None
+            word_bytes = None   # B3 / B4: the weight counted as int32 words
             if name == "rss_matmul":
                 (s, m, k), n = key
                 x = words(s, m, k)
                 wl = dense.precompute_weight_limbs(words(s, k, n))
-                xd = x.cuda()
-                wd = dense.WeightLimbs(*(a.cuda() for a in wl))
+                xd, wd = x.cuda(), on_card(wl)
                 run = lambda: dense.rss_matmul_parts(xd, wd)
                 plain = lambda: dense.rss_matmul_parts_ref(x, wl)
+                plan = limbs.limb_mma_plan(s, m, k, n, sms)
+                other = lambda r: dense._launch(xd, wd, r)
                 nbytes = 4 * (s * m * k + 2 * s * k * n + s * m * n)
                 ops = 40 * s * m * k * n
                 desc = {"S": s, "M": m, "K": k, "N": n}
@@ -308,7 +330,7 @@ def check_kernels(shapes: dict) -> list:
                 (s, c, m, k), n, c_contig = key
                 x, xd = _grouped_x(words, s, c, m, k, c_contig)
                 wl = grp.grouped_weight_limbs(words(s, c, k, n))
-                wd = grp.GroupedWeightLimbs(*(a.cuda() for a in wl))
+                wd = on_card(wl)
                 run = lambda: grp.grouped_rss_matmul_parts(xd, wd)
                 plain = lambda: grp.grouped_rss_matmul_ref(x, wl)
                 nbytes = 4 * (s * c * m * k + 2 * s * c * k * n
@@ -319,12 +341,14 @@ def check_kernels(shapes: dict) -> list:
                 (s, m, k), n, n_limbs = key
                 x = words(s, m, k)
                 wl = grp.public_weight_limbs(public(n_limbs, k, n), n_limbs)
-                xd = x.cuda()
-                wd = grp.PublicWeightLimbs(wl.w.cuda(), wl.wl.cuda(),
-                                           n_limbs)
+                xd, wd = x.cuda(), on_card(wl)
                 run = lambda: grp.bin_rss_matmul_parts(xd, wd)
                 plain = lambda: grp.bin_rss_matmul_ref(x, wl)
-                nbytes = 4 * (s * m * k + k * n + s * m * n)
+                plan = limbs.limb_mma_plan(s, m, k, n, sms)
+                other = lambda r: grp._launch_bin(xd, wd, r)
+                # x words, the weight's L int8 limbs, z words
+                nbytes = 4 * s * m * k + n_limbs * k * n + 4 * s * m * n
+                word_bytes = 4 * (s * m * k + k * n + s * m * n)
                 ops = 2 * dots(n_limbs) * s * m * k * n
                 desc = {"S": s, "M": m, "K": k, "N": n, "L": n_limbs}
             else:
@@ -332,11 +356,12 @@ def check_kernels(shapes: dict) -> list:
                 x, xd = _grouped_x(words, s, c, m, k, c_contig)
                 wl = grp.public_grouped_limbs(public(n_limbs, c, k, n),
                                               n_limbs)
-                wd = grp.PublicGroupedLimbs(wl.w.cuda(), wl.wl.cuda(),
-                                            n_limbs)
+                wd = on_card(wl)
                 run = lambda: grp.bin_grouped_matmul_parts(xd, wd)
                 plain = lambda: grp.bin_grouped_matmul_ref(x, wl)
-                nbytes = 4 * (s * c * m * k + c * k * n + s * c * m * n)
+                nbytes = 4 * s * c * m * k + c * k * n * n_limbs \
+                    + 4 * s * c * m * n
+                word_bytes = 4 * (s * c * m * k + c * k * n + s * c * m * n)
                 ops = 2 * dots(n_limbs) * s * c * m * k * n
                 desc = {"S": s, "C": c, "M": m, "K": k, "N": n,
                         "L": n_limbs}
@@ -347,8 +372,25 @@ def check_kernels(shapes: dict) -> list:
             if err != 0:
                 fail(f"{name} {desc}: kernel != plain version "
                      f"(max abs err {err})")
+            route = ""
+            if plan is not None:
+                desc.update(route=plan[0], splits=plan[2])
+                route = f", {plan[0]}, split-K {plan[2]}"
+                if plan[2] > 1:   # the blocks add with atomics
+                    for _ in range(SPLIT_REPEATS):
+                        if not torch.equal(run(), got):
+                            fail(f"{name} {desc}: repeats of one launch "
+                                 f"differ")
+                    route += f", {SPLIT_REPEATS} repeats bit-identical"
             ms = median_ms(run)
             pms = host_ms(plain)
+            if plan is not None:   # time the route not taken
+                alt = (limbs.CUDA_CORE if plan[0] == limbs.TENSOR_CORE
+                       else limbs.TENSOR_CORE)
+                if not torch.equal(other(alt), got):
+                    fail(f"{name} {desc}: the {alt} route != plain version")
+                desc["other_route_ms"] = median_ms(lambda: other(alt))
+                route += f"; {alt} {desc['other_route_ms']:.5f} ms"
             b_ms = nbytes / HBM_BPS * 1e3
             o_ms = ops / INT8_OPS * 1e3
             bound = max(b_ms, o_ms)
@@ -359,15 +401,28 @@ def check_kernels(shapes: dict) -> list:
             print(f"[chip_smoke] {name} {desc} x{per_query}/query: "
                   f"{ms:.5f} ms (bound {bound:.5f} ms, "
                   f"{100 * bound / ms:.1f}% of bound), plain on host "
-                  f"{pms:.3f} ms, exact")
+                  f"{pms:.3f} ms, exact{route}")
             tot["err"] = max(tot["err"], err)
             tot["ms"] += per_query * ms
             tot["plain_ms"] += per_query * pms
             tot["bound_ms"] += per_query * bound
             tot["bytes_bound_ms"] += per_query * b_ms
             tot["ops_bound_ms"] += per_query * o_ms
+            if word_bytes is not None:
+                tot["word_bound_ms"] += per_query * max(
+                    word_bytes / HBM_BPS * 1e3, o_ms)
+            if plan is not None:
+                tot["cuda_core_ms"] = tot.get("cuda_core_ms", 0.0) \
+                    + per_query * (ms if plan[0] == limbs.CUDA_CORE
+                                   else desc["other_route_ms"])
         if not detail:
             fail(f"{name}: no main-path shape was collected")
+        print(f"[chip_smoke] {name} over one query of each path: "
+              f"{tot['ms']:.5f} ms, bound {tot['bound_ms']:.5f} ms"
+              + (f" (weight as int32 words: {tot['word_bound_ms']:.5f} ms)"
+                 if tot["word_bound_ms"] else "")
+              + (f"; all on the CUDA cores {tot['cuda_core_ms']:.5f} ms"
+                 if "cuda_core_ms" in tot else ""))
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
                      "replaces": REPLACES[name], "launches": 0,
                      "max_abs_err": tot["err"], "ms": tot["ms"],
@@ -851,9 +906,12 @@ def main() -> None:
     print(f"[chip_smoke] built {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[chip_smoke] ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"[chip_smoke] ptxas {name} {fn}: {line.strip()}")
     smi = smi_line()
     print(f"[chip_smoke] card: {smi}")
     print(f"[chip_smoke] torch {torch.__version__} cuda {torch.version.cuda}"

@@ -6,31 +6,33 @@
 //
 //     z_s = x_s · W      (mod 2^32),   s = 0 .. S-1
 //
-// The TPU kernel split x into 4 balanced int8 limbs and W into its minimal
-// L limbs (the adaptive public limb count, 1..4) because the MXU has no
-// 32-bit integer multiply.  Hopper's CUDA cores do (IMAD), so this kernel
-// multiplies the 32-bit words directly and accumulates in uint32_t, whose
-// wrap is the ring arithmetic; L does not enter it.
+// Two routes, chosen by shape in the wrapper (kernels/limbs.py::
+// limb_mma_plan), never as a fallback:
 //
-// Layout: one block per (64-row, BN-col) output tile computes that tile for
-// ALL S slots, the Hopper counterpart of the reference's slot-free weight
-// BlockSpec: each W tile is staged in shared memory once and used S times.
-// A K loop stages 16-deep tiles of every slot's x and of W; each of the 256
-// threads owns a 4 x TN block of outputs per slot, strided by 16 so
-// shared-memory reads are conflict-free or broadcast.  BN follows N (16, 32
-// or 64) so the narrow layers of the classifiers (N = 10, 16, 32, 48) do not
-// idle most of the block.  Ragged M/K/N edges are masked in the loads and
-// the stores: no padding, every shape runs.
+//  * tensor cores (K > 16): limb_mma.cuh with one operand, the K-major
+//    minimal limbs of W (PublicWeightLimbs.wt, L = n_limbs, 1..4) shared
+//    by every slot.  The pairs of x's four unsigned byte limbs with W's L
+//    limbs whose shifts stay below 32 bits are u8 x s8 products,
+//    Σ_{q<L}(4 − q) wgmma m64n64k32 a k32 step and 64 x 64 tile (7 at
+//    the served paths' L = 2); split-K by int32 atomics where the (slot,
+//    m, n) tiles leave SMs idle (the M = 32 fc layers) or fill a last wave
+//    poorly.
+//  * CUDA cores (K <= 16, where a k32 step would be mostly padding): the
+//    32-bit encoding multiplied with IMAD and accumulated in uint32_t.  One
+//    block per (64-row, BN-col) output tile computes that tile for ALL S
+//    slots, staging each W tile once; a K loop stages 16-deep tiles of
+//    every slot's x and of W; each of the 256 threads owns a 4 x TN block
+//    of outputs per slot, strided by 16 so shared-memory reads are
+//    conflict-free or broadcast.  BN follows N (16, 32 or 64).
+//
+// Ragged M/K/N edges are masked (the limb cache is padded instead): every
+// shape runs.
 //
 // What bounds it: bytes.  Each x word is read once and the contraction is
-// shallow, so the floor is 4·(S·M·K + K·N + S·M·N) bytes over 3.35 TB/s.
-// IMAD issue and the serial K loop limit this first version; at M = 32 (the
-// fc layers) a handful of blocks run, which split-K would fix.  The cached
-// limbs (PublicWeightLimbs.wl, n_limbs) are kept for an int8 tensor-core
-// redesign (Σ_{q<L}(4−q) int8 dots a cell, 4 for L = 1).
+// shallow, so the floor is 4·S·M·K + L·K·N + 4·S·M·N bytes (x, the limbs,
+// z) over 3.35 TB/s.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "limb_mma.cuh"
 
 namespace {
 
@@ -135,12 +137,29 @@ int launch(const void* x, const void* w, void* z, int S, long long M, int K,
 }  // namespace
 
 // x: (S, M, K) contiguous, S <= 3; w: (K, N) contiguous; z: (S, M, N)
-// contiguous; 32-bit words.
-extern "C" int bin_rss_matmul_launch(const void* x, const void* w, void* z,
-                                     int S, long long M, int K, int N,
-                                     void* stream) {
+// contiguous; 32-bit words.  wt: (L, Np, Kp) int8, the K-major limbs of w.
+// tensor_core selects the route; per_split is the K stages of a split-K
+// block.
+extern "C" int bin_rss_matmul_launch(const void* x, const void* w,
+                                     const void* wt, void* z, int S,
+                                     long long M, int K, int N, int Kp,
+                                     int Np, int L, int tensor_core,
+                                     int per_split, void* stream) {
   if (S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  if (tensor_core) {
+    switch (L) {
+      case 1: return limb_mma::launch<1, 1>(x, wt, z, S, M, K, N, Kp, Np, 0,
+                                            per_split, st);
+      case 2: return limb_mma::launch<1, 2>(x, wt, z, S, M, K, N, Kp, Np, 0,
+                                            per_split, st);
+      case 3: return limb_mma::launch<1, 3>(x, wt, z, S, M, K, N, Kp, Np, 0,
+                                            per_split, st);
+      case 4: return limb_mma::launch<1, 4>(x, wt, z, S, M, K, N, Kp, Np, 0,
+                                            per_split, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   if (N <= 16) return launch<1>(x, w, z, S, M, K, N, st);
   if (N <= 32) return launch<2>(x, w, z, S, M, K, N, st);
   return launch<4>(x, w, z, S, M, K, N, st);

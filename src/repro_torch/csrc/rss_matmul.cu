@@ -6,29 +6,32 @@
 //
 //     z_p = x_p · wf_p + x_{(p+1) % S} · ws_p      (mod 2^32)
 //
-// with wf_p = w_p + w_{p+1} cached at model setup.  The TPU kernel split
-// every word into 4 balanced int8 limbs and ran 20 int8 MXU dots per tile
-// because the MXU has no 32-bit integer multiply.  Hopper's CUDA cores do
-// (IMAD), so this kernel multiplies the 32-bit shares directly and
-// accumulates in uint32_t, whose wrap is the ring arithmetic.
+// with wf_p = w_p + w_{p+1} cached at model setup.  Two routes, chosen by
+// shape in the wrapper (kernels/limbs.py::limb_mma_plan), never as a
+// fallback:
 //
-// Layout: one block per (64-row, 64-col) output tile of one party; the
-// neighbour share x_{p+1} is found by index, so the share stack is never
-// rolled in memory.  A K loop stages 16-deep tiles of x_p, x_{p+1}, wf_p and
-// ws_p in shared memory; each of the 256 threads owns a 4 x 4 block of
-// outputs, strided by 16 so shared-memory reads are conflict-free.  Ragged
-// M/K/N edges are masked in the loads and the stores: every shape the
-// secure path produces (pointwise K = 3, fc N = 10) runs without padding.
+//  * tensor cores (K > 16): limb_mma.cuh with two operands, the K-major
+//    int8 limbs of wf_p and ws_p (WeightLimbs.wt).  Each of the 10 limb
+//    pairs with p + q <= 3 is a wgmma m64n64k32 u8 x s8, 20 a k32 step
+//    and 64 x 64 tile, added per shift into four int32 accumulator sets;
+//    split-K by int32 atomics where the (party, m, n) tiles leave SMs idle
+//    (the M = 32 fc layers) or fill a last wave poorly.  The parties of a
+//    tile are adjacent in the grid, so x_{p+1} is mostly an L2 hit.
+//  * CUDA cores (K <= 16, where a k32 step would be mostly padding): the
+//    32-bit shares multiplied with IMAD and accumulated in uint32_t, whose
+//    wrap is the ring arithmetic.  One block per (64-row, 64-col) output
+//    tile of one party; a K loop stages 16-deep tiles of x_p, x_{p+1}, wf_p
+//    and ws_p in shared memory; each of the 256 threads owns a 4 x 4 block
+//    of outputs, strided by 16 so shared-memory reads are conflict-free.
 //
-// What bounds it: at the classifier's shapes the inputs are read once and
-// the product is shallow (K <= 784), so the bound is bytes: x (S·M·K),
-// wf and ws (2·S·K·N) and z (S·M·N) 32-bit words over 3.35 TB/s.  IMAD
-// issue, not bandwidth, limits this first version at deep K; the int8
-// tensor-core formulation (wgmma over the 10 surviving limb pairs of the
-// cached limbs) is the planned redesign.
+// Ragged M/K/N edges are masked (the limb cache is padded instead): every
+// shape the secure path produces (pointwise K = 3, fc N = 10) launches.
+//
+// What bounds it: at the conv shapes of the deep nets, the int8 operations
+// (40·S·M·K·N at 1,979 TOP/s) about as much as the bytes of x; at M = 32,
+// the bytes of the weight limbs (2·S·K·N words' worth) over 3.35 TB/s.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "limb_mma.cuh"
 
 namespace {
 
@@ -128,13 +131,21 @@ rss_matmul_kernel(const uint32_t* __restrict__ x,
 
 }  // namespace
 
-// x: (S, M, K), wf / ws: (S, K, N), z: (S, M, N); contiguous 32-bit words.
+// x: (S, M, K), wf / ws: (S, K, N), z: (S, M, N) contiguous 32-bit words;
+// wt: (S, 2, 4, Np, Kp) int8, the K-major limbs of wf and ws.  tensor_core
+// selects the route; per_split is the K stages of a split-K block.
 extern "C" int rss_matmul_launch(const void* x, const void* wf, const void* ws,
-                                 void* z, int S, long long M, int K, int N,
+                                 const void* wt, void* z, int S, long long M,
+                                 int K, int N, int Kp, int Np,
+                                 int tensor_core, int per_split,
                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (tensor_core)
+    return limb_mma::launch<2, 4>(x, wt, z, S, M, K, N, Kp, Np,
+                                  2LL * 4 * Np * Kp, per_split, st);
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
             (unsigned)S);
-  rss_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  rss_matmul_kernel<<<grid, THREADS, 0, st>>>(
       (const uint32_t*)x, (const uint32_t*)wf, (const uint32_t*)ws,
       (uint32_t*)z, S, M, K, N);
   return (int)cudaGetLastError();

@@ -32,9 +32,12 @@ kernels read x through its strides, so callers may pass a permuted view
 (S, C, M, K)) and get back an (S, C, M, N) view of an (S, M, C, N) buffer.
 
 The public caches keep the reference's ``n_limbs`` (the adaptive limb
-count, 1–4) and the minimal limbs ``wl`` unpadded: the CUDA kernels
-multiply the 32-bit encoding ``w`` directly, and the limbs wait for an
-int8 tensor-core kernel.
+count, 1–4) and the minimal limbs ``wl`` unpadded.  ``PublicWeightLimbs``
+adds ``wt``, the same limbs 128-padded and K-major: the operand of B3's
+tensor-core route (``csrc/limb_mma.cuh``, Σ_{q<L}(4 − q) int8 products a
+cell), which :func:`~.limbs.limb_mma_plan` takes at K > 16; at K <= 16 B3
+multiplies the 32-bit encoding ``w`` on the CUDA cores.  The grouped
+kernels multiply 32-bit words on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ import typing
 import torch
 
 from . import build
-from .limbs import N_LIMBS, balanced_limbs
+from .limbs import (K_STAGE, N_LIMBS, TENSOR_CORE, balanced_limbs,
+                    limb_mma_plan, sm_count)
 
 __all__ = ["PublicWeightLimbs", "min_public_limbs", "public_weight_limbs",
            "bin_rss_matmul_ref", "bin_rss_matmul_parts",
@@ -54,6 +58,7 @@ __all__ = ["PublicWeightLimbs", "min_public_limbs", "public_weight_limbs",
 
 _SMEM_LIMIT = 48 * 1024
 _MAX_SLOTS = 3
+_TILE = 128
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +71,7 @@ class PublicWeightLimbs(typing.NamedTuple):
     w: torch.Tensor     # (K, N) int32 — public ring encoding
     wl: torch.Tensor    # (L, K, N) int8 — minimal balanced limbs
     n_limbs: int        # L ∈ {1..4}
+    wt: torch.Tensor    # (L, Np, Kp) int8 — wl 128-padded, K-major
 
     @property
     def k(self) -> int:
@@ -108,25 +114,28 @@ def min_public_limbs(w_enc: torch.Tensor) -> int:
     return n
 
 
-def _public_cache(cls, w_enc: torch.Tensor, n_limbs: int | None):
+def _public_limbs(w_enc: torch.Tensor, n_limbs: int | None):
     w = w_enc.contiguous()
     if n_limbs is None:
         n_limbs = min_public_limbs(w)
-    return cls(w=w, wl=balanced_limbs(w)[:n_limbs].contiguous(),
-               n_limbs=n_limbs)
+    return w, balanced_limbs(w)[:n_limbs].contiguous(), n_limbs
 
 
 def public_weight_limbs(w_enc: torch.Tensor,
                         n_limbs: int | None = None) -> PublicWeightLimbs:
     """Cache a public (K, N) int32 weight encoding once, at model setup;
     ``n_limbs`` defaults to the minimal exact count."""
-    return _public_cache(PublicWeightLimbs, w_enc, n_limbs)
+    w, wl, n_limbs = _public_limbs(w_enc, n_limbs)
+    k, n = w.shape
+    padded = torch.nn.functional.pad(wl, (0, (-n) % _TILE, 0, (-k) % _TILE))
+    return PublicWeightLimbs(w=w, wl=wl, n_limbs=n_limbs,
+                             wt=padded.transpose(1, 2).contiguous())
 
 
 def public_grouped_limbs(w_enc: torch.Tensor,
                          n_limbs: int | None = None) -> PublicGroupedLimbs:
     """Cache a public (C, K, N) int32 grouped weight encoding once."""
-    return _public_cache(PublicGroupedLimbs, w_enc, n_limbs)
+    return PublicGroupedLimbs(*_public_limbs(w_enc, n_limbs))
 
 
 def bin_rss_matmul_ref(x_stack: torch.Tensor,
@@ -155,19 +164,35 @@ def _check_public(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
                          f"takes 1 to {_MAX_SLOTS}")
 
 
-def _launch_bin(x_stack: torch.Tensor,
-                weights: PublicWeightLimbs) -> torch.Tensor:
+def _launch_bin(x_stack: torch.Tensor, weights: PublicWeightLimbs,
+                route: str | None = None) -> torch.Tensor:
+    """Launch the kernel on the route of the plan (``route`` forces one,
+    unsplit: ``chip_smoke.py`` runs and times both routes)."""
     s, m, k = x_stack.shape
-    n = weights.n
+    n, n_limbs = weights.n, weights.n_limbs
     _check_public("bin_rss_matmul", x_stack, weights.w)
     if not x_stack.is_contiguous():
         raise ValueError("bin_rss_matmul: x must be contiguous")
+    wt = weights.wt
+    if wt.dtype != torch.int8 or not wt.is_contiguous() \
+            or wt.device != x_stack.device or not 1 <= n_limbs <= N_LIMBS \
+            or wt.ndim != 3 or wt.shape[0] != n_limbs \
+            or wt.shape[1] % _TILE or wt.shape[2] % _TILE \
+            or wt.shape[1] < n or wt.shape[2] < k:
+        raise ValueError(f"bin_rss_matmul: wt must be the 128-padded "
+                         f"K-major int8 limb cache ({n_limbs}, Np, Kp) of "
+                         f"{(k, n)} on {x_stack.device}")
     out = torch.empty((s, m, n), dtype=torch.int32, device=x_stack.device)
     if out.numel() == 0:
         return out
+    chosen, per, _ = limb_mma_plan(s, m, k, n, sm_count(x_stack.device))
+    if route is not None and route != chosen:   # one split where forced
+        chosen, per = route, -(-k // K_STAGE)
     fn = build.library("bin_rss_matmul")
-    err = fn(x_stack.data_ptr(), weights.w.data_ptr(), out.data_ptr(),
-             s, m, k, n, build.stream_ptr(x_stack.device))
+    err = fn(x_stack.data_ptr(), weights.w.data_ptr(), wt.data_ptr(),
+             out.data_ptr(), s, m, k, n, wt.shape[2], wt.shape[1], n_limbs,
+             int(chosen == TENSOR_CORE), per,
+             build.stream_ptr(x_stack.device))
     build.check("bin_rss_matmul", err)
     build.LAUNCHES["bin_rss_matmul"] += 1
     return out

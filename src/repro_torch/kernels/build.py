@@ -35,12 +35,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 KERNELS = {
     "rss_matmul": ("rss_matmul", "rss_matmul_launch",
-                   [_P, _P, _P, _P, _I, _L, _I, _I, _P]),
+                   [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
+                    _P]),
     "grouped_rss_matmul": ("grouped_rss_matmul", "grouped_rss_matmul_launch",
                            [_P, _P, _P, _P, _I, _I, _L, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _P]),
     "bin_rss_matmul": ("bin_rss_matmul", "bin_rss_matmul_launch",
-                       [_P, _P, _P, _I, _L, _I, _I, _P]),
+                       [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I,
+                        _P]),
     "bin_grouped_matmul": ("bin_grouped_matmul", "bin_grouped_matmul_launch",
                            [_P, _P, _P, _I, _I, _L, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _P]),

@@ -11,11 +11,15 @@ On a CUDA tensor :func:`rss_matmul_parts` launches the hand-written kernel
 ``repro/kernels/rss_matmul.py::_rss_matmul_kernel``) or raises; on a CPU
 (or ``meta``) tensor it runs the plain version, per-party int32 matmuls
 that wrap mod 2^32.  torch has no integer matmul on CUDA, so the plain
-version is CPU-only.
+version is CPU-only.  The kernel takes the route of
+:func:`~.limbs.limb_mma_plan`: the int8 tensor cores over the limbs
+(split-K where the tile grid leaves SMs idle), or at K <= 16 the CUDA
+cores on the int32 words.
 
 ``WeightLimbs`` keeps the reference's cache exactly: the int32 stacks
-``ws`` / ``wf`` the CUDA kernel reads, and their balanced int8 limbs
-(128-padded as in the reference) for an int8 tensor-core kernel.
+``ws`` / ``wf`` (the CUDA-core route's operands) and their balanced int8
+limbs ``wl`` / ``wfl``, 128-padded as in the reference.  It adds ``wt``,
+the same limbs K-major, the tensor-core route's operand.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .limbs import balanced_limbs
+from .limbs import (K_STAGE, TENSOR_CORE, balanced_limbs, limb_mma_plan,
+                    sm_count)
 
 __all__ = ["WeightLimbs", "precompute_weight_limbs", "rss_matmul_parts",
            "rss_matmul_parts_ref"]
@@ -40,6 +45,7 @@ class WeightLimbs(typing.NamedTuple):
     wf: torch.Tensor   # (3, K, N) int32 — fused operand w_i + w_{i+1}
     wl: torch.Tensor   # (3, 4, Kp, Np) int8 — limbs of ws, 128-padded
     wfl: torch.Tensor  # (3, 4, Kp, Np) int8 — limbs of wf, 128-padded
+    wt: torch.Tensor   # (3, 2, 4, Np, Kp) int8 — wfl and wl, K-major
 
     @property
     def k(self) -> int:
@@ -68,8 +74,9 @@ def precompute_weight_limbs(w_shares: torch.Tensor) -> WeightLimbs:
     ws = w_shares.contiguous()
     wf = ws + torch.roll(ws, -1, dims=0)
     pad = lambda a: _pad_to(_pad_to(a, _TILE, 1), _TILE, 2)
-    return WeightLimbs(ws=ws, wf=wf, wl=_stack_limbs(pad(ws)),
-                       wfl=_stack_limbs(pad(wf)))
+    wl, wfl = _stack_limbs(pad(ws)), _stack_limbs(pad(wf))
+    wt = torch.stack([wfl, wl], dim=1).transpose(-1, -2).contiguous()
+    return WeightLimbs(ws=ws, wf=wf, wl=wl, wfl=wfl, wt=wt)
 
 
 def rss_matmul_parts_ref(x_stack: torch.Tensor,
@@ -80,23 +87,38 @@ def rss_matmul_parts_ref(x_stack: torch.Tensor,
     return torch.matmul(x_stack, weights.wf) + torch.matmul(xn, weights.ws)
 
 
-def _launch(x_stack: torch.Tensor, weights: WeightLimbs) -> torch.Tensor:
+def _launch(x_stack: torch.Tensor, weights: WeightLimbs,
+            route: str | None = None) -> torch.Tensor:
+    """Launch the kernel on the route of the plan (``route`` forces one,
+    unsplit: ``chip_smoke.py`` runs and times both routes)."""
     s, m, k = x_stack.shape
     n = weights.n
-    for name, t in (("x", x_stack), ("ws", weights.ws), ("wf", weights.wf)):
-        if t.dtype != torch.int32 or not t.is_contiguous() \
+    for name, t, dtype in (("x", x_stack, torch.int32),
+                           ("ws", weights.ws, torch.int32),
+                           ("wf", weights.wf, torch.int32),
+                           ("wt", weights.wt, torch.int8)):
+        if t.dtype != dtype or not t.is_contiguous() \
                 or t.device != x_stack.device:
-            raise ValueError(f"rss_matmul: {name} must be a contiguous int32 "
-                             f"tensor on {x_stack.device}")
+            raise ValueError(f"rss_matmul: {name} must be a contiguous "
+                             f"{dtype} tensor on {x_stack.device}")
     if tuple(weights.ws.shape) != (s, k, n):
         raise ValueError(f"rss_matmul: weights {tuple(weights.ws.shape)} "
                          f"do not match x {tuple(x_stack.shape)}")
+    np_, kp = weights.wt.shape[-2:]
+    if tuple(weights.wt.shape) != (s, 2, 4, np_, kp) or np_ % _TILE \
+            or kp % _TILE or np_ < n or kp < k:
+        raise ValueError(f"rss_matmul: wt {tuple(weights.wt.shape)} is not "
+                         f"the 128-padded K-major limb cache of {(s, k, n)}")
     out = torch.empty((s, m, n), dtype=torch.int32, device=x_stack.device)
     if out.numel() == 0:
         return out
+    chosen, per, _ = limb_mma_plan(s, m, k, n, sm_count(x_stack.device))
+    if route is not None and route != chosen:   # one split where forced
+        chosen, per = route, -(-k // K_STAGE)
     fn = build.library("rss_matmul")
     err = fn(x_stack.data_ptr(), weights.wf.data_ptr(), weights.ws.data_ptr(),
-             out.data_ptr(), s, m, k, n, build.stream_ptr(x_stack.device))
+             weights.wt.data_ptr(), out.data_ptr(), s, m, k, n, kp, np_,
+             int(chosen == TENSOR_CORE), per, build.stream_ptr(x_stack.device))
     build.check("rss_matmul", err)
     build.LAUNCHES["rss_matmul"] += 1
     return out

@@ -20,6 +20,7 @@ from repro_torch.core.rss import reconstruct, share
 from repro_torch.kernels import bin_rss_matmul as grp
 from repro_torch.kernels import binary_matmul as binmm
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import limbs
 from repro_torch.kernels import ops
 from repro_torch.kernels import ring_matmul as ringmm
 from repro_torch.kernels import rss_matmul as dense
@@ -93,6 +94,12 @@ def test_cuda_shares_without_weight_limbs_raise(cuda):
         linear._matmul_parts(cols, wm, None)
 
 
+def _to(cache, device):
+    """A weight cache (a NamedTuple of tensors and ints) on ``device``."""
+    return type(cache)(*(a.to(device) if isinstance(a, torch.Tensor) else a
+                         for a in cache))
+
+
 def _public(shape, wmag, seed):
     """A public encoding with |w| < wmag (wmag None: full-range words)."""
     if wmag is None:
@@ -110,9 +117,7 @@ def test_bin_rss_matmul_cuda_equals_plain(cuda, s, m, k, n, wmag):
     x = ring_from_numpy(_words((s, m, k), 5))
     wl = grp.public_weight_limbs(ring_from_numpy(_public((k, n), wmag, 6)))
     launches = kbuild.LAUNCHES["bin_rss_matmul"]
-    got = grp.bin_rss_matmul_parts(
-        x.to(cuda), grp.PublicWeightLimbs(wl.w.to(cuda), wl.wl.to(cuda),
-                                          wl.n_limbs))
+    got = grp.bin_rss_matmul_parts(x.to(cuda), _to(wl, cuda))
     assert kbuild.LAUNCHES["bin_rss_matmul"] == launches + 1
     assert torch.equal(got.cpu(), grp.bin_rss_matmul_ref(x, wl))
 
@@ -139,9 +144,7 @@ def test_public_ops_on_the_card_equal_plain(cuda):
     """The op wrappers' folds around B3 / B4 on card tensors."""
     x = ring_from_numpy(_words((3, 2, 5, 4, 27), 9))
     wl = grp.public_weight_limbs(ring_from_numpy(_public((27, 11), 4096, 1)))
-    got = ops.bin_rss_matmul_op(
-        x.to(cuda), grp.PublicWeightLimbs(wl.w.to(cuda), wl.wl.to(cuda),
-                                          wl.n_limbs))
+    got = ops.bin_rss_matmul_op(x.to(cuda), _to(wl, cuda))
     assert torch.equal(got.cpu(), ops.bin_rss_matmul_op(x, wl))
     p = ring_from_numpy(_words((3, 2, 4, 5, 9, 6), 2))
     gl = grp.public_grouped_limbs(ring_from_numpy(_public((6, 9, 1), 64, 3)))
@@ -170,6 +173,94 @@ def test_cuda_public_tensor_without_limbs_raises(cuda):
                                          device=cuda))
     with pytest.raises(RuntimeError):
         linear.bin_matmul(cols, wm, None)
+
+
+# -- B1 / B3 routes: int8 tensor cores over limbs, CUDA cores at tiny K ------
+
+# the M = 32 fc layers of the served paths, whose tiles split K
+SPLIT_K_B1 = [(3, 32, 3136, 512), (3, 32, 2048, 512), (3, 32, 784, 128)]
+SPLIT_K_B3 = [(3, 32, 3136, 512), (3, 32, 784, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,m,k,n", SPLIT_K_B1)
+def test_rss_matmul_cuda_split_k_exact_and_repeatable(cuda, s, m, k, n):
+    assert limbs.limb_mma_plan(s, m, k, n, limbs.sm_count(cuda))[2] > 1
+    x = ring_from_numpy(_words((s, m, k), 11))
+    wl = dense.precompute_weight_limbs(ring_from_numpy(_words((s, k, n), 12)))
+    xd, wd = x.to(cuda), _to(wl, cuda)
+    got = dense.rss_matmul_parts(xd, wd)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), dense.rss_matmul_parts_ref(x, wl))
+    for _ in range(5):
+        assert torch.equal(dense.rss_matmul_parts(xd, wd), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_limbs", [2, 4])
+@pytest.mark.parametrize("s,m,k,n", SPLIT_K_B3)
+def test_bin_rss_matmul_cuda_split_k_exact_and_repeatable(cuda, s, m, k, n,
+                                                          n_limbs):
+    assert limbs.limb_mma_plan(s, m, k, n, limbs.sm_count(cuda))[2] > 1
+    x = ring_from_numpy(_words((s, m, k), 13))
+    wmag = None if n_limbs == 4 else 1 << 14
+    wl = grp.public_weight_limbs(ring_from_numpy(_public((k, n), wmag, 14)))
+    assert wl.n_limbs == n_limbs
+    xd, wd = x.to(cuda), _to(wl, cuda)
+    got = grp.bin_rss_matmul_parts(xd, wd)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), grp.bin_rss_matmul_ref(x, wl))
+    for _ in range(5):
+        assert torch.equal(grp.bin_rss_matmul_parts(xd, wd), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [limbs.TENSOR_CORE, limbs.CUDA_CORE])
+@pytest.mark.parametrize("s,m,k,n", [(3, 200, 3, 16), (3, 70, 25, 32),
+                                     (1, 40, 136, 24), (2, 65, 131, 10),
+                                     (3, 300, 32, 48), (3, 130, 784, 70)])
+def test_both_routes_equal_plain(cuda, route, s, m, k, n):
+    """Each route at ragged shapes, whichever the plan would take, with x
+    16-byte aligned and one word past it (the 4-byte copies)."""
+    buf = ring_from_numpy(_words((s * m * k + 1,), 15)).to(cuda)
+    w = ring_from_numpy(_words((s, k, n), 16))
+    wl = dense.precompute_weight_limbs(w)
+    pl = grp.public_weight_limbs(w[0])
+    for off in (0, 1):
+        xd = buf[off:off + s * m * k].view(s, m, k)
+        x = xd.cpu()
+        got = dense._launch(xd, _to(wl, cuda), route)
+        assert torch.equal(got.cpu(), dense.rss_matmul_parts_ref(x, wl))
+        got = grp._launch_bin(xd, _to(pl, cuda), route)
+        assert torch.equal(got.cpu(), grp.bin_rss_matmul_ref(x, pl))
+
+
+@pytest.mark.cuda
+def test_limb_accumulators_wrap_exactly(cuda):
+    """Carry-boundary words at K = 9000 overflow the per-shift int32
+    accumulators many times over; the wrap is the ring arithmetic."""
+    edge = np.array([0xFFFFFFFF, 0x80808080, 0x7F7F7F7F, 0x80000000],
+                    dtype=np.uint32)
+    rng = np.random.default_rng(17)
+    x = ring_from_numpy(rng.choice(edge, (3, 64, 9000)))
+    w = ring_from_numpy(rng.choice(edge, (3, 9000, 64)))
+    wl = dense.precompute_weight_limbs(w)
+    got = dense._launch(x.to(cuda), _to(wl, cuda), limbs.TENSOR_CORE)
+    assert torch.equal(got.cpu(), dense.rss_matmul_parts_ref(x, wl))
+    pl = grp.public_weight_limbs(w[1])
+    got = grp._launch_bin(x.to(cuda), _to(pl, cuda), limbs.TENSOR_CORE)
+    assert torch.equal(got.cpu(), grp.bin_rss_matmul_ref(x, pl))
+
+
+@pytest.mark.cuda
+def test_k_major_caches_on_the_card_are_the_transposed_limbs(cuda):
+    w = ring_from_numpy(_words((3, 131, 10), 18)).to(cuda)
+    wl = dense.precompute_weight_limbs(w)
+    assert torch.equal(wl.wt[:, 0], wl.wfl.transpose(-1, -2))
+    assert torch.equal(wl.wt[:, 1], wl.wl.transpose(-1, -2))
+    pl = grp.public_weight_limbs(w[0])
+    assert torch.equal(pl.wt[:, :10, :131], pl.wl.transpose(1, 2))
+    assert not pl.wt[:, 10:].any() and not pl.wt[:, :, 131:].any()
 
 
 # -- B5–B7: the per-dot ring product and the binarized products ---------------

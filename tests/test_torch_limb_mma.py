@@ -1,0 +1,188 @@
+"""The limb arithmetic of B1's and B3's tensor-core route, on the CPU.
+
+``limb_model`` repeats, in plain torch, what ``csrc/limb_mma.cuh`` computes:
+the four bytes of each activation word as unsigned limbs, the cached
+K-major balanced weight limbs (``WeightLimbs.wt`` / ``PublicWeightLimbs.wt``)
+as signed ones, one int32 accumulator per shift p + q (pairs with
+p + q >= 4 dropped), Σ_s acc_s << 8s at the end, and split-K partial sums
+added mod 2^32.  It is held bit for bit to the reference's Pallas kernels
+in interpret mode and to the port's plain versions, at ragged shapes and
+at full-range and carry-boundary words.  The CUDA cases are in
+test_torch_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import bin_rss_matmul as jbin
+from repro.kernels import rss_matmul as jdense
+from repro_torch.kernels import bin_rss_matmul as grp
+from repro_torch.kernels import rss_matmul as dense
+from repro_torch.kernels.limbs import (CUDA_CORE, K_STAGE, TENSOR_CORE,
+                                       balanced_limbs, limb_mma_plan)
+from repro_torch.weights import ring_from_numpy, ring_to_numpy
+
+# the workers of a parallel run share the cores: one intra-op thread each
+torch.set_num_threads(1)
+
+# words at the limbs' carry boundaries (as uint32)
+CARRY = np.array([0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF, 32767, 0x7F7F7F7F,
+                  0x80808080, 0x00000080, 0x00008080, 0xFF7F80FF],
+                 dtype=np.uint32)
+# (M, K, N): ragged K (one k32 step and less, 25 / 27 of conv1, 131 past
+# four k32 steps) and N = 10 of the fc heads
+SHAPES = [(5, 3, 10), (33, 25, 10), (16, 27, 16), (9, 131, 10)]
+
+
+def _words(shape, seed, kind):
+    rng = np.random.default_rng(seed)
+    if kind == "carry":
+        return rng.choice(CARRY, size=shape)
+    return rng.integers(0, 2**32, shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _public(shape, n_limbs, seed, kind):
+    """A public encoding whose minimal balanced-limb count is <= L."""
+    rng = np.random.default_rng(seed)
+    if n_limbs == 4:
+        return _words(shape, seed, kind)
+    if kind == "carry":   # the extremes of L balanced limbs, and carries
+        top = sum(127 << (8 * i) for i in range(n_limbs))
+        low = -sum(128 << (8 * i) for i in range(n_limbs))
+        w = rng.choice(np.array([0, 1, -1, 127, -128, top, low, top - 1,
+                                 low + 1]), size=shape)
+    else:
+        half = 1 << (8 * n_limbs - 2)
+        w = rng.integers(-half, half, shape)
+    return w.astype(np.int64).astype(np.uint32)
+
+
+def limb_model(x: torch.Tensor, wt: torch.Tensor, n: int,
+               split_k: int) -> torch.Tensor:
+    """The tensor-core route's arithmetic: x (S, M, K) int32 words, wt
+    (S_w, OPS, L, Np, Kp) int8 K-major limbs (S_w = S, or 1 for a weight
+    shared by every slot); operand o of slot s multiplies x_{(s+o) % S};
+    K split into ranges of ``split_k``."""
+    s_count, m, k = x.shape
+    _, ops, n_limbs = wt.shape[:3]
+    out = torch.zeros((s_count, m, n), dtype=torch.int64)
+    for s in range(s_count):
+        w = wt[s if wt.shape[0] > 1 else 0]
+        for k0 in range(0, k, split_k):
+            k1 = min(k, k0 + split_k)
+            acc = [torch.zeros((m, n), dtype=torch.int32) for _ in range(4)]
+            for o in range(ops):
+                xs = x[(s + o) % s_count, :, k0:k1]
+                u = [(xs >> (8 * p)) & 0xFF for p in range(4)]  # unsigned
+                for q in range(n_limbs):
+                    v = w[o, q, :n, k0:k1].to(torch.int32).T     # signed
+                    for p in range(4 - q):
+                        acc[p + q] += u[p] @ v                   # int32 wrap
+            out[s] += sum(a.to(torch.int64) << (8 * sh)
+                       for sh, a in enumerate(acc))
+    # two's-complement view of the sum mod 2^32
+    return ((out & 0xFFFFFFFF) ^ 0x80000000).sub(0x80000000).to(torch.int32)
+
+
+def _splits(k):
+    """Split-K ranges: one and two of the kernel's K stages, all of K."""
+    return sorted({K_STAGE, 2 * K_STAGE, k})
+
+
+# -- B1: the fused RSS matmul -------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["full", "carry"])
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_b1_limb_model_equals_pallas_kernel(m, k, n, s, kind):
+    x, w = _words((s, m, k), m + s, kind), _words((s, k, n), k + s, kind)
+    jwl = jdense.precompute_weight_limbs(jnp.asarray(w))
+    want = np.asarray(jdense.rss_matmul(jnp.asarray(x), jwl, interpret=True))
+    wl = dense.precompute_weight_limbs(ring_from_numpy(w))
+    xt = ring_from_numpy(x)
+    assert np.array_equal(ring_to_numpy(dense.rss_matmul_parts_ref(xt, wl)),
+                          want)
+    for split_k in _splits(k):
+        got = limb_model(xt, wl.wt, n, split_k)
+        assert np.array_equal(ring_to_numpy(got), want), split_k
+
+
+@pytest.mark.parametrize("k,n", [(27, 10), (131, 24)])
+def test_b1_k_major_cache_is_the_transposed_limbs(k, n):
+    wl = dense.precompute_weight_limbs(ring_from_numpy(_words((3, k, n), 7,
+                                                              "full")))
+    assert wl.wt.shape == (3, 2, 4) + tuple(wl.wl.shape[-1:-3:-1])
+    assert torch.equal(wl.wt[:, 0], wl.wfl.transpose(-1, -2))
+    assert torch.equal(wl.wt[:, 1], wl.wl.transpose(-1, -2))
+    assert wl.wt.is_contiguous()
+
+
+# -- B3: the public-weight product ------------------------------------------
+
+@pytest.mark.parametrize("kind", ["full", "carry"])
+@pytest.mark.parametrize("n_limbs", [1, 2, 3, 4])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_b3_limb_model_equals_pallas_kernel(m, k, n, n_limbs, kind):
+    x = _words((3, m, k), m + n_limbs, kind)
+    w = _public((k, n), n_limbs, k + n_limbs, kind)
+    jwl = jbin.public_weight_limbs(jnp.asarray(w), n_limbs=n_limbs)
+    want = np.asarray(jbin.bin_rss_matmul(jnp.asarray(x), jwl,
+                                          interpret=True))
+    wl = grp.public_weight_limbs(ring_from_numpy(w), n_limbs)
+    assert grp.min_public_limbs(wl.w) <= n_limbs == wl.n_limbs
+    xt = ring_from_numpy(x)
+    assert np.array_equal(ring_to_numpy(grp.bin_rss_matmul_ref(xt, wl)),
+                          want)
+    for split_k in _splits(k):
+        got = limb_model(xt, wl.wt[None, None], n, split_k)
+        assert np.array_equal(ring_to_numpy(got), want), split_k
+
+
+@pytest.mark.parametrize("n_limbs", [1, 2, 4])
+def test_b3_k_major_cache_is_the_transposed_limbs(n_limbs):
+    k, n = 131, 10
+    wl = grp.public_weight_limbs(
+        ring_from_numpy(_public((k, n), n_limbs, 9, "full")), n_limbs)
+    assert wl.wt.shape == (n_limbs, 128, 256) and wl.wt.is_contiguous()
+    assert torch.equal(wl.wt[:, :n, :k], wl.wl.transpose(1, 2))
+    assert not wl.wt[:, n:].any() and not wl.wt[:, :, k:].any()
+
+
+def test_unsigned_bytes_and_balanced_limbs_both_rebuild_the_word():
+    """The kernel's two limb splits: x's bytes as they lie in memory, the
+    weight's balanced limbs from the cache."""
+    x = ring_from_numpy(CARRY)
+    un = sum(((x >> (8 * p)) & 0xFF).to(torch.int64) << (8 * p)
+             for p in range(4))
+    bal = sum(limb.to(torch.int64) << (8 * p)
+              for p, limb in enumerate(balanced_limbs(x)))
+    assert torch.equal(un & 0xFFFFFFFF, torch.from_numpy(CARRY.astype(
+        np.int64)))
+    assert torch.equal(bal & 0xFFFFFFFF, un & 0xFFFFFFFF)
+
+
+# -- the launch plan ----------------------------------------------------------
+
+# (S, M, K, N) -> (route, K stages per split, splits) on 132 SMs
+PLANS = {
+    (3, 32, 3136, 512): (TENSOR_CORE, 9, 11),
+    (3, 32, 784, 128): (TENSOR_CORE, 1, 25),
+    (3, 512, 4608, 512): (TENSOR_CORE, 36, 4),
+    (3, 2048, 2304, 256): (TENSOR_CORE, 36, 2),
+    (3, 32768, 576, 64): (TENSOR_CORE, 18, 1),
+    (3, 2048, 48, 48): (TENSOR_CORE, 2, 1),
+    (3, 32768, 27, 64): (TENSOR_CORE, 1, 1),
+    (3, 32768, 16, 16): (CUDA_CORE, 1, 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(PLANS))
+def test_plan(shape):
+    """The M = 32 fc layers split K until the tiles fill the card, grids
+    just past a wave split to even their waves, the large-M conv layers
+    and short K ranges do not split, and K <= 16 takes the CUDA cores."""
+    route, per, splits = limb_mma_plan(*shape, sms=132)
+    assert (route, per, splits) == PLANS[shape]
+    steps = -(-shape[2] // K_STAGE)
+    assert (splits - 1) * per < steps <= splits * per
