@@ -24,9 +24,14 @@ Phases, each fatal on failure:
               inputs (torch has no integer matmul on CUDA), exactly, and B7
               must repeat bit for bit at MnistNet4's shapes (fc1 splits K
               over blocks that add with atomics: a repeat that differs is a
-              race).  Times: CUDA events, median of 30 launches after
-              warm-up; B7 also times torch._int_mm (cuBLAS) where its shape
-              rules hold, and prints its factor to it.
+              race).  B5 prints each shape's route (int8 tensor cores after
+              a pass that splits b into limbs, or CUDA cores at K <= 16) and
+              split-K factor, repeats split shapes bit for bit, holds the
+              split pass to its plain version, and runs and times the IMAD
+              kernel (the CUDA-core route, B5's first design) beside it.  Times: CUDA events,
+              median of 30 launches after warm-up; B7 also times
+              torch._int_mm (cuBLAS) where its shape rules hold, and prints
+              its factor to it.
 3. path     - the port's serving entry point on the card at batch 32, for
               every path of PINNED: CifarNet2 and MnistNet1 with shared
               weights (rss_matmul, grouped_rss_matmul) and with public
@@ -62,10 +67,13 @@ Phases, each fatal on failure:
               ragged S = 1000 with GQA, hd 32, MHA, and TinyLlama-1.1B's
               prefill shape (2, 2048, 32, 4, 64); B9 ssd_scan at the
               reference's three kernel-test shapes and at Mamba2-1.3B's
-              layer shape (2, 2048, 64, 64, 128; chunk 256) on the inputs
-              of a full-width Mamba2 layer, all within 2e-5 of max |y| and
-              bit-identical on repeats.  The plain versions run on
-              the host CPU.  Times as in phase 2; B8's library column is
+              layer shape (1 and 2, 2048, 64, 64, 128; chunk 256) on the
+              inputs of a full-width Mamba2 layer, all within 2e-5 of max
+              |y| and bit-identical on repeats, each beside the serial
+              kernel (B9's first design, one block per (head, batch);
+              held to the same gate and timed), and at the layer
+              shapes each of its passes timed alone.  The plain versions
+              run on the host CPU.  Times as in phase 2; B8's library column is
               scaled_dot_product_attention (causal, GQA) at the same shape.
 8. lm paths - Mamba2-1.3B at full width and depth (48 layers): a 2 x 2048
               prefill layer by layer, each layer's scan on B9 (48 launches)
@@ -441,9 +449,11 @@ def check_ring_kernels() -> list:
     (M > 16, K and N multiples of 8) hold."""
     import torch
     from repro_torch.kernels import binary_matmul as binmm
+    from repro_torch.kernels import limbs
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ring_matmul as ringmm
 
+    sms = limbs.sm_count(torch.device("cuda"))
     g = torch.Generator().manual_seed(1)
 
     def words(*shape):
@@ -468,7 +478,7 @@ def check_ring_kernels() -> list:
             cases += [((128, 256, 128), "pm1"), ((128, 256, 128), "01")]
         detail = []
         tot = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-               "library_ms": 0.0, "ms_library_shapes": 0.0}
+               "library_ms": 0.0, "ms_library_shapes": 0.0, "imad_ms": 0.0}
         for (m, k, n), kind in cases:
             if name == "ring_matmul":
                 a, b = words(m, k), words(k, n)
@@ -493,6 +503,32 @@ def check_ring_kernels() -> list:
                     if not torch.equal(run(), got):
                         fail(f"{name} ({m}, {k}, {n}): repeats of one "
                              f"launch differ")
+            extra, note = {}, ""
+            if name == "ring_matmul":
+                # the plan's route and split-K factor; split shapes repeat
+                # bit for bit (int32 atomics); the split pass == its plain
+                # version; the IMAD kernel (the CUDA-core route) timed
+                plan = limbs.limb_mma_plan(1, m, k, n, sms)
+                extra = {"limb_route": plan[0], "splits": plan[2]}
+                note = f", {plan[0]}, split-K {plan[2]}"
+                if plan[2] > 1:
+                    for _ in range(SPLIT_REPEATS):
+                        if not torch.equal(run(), got):
+                            fail(f"{name} ({m}, {k}, {n}): repeats of one "
+                                 f"launch differ")
+                    note += f", {SPLIT_REPEATS} repeats bit-identical"
+                if not torch.equal(ringmm.split_weight_limbs(bd).cpu(),
+                                   ringmm.ring_weight_limbs_ref(b)):
+                    fail(f"{name} ({m}, {k}, {n}): the split pass != its "
+                         f"plain version")
+                if plan[0] == limbs.TENSOR_CORE:
+                    old_run = lambda: ringmm._launch_ring(ad, bd,
+                                                          limbs.CUDA_CORE)
+                    if not torch.equal(old_run().cpu(), want):
+                        fail(f"{name} ({m}, {k}, {n}): the CUDA-core route "
+                             f"!= plain version")
+                    extra["imad_ms"] = median_ms(old_run)
+                    note += f"; IMAD kernel {extra['imad_ms']:.5f} ms"
             ms = median_ms(run)
             pms = host_ms(lambda: plain(a, b))
             lib = None
@@ -507,12 +543,12 @@ def check_ring_kernels() -> list:
             detail.append({"M": m, "K": k, "N": n, "weights": kind,
                            "ms": ms, "plain_ms": pms, "bound_ms": bound,
                            "bound_by": "bytes" if b_ms >= o_ms
-                           else "operations", "library_ms": lib})
+                           else "operations", "library_ms": lib, **extra})
             print(f"[chip_smoke] {name} ({m}, {k}, {n}) {kind}: {ms:.5f} ms "
                   f"(bound {bound:.5f} ms, {100 * bound / ms:.1f}% of "
                   f"bound), plain on host {pms:.3f} ms"
                   + (f", torch._int_mm {lib:.5f} ms ({ms / lib:.2f}x)"
-                     if lib is not None else "") + ", exact"
+                     if lib is not None else "") + ", exact" + note
                   + (f", {BB_REPEATS} repeats bit-identical"
                      if name == "bin_bin_matmul" and (m, k, n) in MNIST4_SHAPES
                      else ""))
@@ -524,6 +560,7 @@ def check_ring_kernels() -> list:
                 if lib is not None:
                     tot["library_ms"] += lib
                     tot["ms_library_shapes"] += ms
+                tot["imad_ms"] += extra.get("imad_ms", 0.0)
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": 0, "max_abs_err": 0,
                "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -535,6 +572,11 @@ def check_ring_kernels() -> list:
                "shapes": detail}
         if name == "bin_bin_matmul":
             row["ms_at_library_shapes"] = tot["ms_library_shapes"]
+        if name == "ring_matmul":   # the IMAD kernel at the same shapes
+            row["imad_ms"] = tot["imad_ms"]
+            print(f"[chip_smoke] ring_matmul over MnistNet4's four shapes: "
+                  f"{tot['ms']:.5f} ms, the IMAD kernel {tot['imad_ms']:.5f}"
+                  f" ms ({tot['imad_ms'] / tot['ms']:.2f}x)")
         rows.append(row)
     return rows
 
@@ -722,7 +764,9 @@ def mamba_layer_inputs(cfg, params, tokens):
 
 def check_ssd(layer_inputs) -> dict:
     """Phase 7, B9: kernel == plain version (host CPU) at the reference's
-    test shapes and at Mamba2-1.3B's layer inputs (the row's numbers)."""
+    test shapes and at Mamba2-1.3B's layer inputs at batch 1 and 2 (the
+    row's numbers), each beside the serial kernel; at the layer shapes each
+    pass is also timed alone."""
     import torch
     from repro_torch.kernels import ssd
     from repro_torch.nn.ssm import CHUNK
@@ -736,7 +780,10 @@ def check_ssd(layer_inputs) -> dict:
                        -torch.rand((b, s, h), generator=g) * 0.5,
                        torch.rand((b, s, h), generator=g) * 0.9 + 0.1),
                       chunk, SSD_REPEATS))
-    cases.append((tuple(t.cpu() for t in layer_inputs), CHUNK, 5))
+    layer = tuple(t.cpu() for t in layer_inputs)
+    # Mamba2's layer at batch 1, then at batch 2 (the row's numbers)
+    cases.append((tuple(t[:1].contiguous() for t in layer), CHUNK, 5))
+    cases.append((layer, CHUNK, 5))
     detail, err_max = [], 0.0
     for host, chunk, reps in cases:
         dev = tuple(t.cuda() for t in host)
@@ -760,6 +807,19 @@ def check_ssd(layer_inputs) -> dict:
                  f"version (max abs err {err}, max |y| {scale})")
         err_max = max(err_max, err)
         ms = median_ms(run)
+        # the serial kernel (one block per (head, batch) walks the chunks)
+        old_run = lambda: ssd._launch(*dev, chunk, "serial")
+        old_err = float((old_run().cpu() - want).abs().max())
+        if not old_err <= SSD_REL_TOL * scale:
+            fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: the serial kernel != "
+                 f"plain version (max abs err {old_err})")
+        old_ms = median_ms(old_run, reps=10)
+        passes = {}
+        if chunk == CHUNK:   # each pass alone, on buffers the others fill
+            buf = ssd.scratch(b, s, h, hd, n, chunk, dev[0].device)
+            for mode in ("gram", "states", "pass", "scan"):
+                passes[mode] = median_ms(
+                    lambda: ssd._launch(*dev, chunk, mode, buf))
         b_ms = 4 * (2 * b * s * h * hd + 2 * b * s * n + 2 * b * s * h) \
             / HBM_BPS * 1e3
         # per (b, chunk): the causal triangle of C·Bᵀ (B and C are shared
@@ -772,14 +832,19 @@ def check_ssd(layer_inputs) -> dict:
         detail.append({"B": b, "S": s, "H": h, "hd": hd, "N": n,
                        "chunk": chunk, "ms": ms, "plain_ms": pms,
                        "bound_ms": max(b_ms, o_ms), "max_abs_err": err,
-                       "max_abs_y": scale, "repeats": reps})
+                       "max_abs_y": scale, "repeats": reps,
+                       "serial_ms": old_ms, "pass_ms": passes})
         print(f"[chip_smoke] ssd_scan {(b, s, h, hd, n)} chunk {chunk}: "
               f"{ms:.5f} ms (bound {max(b_ms, o_ms):.5f} ms, "
               f"{100 * max(b_ms, o_ms) / ms:.1f}% of bound), plain on host "
               f"{pms:.3f} ms, max |err| {err:.3g} (max |y| {scale:.3g}); "
-              f"{reps} repeats bit-identical; {b * h} blocks")
+              f"{reps} repeats bit-identical; serial kernel {old_ms:.5f} ms "
+              f"({old_ms / ms:.1f}x)"
+              + "".join(f"; {k} {v:.5f} ms" for k, v in passes.items()))
     # no single PyTorch call computes the SSD scan
-    return _row("ssd_scan", ms, pms, b_ms, o_ms, None, err_max, detail)
+    row = _row("ssd_scan", ms, pms, b_ms, o_ms, None, err_max, detail)
+    row["serial_ms"], row["pass_ms"] = old_ms, passes
+    return row
 
 
 def lm_tokens(vocab: int):

@@ -6,30 +6,100 @@
 // product of a secure layer, 6 per layer under the fused-operand matmul
 // mode and 9 under the paper's Algorithm 2.
 //
-// The TPU kernel split both operands into 4 balanced int8 limbs and ran the
-// 10 limb products that survive the modulus, because the MXU has no 32-bit
-// integer multiply.  Hopper's CUDA cores do (IMAD), and a 32-bit product
-// wraps mod 2^32, so this kernel multiplies the words directly and
-// accumulates in uint32_t, whose wrap is the ring arithmetic.
+// The TPU kernel split both operands into 4 balanced int8 limbs per call
+// and ran the 10 limb products that survive the modulus.  Two routes here,
+// chosen by shape in the wrapper (kernels/limbs.py::limb_mma_plan), never
+// as a fallback:
 //
-// Layout and masking: ring_tile.cuh, the tile loop this kernel shares with
-// binary_matmul.cu's bin_weight_matmul (B5 keeps its own entry point and
-// launch counter).
+//  * tensor cores (K > 16): B3's limb_mma.cuh instantiation <1, 4> with
+//    one slot.  x's four bytes are its unsigned limbs, split in registers
+//    by limb_mma.cuh; b is split per call by split_limbs_kernel below into
+//    its four balanced int8 limbs, K-major and 128-padded (the layout of
+//    PublicWeightLimbs.wt), in one pass over b.  The 10 pairs with
+//    p + q <= 3 are u8 x s8 wgmma; split-K by int32 atomics where the
+//    tiles leave SMs idle (the M = 32 fc layers).
+//  * CUDA cores (K <= 16, where a k32 step would be mostly padding):
+//    ring_tile.cuh's IMAD tile loop, the words multiplied directly (the
+//    kernel's first design, which chip_smoke.py also times at every shape
+//    beside the other route).
 //
-// What bounds it: at the per-dot shapes the product is shallow (K <= 3136)
-// and the bound is bytes (4·(M·K + K·N + M·N) over 3.35 TB/s) or, for the
-// deep fc layers, the int8-limb operation count the TPU route needs.  IMAD
-// issue and the serial K loop limit this first version, and at M = 32 (the
-// fc layers at batch 32) only N / 64 blocks run; split-K would fix that.
+// The split.  A balanced limb is a byte of w + 0x80808080 minus 128: adding
+// 128 to every byte turns the digits in [-128, 127] into bytes in [0, 255],
+// and the carries between the bytes are the balanced carries.  So the
+// limbs are the bytes of (w + 0x80808080) ^ 0x80808080, read as int8; the
+// padding (w = 0) splits to zero limbs.  One block transposes a 64 x 64
+// word tile of b through shared memory and writes each limb plane's 64-byte
+// K runs as 4-byte stores.
+//
+// What bounds it: at MnistNet4's shapes, bytes (4·(M·K + K·N + M·N) over
+// 3.35 TB/s; the limb planes, K·N bytes a plane, are written and read back
+// once more, mostly through L2).
 
+#include "limb_mma.cuh"
 #include "ring_tile.cuh"
 
-// a: (M, K), b: (K, N), c: (M, N); contiguous 32-bit words.
-extern "C" int ring_matmul_launch(const void* a, const void* b, void* c,
-                                  long long M, int K, int N, void* stream) {
-  ring_tile::ring_tile_kernel<uint32_t>
-      <<<ring_tile::tile_grid(M, N), ring_tile::THREADS, 0,
-         (cudaStream_t)stream>>>(
-          (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)c, M, K, N);
-  return (int)cudaGetLastError();
+namespace {
+
+constexpr int SPLIT_T = 64;        // a split block's tile: 64 k x 64 n
+constexpr int SPLIT_THREADS = 256;
+
+// b (K, N) 32-bit words -> wt (4, Np, Kp) int8, wt[p][n][k] = limb p of
+// b[k][n], zero past K and N
+__global__ void __launch_bounds__(SPLIT_THREADS)
+split_limbs_kernel(const uint32_t* __restrict__ b, uint32_t* __restrict__ wt,
+                   int K, int N, int Kp, long long plane) {
+  __shared__ uint32_t v[SPLIT_T][SPLIT_T + 1];   // [n][k], split words
+  const int k0 = blockIdx.x * SPLIT_T, n0 = blockIdx.y * SPLIT_T;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < SPLIT_T * SPLIT_T / SPLIT_THREADS; ++j) {
+    const int e = tid + j * SPLIT_THREADS;
+    const int kk = e / SPLIT_T, nn = e % SPLIT_T;   // n fastest: coalesced
+    const int gk = k0 + kk, gn = n0 + nn;
+    const uint32_t w = (gk < K && gn < N) ? b[(long long)gk * N + gn] : 0u;
+    v[nn][kk] = (w + 0x80808080u) ^ 0x80808080u;
+  }
+  __syncthreads();
+  // each thread: 4 consecutive k of one n -> one 4-byte word a limb plane
+#pragma unroll
+  for (int j = 0; j < SPLIT_T * SPLIT_T / 4 / SPLIT_THREADS; ++j) {
+    const int e = tid + j * SPLIT_THREADS;
+    const int nn = e / (SPLIT_T / 4), g = e % (SPLIT_T / 4);
+    const uint4 q = make_uint4(v[nn][4 * g], v[nn][4 * g + 1],
+                               v[nn][4 * g + 2], v[nn][4 * g + 3]);
+    uint32_t a[4][4];
+    limb_mma::split_limbs(q, a, 0);
+    const long long off = ((long long)(n0 + nn) * Kp + k0 + 4 * g) / 4;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) wt[p * (plane / 4) + off] = a[p][0];
+  }
+}
+
+}  // namespace
+
+// a: (M, K), b: (K, N), c: (M, N) contiguous 32-bit words; wt: (4, Np, Kp)
+// int8 scratch (Kp, Np multiples of 128, >= K, N).  route 0: split b into
+// wt, then the tensor-core product with per_split K stages a split-K
+// block; 1: the CUDA-core product (wt unused); 2: the split alone.
+extern "C" int ring_matmul_launch(const void* a, const void* b, void* wt,
+                                  void* c, long long M, int K, int N, int Kp,
+                                  int Np, int route, int per_split,
+                                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (route == 1) {
+    ring_tile::ring_tile_kernel<uint32_t>
+        <<<ring_tile::tile_grid(M, N), ring_tile::THREADS, 0, st>>>(
+            (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)c, M, K, N);
+    return (int)cudaGetLastError();
+  }
+  if (route != 0 && route != 2) return (int)cudaErrorInvalidValue;
+  if (Kp % 128 || Np % 128 || Kp < K || Np < N)
+    return (int)cudaErrorInvalidValue;
+  split_limbs_kernel<<<dim3(Kp / SPLIT_T, Np / SPLIT_T), SPLIT_THREADS, 0,
+                       st>>>((const uint32_t*)b, (uint32_t*)wt, K, N, Kp,
+                             (long long)Np * Kp);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || route == 2) return (int)e;
+  return limb_mma::launch<1, 4>(a, wt, c, 1, M, K, N, Kp, Np, 0, per_split,
+                                st);
 }

@@ -47,7 +47,7 @@ KERNELS = {
                            [_P, _P, _P, _I, _I, _L, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _P]),
     "ring_matmul": ("ring_matmul", "ring_matmul_launch",
-                    [_P, _P, _P, _L, _I, _I, _P]),
+                    [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
     "bin_weight_matmul": ("binary_matmul", "bin_weight_matmul_launch",
                           [_P, _P, _P, _L, _I, _I, _P]),
     "bin_bin_matmul": ("binary_matmul", "bin_bin_matmul_launch",
@@ -56,7 +56,7 @@ KERNELS = {
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                          *[_L] * 9, _F, _P]),
     "ssd_scan": ("ssd_scan", "ssd_scan_launch",
-                 [*[_P] * 6, *[_I] * 7, *[_L] * 13, _I, _P]),
+                 [*[_P] * 10, *[_I] * 6, *[_L] * 13, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in KERNELS}

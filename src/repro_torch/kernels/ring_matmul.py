@@ -5,25 +5,50 @@ oracle ``repro/kernels/ref.py::ring_matmul_ref``.  It is the per-dot
 route of the linear protocols (``dot=kernels.ops.rss_matmul_dot``): each
 per-party product of a secure layer is one call.
 
-On a CUDA tensor :func:`ring_matmul` launches the hand-written kernel
-``csrc/ring_matmul.cu`` (it replaces the TPU kernel
+On a CUDA tensor :func:`ring_matmul` launches the hand-written kernels
+of ``csrc/ring_matmul.cu`` (they replace the TPU kernel
 ``repro/kernels/ring_matmul.py::_ring_matmul_kernel``) or raises; on a
 CPU (or ``meta``) tensor it runs the plain version, an int32 matmul that
 wraps mod 2^32.  torch has no integer matmul on CUDA, so the plain version
 is CPU-only.
+
+The route comes from :func:`~.limbs.limb_mma_plan` at one slot: at K > 16
+the int8 tensor cores (B3's ``limb_mma.cuh`` kernel with L = 4 limbs), after
+a pass that splits b into its balanced limbs, K-major and 128-padded
+(:func:`ring_weight_limbs_ref` is that pass's plain version); at K <= 16
+the CUDA cores multiply the words.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build
+from .limbs import K_STAGE, TENSOR_CORE, limb_mma_plan, sm_count
 
-__all__ = ["ring_matmul", "ring_matmul_ref"]
+__all__ = ["ring_matmul", "ring_matmul_ref", "ring_weight_limbs_ref",
+           "split_weight_limbs"]
+
+_TILE = 128
+# 0x80808080 as an int32: adding it turns balanced digits into bytes
+_BIAS = 0x80808080 - 2**32
+# the C entry point's routes
+_ROUTE_TC, _ROUTE_CC, _ROUTE_SPLIT = 0, 1, 2
 
 
 def ring_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain version: (M, K) x (K, N) int32 -> (M, N) int32, mod 2^32."""
     return torch.matmul(a, b)
+
+
+def ring_weight_limbs_ref(b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the split pass: (K, N) int32 words -> (4, Np, Kp)
+    int8, limb p of b[k, n] at [p, n, k], zero-padded to multiples of 128.
+    The balanced limbs are the bytes of (b + 0x80808080) ^ 0x80808080."""
+    k, n = b.shape
+    v = (b.to(torch.int32) + _BIAS) ^ _BIAS
+    limbs = v.contiguous().view(torch.int8).reshape(k, n, 4).permute(2, 1, 0)
+    return torch.nn.functional.pad(
+        limbs, (0, (-k) % _TILE, 0, (-n) % _TILE)).contiguous()
 
 
 def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor,
@@ -66,7 +91,56 @@ def _route(name: str, a: torch.Tensor, b: torch.Tensor, a_dtype: torch.dtype,
     raise ValueError(f"{name}: unsupported device {a.device}")
 
 
+def _padded(d: int) -> int:
+    return max(1, -(-d // _TILE)) * _TILE
+
+
+def _launch_ring(a: torch.Tensor, b: torch.Tensor,
+                 route: str | None = None) -> torch.Tensor:
+    """Launch B5 on the route of the plan (``route`` forces one, unsplit:
+    ``chip_smoke.py`` also times the CUDA-core route, the IMAD kernel)."""
+    _check_operands("ring_matmul", a, b, torch.int32, torch.int32)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
+    chosen, per, _ = limb_mma_plan(1, m, k, n, sm_count(a.device))
+    if route is not None and route != chosen:
+        chosen, per = route, -(-k // K_STAGE)
+    tc = chosen == TENSOR_CORE
+    wt = torch.empty((4, _padded(n), _padded(k)) if tc else (0,),
+                     dtype=torch.int8, device=a.device)
+    fn = build.library("ring_matmul")
+    err = fn(a.data_ptr(), b.data_ptr(), wt.data_ptr(), out.data_ptr(), m, k,
+             n, _padded(k), _padded(n), _ROUTE_TC if tc else _ROUTE_CC, per,
+             build.stream_ptr(a.device))
+    build.check("ring_matmul", err)
+    build.LAUNCHES["ring_matmul"] += 1
+    return out
+
+
+def split_weight_limbs(b: torch.Tensor) -> torch.Tensor:
+    """The split pass alone on the card: (K, N) int32 -> (4, Np, Kp) int8
+    (tests and ``chip_smoke.py`` hold it to :func:`ring_weight_limbs_ref`)."""
+    if b.device.type != "cuda" or b.ndim != 2 or b.dtype != torch.int32 \
+            or not b.is_contiguous():
+        raise ValueError("split_weight_limbs: b must be a contiguous (K, N) "
+                         "int32 tensor on the card")
+    k, n = b.shape
+    wt = torch.empty((4, _padded(n), _padded(k)), dtype=torch.int8,
+                     device=b.device)
+    fn = build.library("ring_matmul")
+    err = fn(None, b.data_ptr(), wt.data_ptr(), None, 0, k, n, _padded(k),
+             _padded(n), _ROUTE_SPLIT, 1, build.stream_ptr(b.device))
+    build.check("ring_matmul", err)
+    build.LAUNCHES["ring_matmul"] += 1
+    return wt
+
+
 def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B mod 2^32, (M, K) x (K, N) int32 ring words."""
+    if a.device.type == "cuda":
+        return _launch_ring(a, b)
     return _route("ring_matmul", a, b, torch.int32, torch.int32,
                   ring_matmul_ref)

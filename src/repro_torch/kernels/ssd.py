@@ -8,10 +8,14 @@ matrix form, across chunks a (hd, N) state carried per (batch, head).
 jnp; no entry point of the reference reaches the kernel, which is driven
 through :func:`ssd_scan`.
 
-On a CUDA tensor :func:`ssd_scan` launches the hand-written kernel
-``csrc/ssd_scan.cu`` (it replaces the TPU kernel
+On a CUDA tensor :func:`ssd_scan` launches the hand-written kernels of
+``csrc/ssd_scan.cu`` (they replace the TPU kernel
 ``repro/kernels/ssd.py::_ssd_kernel``) or raises; on a CPU tensor it runs
-the plain version.
+the plain version.  The kernels are Mamba-2's chunk decomposition in
+passes: Bᵀ and Cᵀ, then C·Bᵀ once per (batch, chunk); each chunk's state
+contribution; the states passed in chunk order; each chunk's output.  One
+call counts one launch however many kernels it runs; any chunk that
+divides S runs (up to the shared memory of :func:`smem_bytes`).
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ import torch
 
 from . import build
 
-__all__ = ["ssd_chunked", "ssd_scan", "ssd_scan_ref", "SMEM_LIMIT"]
+__all__ = ["ssd_chunked", "ssd_scan", "ssd_scan_ref", "SMEM_LIMIT",
+           "smem_bytes", "scratch", "MODES"]
 
 SMEM_LIMIT = 232_448     # bytes of shared memory a Hopper block may use
 
@@ -65,31 +70,43 @@ def ssd_scan_ref(x, bmat, cmat, da, dt, *, chunk: int = 64):
     return ssd_chunked(x, bmat, cmat, da, dt, chunk)[0].to(x.dtype)
 
 
-def _sub_block(chunk: int) -> int:
-    """Rows of the chunk the kernel holds at once (64, or the whole chunk
-    when it is shorter)."""
-    return min(chunk, 64)
+# mirrors csrc/ssd_scan.cu: the scan's float64 totals and the cp.async stages
+_HEAD_FLOATS, _STAGES_FLOATS = 16, 3 * 2 * 16 * (132 + 68)
+# the C entry point's modes: all passes; one alone, for timing ("gram" is
+# the transpose of B and C and the C·Bᵀ pass); the serial kernel (one block
+# per (head, batch) walking the chunks)
+MODES = {"passes": 0, "gram": 1, "states": 2, "pass": 3, "scan": 4,
+         "serial": 5}
 
 
-def smem_bytes(chunk: int, hd: int, n: int) -> int:
-    """The kernel's shared memory: the (N, hd) state, a row block of C, a
-    transposed row block of B (pitch R+1), x·dt and y row blocks, the
-    (R, R) intra-chunk block, and the chunk's cumsum and dt."""
-    r = _sub_block(chunk)
-    return 4 * (n * hd + r * n + n * (r + 1) + 2 * r * hd + r * r
-                + 2 * chunk)
+def smem_bytes(chunk: int) -> int:
+    """Shared memory of passes (a) and (c): the float64 scan's warp totals,
+    the K slabs in flight and four (chunk) vectors (two heads' cum and
+    dt)."""
+    return 4 * (_HEAD_FLOATS + _STAGES_FLOATS + 4 * chunk)
 
 
-def _launch(x, bmat, cmat, da, dt, chunk: int):
+def scratch(b: int, s: int, h: int, hd: int, n: int, chunk: int,
+            device) -> tuple:
+    """The passes' buffers: C·Bᵀ per (batch, chunk) (B, nc, Q, Q), the
+    (N, hd) state of every (batch, head, chunk), each chunk's total decay
+    exponent (B, H, nc), and Bᵀ and Cᵀ (2, B, N, S)."""
+    nc = s // chunk
+    f = dict(dtype=torch.float32, device=device)
+    return (torch.empty((b, nc, chunk, chunk), **f),
+            torch.empty((b, h, nc, n, hd), **f), torch.empty((b, h, nc), **f),
+            torch.empty((2, b, n, s), **f))
+
+
+def _launch(x, bmat, cmat, da, dt, chunk: int, mode: str = "passes",
+            buffers: tuple | None = None):
+    """Launch B9 (``mode`` "passes"); the other modes run one pass alone on
+    ``buffers`` or the serial kernel, for ``chip_smoke.py``'s timings."""
     b, s, h, hd = x.shape
     n = bmat.shape[-1]
-    r = _sub_block(chunk)
-    if chunk % r:
-        raise ValueError(f"ssd_scan: chunk {chunk} must be at most 64 or a "
-                         f"multiple of 64")
-    if smem_bytes(chunk, hd, n) > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan: hd {hd}, N {n}, chunk {chunk} need "
-                         f"{smem_bytes(chunk, hd, n)} B of shared memory")
+    if smem_bytes(chunk) > SMEM_LIMIT:
+        raise ValueError(f"ssd_scan: chunk {chunk} needs "
+                         f"{smem_bytes(chunk)} B of shared memory")
     if any(t.device != x.device for t in (bmat, cmat, da, dt)):
         raise ValueError("ssd_scan: inputs on different devices")
     if bmat.shape != (b, s, n) or cmat.shape != (b, s, n) \
@@ -104,11 +121,16 @@ def _launch(x, bmat, cmat, da, dt, chunk: int):
     y = torch.empty((b, s, h, hd), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y.to(x.dtype)
+    if buffers is None:   # the serial kernel needs none
+        buffers = (scratch(b, s, h, hd, n, chunk, x.device)
+                   if mode != "serial" else (y,) * 4)
+    gt, st, cl, bct = buffers
     fn = build.library("ssd_scan")
     err = fn(xf.data_ptr(), bf.data_ptr(), cf.data_ptr(), daf.data_ptr(),
-             dtf.data_ptr(), y.data_ptr(), b, s, h, hd, n, chunk, r,
+             dtf.data_ptr(), y.data_ptr(), gt.data_ptr(), st.data_ptr(),
+             cl.data_ptr(), bct.data_ptr(), b, s, h, hd, n, chunk,
              *xf.stride()[:3], *bf.stride()[:2], *cf.stride()[:2],
-             *daf.stride(), *dtf.stride(), smem_bytes(chunk, hd, n),
+             *daf.stride(), *dtf.stride(), MODES[mode],
              build.stream_ptr(x.device))
     build.check("ssd_scan", err)
     build.LAUNCHES["ssd_scan"] += 1

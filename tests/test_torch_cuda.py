@@ -296,6 +296,73 @@ def test_ring_kernels_cuda_equal_plain(cuda, m, k, n):
         assert torch.equal(got.cpu(), plain(x, y)), name
 
 
+# -- B5 on the int8 limb tensor cores: the split pass, both routes, split-K ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(3, 10), (131, 24), (300, 129), (3136, 512)])
+def test_ring_split_pass_equals_plain(cuda, k, n):
+    """b's balanced limbs, K-major and 128-padded, written by one pass."""
+    b = ring_from_numpy(_words((k, n), 41))
+    got = ringmm.split_weight_limbs(b.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ringmm.ring_weight_limbs_ref(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(7, 3, 1), (200, 16, 48), (33, 9, 70)])
+def test_ring_matmul_cuda_core_route_at_small_k(cuda, m, k, n):
+    assert limbs.limb_mma_plan(1, m, k, n, limbs.sm_count(cuda))[0] \
+        == limbs.CUDA_CORE
+    a, b = ring_from_numpy(_words((m, k), 42)), ring_from_numpy(
+        _words((k, n), 43))
+    got = ops.ring_matmul_op(a.to(cuda), b.to(cuda))
+    assert torch.equal(got.cpu(), ringmm.ring_matmul_ref(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(32, 3136, 512), (32, 512, 10),
+                                   (32, 784, 128)])
+def test_ring_matmul_cuda_split_k_exact_and_repeatable(cuda, m, k, n):
+    """The M = 32 fc layers split K; the blocks add with int32 atomics."""
+    assert limbs.limb_mma_plan(1, m, k, n, limbs.sm_count(cuda))[2] > 1
+    a, b = ring_from_numpy(_words((m, k), 44)), ring_from_numpy(
+        _words((k, n), 45))
+    ad, bd = a.to(cuda), b.to(cuda)
+    got = ops.ring_matmul_op(ad, bd)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), ringmm.ring_matmul_ref(a, b))
+    for _ in range(5):
+        assert torch.equal(ops.ring_matmul_op(ad, bd), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [limbs.TENSOR_CORE, limbs.CUDA_CORE])
+@pytest.mark.parametrize("m,k,n", [(65, 70, 67), (1, 128, 1), (257, 17, 65),
+                                   (6272, 800, 64)])
+def test_ring_matmul_both_routes_equal_plain(cuda, route, m, k, n):
+    a, b = ring_from_numpy(_words((m, k), 46)), ring_from_numpy(
+        _words((k, n), 47))
+    got = ringmm._launch_ring(a.to(cuda), b.to(cuda), route)
+    assert torch.equal(got.cpu(), ringmm.ring_matmul_ref(a, b))
+
+
+@pytest.mark.cuda
+def test_ring_matmul_limb_accumulators_wrap_exactly(cuda):
+    """Carry-boundary words at K = 9000 overflow every shift's int32
+    accumulator; the plan's split and one unsplit range both wrap to the
+    ring."""
+    edge = np.array([0xFFFFFFFF, 0x80808080, 0x7F7F7F7F, 0x80000000],
+                    dtype=np.uint32)
+    rng = np.random.default_rng(48)
+    a = ring_from_numpy(rng.choice(edge, (64, 9000)))
+    b = ring_from_numpy(rng.choice(edge, (9000, 64)))
+    want = ringmm.ring_matmul_ref(a, b)
+    ad, bd = a.to(cuda), b.to(cuda)
+    assert torch.equal(ops.ring_matmul_op(ad, bd).cpu(), want)
+    assert torch.equal(ringmm._launch_ring(ad, bd, limbs.TENSOR_CORE).cpu(),
+                       want)
+
+
 @pytest.mark.cuda
 def test_new_ops_never_take_the_plain_version(cuda, monkeypatch):
     """On a card the three ops launch their kernels or raise; the plain
@@ -471,27 +538,67 @@ def test_bin_bin_matmul_cuda_mnist4_exact_and_repeatable(cuda, m, k, n):
         assert torch.equal(ops.binary_binary_matmul_op(ad, wd), got)
 
 
+# the reference's kernel-test shapes, Mamba2-1.3B's widths, and ragged ones:
+# a chunk of 96 (neither <= 64 nor a multiple of 64), hd 80, N 24 and 160;
+# hd 18 / N 6 and a chunk of 30 take the 4-byte copies (rows not 16-byte
+# aligned)
+SSD_CUDA = [(128, 2, 32, 16, 64), (256, 1, 64, 32, 64), (64, 4, 16, 8, 32),
+            (512, 2, 64, 128, 256), (192, 3, 80, 24, 96),
+            (256, 2, 128, 160, 128), (96, 2, 18, 6, 32), (60, 3, 10, 5, 30)]
+
+
+def _ssd_inputs(bsz, s, h, hd, n):
+    x = _normal((bsz, s, h, hd), 5, 0.5)
+    bm, cm = _normal((bsz, s, n), 6, 0.5), _normal((bsz, s, n), 7, 0.5)
+    da = -_normal((bsz, s, h), 8, 0.3).abs()
+    dt = _normal((bsz, s, h), 9, 0.3).abs() + 0.1
+    return x, bm, cm, da, dt
+
+
+def _within_ssd_gate(got, want):
+    return float((got.cpu() - want).abs().max()) \
+        <= 2e-5 * float(want.abs().max())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,h,hd,n,chunk", [
-    (128, 2, 32, 16, 64), (256, 1, 64, 32, 64), (64, 4, 16, 8, 32),
-    (512, 2, 64, 128, 256)])
-def test_ssd_scan_cuda_equals_plain(cuda, s, h, hd, n, chunk):
+@pytest.mark.parametrize("bsz", [1, 2])
+@pytest.mark.parametrize("s,h,hd,n,chunk", SSD_CUDA)
+def test_ssd_scan_cuda_equals_plain(cuda, bsz, s, h, hd, n, chunk):
     """Both sides run the same float32 chunk math: within 2e-5 of max |y|
     (the reference's 5e-4 is its kernel-against-recurrence tolerance), and
-    a repeat is bit-identical (the kernel sums in a fixed order)."""
-    x = _normal((2, s, h, hd), 5, 0.5)
-    bm, cm = _normal((2, s, n), 6, 0.5), _normal((2, s, n), 7, 0.5)
-    da = -_normal((2, s, h), 8, 0.3).abs()
-    dt = _normal((2, s, h), 9, 0.3).abs() + 0.1
-    dev = [t.to(cuda) for t in (x, bm, cm, da, dt)]
+    a repeat is bit-identical (the passes sum in a fixed order, with no
+    atomics)."""
+    host = _ssd_inputs(bsz, s, h, hd, n)
+    dev = [t.to(cuda) for t in host]
     launches = kbuild.LAUNCHES["ssd_scan"]
     got = ssd.ssd_scan(*dev, chunk=chunk)
     torch.cuda.synchronize()
     assert kbuild.LAUNCHES["ssd_scan"] == launches + 1
     assert torch.equal(ssd.ssd_scan(*dev, chunk=chunk), got)
-    want = ssd.ssd_scan_ref(x, bm, cm, da, dt, chunk=chunk)
-    assert float((got.cpu() - want).abs().max()) \
-        <= 2e-5 * float(want.abs().max())
+    assert _within_ssd_gate(got, ssd.ssd_scan_ref(*host, chunk=chunk))
+
+
+@pytest.mark.cuda
+def test_ssd_passes_one_at_a_time_equal_the_launch(cuda):
+    """The timing modes: the four passes launched one by one on shared
+    buffers give the launch's output bit for bit."""
+    bsz, s, h, hd, n, chunk = 2, 512, 2, 64, 128, 256
+    dev = [t.to(cuda) for t in _ssd_inputs(bsz, s, h, hd, n)]
+    buffers = ssd.scratch(bsz, s, h, hd, n, chunk, cuda)
+    for mode in ("gram", "states", "pass"):
+        ssd._launch(*dev, chunk, mode, buffers)
+    got = ssd._launch(*dev, chunk, "scan", buffers)
+    assert torch.equal(got, ssd.ssd_scan(*dev, chunk=chunk))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,hd,n,chunk", SSD_CUDA[:4])
+def test_ssd_serial_kernel_equals_plain(cuda, s, h, hd, n, chunk):
+    """The serial kernel (one block per (head, batch)), kept for
+    chip_smoke.py's comparison."""
+    host = _ssd_inputs(2, s, h, hd, n)
+    got = ssd._launch(*[t.to(cuda) for t in host], chunk, "serial")
+    assert _within_ssd_gate(got, ssd.ssd_scan_ref(*host, chunk=chunk))
 
 
 @pytest.mark.cuda
@@ -507,10 +614,16 @@ def test_float_kernels_never_take_the_plain_version(cuda, monkeypatch):
     x = torch.zeros((1, 192, 2, 16), device=cuda)
     bm = torch.zeros((1, 192, 8), device=cuda)
     da = torch.zeros((1, 192, 2), device=cuda)
-    with pytest.raises(ValueError):     # chunk 96: neither <= 64 nor 64k
-        ssd.ssd_scan(x, bm, bm, da, da, chunk=96)
+    with pytest.raises(ValueError):     # B and C of different widths
+        ssd.ssd_scan(x, bm, bm[..., :4], da, da, chunk=96)
+    long = torch.zeros((1, 24000, 1, 4), device=cuda)
+    with pytest.raises(ValueError):     # a chunk past the shared memory
+        ssd.ssd_scan(long, long[..., 0, :], long[..., 0, :], long[..., 0],
+                     long[..., 0], chunk=24000)
     with pytest.raises(AssertionError):  # S % chunk != 0
         ssd.ssd_scan(x, bm, bm, da, da, chunk=128)
     out = ops.flash_attention_op(q[..., :32], q[..., :32], q[..., :32])
     assert out.shape == (1, 5, 2, 32)
     assert ssd.ssd_scan(x, bm, bm, da, da, chunk=32).shape == x.shape
+    # any chunk that divides S runs (before the four passes, 96 raised)
+    assert ssd.ssd_scan(x, bm, bm, da, da, chunk=96).shape == x.shape

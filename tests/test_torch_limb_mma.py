@@ -1,4 +1,4 @@
-"""The limb arithmetic of B1's and B3's tensor-core route, on the CPU.
+"""The limb arithmetic of B1's, B3's and B5's tensor-core route, on the CPU.
 
 ``limb_model`` repeats, in plain torch, what ``csrc/limb_mma.cuh`` computes:
 the four bytes of each activation word as unsigned limbs, the cached
@@ -7,7 +7,9 @@ as signed ones, one int32 accumulator per shift p + q (pairs with
 p + q >= 4 dropped), Σ_s acc_s << 8s at the end, and split-K partial sums
 added mod 2^32.  It is held bit for bit to the reference's Pallas kernels
 in interpret mode and to the port's plain versions, at ragged shapes and
-at full-range and carry-boundary words.  The CUDA cases are in
+at full-range and carry-boundary words.  B5 splits its (K, N) operand per
+call (``ring_matmul.ring_weight_limbs_ref`` is the split pass's plain
+version) and runs the model at one slot.  The CUDA cases are in
 test_torch_cuda.py.
 """
 import jax.numpy as jnp
@@ -16,8 +18,10 @@ import pytest
 import torch
 
 from repro.kernels import bin_rss_matmul as jbin
+from repro.kernels import ring_matmul as jring
 from repro.kernels import rss_matmul as jdense
 from repro_torch.kernels import bin_rss_matmul as grp
+from repro_torch.kernels import ring_matmul as ringmm
 from repro_torch.kernels import rss_matmul as dense
 from repro_torch.kernels.limbs import (CUDA_CORE, K_STAGE, TENSOR_CORE,
                                        balanced_limbs, limb_mma_plan)
@@ -162,6 +166,46 @@ def test_unsigned_bytes_and_balanced_limbs_both_rebuild_the_word():
     assert torch.equal(bal & 0xFFFFFFFF, un & 0xFFFFFFFF)
 
 
+# -- B5: the per-dot ring product ----------------------------------------------
+
+def _pallas_ring(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The reference's Pallas ring_matmul in interpret mode, on operands
+    zero-padded to its 128 tiles."""
+    (m, k), n = a.shape, b.shape[1]
+    pad = [(-d) % 128 for d in (m, k, n)]
+    ap = np.pad(a, ((0, pad[0]), (0, pad[1])))
+    bp = np.pad(b, ((0, pad[1]), (0, pad[2])))
+    out = jring.ring_matmul(jnp.asarray(ap), jnp.asarray(bp), interpret=True)
+    return np.asarray(out)[:m, :n]
+
+
+@pytest.mark.parametrize("kind", ["full", "carry"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_b5_limb_model_equals_pallas_kernel(m, k, n, kind):
+    """One slot, b split per call into its four balanced limbs."""
+    a, b = _words((m, k), m + 5, kind), _words((k, n), k + 5, kind)
+    want = _pallas_ring(a, b)
+    at, bt = ring_from_numpy(a), ring_from_numpy(b)
+    assert np.array_equal(ring_to_numpy(ringmm.ring_matmul_ref(at, bt)), want)
+    wt = ringmm.ring_weight_limbs_ref(bt)
+    for split_k in _splits(k):
+        got = limb_model(at[None], wt[None, None], n, split_k)[0]
+        assert np.array_equal(ring_to_numpy(got), want), split_k
+
+
+@pytest.mark.parametrize("kind", ["full", "carry"])
+@pytest.mark.parametrize("k,n", [(3, 10), (131, 24), (300, 129)])
+def test_b5_split_is_the_balanced_limbs_transposed_and_padded(k, n, kind):
+    """The split pass's plain version (bytes of (b + 0x80808080) ^
+    0x80808080) == ``balanced_limbs``, K-major, zero-padded to 128."""
+    b = ring_from_numpy(_words((k, n), 19, kind))
+    wt = ringmm.ring_weight_limbs_ref(b)
+    assert wt.shape == (4, -(-n // 128) * 128, -(-k // 128) * 128)
+    assert wt.dtype == torch.int8 and wt.is_contiguous()
+    assert torch.equal(wt[:, :n, :k], balanced_limbs(b).transpose(1, 2))
+    assert not wt[:, n:].any() and not wt[:, :, k:].any()
+
+
 # -- the launch plan ----------------------------------------------------------
 
 # (S, M, K, N) -> (route, K stages per split, splits) on 132 SMs
@@ -174,6 +218,9 @@ PLANS = {
     (3, 2048, 48, 48): (TENSOR_CORE, 2, 1),
     (3, 32768, 27, 64): (TENSOR_CORE, 1, 1),
     (3, 32768, 16, 16): (CUDA_CORE, 1, 1),
+    # B5 at one slot: MnistNet4's fc1 and conv2
+    (1, 32, 3136, 512): (TENSOR_CORE, 3, 33),
+    (1, 6272, 800, 64): (TENSOR_CORE, 13, 2),
 }
 
 

@@ -1,12 +1,15 @@
 """Port kernel B9 and the Mamba-2 block: the plain ``ssd_scan`` against the
 reference's ``kernels/ssd.py::ssd_scan`` (its Pallas kernel in interpret
-mode) and against the float64 recurrence, and ``ssd_prefill`` /
+mode) and against the float64 recurrence; a plain-torch model of the CUDA
+kernel's four chunk-parallel passes against both; and ``ssd_prefill`` /
 ``ssd_decode`` against the reference's.  The CUDA cases (kernel == plain
 version) are in test_torch_cuda.py.
 
 Tolerances: the scan in float32 at the reference's 5e-4 (its kernel test
 against the recurrence); the port's scan against the Pallas kernel at 1e-5
-(both float32, same chunk math, other summation orders); the block's bf16
+(both float32, same chunk math, other summation orders); the passes'
+model at 1e-6 of the scale of y against the plain version and 1e-5
+against the Pallas kernel (see its test); the block's bf16
 output within one bf16 ulp of its largest value (2^-7 of the scale: the
 output projection sums one-ulp differences of its bf16 input); the decode
 step's bf16 conv cache (the input projection's output) within one bf16
@@ -67,6 +70,60 @@ def test_plain_ssd_scan_matches_pallas_and_recurrence(s, h, hd, n, chunk):
     pallas = np.asarray(jssd_scan(*map(jnp.asarray, xs), chunk=chunk))
     assert np.abs(got - pallas).max() < 1e-5
     assert np.abs(got - _recurrence(*xs)).max() < 5e-4
+
+
+def passes_model(x, bmat, cmat, da, dt, chunk):
+    """B9's four passes (``csrc/ssd_scan.cu``) in plain torch, float32:
+    cum as a float64 scan rounded once; (g) gt[j, i] = B_j · C_i per
+    (batch, chunk); (a) each chunk's (N, hd) state contribution
+    Σ_j B_jᵀ (x_j dt_j exp(cum_last − cum_j)); (b) the states passed in chunk
+    order, each slot the state before its chunk; (c) y = exp(cum) ∘ (C
+    S_prevᵀ) + (Gᵀ ∘ L)(x dt).  Returns (y, final state (B, H, hd, N))."""
+    b, s, h, hd = x.shape
+    n, nc = bmat.shape[-1], s // chunk
+    xc = x.reshape(b, nc, chunk, h, hd)
+    bc, cc = bmat.reshape(b, nc, chunk, n), cmat.reshape(b, nc, chunk, n)
+    dtc = dt.reshape(b, nc, chunk, h)
+    cum = torch.cumsum(da.reshape(b, nc, chunk, h).double(), dim=2).float()
+    gt = torch.einsum("bcjn,bcin->bcji", bc, cc)                   # (g)
+    last = cum[:, :, -1]                                           # (b,nc,h)
+    xdt = xc * dtc[..., None]
+    tail = torch.exp(last[:, :, None] - cum)
+    ds = torch.einsum("bcjn,bcjhd->bhcnd", bc, xdt * tail[..., None])  # (a)
+    prev = torch.empty_like(ds)                                    # (b)
+    state = torch.zeros((b, h, n, hd))
+    for c in range(nc):
+        prev[:, :, c] = state
+        state = state * torch.exp(last[:, c])[:, :, None, None] + ds[:, :, c]
+    mask = torch.ones((chunk, chunk), dtype=torch.bool).tril()     # (c)
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]             # [i, j]
+    decay = torch.where(mask[None, None, :, :, None], torch.exp(li), 0.0)
+    m = gt.transpose(-1, -2)[..., None] * decay                    # [i, j]
+    y = torch.einsum("bcin,bhcnd->bcihd", cc, prev) \
+        * torch.exp(cum)[..., None] \
+        + torch.einsum("bcijh,bcjhd->bcihd", m, xdt)
+    return y.reshape(b, s, h, hd), state.transpose(-1, -2)
+
+
+# the reference's kernel-test shapes, and Mamba2-1.3B's widths with 4 heads
+MODEL_SHAPES = [(2,) + sh for sh in SHAPES] + [(1, 512, 4, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("bsz,s,h,hd,n,chunk", MODEL_SHAPES)
+def test_passes_model_matches_chunked_and_pallas(bsz, s, h, hd, n, chunk):
+    """The passes regroup the chunk math (the states of all chunks first,
+    then every chunk's output), all float32: y and the final state within
+    1e-6 of their scale of the plain version (``ssd_chunked``; measured
+    ≤ 8.3e-8), y within 1e-5 of the Pallas kernel's in interpret mode
+    (XLA's float32 products sum in another order; measured ≤ 2.3e-6)."""
+    xs = _inputs(s, h, hd, n, s + h + n, bsz)
+    ts = tuple(map(torch.as_tensor, xs))
+    y, state = passes_model(*ts, chunk)
+    want, wstate = ssd.ssd_chunked(*ts, chunk)
+    assert _close(y, want.numpy(), 1e-6)
+    assert _close(state, wstate.numpy(), 1e-6)
+    pallas = np.asarray(jssd_scan(*map(jnp.asarray, xs), chunk=chunk))
+    assert _close(y, pallas, 1e-5)
 
 
 def test_ssd_scan_requires_whole_chunks():
