@@ -7,28 +7,32 @@ Phases, each fatal on failure:
 1. build    - nvcc builds every kernel of the port from src/repro_torch/csrc
               (one nvcc per source, started together); prints the build
               seconds, the ptxas report and the card's name and power limit.
-2. kernels  - each linear-layer kernel's wrapper (B1-B4) runs on the card at
+2. kernels  - the launch floor (a 4-byte zero_ between two CUDA events:
+              what any launch reads at least) is printed first; then
+              each linear-layer kernel's wrapper (B1-B4) runs on the card at
               every shape the paths of phase 3 give it (collected from a
               shape-only run of each); B1 and B3 print the route each shape
               takes (int8 tensor cores, or CUDA cores at K <= 16) and its
-              split-K factor, repeat every split-K shape
-              bit for bit (its blocks add with atomics), and also run and
-              time the route not taken (on the CUDA cores that is the
-              kernels' earlier IMAD design, so each total has it beside
-              it); and
-              the ring
-              kernels (B5 ring_matmul, B6 bin_weight_matmul, B7
-              bin_bin_matmul) at the reference's kernel-test shapes and
-              MnistNet4's layer shapes at batch 32; each must equal its
-              plain PyTorch version, computed on CPU copies of the same
-              inputs (torch has no integer matmul on CUDA), exactly, and B7
-              must repeat bit for bit at MnistNet4's shapes (fc1 splits K
-              over blocks that add with atomics: a repeat that differs is a
-              race).  B5 prints each shape's route (int8 tensor cores after
-              a pass that splits b into limbs, or CUDA cores at K <= 16) and
-              split-K factor, repeats split shapes bit for bit, holds the
-              split pass to its plain version, and runs and times the IMAD
-              kernel (the CUDA-core route, B5's first design) beside it.  Times: CUDA events,
+              split-K factor, repeat every split-K shape bit for bit (its
+              blocks add with atomics), and also run and time the route not
+              taken (on the CUDA cores that is the kernels' earlier IMAD
+              design, so each total has it beside it); B2 also runs and
+              times its first design (one party a grid row, every share
+              slot read twice) at every shape.  Then the ring kernels (B5
+              ring_matmul, B6 bin_weight_matmul, B7 bin_bin_matmul) at the
+              reference's kernel-test shapes and MnistNet4's layer shapes at
+              batch 32 (B6 also with {0, 1} and full-range int8 weights);
+              each must equal its plain PyTorch version, computed on CPU
+              copies of the same inputs (torch has no integer matmul on
+              CUDA), exactly, and B7 must repeat bit for bit at MnistNet4's
+              shapes (fc1 splits K over blocks that add with atomics: a
+              repeat that differs is a race).  B5 and B6 print each shape's
+              route (int8 tensor cores after a pass that writes b's limb
+              planes, K-major and 128-padded, or CUDA cores at K <= 16) and
+              split-K factor, repeat split shapes bit for bit, hold the
+              weight pass to its plain version, and run and time the route
+              not taken (at K > 16 the IMAD kernel, their first design)
+              beside it.  Times: CUDA events,
               median of 30 launches after warm-up; B7 also times
               torch._int_mm (cuBLAS) where its shape rules hold, and prints
               its factor to it.
@@ -320,7 +324,7 @@ def check_kernels(shapes: dict) -> list:
                "word_bound_ms": 0.0}
         detail = []
         for key, per_query in sorted(shapes[name].items()):
-            plan = other = None
+            plan = other = first = None
             word_bytes = None   # B3 / B4: the weight counted as int32 words
             if name == "rss_matmul":
                 (s, m, k), n = key
@@ -341,6 +345,7 @@ def check_kernels(shapes: dict) -> list:
                 wd = on_card(wl)
                 run = lambda: grp.grouped_rss_matmul_parts(xd, wd)
                 plain = lambda: grp.grouped_rss_matmul_ref(x, wl)
+                first = lambda: grp._launch(xd, wd, grp.PER_PARTY)
                 nbytes = 4 * (s * c * m * k + 2 * s * c * k * n
                               + s * c * m * n)
                 ops = 40 * s * c * m * k * n
@@ -399,6 +404,12 @@ def check_kernels(shapes: dict) -> list:
                     fail(f"{name} {desc}: the {alt} route != plain version")
                 desc["other_route_ms"] = median_ms(lambda: other(alt))
                 route += f"; {alt} {desc['other_route_ms']:.5f} ms"
+            if first is not None:   # B2's first design, one party a grid row
+                if not torch.equal(first(), got):
+                    fail(f"{name} {desc}: the per-party kernel != plain "
+                         f"version")
+                first_ms = median_ms(first)
+                route += f"; per-party kernel {first_ms:.5f} ms"
             b_ms = nbytes / HBM_BPS * 1e3
             o_ms = ops / INT8_OPS * 1e3
             bound = max(b_ms, o_ms)
@@ -406,6 +417,8 @@ def check_kernels(shapes: dict) -> list:
                            "plain_ms": pms, "bound_ms": bound,
                            "bound_by": "bytes" if b_ms >= o_ms else
                            "operations"})
+            if first is not None:
+                detail[-1]["per_party_ms"] = first_ms
             print(f"[chip_smoke] {name} {desc} x{per_query}/query: "
                   f"{ms:.5f} ms (bound {bound:.5f} ms, "
                   f"{100 * bound / ms:.1f}% of bound), plain on host "
@@ -423,6 +436,9 @@ def check_kernels(shapes: dict) -> list:
                 tot["cuda_core_ms"] = tot.get("cuda_core_ms", 0.0) \
                     + per_query * (ms if plan[0] == limbs.CUDA_CORE
                                    else desc["other_route_ms"])
+            if first is not None:
+                tot["per_party_ms"] = tot.get("per_party_ms", 0.0) \
+                    + per_query * first_ms
         if not detail:
             fail(f"{name}: no main-path shape was collected")
         print(f"[chip_smoke] {name} over one query of each path: "
@@ -430,14 +446,20 @@ def check_kernels(shapes: dict) -> list:
               + (f" (weight as int32 words: {tot['word_bound_ms']:.5f} ms)"
                  if tot["word_bound_ms"] else "")
               + (f"; all on the CUDA cores {tot['cuda_core_ms']:.5f} ms"
-                 if "cuda_core_ms" in tot else ""))
-        rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                     "replaces": REPLACES[name], "launches": 0,
-                     "max_abs_err": tot["err"], "ms": tot["ms"],
-                     "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-                     "bound_by": ("bytes" if tot["bytes_bound_ms"]
-                                  >= tot["ops_bound_ms"] else "operations"),
-                     "library_ms": None, "shapes": detail})
+                 if "cuda_core_ms" in tot else "")
+              + (f"; the per-party kernel {tot['per_party_ms']:.5f} ms "
+                 f"({tot['per_party_ms'] / tot['ms']:.2f}x)"
+                 if "per_party_ms" in tot else ""))
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": 0,
+               "max_abs_err": tot["err"], "ms": tot["ms"],
+               "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+               "bound_by": ("bytes" if tot["bytes_bound_ms"]
+                            >= tot["ops_bound_ms"] else "operations"),
+               "library_ms": None, "shapes": detail}
+        if "per_party_ms" in tot:
+            row["per_party_ms"] = tot["per_party_ms"]
+        rows.append(row)
     return rows
 
 
@@ -461,6 +483,11 @@ def check_ring_kernels() -> list:
                              generator=g)
 
     def binary(kind, *shape):
+        if kind == "int8":   # full range, the extremes included
+            v = torch.randint(-128, 128, shape, dtype=torch.int8,
+                              generator=g)
+            v.view(-1)[:2] = torch.tensor([-128, 127], dtype=torch.int8)
+            return v
         v = torch.randint(0, 2, shape, dtype=torch.int8, generator=g)
         return 2 * v - 1 if kind == "pm1" else v
 
@@ -471,11 +498,20 @@ def check_ring_kernels() -> list:
         "bin_bin_matmul": (kops.binary_binary_matmul_op,
                            binmm.binary_binary_matmul_ref),
     }
+    # B5 and B6: (forced-route launch, weight pass, its plain version)
+    limb_routes = {
+        "ring_matmul": (ringmm._launch_ring, ringmm.split_weight_limbs,
+                        ringmm.ring_weight_limbs_ref),
+        "bin_weight_matmul": (binmm._launch_bin_weight,
+                              binmm.binary_weight_t,
+                              binmm.binary_weight_t_ref),
+    }
     rows = []
     for name, (op, plain) in routes.items():
         cases = [(shape, "pm1") for shape in RING_TEST_SHAPES + MNIST4_SHAPES]
         if name == "bin_weight_matmul":
-            cases += [((128, 256, 128), "pm1"), ((128, 256, 128), "01")]
+            cases += [((128, 256, 128), "pm1"), ((128, 256, 128), "01"),
+                      ((6272, 800, 64), "int8"), ((32, 3136, 512), "int8")]
         detail = []
         tot = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                "library_ms": 0.0, "ms_library_shapes": 0.0, "imad_ms": 0.0}
@@ -504,10 +540,12 @@ def check_ring_kernels() -> list:
                         fail(f"{name} ({m}, {k}, {n}): repeats of one "
                              f"launch differ")
             extra, note = {}, ""
-            if name == "ring_matmul":
+            if name in limb_routes:
                 # the plan's route and split-K factor; split shapes repeat
-                # bit for bit (int32 atomics); the split pass == its plain
-                # version; the IMAD kernel (the CUDA-core route) timed
+                # bit for bit (int32 atomics); the weight pass == its plain
+                # version; the route not taken (the IMAD kernel at K > 16)
+                # checked and timed
+                launch, wpass, wpass_ref = limb_routes[name]
                 plan = limbs.limb_mma_plan(1, m, k, n, sms)
                 extra = {"limb_route": plan[0], "splits": plan[2]}
                 note = f", {plan[0]}, split-K {plan[2]}"
@@ -517,18 +555,17 @@ def check_ring_kernels() -> list:
                             fail(f"{name} ({m}, {k}, {n}): repeats of one "
                                  f"launch differ")
                     note += f", {SPLIT_REPEATS} repeats bit-identical"
-                if not torch.equal(ringmm.split_weight_limbs(bd).cpu(),
-                                   ringmm.ring_weight_limbs_ref(b)):
-                    fail(f"{name} ({m}, {k}, {n}): the split pass != its "
+                if not torch.equal(wpass(bd).cpu(), wpass_ref(b)):
+                    fail(f"{name} ({m}, {k}, {n}): the weight pass != its "
                          f"plain version")
-                if plan[0] == limbs.TENSOR_CORE:
-                    old_run = lambda: ringmm._launch_ring(ad, bd,
-                                                          limbs.CUDA_CORE)
-                    if not torch.equal(old_run().cpu(), want):
-                        fail(f"{name} ({m}, {k}, {n}): the CUDA-core route "
-                             f"!= plain version")
-                    extra["imad_ms"] = median_ms(old_run)
-                    note += f"; IMAD kernel {extra['imad_ms']:.5f} ms"
+                alt = (limbs.CUDA_CORE if plan[0] == limbs.TENSOR_CORE
+                       else limbs.TENSOR_CORE)
+                alt_run = lambda: launch(ad, bd, alt)
+                if not torch.equal(alt_run().cpu(), want):
+                    fail(f"{name} ({m}, {k}, {n}): the {alt} route != "
+                         f"plain version")
+                extra["other_route_ms"] = median_ms(alt_run)
+                note += f"; {alt} {extra['other_route_ms']:.5f} ms"
             ms = median_ms(run)
             pms = host_ms(lambda: plain(a, b))
             lib = None
@@ -560,7 +597,10 @@ def check_ring_kernels() -> list:
                 if lib is not None:
                     tot["library_ms"] += lib
                     tot["ms_library_shapes"] += ms
-                tot["imad_ms"] += extra.get("imad_ms", 0.0)
+                if name in limb_routes:   # the IMAD kernel's time
+                    tot["imad_ms"] += (ms if extra["limb_route"]
+                                       == limbs.CUDA_CORE
+                                       else extra["other_route_ms"])
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": 0, "max_abs_err": 0,
                "ms": tot["ms"], "plain_ms": tot["plain_ms"],
@@ -572,9 +612,9 @@ def check_ring_kernels() -> list:
                "shapes": detail}
         if name == "bin_bin_matmul":
             row["ms_at_library_shapes"] = tot["ms_library_shapes"]
-        if name == "ring_matmul":   # the IMAD kernel at the same shapes
+        if name in limb_routes:   # the IMAD kernel at the same shapes
             row["imad_ms"] = tot["imad_ms"]
-            print(f"[chip_smoke] ring_matmul over MnistNet4's four shapes: "
+            print(f"[chip_smoke] {name} over MnistNet4's four shapes: "
                   f"{tot['ms']:.5f} ms, the IMAD kernel {tot['imad_ms']:.5f}"
                   f" ms ({tot['imad_ms'] / tot['ms']:.2f}x)")
         rows.append(row)
@@ -983,6 +1023,10 @@ def main() -> None:
           f" on {torch.cuda.get_device_name(0)}")
 
     # -- 2. kernels vs plain versions at the paths' shapes -----------------
+    # the least a launch reads between the events: a 4-byte zero_
+    word = torch.zeros(1, dtype=torch.int32, device="cuda")
+    print(f"[chip_smoke] launch floor (a 4-byte zero_ between two events): "
+          f"{median_ms(word.zero_):.5f} ms")
     # per-query counts: one query of each path of PINNED
     t0 = time.perf_counter()
     paths = {key: path_shapes(*key) for key in PINNED}

@@ -4,11 +4,24 @@
 // repro/kernels/binary_matmul.py::_bin_matmul_kernel (pallas_call in
 // _binary_weight_matmul_jit):  C = A · W mod 2^32, A (M, K) ring words, W
 // (K, N) int8 (±1 or {0, 1} in the reference's use).  The TPU kernel split
-// A into 4 balanced int8 limbs for 4 int8 MXU dots.  Here each word is
-// multiplied by the sign-extended weight with IMAD and accumulated in
-// uint32_t, whose wrap is the ring arithmetic: exact for any int8 weight.
-// It is ring_tile.cuh's tile loop (shared with ring_matmul.cu) on int8
-// weights.
+// A into 4 balanced int8 limbs for 4 int8 MXU dots.  Two routes here, chosen
+// by shape in the wrapper (kernels/limbs.py::limb_mma_plan), never as a
+// fallback:
+//
+//  * tensor cores (K > 16): limb_mma.cuh's instantiation <1, 1>.  An int8
+//    weight is its own single balanced limb (v_0 = w, sign-extended, is the
+//    reference's int8 -> uint32 cast), so x · w ≡ Σ_p 2^{8p} u_p · w over
+//    x's four unsigned bytes u_p: four wgmma u8 x s8 a K stage, exact for
+//    any int8 weight.  wgmma takes an 8-bit B operand only K-major, so a
+//    first pass (weight_t_kernel) writes w as one K-major, 128-padded
+//    (Np, Kp) byte plane, zero past K and N: a byte transpose through
+//    shared memory in ring_matmul.cu's split-pass tiles.  Split-K by int32
+//    atomics where the tiles leave SMs idle (the M = 32 fc layers), into
+//    an output the weight pass zeroes (no memset launch).
+//  * CUDA cores (K <= 16, where a k32 step would be mostly padding):
+//    ring_tile.cuh's IMAD tile loop, each word multiplied by the
+//    sign-extended weight in uint32_t (the kernel's first design, which
+//    chip_smoke.py also times at every shape beside the other route).
 //
 // bin_bin_matmul replaces _bb_kernel (pallas_call in binary_binary_matmul):
 // the plaintext BNN layer, int8 A (M, K) times int8 W (K, N) into int32,
@@ -40,11 +53,59 @@
 // What bounds them: at the classifier's shapes, bytes (each input read once,
 // the output written once, over 3.35 TB/s) or, for the deepest fc layer,
 // the int8 operation count the TPU route needs (4 dots a cell for
-// bin_weight_matmul, 1 for bin_bin_matmul).
+// bin_weight_matmul, 1 for bin_bin_matmul).  At MnistNet4's shapes
+// bin_weight_matmul's two launches (weight pass, product) bound it.
 
+#include "limb_mma.cuh"
 #include "ring_tile.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// bin_weight_matmul's weight pass: w (K, N) int8 -> the K-major plane
+// ---------------------------------------------------------------------------
+
+constexpr int T_TILE = 64;         // a pass block's tile: 64 k x 64 n
+constexpr int T_THREADS = 256;
+
+// wt[n][k] = w[k][n] as (Np, Kp) bytes, zero past K and N; and, for a
+// split-K product, z's mn words zeroed (z 16-byte aligned), which saves the
+// product a memset launch
+__global__ void __launch_bounds__(T_THREADS)
+weight_t_kernel(const int8_t* __restrict__ w, uint32_t* __restrict__ wt,
+                int K, int N, int Kp, uint32_t* __restrict__ z,
+                long long mn) {
+  // [n][k]; a 68-byte pitch keeps the 4-byte reads aligned and the byte
+  // stores of a warp (32 n, one k) on 32 banks
+  __shared__ __align__(4) uint8_t v[T_TILE][T_TILE + 4];
+  const int k0 = blockIdx.x * T_TILE, n0 = blockIdx.y * T_TILE;
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < T_TILE * T_TILE / T_THREADS; ++j) {
+    const int e = tid + j * T_THREADS;
+    const int kk = e / T_TILE, nn = e % T_TILE;   // n fastest: coalesced
+    const int gk = k0 + kk, gn = n0 + nn;
+    v[nn][kk] = (gk < K && gn < N) ? (uint8_t)w[(long long)gk * N + gn]
+                                   : (uint8_t)0;
+  }
+  __syncthreads();
+  // each thread: 4 consecutive k of one n -> one 4-byte word
+#pragma unroll
+  for (int j = 0; j < T_TILE * T_TILE / 4 / T_THREADS; ++j) {
+    const int e = tid + j * T_THREADS;
+    const int nn = e / (T_TILE / 4), g = e % (T_TILE / 4);
+    wt[((long long)(n0 + nn) * Kp + k0 + 4 * g) / 4] =
+        *reinterpret_cast<const uint32_t*>(&v[nn][4 * g]);
+  }
+  if (z != nullptr) {
+    const long long threads = (long long)gridDim.x * gridDim.y * T_THREADS;
+    const long long id =
+        ((long long)blockIdx.y * gridDim.x + blockIdx.x) * T_THREADS + tid;
+    for (long long i = id; i < mn / 4; i += threads)
+      reinterpret_cast<uint4*>(z)[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (long long i = mn / 4 * 4 + id; i < mn; i += threads) z[i] = 0u;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // bin_bin_matmul: int8 x int8 -> int32 on the tensor cores
@@ -284,15 +345,37 @@ bin_bin_matmul_kernel(const int8_t* __restrict__ a,
 
 }  // namespace
 
-// a: (M, K) 32-bit words, w: (K, N) int8, c: (M, N) 32-bit words.
-extern "C" int bin_weight_matmul_launch(const void* a, const void* w, void* c,
-                                        long long M, int K, int N,
+// a: (M, K) 32-bit words, w: (K, N) int8, c: (M, N) 32-bit words; wt:
+// (Np, Kp) int8 scratch (Kp, Np multiples of 128, >= K, N).  route 0: the
+// weight pass into wt, then the tensor-core product with per_split K
+// stages a split-K block; 1: the CUDA-core product (wt unused); 2: the
+// weight pass alone.
+extern "C" int bin_weight_matmul_launch(const void* a, const void* w,
+                                        void* wt, void* c, long long M,
+                                        int K, int N, int Kp, int Np,
+                                        int route, int per_split,
                                         void* stream) {
-  using namespace ring_tile;
-  ring_tile_kernel<int8_t>
-      <<<tile_grid(M, N), THREADS, 0, (cudaStream_t)stream>>>(
-          (const uint32_t*)a, (const int8_t*)w, (uint32_t*)c, M, K, N);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (route == 1) {
+    ring_tile::ring_tile_kernel<int8_t>
+        <<<ring_tile::tile_grid(M, N), ring_tile::THREADS, 0, st>>>(
+            (const uint32_t*)a, (const int8_t*)w, (uint32_t*)c, M, K, N);
+    return (int)cudaGetLastError();
+  }
+  if (route != 0 && route != 2) return (int)cudaErrorInvalidValue;
+  if (Kp % 128 || Np % 128 || Kp < K || Np < N || per_split < 1
+      || (uintptr_t)c % 16)
+    return (int)cudaErrorInvalidValue;
+  // the product adds split-K partial sums into c: the pass zeroes it
+  const int steps = (K + limb_mma::BK - 1) / limb_mma::BK;
+  const bool split = route == 0 && K > 0 && steps > per_split;
+  weight_t_kernel<<<dim3(Kp / T_TILE, Np / T_TILE), T_THREADS, 0, st>>>(
+      (const int8_t*)w, (uint32_t*)wt, K, N, Kp,
+      split ? (uint32_t*)c : nullptr, M * N);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || route == 2) return (int)e;
+  return limb_mma::launch<1, 1>(a, wt, c, 1, M, K, N, Kp, Np, 0, per_split,
+                                st, split);
 }
 
 // a: (M, K) int8, w: (K, N) int8, c: (M, N) int32.

@@ -312,11 +312,12 @@ limb_mma_kernel(const uint32_t* __restrict__ x,
 
 // x (S, M, K) words, w (S_w, OPS, L, Np, Kp) int8 limbs (w_slot_stride 0
 // for one weight shared by every slot), z (S, M, N) words; per_split K
-// stages a block.
+// stages a block.  zeroed: the caller has zeroed z on the stream already
+// (a split-K launch adds into it).
 template <int OPS, int L>
 int launch(const void* x, const void* w, void* z, int S, long long M, int K,
            int N, int Kp, int Np, long long w_slot_stride, int per_split,
-           cudaStream_t st) {
+           cudaStream_t st, bool zeroed = false) {
   const size_t out_bytes = (size_t)S * M * N * sizeof(uint32_t);
   if (K == 0) return (int)cudaMemsetAsync(z, 0, out_bytes, st);
   if (per_split < 1 || Kp % BK || Np % BN || Kp < K || Np < N)
@@ -325,7 +326,7 @@ int launch(const void* x, const void* w, void* z, int S, long long M, int K,
   const int n_tiles = (N + BN - 1) / BN;
   const int steps = (K + BK - 1) / BK;
   const int splits = (steps + per_split - 1) / per_split;
-  if (splits > 1) {
+  if (splits > 1 && !zeroed) {
     const cudaError_t e = cudaMemsetAsync(z, 0, out_bytes, st);
     if (e != cudaSuccess) return (int)e;
   }

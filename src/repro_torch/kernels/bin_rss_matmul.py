@@ -24,7 +24,9 @@ Port of ``repro/kernels/bin_rss_matmul.py``:
 
   On a CUDA tensor :func:`grouped_rss_matmul_parts` launches
   ``csrc/grouped_rss_matmul.cu`` (replaces ``_make_grouped_shared_kernel``)
-  or raises.
+  or raises: one thread reads each share slot's row once and writes every
+  party's output, with all S parties' weight slabs in shared memory (up to
+  the card's opt-in limit).
 
 On a CPU or meta tensor every wrapper runs its plain version.  The grouped
 kernels read x through its strides, so callers may pass a permuted view
@@ -57,6 +59,8 @@ __all__ = ["PublicWeightLimbs", "min_public_limbs", "public_weight_limbs",
            "grouped_rss_matmul_ref", "grouped_rss_matmul_parts"]
 
 _SMEM_LIMIT = 48 * 1024
+# the shared memory a block may opt in to on the H100 (B2's weight slabs)
+_SMEM_OPTIN = 227 * 1024
 _MAX_SLOTS = 3
 _TILE = 128
 
@@ -292,8 +296,16 @@ def grouped_rss_matmul_ref(x_stack: torch.Tensor,
     return torch.matmul(x_stack, weights.wf) + torch.matmul(xn, weights.ws)
 
 
-def _launch(x_stack: torch.Tensor,
-            weights: GroupedWeightLimbs) -> torch.Tensor:
+# B2's two designs (the C entry point's modes): every share slot read once
+# by one thread for all parties, or the first design, one party a grid row
+ALL_PARTIES, PER_PARTY = "all-parties", "per-party"
+_GROUPED_MODES = {ALL_PARTIES: 0, PER_PARTY: 1}
+
+
+def _launch(x_stack: torch.Tensor, weights: GroupedWeightLimbs,
+            design: str = ALL_PARTIES) -> torch.Tensor:
+    """Launch B2 (``design`` PER_PARTY: the first design, which
+    ``chip_smoke.py`` times beside it)."""
     s, c, m, k = x_stack.shape
     n = weights.n
     if x_stack.dtype != torch.int32:
@@ -307,9 +319,12 @@ def _launch(x_stack: torch.Tensor,
         raise ValueError(f"grouped_rss_matmul: weights "
                          f"{tuple(weights.ws.shape)} do not match x "
                          f"{tuple(x_stack.shape)}")
-    if 8 * c * k * n > _SMEM_LIMIT:
-        raise ValueError(f"grouped_rss_matmul: weight slab of {c}x{k}x{n} "
-                         f"exceeds the kernel's shared-memory stage")
+    slab, limit = ((8 * s * c * k * n, _SMEM_OPTIN) if design == ALL_PARTIES
+                   else (8 * c * k * n, _SMEM_LIMIT))
+    if slab > limit:
+        raise ValueError(f"grouped_rss_matmul: weight slabs of "
+                         f"{s}x{c}x{k}x{n} exceed the kernel's "
+                         f"shared-memory stage")
     # (S, M, C, N) buffer, returned as its (S, C, M, N) view
     buf = torch.empty((s, m, c, n), dtype=torch.int32, device=x_stack.device)
     out = buf.permute(0, 2, 1, 3)
@@ -318,7 +333,7 @@ def _launch(x_stack: torch.Tensor,
     fn = build.library("grouped_rss_matmul")
     err = fn(x_stack.data_ptr(), weights.wf.data_ptr(), weights.ws.data_ptr(),
              out.data_ptr(), s, c, m, k, n, *x_stack.stride(), *out.stride(),
-             build.stream_ptr(x_stack.device))
+             _GROUPED_MODES[design], build.stream_ptr(x_stack.device))
     build.check("grouped_rss_matmul", err)
     build.LAUNCHES["grouped_rss_matmul"] += 1
     return out

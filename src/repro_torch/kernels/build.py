@@ -39,7 +39,7 @@ KERNELS = {
                     _P]),
     "grouped_rss_matmul": ("grouped_rss_matmul", "grouped_rss_matmul_launch",
                            [_P, _P, _P, _P, _I, _I, _L, _I, _I,
-                            _L, _L, _L, _L, _L, _L, _L, _L, _P]),
+                            _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
     "bin_rss_matmul": ("bin_rss_matmul", "bin_rss_matmul_launch",
                        [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I,
                         _P]),
@@ -49,7 +49,7 @@ KERNELS = {
     "ring_matmul": ("ring_matmul", "ring_matmul_launch",
                     [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
     "bin_weight_matmul": ("binary_matmul", "bin_weight_matmul_launch",
-                          [_P, _P, _P, _L, _I, _I, _P]),
+                          [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
     "bin_bin_matmul": ("binary_matmul", "bin_bin_matmul_launch",
                        [_P, _P, _P, _L, _I, _I, _P]),
     "flash_attention": ("flash_attention", "flash_attention_launch",

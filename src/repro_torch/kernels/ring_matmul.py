@@ -64,8 +64,8 @@ def _check_operands(name: str, a: torch.Tensor, b: torch.Tensor,
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
             a_dtype: torch.dtype, b_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the 2-D product kernel ``name`` (this module's and
-    binary_matmul.py's): (M, K) x (K, N) -> (M, N) int32 words."""
+    """Launch a 2-D product kernel whose C entry point takes (a, b, c, M,
+    K, N, stream) (B7's): (M, K) x (K, N) -> (M, N) int32 words."""
     _check_operands(name, a, b, a_dtype, b_dtype)
     m, k = a.shape
     n = b.shape[1]
@@ -95,11 +95,15 @@ def _padded(d: int) -> int:
     return max(1, -(-d // _TILE)) * _TILE
 
 
-def _launch_ring(a: torch.Tensor, b: torch.Tensor,
-                 route: str | None = None) -> torch.Tensor:
-    """Launch B5 on the route of the plan (``route`` forces one, unsplit:
-    ``chip_smoke.py`` also times the CUDA-core route, the IMAD kernel)."""
-    _check_operands("ring_matmul", a, b, torch.int32, torch.int32)
+def _launch_limbs(name: str, a: torch.Tensor, b: torch.Tensor,
+                  b_dtype: torch.dtype, planes: int,
+                  route: str | None = None) -> torch.Tensor:
+    """Launch B5 or B6 (``name``) on the route of the plan: at K > 16 a pass
+    writes b's ``planes`` K-major 128-padded int8 limb planes into scratch
+    and ``limb_mma.cuh`` multiplies; at K <= 16 the IMAD kernel.  ``route``
+    forces one, unsplit (``chip_smoke.py`` also times the route not
+    taken)."""
+    _check_operands(name, a, b, torch.int32, b_dtype)
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.int32, device=a.device)
@@ -109,33 +113,46 @@ def _launch_ring(a: torch.Tensor, b: torch.Tensor,
     if route is not None and route != chosen:
         chosen, per = route, -(-k // K_STAGE)
     tc = chosen == TENSOR_CORE
-    wt = torch.empty((4, _padded(n), _padded(k)) if tc else (0,),
+    wt = torch.empty((planes, _padded(n), _padded(k)) if tc else (0,),
                      dtype=torch.int8, device=a.device)
-    fn = build.library("ring_matmul")
+    fn = build.library(name)
     err = fn(a.data_ptr(), b.data_ptr(), wt.data_ptr(), out.data_ptr(), m, k,
              n, _padded(k), _padded(n), _ROUTE_TC if tc else _ROUTE_CC, per,
              build.stream_ptr(a.device))
-    build.check("ring_matmul", err)
-    build.LAUNCHES["ring_matmul"] += 1
+    build.check(name, err)
+    build.LAUNCHES[name] += 1
     return out
+
+
+def _launch_ring(a: torch.Tensor, b: torch.Tensor,
+                 route: str | None = None) -> torch.Tensor:
+    """Launch B5 on the route of the plan (``route`` forces one)."""
+    return _launch_limbs("ring_matmul", a, b, torch.int32, 4, route)
+
+
+def _weight_pass(name: str, b: torch.Tensor, b_dtype: torch.dtype,
+                 planes: int) -> torch.Tensor:
+    """B5's or B6's weight pass alone on the card: (K, N) -> (planes, Np,
+    Kp) int8."""
+    if b.device.type != "cuda" or b.ndim != 2 or b.dtype != b_dtype \
+            or not b.is_contiguous():
+        raise ValueError(f"{name}: b must be a contiguous (K, N) {b_dtype} "
+                         f"tensor on the card")
+    k, n = b.shape
+    wt = torch.empty((planes, _padded(n), _padded(k)), dtype=torch.int8,
+                     device=b.device)
+    fn = build.library(name)
+    err = fn(None, b.data_ptr(), wt.data_ptr(), None, 0, k, n, _padded(k),
+             _padded(n), _ROUTE_SPLIT, 1, build.stream_ptr(b.device))
+    build.check(name, err)
+    build.LAUNCHES[name] += 1
+    return wt
 
 
 def split_weight_limbs(b: torch.Tensor) -> torch.Tensor:
     """The split pass alone on the card: (K, N) int32 -> (4, Np, Kp) int8
     (tests and ``chip_smoke.py`` hold it to :func:`ring_weight_limbs_ref`)."""
-    if b.device.type != "cuda" or b.ndim != 2 or b.dtype != torch.int32 \
-            or not b.is_contiguous():
-        raise ValueError("split_weight_limbs: b must be a contiguous (K, N) "
-                         "int32 tensor on the card")
-    k, n = b.shape
-    wt = torch.empty((4, _padded(n), _padded(k)), dtype=torch.int8,
-                     device=b.device)
-    fn = build.library("ring_matmul")
-    err = fn(None, b.data_ptr(), wt.data_ptr(), None, 0, k, n, _padded(k),
-             _padded(n), _ROUTE_SPLIT, 1, build.stream_ptr(b.device))
-    build.check("ring_matmul", err)
-    build.LAUNCHES["ring_matmul"] += 1
-    return wt
+    return _weight_pass("ring_matmul", b, torch.int32, 4)
 
 
 def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -429,6 +429,154 @@ def test_per_dot_layer_runs_on_b5_only(cuda, matmul_mode, mode, launches):
                        reconstruct(want, decode=False))
 
 
+# -- B6 on the int8 limb tensor cores: the weight pass, both routes, split-K -
+
+# the reference's kernel-test shapes, MnistNet4's four layers at batch 32,
+# and K <= 16 (the CUDA-core route)
+B6_SHAPES = [(128, 128, 128), (256, 128, 384), (128, 512, 128), (64, 96, 32),
+             (33, 17, 5), (1, 128, 1), (25088, 25, 32), (6272, 800, 64),
+             (32, 3136, 512), (32, 512, 10), (7, 3, 1), (200, 16, 48),
+             (33, 9, 70)]
+
+
+def _int8_weight(shape, seed, kind):
+    """±1 ("pm1"), {0, 1} ("01"), or full-range int8 holding -128 and 127."""
+    if kind == "pm1":
+        return 2 * _int8(shape, seed, 0, 2) - 1
+    if kind == "01":
+        return _int8(shape, seed, 0, 2)
+    w = _int8(shape, seed)
+    w.view(-1)[0], w.view(-1)[-1] = -128, 127
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wkind", ["pm1", "01", "int8"])
+@pytest.mark.parametrize("m,k,n", B6_SHAPES)
+def test_bin_weight_matmul_cuda_routes_equal_plain(cuda, m, k, n, wkind):
+    """The plan's route launches once; split-K shapes repeat bit for bit
+    (int32 atomics); the route not taken gives the same words."""
+    a = ring_from_numpy(_words((m, k), 51))
+    w = _int8_weight((k, n), 52, wkind)
+    want = binmm.binary_weight_matmul_ref(a, w)
+    ad, wd = a.to(cuda), w.to(cuda)
+    route, _, splits = limbs.limb_mma_plan(1, m, k, n, limbs.sm_count(cuda))
+    assert route == (limbs.CUDA_CORE if k <= 16 else limbs.TENSOR_CORE)
+    launches = kbuild.LAUNCHES["bin_weight_matmul"]
+    got = ops.binary_weight_matmul_op(ad, wd)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["bin_weight_matmul"] == launches + 1
+    assert torch.equal(got.cpu(), want)
+    if splits > 1:
+        for _ in range(5):
+            assert torch.equal(ops.binary_weight_matmul_op(ad, wd), got)
+    for forced in (limbs.TENSOR_CORE, limbs.CUDA_CORE):
+        assert torch.equal(binmm._launch_bin_weight(ad, wd, forced).cpu(),
+                           want), forced
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n", [(3, 10), (25, 32), (131, 24), (300, 129),
+                                 (3136, 512)])
+def test_bin_weight_pass_equals_plain(cuda, k, n):
+    """w.T as one K-major 128-padded int8 plane, zero past K and N."""
+    w = _int8_weight((k, n), 53, "int8")
+    got = binmm.binary_weight_t(w.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), binmm.binary_weight_t_ref(w))
+
+
+@pytest.mark.cuda
+def test_bin_weight_matmul_limb_accumulators_wrap_exactly(cuda):
+    """Carry-boundary words times -128 / 127 at K = 9000 overflow every
+    shift's int32 accumulator; split and unsplit both wrap to the ring."""
+    edge = np.array([0xFFFFFFFF, 0x80808080, 0x7F7F7F7F, 0x80000000],
+                    dtype=np.uint32)
+    rng = np.random.default_rng(54)
+    a = ring_from_numpy(rng.choice(edge, (64, 9000)))
+    w = torch.from_numpy(rng.choice(np.array([-128, 127], dtype=np.int8),
+                                    (9000, 64)))
+    want = binmm.binary_weight_matmul_ref(a, w)
+    ad, wd = a.to(cuda), w.to(cuda)
+    assert torch.equal(ops.binary_weight_matmul_op(ad, wd).cpu(), want)
+    assert torch.equal(
+        binmm._launch_bin_weight(ad, wd, limbs.TENSOR_CORE).cpu(), want)
+
+
+# -- B2: every share slot read once, both x layouts ----------------------------
+
+def _grouped_layouts(s, c, m, k, seed, device):
+    """The same (S, C, M, K) words on the card as the channel-contiguous
+    view of an (S, M, K, C) buffer, that view one word past an aligned base
+    (4-byte loads), and a contiguous (S, C, M, K) tensor; and on the host."""
+    x = ring_from_numpy(_words((s, m, k, c), seed))
+    buf = torch.zeros(x.numel() + 1, dtype=torch.int32, device=device)
+    buf[1:] = x.reshape(-1).to(device)
+    shifted = buf[1:].view(s, m, k, c).permute(0, 3, 1, 2)
+    xd = x.to(device).permute(0, 3, 1, 2)
+    x = x.permute(0, 3, 1, 2)
+    return x, {"c-contiguous": xd, "offset-by-one-word": shifted,
+               "k-contiguous": xd.contiguous()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("k", [9, 25, 7])
+@pytest.mark.parametrize("c", [3, 5, 16, 48])
+@pytest.mark.parametrize("s", [1, 3])
+def test_grouped_all_parties_cuda_equals_plain(cuda, s, c, k, n):
+    m = 70
+    x, layouts = _grouped_layouts(s, c, m, k, 61, cuda)
+    wl = grp.grouped_weight_limbs(ring_from_numpy(_words((s, c, k, n), 62)))
+    wd = grp.GroupedWeightLimbs(*(a.to(cuda) for a in wl))
+    want = grp.grouped_rss_matmul_ref(x, wl)
+    for name, xl in layouts.items():
+        launches = kbuild.LAUNCHES["grouped_rss_matmul"]
+        got = grp.grouped_rss_matmul_parts(xl, wd)
+        torch.cuda.synchronize()
+        assert kbuild.LAUNCHES["grouped_rss_matmul"] == launches + 1
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c,k,n", [(3, 512, 9, 1), (3, 96, 25, 2),
+                                     (1, 700, 9, 2)])
+def test_grouped_weight_slabs_over_48kb(cuda, s, c, k, n):
+    """Slabs past the 48 KB default opt in to more shared memory."""
+    assert 8 * s * c * k * n > 48 * 1024
+    x, layouts = _grouped_layouts(s, c, 40, k, 63, cuda)
+    wl = grp.grouped_weight_limbs(ring_from_numpy(_words((s, c, k, n), 64)))
+    wd = grp.GroupedWeightLimbs(*(a.to(cuda) for a in wl))
+    want = grp.grouped_rss_matmul_ref(x, wl)
+    for name, xl in layouts.items():
+        got = grp.grouped_rss_matmul_parts(xl, wd)
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+def test_grouped_slabs_past_the_opt_in_limit_raise(cuda):
+    wl = grp.grouped_weight_limbs(torch.zeros((3, 1200, 9, 1),
+                                              dtype=torch.int32))
+    wd = grp.GroupedWeightLimbs(*(a.to(cuda) for a in wl))
+    x = torch.zeros((3, 1200, 4, 9), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        grp.grouped_rss_matmul_parts(x, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c,m,k,n", [(3, 16, 1000, 9, 1), (3, 3, 70, 9, 1),
+                                       (1, 5, 70, 25, 2)])
+def test_grouped_first_design_equals_plain(cuda, s, c, m, k, n):
+    """The per-party kernel (timed beside the new one) still holds."""
+    x, layouts = _grouped_layouts(s, c, m, k, 65, cuda)
+    wl = grp.grouped_weight_limbs(ring_from_numpy(_words((s, c, k, n), 66)))
+    wd = grp.GroupedWeightLimbs(*(a.to(cuda) for a in wl))
+    want = grp.grouped_rss_matmul_ref(x, wl)
+    for name, xl in layouts.items():
+        got = grp._launch(xl, wd, grp.PER_PARTY)
+        assert torch.equal(got.cpu(), want), name
+
+
 # -- B8 / B9: the float kernels of the LM path --------------------------------
 
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
@@ -555,6 +703,10 @@ def _ssd_inputs(bsz, s, h, hd, n):
     return x, bm, cm, da, dt
 
 
+def _ssd_rel_err(got, want) -> float:
+    return float((got.cpu() - want).abs().max()) / float(want.abs().max())
+
+
 def _within_ssd_gate(got, want):
     return float((got.cpu() - want).abs().max()) \
         <= 2e-5 * float(want.abs().max())
@@ -575,7 +727,43 @@ def test_ssd_scan_cuda_equals_plain(cuda, bsz, s, h, hd, n, chunk):
     torch.cuda.synchronize()
     assert kbuild.LAUNCHES["ssd_scan"] == launches + 1
     assert torch.equal(ssd.ssd_scan(*dev, chunk=chunk), got)
-    assert _within_ssd_gate(got, ssd.ssd_scan_ref(*host, chunk=chunk))
+    want = ssd.ssd_scan_ref(*host, chunk=chunk)
+    assert _within_ssd_gate(got, want), \
+        f"max |err| / max |y| = {_ssd_rel_err(got, want):.3g}"
+
+
+def _poison_allocator(cuda, fill=float("nan")):
+    """Fill 384 MB of memory and free it: the caching allocator hands it
+    out again, so scratch a kernel reads before it writes holds NaN."""
+    junk = torch.full((96 << 20,), fill, device=cuda)
+    del junk
+
+
+@pytest.mark.cuda
+def test_kernels_read_no_stale_memory(cuda):
+    """B9, B2 and B6 on memory that held NaN: every result as before."""
+    for s, h, hd, n, chunk in SSD_CUDA:
+        host = _ssd_inputs(2, s, h, hd, n)
+        dev = [t.to(cuda) for t in host]
+        _poison_allocator(cuda)
+        got = ssd.ssd_scan(*dev, chunk=chunk)
+        want = ssd.ssd_scan_ref(*host, chunk=chunk)
+        assert _within_ssd_gate(got, want), \
+            f"{(s, h, hd, n, chunk)}: {_ssd_rel_err(got, want):.3g}"
+    x, layouts = _grouped_layouts(3, 16, 1000, 9, 61, cuda)
+    wl = grp.grouped_weight_limbs(ring_from_numpy(_words((3, 16, 9, 1), 62)))
+    wd = grp.GroupedWeightLimbs(*(a.to(cuda) for a in wl))
+    want = grp.grouped_rss_matmul_ref(x, wl)
+    for name, xl in layouts.items():
+        _poison_allocator(cuda)
+        assert torch.equal(grp.grouped_rss_matmul_parts(xl, wd).cpu(),
+                           want), name
+    for m, k, n in [(32, 3136, 512), (6272, 800, 64), (7, 3, 1)]:
+        a = ring_from_numpy(_words((m, k), 51))
+        w = _int8_weight((k, n), 52, "int8")
+        _poison_allocator(cuda)
+        got = ops.binary_weight_matmul_op(a.to(cuda), w.to(cuda))
+        assert torch.equal(got.cpu(), binmm.binary_weight_matmul_ref(a, w))
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""The limb arithmetic of B1's, B3's and B5's tensor-core route, on the CPU.
+"""The limb arithmetic of B1's, B3's, B5's and B6's tensor-core route, on
+the CPU.
 
 ``limb_model`` repeats, in plain torch, what ``csrc/limb_mma.cuh`` computes:
 the four bytes of each activation word as unsigned limbs, the cached
@@ -9,8 +10,10 @@ added mod 2^32.  It is held bit for bit to the reference's Pallas kernels
 in interpret mode and to the port's plain versions, at ragged shapes and
 at full-range and carry-boundary words.  B5 splits its (K, N) operand per
 call (``ring_matmul.ring_weight_limbs_ref`` is the split pass's plain
-version) and runs the model at one slot.  The CUDA cases are in
-test_torch_cuda.py.
+version) and runs the model at one slot; B6's int8 weight is its own
+single balanced limb (``binary_matmul.binary_weight_t_ref`` is its weight
+pass's plain version: w.T, K-major and 128-padded), the model at one slot
+and L = 1.  The CUDA cases are in test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,9 +21,11 @@ import pytest
 import torch
 
 from repro.kernels import bin_rss_matmul as jbin
+from repro.kernels import binary_matmul as jbm
 from repro.kernels import ring_matmul as jring
 from repro.kernels import rss_matmul as jdense
 from repro_torch.kernels import bin_rss_matmul as grp
+from repro_torch.kernels import binary_matmul as binmm
 from repro_torch.kernels import ring_matmul as ringmm
 from repro_torch.kernels import rss_matmul as dense
 from repro_torch.kernels.limbs import (CUDA_CORE, K_STAGE, TENSOR_CORE,
@@ -206,6 +211,62 @@ def test_b5_split_is_the_balanced_limbs_transposed_and_padded(k, n, kind):
     assert not wt[:, n:].any() and not wt[:, :, k:].any()
 
 
+# -- B6: ring words x an int8 weight, one limb ---------------------------------
+
+def _int8_weight(shape, seed, kind):
+    """±1 ("pm1"), {0, 1} ("01"), or full-range int8 holding -128 and 127."""
+    rng = np.random.default_rng(seed)
+    if kind == "pm1":
+        return (2 * rng.integers(0, 2, shape) - 1).astype(np.int8)
+    if kind == "01":
+        return rng.integers(0, 2, shape).astype(np.int8)
+    w = rng.integers(-128, 128, shape)
+    w.flat[0], w.flat[-1] = -128, 127
+    return w.astype(np.int8)
+
+
+def _pallas_bin_weight(a: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """The reference's Pallas binary_weight_matmul in interpret mode, on
+    operands zero-padded to its 128 tiles."""
+    (m, k), n = a.shape, w.shape[1]
+    pad = [(-d) % 128 for d in (m, k, n)]
+    ap = np.pad(a, ((0, pad[0]), (0, pad[1])))
+    wp = np.pad(w, ((0, pad[1]), (0, pad[2])))
+    out = jbm.binary_weight_matmul(jnp.asarray(ap), jnp.asarray(wp),
+                                   interpret=True)
+    return np.asarray(out)[:m, :n]
+
+
+@pytest.mark.parametrize("wkind", ["pm1", "01", "int8"])
+@pytest.mark.parametrize("kind", ["full", "carry"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_b6_limb_model_equals_pallas_kernel(m, k, n, kind, wkind):
+    """One slot, one limb: the weight pass's plane is the only limb."""
+    a, w = _words((m, k), m + 6, kind), _int8_weight((k, n), k + 6, wkind)
+    want = _pallas_bin_weight(a, w)
+    at, wt8 = ring_from_numpy(a), torch.from_numpy(w)
+    assert np.array_equal(
+        ring_to_numpy(binmm.binary_weight_matmul_ref(at, wt8)), want)
+    wt = binmm.binary_weight_t_ref(wt8)
+    for split_k in _splits(k):
+        got = limb_model(at[None], wt[None, None, None], n, split_k)[0]
+        assert np.array_equal(ring_to_numpy(got), want), split_k
+
+
+@pytest.mark.parametrize("wkind", ["pm1", "int8"])
+@pytest.mark.parametrize("k,n", [(3, 10), (25, 32), (131, 24), (300, 129)])
+def test_b6_weight_pass_is_the_transpose_padded(k, n, wkind):
+    """An int8 weight is its own balanced limb: the pass's plain version is
+    w.T, int8, zero-padded to multiples of 128, contiguous."""
+    w = torch.from_numpy(_int8_weight((k, n), 23, wkind))
+    wt = binmm.binary_weight_t_ref(w)
+    assert wt.shape == (-(-n // 128) * 128, -(-k // 128) * 128)
+    assert wt.dtype == torch.int8 and wt.is_contiguous()
+    assert torch.equal(wt[:n, :k], w.T)
+    assert torch.equal(balanced_limbs(w.to(torch.int32))[0], w)
+    assert not wt[n:].any() and not wt[:, k:].any()
+
+
 # -- the launch plan ----------------------------------------------------------
 
 # (S, M, K, N) -> (route, K stages per split, splits) on 132 SMs
@@ -218,9 +279,11 @@ PLANS = {
     (3, 2048, 48, 48): (TENSOR_CORE, 2, 1),
     (3, 32768, 27, 64): (TENSOR_CORE, 1, 1),
     (3, 32768, 16, 16): (CUDA_CORE, 1, 1),
-    # B5 at one slot: MnistNet4's fc1 and conv2
-    (1, 32, 3136, 512): (TENSOR_CORE, 3, 33),
+    # B5 and B6 at one slot: MnistNet4's conv1, conv2, fc1 and fc2
+    (1, 25088, 25, 32): (TENSOR_CORE, 1, 1),
     (1, 6272, 800, 64): (TENSOR_CORE, 13, 2),
+    (1, 32, 3136, 512): (TENSOR_CORE, 3, 33),
+    (1, 32, 512, 10): (TENSOR_CORE, 1, 16),
 }
 
 
