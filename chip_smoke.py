@@ -55,16 +55,36 @@ Phases, each fatal on failure:
               of the plaintext forward on the card, and CifarNet2 and
               CifarNet7 logits (shared and public) on the card must equal
               the CPU run of the port bit for bit.
-5. per-dot  - one secure fc layer of MnistNet4's width (32 x 3136 -> 512)
+5. tuned    - the autotuner over the launch choices of B1 and B3 (route,
+              split-K count, B3's CUDA-core width; B2 and B4 have one) at
+              every launch the paths of phase 3 make, as the cost model's
+              kernel requests list them (phase 2 holds those lists equal
+              to the launches of each path's shape-only run): each
+              distinct launch tuned once into a cache in a temporary
+              directory, every candidate equal to the plan's output bit
+              for bit, each B1/B3 launch printed with the plan's config and
+              time, the winner's and every candidate's.  MnistNet4 and
+              CifarNet2, shared and public, served with the cache: every
+              linear op carries its configs, logits == the untuned run's
+              bit for bit.  The path solver: MnistNet1 and CifarNet2 under
+              local / lan / wan print each layer's path, and the compiled
+              prediction equals the live ledger, online and offline (with
+              no deployment the ledger equals PINNED).  Telemetry:
+              serve_secure on CifarNet2 shared, batch 32, 4 queries, with
+              --trace and --metrics-json: a valid trace with each query's
+              device time, the attribution summing to the ledger exactly,
+              logits == the run without telemetry; q/s off and on from
+              alternating runs.
+6. per-dot  - one secure fc layer of MnistNet4's width (32 x 3136 -> 512)
               through linear_layer(..., dot=ops.rss_matmul_dot) under the
               "opt2" and "paper3" matmul modes, fused rounds on and off: it
               must launch B5 only (6 / 9 times a layer) and open to the value
               of the same layer on cached weight limbs (B1).
-6. binary   - the binarized-product API at MnistNet4's layer shapes: a
+7. binary   - the binarized-product API at MnistNet4's layer shapes: a
               plaintext BNN layer (±1 x ±1, B7) and a public ±1-weight layer
               on the three shares of a secret (B6), each held to a float64
               product on the card.
-7. lm kernels - B8 flash_attention at the reference's kernel-test shapes
+8. lm kernels - B8 flash_attention at the reference's kernel-test shapes
               and a ragged S = 1000 in float32 (the CUDA-core route, at the
               reference's 2e-5), then in bf16 (the tensor-core route, each
               value within one bf16 rounding of the plain version's) a
@@ -79,7 +99,7 @@ Phases, each fatal on failure:
               shapes each of its passes timed alone.  The plain versions
               run on the host CPU.  Times as in phase 2; B8's library column is
               scaled_dot_product_attention (causal, GQA) at the same shape.
-8. lm paths - Mamba2-1.3B at full width and depth (48 layers): a 2 x 2048
+9. lm paths - Mamba2-1.3B at full width and depth (48 layers): a 2 x 2048
               prefill layer by layer, each layer's scan on B9 (48 launches)
               and its output held to ssd_prefill's within 2^-6 of its scale
               (only bf16 roundings of the scan's output before w_out can
@@ -103,6 +123,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -238,14 +259,17 @@ def dots(n_limbs: int) -> int:
 
 def path_shapes(net: str, weights: str, binary_linear: str, fused: bool):
     """Shapes (the grouped kernels' x layout, the public limb count) each
-    wrapper receives on a path, from a shape-only (meta) run of it."""
+    wrapper receives on a path, from a shape-only (meta) run of it; and
+    the cost model's kernel requests of the path, which must list those
+    launches exactly, in order (the autotuner tunes what they name)."""
     import repro_torch.kernels.ops as kops
-    from repro_torch.core import linear
+    from repro_torch.core import cost_model, linear
     from repro_torch.core.secure_model import secure_infer_cost
     from repro_torch.launch.serve_secure import build
     from repro_torch.nn.bnn import INPUT_SHAPES
 
     seen = {name: {} for name in LINEAR_KERNELS}
+    calls = []
     wrappers = {"rss_matmul": "rss_matmul_parts",
                 "grouped_rss_matmul": "grouped_rss_matmul_parts",
                 "bin_rss_matmul": "bin_rss_matmul_parts",
@@ -253,14 +277,18 @@ def path_shapes(net: str, weights: str, binary_linear: str, fused: bool):
     saved = {name: getattr(kops, fn) for name, fn in wrappers.items()}
 
     def recorder(name):
-        def rec(x, w):
+        def rec(x, w, *args):
             key = (tuple(x.shape), w.n)
             if "grouped" in name:
                 key += (x.stride()[1] == 1,)
             if name.startswith("bin_"):
                 key += (w.n_limbs,)
             seen[name][key] = seen[name].get(key, 0) + 1
-            return saved[name](x, w)
+            grouped = "grouped" in name
+            calls.append((name, *x.shape[-2:], w.n,
+                          w.n_limbs if name.startswith("bin_") else 4,
+                          x.shape[1] if grouped else None))
+            return saved[name](x, w, *args)
         return rec
 
     for name, fn in wrappers.items():
@@ -269,12 +297,17 @@ def path_shapes(net: str, weights: str, binary_linear: str, fused: bool):
     try:
         model = build(net, device="cpu", weights=weights,
                       binary_linear=binary_linear)
-        secure_infer_cost(model, (BATCH,) + INPUT_SHAPES[net])
+        shape = (BATCH,) + INPUT_SHAPES[net]
+        secure_infer_cost(model, shape)
+        reqs = cost_model.model_cost(model, shape).kernel_requests()
     finally:
         linear.set_fused_rounds(True)
         for name, fn in wrappers.items():
             setattr(kops, fn, saved[name])
-    return seen
+    if reqs != calls:
+        fail(f"{net} {weights}/{binary_linear} fused={fused}: the cost "
+             f"model's kernel requests {reqs} != the launches {calls}")
+    return seen, reqs
 
 
 def _grouped_x(words, s, c, m, k, c_contig):
@@ -300,6 +333,7 @@ def check_kernels(shapes: dict) -> list:
     from repro_torch.kernels import bin_rss_matmul as grp
     from repro_torch.kernels import limbs
     from repro_torch.kernels import rss_matmul as dense
+    from repro_torch.kernels.lowering import KernelConfig
 
     sms = limbs.sm_count(torch.device("cuda"))
 
@@ -334,7 +368,7 @@ def check_kernels(shapes: dict) -> list:
                 run = lambda: dense.rss_matmul_parts(xd, wd)
                 plain = lambda: dense.rss_matmul_parts_ref(x, wl)
                 plan = limbs.limb_mma_plan(s, m, k, n, sms)
-                other = lambda r: dense._launch(xd, wd, r)
+                other = lambda r: dense._launch(xd, wd, KernelConfig(r))
                 nbytes = 4 * (s * m * k + 2 * s * k * n + s * m * n)
                 ops = 40 * s * m * k * n
                 desc = {"S": s, "M": m, "K": k, "N": n}
@@ -358,7 +392,7 @@ def check_kernels(shapes: dict) -> list:
                 run = lambda: grp.bin_rss_matmul_parts(xd, wd)
                 plain = lambda: grp.bin_rss_matmul_ref(x, wl)
                 plan = limbs.limb_mma_plan(s, m, k, n, sms)
-                other = lambda r: grp._launch_bin(xd, wd, r)
+                other = lambda r: grp._launch_bin(xd, wd, KernelConfig(r))
                 # x words, the weight's L int8 limbs, z words
                 nbytes = 4 * s * m * k + n_limbs * k * n + 4 * s * m * n
                 word_bytes = 4 * (s * m * k + k * n + s * m * n)
@@ -626,7 +660,7 @@ def launched(kbuild) -> dict:
 
 
 def per_dot_phase(kbuild) -> dict:
-    """Phase 5: a secure fc layer of MnistNet4's width on the per-dot route
+    """Phase 6: a secure fc layer of MnistNet4's width on the per-dot route
     (B5 only) == the same layer on cached weight limbs (B1)."""
     import torch
     from repro_torch.core import linear, prf
@@ -689,7 +723,7 @@ def per_dot_phase(kbuild) -> dict:
 
 
 def binary_phase(kbuild) -> dict:
-    """Phase 6: the binarized-product API at MnistNet4's layer shapes, held
+    """Phase 7: the binarized-product API at MnistNet4's layer shapes, held
     to float64 products on the card: B7 as a plaintext BNN layer (±1 x ±1),
     B6 as a public ±1-weight layer on each share of a secret."""
     import torch
@@ -728,6 +762,161 @@ def binary_phase(kbuild) -> dict:
     return counts
 
 
+def tuned_phase(kbuild, requests: dict, tmp: Path) -> dict:
+    """Phase 5: the autotuner, the path solver and telemetry on the card.
+
+    Tune: ``ensure_tuned`` over the kernel requests of every phase-3 path
+    into a cache under ``tmp`` (each distinct padded launch once; every
+    candidate equal to the plan's output bit for bit, or it raises); each
+    B1/B3 launch prints the plan's config and time, the winner's and every
+    candidate's.  Compile with the cache: MnistNet4 and CifarNet2, shared
+    and public, served with the cache; every linear op carries its
+    configs, and the logits equal the untuned run's bit for bit.  Solve:
+    MnistNet1 and CifarNet2 under local / lan / wan, each layer's path
+    printed, ``model.predicted`` == the live ledger, online and offline;
+    with no deployment the ledger == PINNED.  Trace: serve_secure on
+    CifarNet2 shared, batch 32, 4 queries, with --trace and --metrics-json:
+    the trace passes the validator, the attribution's measured bytes sum
+    to the ledger, the logits equal those with telemetry off, and q/s off
+    and on are printed (alternating, two runs each).  Returns the served
+    runs' launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cost_model, telemetry
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import serve_secure
+    from repro_torch.nn.bnn import INPUT_SHAPES
+
+    cache = tmp / "autotune.json"
+    reqs = [r for rs in requests.values() for r in rs]
+    rows = {}
+
+    def report(req, best, timings):
+        family = req[0]
+        plan = next(iter(timings))          # the plan's config comes first
+        rows.setdefault(family, []).append(
+            (req, plan, timings[plan], best, timings[best]))
+        if family in ("rss_matmul", "bin_rss_matmul"):
+            cands = "; ".join(f"{c.describe()} {us:.2f}"
+                              for c, us in timings.items())
+            print(f"[chip_smoke] tune {family} m={req[1]} k={req[2]} "
+                  f"n={req[3]} L={req[4]}: plan {plan.describe()} "
+                  f"{timings[plan]:.2f} us, best {best.describe()} "
+                  f"{timings[best]:.2f} us "
+                  f"({timings[plan] / timings[best]:.2f}x); measured: "
+                  f"{cands}")
+
+    t0 = time.perf_counter()
+    try:
+        tuned = autotune.ensure_tuned(reqs, smoke=True, cache_path=cache,
+                                      device="cuda", on_tuned=report)
+    except RuntimeError as e:
+        fail(f"autotune: {e}")
+    for family, rs in sorted(rows.items()):
+        plan_us = sum(r[2] for r in rs)
+        best_us = sum(r[4] for r in rs)
+        moved = sum(r[1] != r[3] for r in rs)
+        print(f"[chip_smoke] tune {family}: {len(rs)} launches, {moved} off "
+              f"the plan, plan {plan_us:.2f} us, tuned {best_us:.2f} us")
+    print(f"[chip_smoke] tuned {tuned} distinct launches of {len(reqs)} "
+          f"requests in {time.perf_counter() - t0:.1f} s, every candidate "
+          f"equal to the plan's output")
+
+    launches = {name: 0 for name in kbuild.LAUNCHES}
+
+    def served(**kw):
+        kbuild.reset_launches()
+        st = serve_secure.serve(batch=BATCH, device="cuda", **kw)
+        for name, c in kbuild.LAUNCHES.items():
+            launches[name] += c
+        return st
+
+    # compile with the cache: configs on every op, logits unchanged
+    for net in ("MnistNet4", "CifarNet2"):
+        for weights in WEIGHT_MODES:
+            base = served(net=net, queries=1, weights=weights)
+            st = served(net=net, queries=1, weights=weights,
+                        deployment="lan", autotune_cache=cache)
+            for i, op in enumerate(st["model"].ops):
+                if op["op"] in ("conv", "sepconv", "fc"):
+                    parts = op["w" if weights == "shared" else "pub_w"]
+                    kc = op.get("kcfg")
+                    if kc is None or len(kc) != len(parts) \
+                            or any(c is None for c in kc):
+                        fail(f"{net} {weights}: op {i} carries kcfg {kc}")
+            if not np.array_equal(st["logits"], base["logits"]):
+                fail(f"{net} {weights}: the tuned compile's logits differ "
+                     f"from the untuned compile's")
+            cfgs = sorted({c.describe() for op in st["model"].ops
+                           for c in op.get("kcfg", ())})
+            print(f"[chip_smoke] {net} {weights} compiled with the cache: "
+                  f"configs {cfgs}; logits == untuned, bit for bit")
+
+    # solve: the prediction at the deployment's batch == the live ledger
+    for net in ("MnistNet1", "CifarNet2"):
+        st = served(net=net, queries=1)
+        got = tuple(getattr(st["ledger"], k) for k in
+                    ("rounds", "nbytes", "pre_rounds", "pre_nbytes"))
+        if got != PINNED[(net, "shared", "auto", True)]:
+            fail(f"{net} with no deployment: ledger {got} != pinned")
+        for dep in cost_model.DEPLOYMENTS:
+            st = served(net=net, queries=1, deployment=dep)
+            pred, led = st["model"].predicted, st["ledger"]
+            want = (led.rounds, led.nbytes, led.pre_rounds, led.pre_nbytes)
+            have = (pred.rounds, pred.nbytes, pred.pre_rounds,
+                    pred.pre_nbytes)
+            if have != want:
+                fail(f"{net} {dep}: predicted {have} != ledger {want}")
+            paths = ", ".join(f"{e.name}={e.path}" for e in pred.entries
+                              if e.name.startswith("l"))
+            print(f"[chip_smoke] solve {net} {dep}: {paths}; predicted == "
+                  f"ledger {want}")
+
+    # trace: serve_secure with telemetry, against runs without
+    shape = (BATCH,) + INPUT_SHAPES["CifarNet2"]
+    qps = {"off": [], "on": []}
+    trace, metrics = tmp / "trace.json", tmp / "metrics.json"
+    for turn in ("off", "on", "off", "on"):
+        kbuild.reset_launches()
+        if turn == "off":
+            st = serve_secure.serve("CifarNet2", BATCH, QUERIES,
+                                    device="cuda")
+            off = st
+        else:
+            st = serve_secure.main(
+                ["--net", "CifarNet2", "--batch", str(BATCH), "--queries",
+                 str(QUERIES), "--trace", str(trace), "--metrics-json",
+                 str(metrics)])
+            tr = json.loads(trace.read_text())
+            try:
+                telemetry.validate_chrome_trace(tr)
+            except ValueError as e:
+                fail(f"trace: {e}")
+            rep, led = st["attribution"], st["ledger"]
+            if sum(r.meas_bytes for r in rep.rows) != led.nbytes \
+                    or sum(r.meas_rounds for r in rep.rows) != led.rounds \
+                    or not rep.exact:
+                fail("trace: the attribution does not sum to the ledger")
+            if not np.array_equal(st["logits"], off["logits"]):
+                fail("trace: logits with telemetry on differ from off")
+            dev_ms = [e["args"]["device_ms"] for e in tr["traceEvents"]
+                      if e["ph"] == "X" and e["name"].startswith("query[")]
+            if len(dev_ms) != QUERIES:
+                fail(f"trace: {len(dev_ms)} query spans with device time")
+        for name, c in kbuild.LAUNCHES.items():
+            launches[name] += c
+        qps[turn].append(st["query_per_s"])
+    m = json.loads(metrics.read_text())
+    print(f"[chip_smoke] trace CifarNet2 shared batch {BATCH}: valid, "
+          f"{len(tr['traceEvents'])} events, query device ms "
+          f"{[round(v, 3) for v in dev_ms]}, query latency p50 "
+          f"{m['histograms']['query_latency_seconds']['p50'] * 1e3:.2f} ms; "
+          f"attribution == ledger; logits on == off")
+    print(f"[chip_smoke] CifarNet2 shared q/s telemetry off {qps['off']} / "
+          f"on {qps['on']} (alternating runs of {QUERIES} queries)")
+    return launches
+
+
 def _row(name, ms, pms, b_ms, o_ms, lib, err, detail) -> dict:
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
@@ -737,7 +926,7 @@ def _row(name, ms, pms, b_ms, o_ms, lib, err, detail) -> dict:
 
 
 def check_flash() -> dict:
-    """Phase 7, B8: kernel == plain version (host CPU) at FLASH_SHAPES; the
+    """Phase 8, B8: kernel == plain version (host CPU) at FLASH_SHAPES; the
     row's numbers are TinyLlama's shape (the last), the main path's."""
     import torch
     import torch.nn.functional as F
@@ -803,7 +992,7 @@ def mamba_layer_inputs(cfg, params, tokens):
 
 
 def check_ssd(layer_inputs) -> dict:
-    """Phase 7, B9: kernel == plain version (host CPU) at the reference's
+    """Phase 8, B9: kernel == plain version (host CPU) at the reference's
     test shapes and at Mamba2-1.3B's layer inputs at batch 1 and 2 (the
     row's numbers), each beside the serial kernel; at the layer shapes each
     pass is also timed alone."""
@@ -845,6 +1034,11 @@ def check_ssd(layer_inputs) -> dict:
         if not err <= SSD_REL_TOL * scale:
             fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: kernel != plain "
                  f"version (max abs err {err}, max |y| {scale})")
+        # each float32 side against the same math in float64: which one
+        # drifts (printed, not gated)
+        exact = ssd.ssd_chunked(*host, chunk, dtype=torch.float64)[0]
+        f64 = {side: float((t.double() - exact).abs().max()) / scale
+               for side, t in (("kernel", got), ("plain", want))}
         err_max = max(err_max, err)
         ms = median_ms(run)
         # the serial kernel (one block per (head, batch) walks the chunks)
@@ -873,11 +1067,14 @@ def check_ssd(layer_inputs) -> dict:
                        "chunk": chunk, "ms": ms, "plain_ms": pms,
                        "bound_ms": max(b_ms, o_ms), "max_abs_err": err,
                        "max_abs_y": scale, "repeats": reps,
-                       "serial_ms": old_ms, "pass_ms": passes})
+                       "serial_ms": old_ms, "pass_ms": passes,
+                       "rel_err_vs_float64": f64})
         print(f"[chip_smoke] ssd_scan {(b, s, h, hd, n)} chunk {chunk}: "
               f"{ms:.5f} ms (bound {max(b_ms, o_ms):.5f} ms, "
               f"{100 * max(b_ms, o_ms) / ms:.1f}% of bound), plain on host "
-              f"{pms:.3f} ms, max |err| {err:.3g} (max |y| {scale:.3g}); "
+              f"{pms:.3f} ms, max |err| {err:.3g} (max |y| {scale:.3g}; "
+              f"vs float64 / max |y|: kernel {f64['kernel']:.3g}, plain "
+              f"{f64['plain']:.3g}); "
               f"{reps} repeats bit-identical; serial kernel {old_ms:.5f} ms "
               f"({old_ms / ms:.1f}x)"
               + "".join(f"; {k} {v:.5f} ms" for k, v in passes.items()))
@@ -904,7 +1101,7 @@ def print_serve(st) -> None:
 
 
 def tinyllama_phase(kbuild, params, cfg) -> dict:
-    """Phase 8: TinyLlama-1.1B's prefill step on B8 (22 launches) == the
+    """Phase 9: TinyLlama-1.1B's prefill step on B8 (22 launches) == the
     _sdpa route; then serve."""
     import torch
     from repro_torch.kernels import ops as kops
@@ -949,7 +1146,7 @@ def tinyllama_phase(kbuild, params, cfg) -> dict:
 
 
 def mamba_phase(kbuild, params, cfg) -> dict:
-    """Phase 8: Mamba2-1.3B's 2 x 2048 prefill layer by layer, each scan on
+    """Phase 9: Mamba2-1.3B's 2 x 2048 prefill layer by layer, each scan on
     B9 (48 launches) and held to ssd_prefill's output; then serve."""
     import torch
     from repro_torch.kernels import ssd
@@ -1029,7 +1226,9 @@ def main() -> None:
           f"{median_ms(word.zero_):.5f} ms")
     # per-query counts: one query of each path of PINNED
     t0 = time.perf_counter()
-    paths = {key: path_shapes(*key) for key in PINNED}
+    paths, requests = {}, {}
+    for key in PINNED:
+        paths[key], requests[key] = path_shapes(*key)
     shapes = {name: {} for name in LINEAR_KERNELS}
     for seen in paths.values():
         for name, d in seen.items():
@@ -1130,14 +1329,20 @@ def main() -> None:
                   f"for bit")
     print(f"[chip_smoke] values phase {time.perf_counter() - t0:.1f} s")
 
-    # -- 5.-6. the per-dot route, the binarized products ---------------------
+    # -- 5. the autotuner, the path solver, telemetry ---------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        by_phase["tuned"] = tuned_phase(kbuild, requests, Path(tmp))
+    print(f"[chip_smoke] tuned phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 6.-7. the per-dot route, the binarized products ---------------------
     t0 = time.perf_counter()
     by_phase["per-dot"] = per_dot_phase(kbuild)
     by_phase["binary"] = binary_phase(kbuild)
     print(f"[chip_smoke] per-dot + binary phases {time.perf_counter() - t0:.1f}"
           f" s")
 
-    # -- 7.-8. the LM kernels and paths ------------------------------------
+    # -- 8.-9. the LM kernels and paths ------------------------------------
     from repro_torch.configs import get_config
     from repro_torch.nn.transformer import init_params
     t0 = time.perf_counter()

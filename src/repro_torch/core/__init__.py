@@ -2,10 +2,11 @@
 from .comm import CommLedger, track
 from .prf import PRNGKey
 from .randomness import Parties
-from .ring import RING32, RingSpec
-from .rss import RSS, BinRSS, reconstruct, share
+from .ring import RING32, RING64, RingSpec
+from .rss import RSS, BinRSS, reconstruct, reconstruct_bits, share, share_bits
 from .secure_model import compile_secure, secure_infer, secure_infer_cost
 
-__all__ = ["CommLedger", "track", "PRNGKey", "Parties", "RING32", "RingSpec",
-           "RSS", "BinRSS", "reconstruct", "share", "compile_secure",
+__all__ = ["CommLedger", "track", "PRNGKey", "Parties", "RING32", "RING64",
+           "RingSpec", "RSS", "BinRSS", "reconstruct", "reconstruct_bits",
+           "share", "share_bits", "compile_secure",
            "secure_infer", "secure_infer_cost"]

@@ -1,13 +1,15 @@
 """Linear-layer protocols over RSS (paper Algorithm 2) + truncation + reveal.
 
-Port of ``repro/core/linear.py`` except ``truncate_probabilistic`` (RING64
-and the probabilistic truncation belong to a later slice): ``reveal``,
-``_reshare``, ``_mul_parts``, ``mul``, ``square``, ``_matmul_parts``,
-``matmul``, ``mul_open``, ``matmul_truncate``, ``mul_truncate``,
-``square_truncate``, the convolutions, ``PublicTensor``, ``bin_matmul`` /
-``bin_conv2d``, ``truncate``, ``linear_layer`` and the two protocol
-toggles ``set_matmul_mode`` / ``set_fused_rounds`` (process globals, as in
-the reference).
+Port of ``repro/core/linear.py``: ``reveal``, ``_reshare``,
+``_mul_parts``, ``mul``, ``square``, ``_matmul_parts``, ``matmul``,
+``mul_open``, ``matmul_truncate``, ``mul_truncate``, ``square_truncate``,
+the convolutions, ``PublicTensor``, ``bin_matmul`` / ``bin_conv2d``,
+``truncate``, ``truncate_probabilistic``, ``linear_layer`` and the two
+protocol toggles ``set_matmul_mode`` / ``set_fused_rounds`` (process
+globals, as in the reference).  ``kcfg`` (a
+``kernels.lowering.KernelConfig`` that ``compile_secure`` reads from the
+autotuner's cache) rides down to the dense kernels' launches; it changes
+their schedule, never their values.
 
 Multiplication identity (Araki et al.): per party
     z_i = x_i·y_i + x_{i+1}·y_i + x_i·y_{i+1} + a_i,   Σ a_i = 0
@@ -39,9 +41,10 @@ import torch.nn.functional as F
 from . import comm, transport
 from .randomness import Parties
 from .ring import RingSpec, shr
-from .rss import RSS
+from .rss import RSS, _add_slot0
 
-__all__ = ["reveal", "mul", "matmul", "conv2d", "truncate", "linear_layer",
+__all__ = ["reveal", "mul", "matmul", "conv2d", "truncate",
+           "truncate_probabilistic", "linear_layer",
            "square", "set_matmul_mode", "set_fused_rounds", "fused_rounds",
            "mul_open", "matmul_truncate", "conv2d_truncate", "mul_truncate",
            "square_truncate", "PublicTensor", "bin_matmul", "bin_conv2d"]
@@ -138,7 +141,7 @@ def _plain_route(x: RSS, what: str) -> None:
 
 
 def _matmul_parts(x: RSS, w: RSS | None, w_limbs=None,
-                  dot=None) -> torch.Tensor:
+                  dot=None, kcfg=None) -> torch.Tensor:
     """Additive product stack z_i (parts layout): local compute, no comm.
 
     With ``w_limbs`` (a kernels.rss_matmul.WeightLimbs cached at model
@@ -149,7 +152,7 @@ def _matmul_parts(x: RSS, w: RSS | None, w_limbs=None,
     t = transport.current()
     if w_limbs is not None:
         from ..kernels.ops import rss_matmul_parts_op
-        return rss_matmul_parts_op(t.own_view(x.shares), w_limbs)
+        return rss_matmul_parts_op(t.own_view(x.shares), w_limbs, cfg=kcfg)
     if dot is None:
         _plain_route(x, "matmul")
         dot = torch.matmul
@@ -164,9 +167,10 @@ def _matmul_parts(x: RSS, w: RSS | None, w_limbs=None,
 
 
 def matmul(x: RSS, w: RSS | None, parties: Parties, tag: str = "matmul",
-           w_limbs=None, dot=None) -> RSS:
+           w_limbs=None, dot=None, kcfg=None) -> RSS:
     """Secure matmul z = x @ w (x: (..., K), w: (K, N)), one reshare."""
-    return _reshare(_matmul_parts(x, w, w_limbs, dot), x.ring, parties, tag)
+    return _reshare(_matmul_parts(x, w, w_limbs, dot, kcfg), x.ring,
+                    parties, tag)
 
 
 def mul_open(x: RSS, y: RSS, parties: Parties, tag: str = "mul_open"):
@@ -181,11 +185,11 @@ def mul_open(x: RSS, y: RSS, parties: Parties, tag: str = "mul_open"):
 
 def matmul_truncate(x: RSS, w: RSS | None, parties: Parties,
                     tag: str = "matmul_tr", w_limbs=None,
-                    bias_parts=None, dot=None) -> RSS:
+                    bias_parts=None, dot=None, kcfg=None) -> RSS:
     """Fused Alg-2 matmul + Π_trunc in ONE online round; ``bias_parts``
     (additive, at the product's 2f scale) rides the opening."""
     ring = x.ring
-    z = _matmul_parts(x, w, w_limbs, dot)
+    z = _matmul_parts(x, w, w_limbs, dot, kcfg)
     if bias_parts is not None:
         z = z + bias_parts
     return _open_shift(z, parties, ring, ring.frac, tag)
@@ -294,27 +298,29 @@ def _grouped_conv_parts(x: RSS, w: RSS, stride: int, padding: int,
 
 def conv2d(x: RSS, w: RSS, parties: Parties, stride: int = 1,
            padding: int = 0, groups: int = 1, tag: str = "conv",
-           w_limbs=None) -> RSS:
+           w_limbs=None, kcfg=None) -> RSS:
     """Secure 2-D convolution, x: (B,H,W,Cin), w: (kh,kw,Cin/groups,Cout);
-    dense or depthwise, one reshare round either way."""
+    dense or depthwise, one reshare round either way (``kcfg`` steers the
+    dense kernel; the grouped kernel has no launch choice)."""
     kh, kw, cin_g, cout = (int(d) for d in w.shape)
     if groups == 1:
         cols, ho, wo = _im2col_rss(x, kh, kw, stride, padding)
         wmat = w.reshape(kh * kw * cin_g, cout)
-        return matmul(cols, wmat, parties, tag=tag, w_limbs=w_limbs)
+        return matmul(cols, wmat, parties, tag=tag, w_limbs=w_limbs,
+                      kcfg=kcfg)
     z = _grouped_conv_parts(x, w, stride, padding, groups, w_limbs=w_limbs)
     return _reshare(z, x.ring, parties, tag=tag)
 
 
 def conv2d_truncate(x: RSS, w: RSS, parties: Parties, stride: int = 1,
                     padding: int = 0, tag: str = "conv_tr", w_limbs=None,
-                    bias_parts=None) -> RSS:
+                    bias_parts=None, kcfg=None) -> RSS:
     """Fused conv (groups=1) + bias + Π_trunc, one online round."""
     kh, kw, cin_g, cout = (int(d) for d in w.shape)
     cols, ho, wo = _im2col_rss(x, kh, kw, stride, padding)
     wmat = w.reshape(kh * kw * cin_g, cout)
     return matmul_truncate(cols, wmat, parties, tag=tag, w_limbs=w_limbs,
-                           bias_parts=bias_parts)
+                           bias_parts=bias_parts, kcfg=kcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +344,7 @@ class PublicTensor:
 
 def bin_matmul(x: RSS, w: RSS | PublicTensor, parties: Parties,
                tag: str = "bin_matmul", w_limbs=None, bias_parts=None,
-               bias_public=None, dot=None) -> RSS:
+               bias_public=None, dot=None, kcfg=None) -> RSS:
     """Post-Sign ±1 input (scale 0) times the weights.
 
     Shared weights (``w: RSS``): the product sits at scale f, so the layer
@@ -357,7 +363,7 @@ def bin_matmul(x: RSS, w: RSS | PublicTensor, parties: Parties,
         wl = w.limbs if w_limbs is None else w_limbs
         if wl is not None:
             from ..kernels.ops import bin_rss_matmul_op
-            z = bin_rss_matmul_op(x.shares, wl)
+            z = bin_rss_matmul_op(x.shares, wl, cfg=kcfg)
         else:
             if dot is None:
                 _plain_route(x, "public matmul")
@@ -368,7 +374,7 @@ def bin_matmul(x: RSS, w: RSS | PublicTensor, parties: Parties,
         return out if bias_public is None else out.add_public(bias_public)
     assert bias_public is None, \
         "shared weights take additive bias_parts, not a public encoding"
-    z = _matmul_parts(x, w, w_limbs, dot)
+    z = _matmul_parts(x, w, w_limbs, dot, kcfg)
     if bias_parts is not None:
         z = z + bias_parts
     return _reshare(z, x.ring, parties, tag)
@@ -376,7 +382,7 @@ def bin_matmul(x: RSS, w: RSS | PublicTensor, parties: Parties,
 
 def _bin_conv2d_public(x: RSS, w: PublicTensor, parties: Parties,
                        stride: int, padding: int, groups: int, tag: str,
-                       bias_public) -> RSS:
+                       bias_public, kcfg=None) -> RSS:
     """Public-weight conv: im2col + the public :func:`bin_matmul`, or the
     per-channel contraction against the public depthwise kernel on every
     slot at once; zero communication either way."""
@@ -385,7 +391,7 @@ def _bin_conv2d_public(x: RSS, w: PublicTensor, parties: Parties,
     if groups == 1:
         wmat = PublicTensor(w.enc.reshape(kh * kw * cin_g, cout), w.limbs)
         return bin_matmul(cols, wmat, parties, tag=tag,
-                          bias_public=bias_public)
+                          bias_public=bias_public, kcfg=kcfg)
     b, cin = x.shape[0], x.shape[3]
     assert groups == cin and cin_g == 1 and cout % groups == 0
     mult = cout // groups
@@ -408,7 +414,7 @@ def _bin_conv2d_public(x: RSS, w: PublicTensor, parties: Parties,
 def bin_conv2d(x: RSS, w: RSS | PublicTensor, parties: Parties,
                stride: int = 1, padding: int = 0, groups: int = 1,
                tag: str = "bin_conv", w_limbs=None, bias_parts=None,
-               bias_public=None) -> RSS:
+               bias_public=None, kcfg=None) -> RSS:
     """Post-Sign conv: im2col + :func:`bin_matmul`, or the per-channel
     grouped contraction (depthwise half of a sepconv); one reshare round
     with shared weights, none with public weights."""
@@ -416,7 +422,7 @@ def bin_conv2d(x: RSS, w: RSS | PublicTensor, parties: Parties,
         assert bias_parts is None, \
             "public weights take bias_public, not additive bias_parts"
         return _bin_conv2d_public(x, w, parties, stride, padding, groups,
-                                  tag, bias_public)
+                                  tag, bias_public, kcfg)
     assert bias_public is None, \
         "shared weights take additive bias_parts, not a public encoding"
     kh, kw, cin_g, cout = (int(d) for d in w.shape)
@@ -429,7 +435,7 @@ def bin_conv2d(x: RSS, w: RSS | PublicTensor, parties: Parties,
     cols, ho, wo = _im2col_rss(x, kh, kw, stride, padding)
     wmat = w.reshape(kh * kw * cin_g, cout)
     return bin_matmul(cols, wmat, parties, tag=tag, w_limbs=w_limbs,
-                      bias_parts=bias_parts)
+                      bias_parts=bias_parts, kcfg=kcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -446,6 +452,25 @@ def truncate(x: RSS, parties: Parties, frac: int | None = None,
     r, rp = _trunc_pair(x.shape, parties, ring, f)
     c = reveal(x.add_public(1 << (ring.bits - 2)) - r, tag=tag)
     return rp.add_public(_trunc_decode(c, ring, f))
+
+
+def truncate_probabilistic(x: RSS, parties: Parties, frac: int | None = None,
+                           tag: str = "trunc_prob") -> RSS:
+    """ABY3 Π_trunc1 with a full-range mask, the paper's citation, kept as
+    the reference baseline: ±1 ulp usually, but a catastrophic 2^{l-f}
+    error with probability ≈ |x_fixed| / 2^l (DESIGN.md §10)."""
+    ring = x.ring
+    f = ring.frac if frac is None else frac
+    t = transport.current()
+    r, r_plain = parties.rand_rss_open(x.shape, ring)
+    zero = parties.zero_shares(x.shape, ring)
+    rp_parts = _add_slot0(zero, ring.to_signed(r_plain) >> f)
+    # the preprocessing reshare that turns the additive [r >> f] into RSS
+    comm.record(tag, rounds=1, nbytes=3 * _numel(x.shape) * ring.nbytes,
+                preprocess=True)
+    rp = RSS(t.complete(rp_parts), ring)
+    masked = reveal(x - r, tag=tag)
+    return rp.add_public(ring.to_signed(masked) >> f)
 
 
 # ---------------------------------------------------------------------------

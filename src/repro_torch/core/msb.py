@@ -2,7 +2,7 @@
 B2A share conversion (paper §3.3) via the 3-party OT.
 
 Port of ``repro/core/msb.py`` (``b2a``, ``_msb_core``, ``msb_extract``,
-``msb_extract_arith``, ``DEFAULT_BOUND_BITS``):
+``msb_extract_arith``, ``a2b_msb``, ``DEFAULT_BOUND_BITS``):
 
   offline : random bit [β]^B, its B2A conversion [β]^A, a positive odd
             bounded mask [r], and [ρ] = [(−1)^β · r];
@@ -25,7 +25,8 @@ from .randomness import Parties
 from .ring import RingSpec
 from .rss import RSS, BinRSS
 
-__all__ = ["b2a", "msb_extract", "msb_extract_arith", "DEFAULT_BOUND_BITS"]
+__all__ = ["b2a", "msb_extract", "msb_extract_arith", "a2b_msb",
+           "DEFAULT_BOUND_BITS"]
 
 DEFAULT_BOUND_BITS = 18
 
@@ -86,3 +87,10 @@ def msb_extract_arith(x: RSS, parties: Parties,
     bp = beta_prime.to(ring.dtype)
     arith = RSS(beta_a.shares * (1 - 2 * bp), ring).add_public(bp)
     return beta ^ beta_prime, arith
+
+
+def a2b_msb(x: RSS, parties: Parties,
+            bound_bits: int = DEFAULT_BOUND_BITS) -> BinRSS:
+    """Paper §3.3: the arithmetic -> binary conversion CBNN needs is the
+    MSB bit, produced inside the MSB extraction."""
+    return msb_extract(x, parties, bound_bits=bound_bits)

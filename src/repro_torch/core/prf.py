@@ -13,7 +13,10 @@ reproduces it bit for bit:
   ``split(key, n)[i]`` = ``threefry(key, (0, i))`` (partitionable split);
 * ``bits(key, shape)`` hashes the per-element 64-bit row-major counter
   ``(hi, lo)`` and returns ``bits1 ^ bits2``; the uint8 draw keeps the low
-  8 bits of that word.
+  8 bits of that word;
+* a 64-bit ring word is built as the reference builds it
+  (``randomness.py:30``, ``rss.py:174``): the low word is ``bits(k)``, the
+  high word ``bits(fold_in(k, 1))`` (:func:`ring_bits`).
 
 Tensor arithmetic is int32 (adds wrap mod 2^32); rotations use masked
 logical shifts because ``>>`` on int32 is arithmetic.  ``bits_multi``
@@ -27,10 +30,10 @@ from typing import Sequence
 
 import torch
 
-from .ring import signed32
+from .ring import signed
 
 __all__ = ["Key", "PRNGKey", "split", "fold_in", "bits", "bits_multi",
-           "threefry2x32"]
+           "ring_bits", "threefry2x32"]
 
 Key = tuple[int, int]
 
@@ -75,7 +78,7 @@ def _threefry_tensor(keys: Sequence[Key], lo: torch.Tensor) -> torch.Tensor:
     dev = lo.device
 
     def col(vals):
-        return torch.tensor([signed32(v) for v in vals], dtype=torch.int32,
+        return torch.tensor([signed(v) for v in vals], dtype=torch.int32,
                             device=dev).reshape(-1, 1)
 
     sched = [_schedule(k1, k2) for k1, k2 in keys]
@@ -129,3 +132,17 @@ def bits(key: Key, shape, dtype: torch.dtype = torch.int32,
          device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32 | uint8)``."""
     return bits_multi([key], shape, dtype, device)[0]
+
+
+def ring_bits(keys: Sequence[Key], shape, width: int = 32,
+              device=None) -> torch.Tensor:
+    """Stacked uniform ring words over ``keys``: int32 words at width 32;
+    at width 64 int64 words ``bits(k) | bits(fold_in(k, 1)) << 32``, the
+    reference's widening of 32-bit draws."""
+    lo = bits_multi(keys, shape, device=device)
+    if width == 32:
+        return lo
+    if width != 64:
+        raise ValueError(f"ring width {width} is not 32 or 64")
+    hi = bits_multi([fold_in(k, 1) for k in keys], shape, device=device)
+    return (lo.to(torch.int64) & 0xFFFFFFFF) | (hi.to(torch.int64) << 32)

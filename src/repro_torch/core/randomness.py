@@ -2,8 +2,10 @@
 
 Port of ``repro/core/randomness.py::Parties`` in full: the ``fresh()``
 counter base, ``zero_shares``, ``rand_rss`` (with ``max_bits``),
-``rand_bits``, ``common_pair``, ``private_to``, ``ot_masks`` (second mask
-at counter + 100003) and ``msb_material``.  Each party pair shares a PRF
+``rand_rss_open``, ``rand_bits``, ``common_pair``, ``private_to``,
+``ot_masks`` (second mask at counter + 100003) and ``msb_material``.
+RING64 words are two 32-bit draws, as in the reference
+(``prf.ring_bits``).  Each party pair shares a PRF
 key; a monotone counter folded into the key gives freshness, consumed in
 exactly the reference's order so every draw is bit-identical.  The
 ``device`` is where the draws land.
@@ -25,11 +27,12 @@ from .rss import RSS, BinRSS, PARTIES
 __all__ = ["Parties"]
 
 
-def _prf_bits(keys: Sequence[prf.Key], cnt: int, shape, device):
-    """Stacked ``jax.random.bits(fold_in(k, cnt), shape, uint32)`` over
-    ``keys`` (int32 words), one batched evaluation."""
-    return prf.bits_multi([prf.fold_in(k, cnt) for k in keys], shape,
-                          device=device)
+def _prf_bits(keys: Sequence[prf.Key], cnt: int, shape, device,
+              ring: RingSpec | None = None):
+    """Stacked ring words of ``fold_in(k, cnt)`` over ``keys`` (the
+    reference's ``_prf_bits``), one batched evaluation."""
+    return prf.ring_bits([prf.fold_in(k, cnt) for k in keys], shape,
+                         (ring or default_ring()).bits, device=device)
 
 
 @dataclasses.dataclass
@@ -64,7 +67,8 @@ class Parties:
         cnt = self._next()
         t = transport.current()
         f, fn = t.prf_parts_pair(
-            self.keys, lambda ks: _prf_bits(ks, cnt, shape, self.device))
+            self.keys,
+            lambda ks: _prf_bits(ks, cnt, shape, self.device, ring))
         return fn - f
 
     # -- 2-out-of-3: RSS of a fresh random value --------------------------
@@ -76,12 +80,22 @@ class Parties:
         cnt = self._next()
 
         def draw(ks):
-            f = _prf_bits(ks, cnt, shape, self.device)
+            f = _prf_bits(ks, cnt, shape, self.device, ring)
             if max_bits is not None:
                 f = f & ((1 << max(max_bits - 2, 1)) - 1)
             return f
 
         return RSS(transport.current().prf_rss(self.keys, draw), ring)
+
+    def rand_rss_open(self, shape, ring: RingSpec | None = None):
+        """(RSS of a random a, plaintext a): the simulation shortcut of
+        the baselines that need the opened mask (``truncate_probabilistic``);
+        every party's PRF stream is computed from the replicated keys."""
+        ring = ring or default_ring()
+        cnt = self._next()
+        fs = _prf_bits(self.keys, cnt, shape, self.device, ring)
+        r = RSS(transport.current().build_rss(list(fs)), ring)
+        return r, fs[0] + fs[1] + fs[2]
 
     def rand_bits(self, shape) -> BinRSS:
         """2-of-3 XOR sharing of a fresh random bit tensor."""
@@ -105,13 +119,13 @@ class Parties:
         else:
             raise ValueError(f"no common key for pair ({a},{b})")
         return _prf_bits([self.keys[kidx]], self._next(), shape,
-                         self.device)[0]
+                         self.device, ring)[0]
 
     def private_to(self, i: int, shape, ring: RingSpec | None = None):
         """Random tensor private to P_i (from both of its keys)."""
         cnt = self._next()
         f = _prf_bits([self.keys[i], self.keys[(i + 1) % PARTIES]], cnt,
-                      shape, self.device)
+                      shape, self.device, ring)
         return f[0] + f[1]
 
     # -- protocol material -------------------------------------------------
@@ -120,8 +134,9 @@ class Parties:
         mask at a fixed offset so the two streams never collide."""
         cnt = self._next()
         k = self.keys[kidx]
-        m = prf.bits_multi([prf.fold_in(k, cnt), prf.fold_in(k, cnt + 100003)],
-                           shape, device=self.device)
+        m = prf.ring_bits([prf.fold_in(k, cnt), prf.fold_in(k, cnt + 100003)],
+                          shape, (ring or default_ring()).bits,
+                          device=self.device)
         return m[0], m[1]
 
     def msb_material(self, shape, ring: RingSpec, r_bits: int,

@@ -1,11 +1,13 @@
-"""Replicated secret sharing (2-out-of-3) over Z_{2^32}.
+"""Replicated secret sharing (2-out-of-3) over Z_{2^l}.
 
 Port of ``repro/core/rss.py`` (``RSS``, ``BinRSS``, ``share``,
-``reconstruct``, ``public_rss``).  The three additive shares are stacked
-on a leading axis of size 3 (``shares[i]`` is x_i, party P_i's view is
-``(x_i, x_{i+1})``), as int32 for arithmetic shares and uint8 {0, 1} for
-XOR shares.  Only the stacked single-program layout (``LocalTransport``)
-exists in the port so far, so party-conditional adds touch slot 0 directly.
+``reconstruct``, ``share_bits``, ``reconstruct_bits``,
+``zeros_like_shares``, ``public_rss``).  The three additive shares are
+stacked on a leading axis of size 3 (``shares[i]`` is x_i, party P_i's
+view is ``(x_i, x_{i+1})``), as int32 (int64 for RING64) for arithmetic
+shares and uint8 {0, 1} for XOR shares.  Only the stacked single-program
+layout (``LocalTransport``) exists in the port so far, so
+party-conditional adds touch slot 0 directly.
 """
 from __future__ import annotations
 
@@ -14,9 +16,10 @@ import dataclasses
 import torch
 
 from . import prf
-from .ring import RingSpec, default_ring, signed32
+from .ring import RingSpec, default_ring, signed
 
-__all__ = ["RSS", "BinRSS", "share", "reconstruct", "public_rss", "PARTIES"]
+__all__ = ["RSS", "BinRSS", "share", "reconstruct", "share_bits",
+           "reconstruct_bits", "zeros_like_shares", "public_rss", "PARTIES"]
 
 PARTIES = 3
 
@@ -24,7 +27,8 @@ PARTIES = 3
 def _as_ring(c, ring: RingSpec, device) -> torch.Tensor:
     """A public constant as a ring tensor: ints wrap, floats encode."""
     if isinstance(c, int):
-        return torch.tensor(signed32(c), dtype=torch.int32, device=device)
+        return torch.tensor(signed(c, ring.bits), dtype=ring.dtype,
+                            device=device)
     c = torch.as_tensor(c, device=device)
     if c.is_floating_point():
         return ring.encode(c)
@@ -38,9 +42,9 @@ def _add_slot0(stack: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 @dataclasses.dataclass
 class RSS:
-    """Arithmetic replicated secret shares of a tensor over Z_{2^32}."""
+    """Arithmetic replicated secret shares of a tensor over Z_{2^l}."""
 
-    shares: torch.Tensor  # (3, *shape) int32
+    shares: torch.Tensor  # (3, *shape) int32 (int64 for RING64)
     ring: RingSpec = dataclasses.field(default_factory=default_ring)
 
     @property
@@ -135,11 +139,11 @@ class BinRSS:
 def share(x, key: prf.Key, ring: RingSpec | None = None,
           encoded: bool = False) -> RSS:
     """Secret-share a tensor; ``x`` is float (fixed-point encoded here)
-    unless ``encoded=True`` (already int32 ring words)."""
+    unless ``encoded=True`` (already ring words)."""
     ring = ring or default_ring()
     v = torch.as_tensor(x)
     v = ring.wrap(v) if encoded else ring.encode(v)
-    x01 = prf.bits_multi(prf.split(key), v.shape, device=v.device)
+    x01 = prf.ring_bits(prf.split(key), v.shape, ring.bits, device=v.device)
     x2 = v - x01[0] - x01[1]
     return RSS(torch.cat([x01, x2[None]]), ring)
 
@@ -148,6 +152,22 @@ def reconstruct(x: RSS, decode: bool = True):
     """Open shares (test helper; protocols that reveal account for it)."""
     total = x.shares[0] + x.shares[1] + x.shares[2]
     return x.ring.decode(total) if decode else total
+
+
+def share_bits(bits, key: prf.Key) -> BinRSS:
+    """XOR-share a {0, 1} bit tensor."""
+    b = torch.as_tensor(bits).to(torch.uint8)
+    b01 = prf.bits_multi(prf.split(key), b.shape, torch.uint8,
+                         device=b.device) & 1
+    return BinRSS(torch.cat([b01, (b ^ b01[0] ^ b01[1])[None]]))
+
+
+def reconstruct_bits(x: BinRSS) -> torch.Tensor:
+    return x.shares[0] ^ x.shares[1] ^ x.shares[2]
+
+
+def zeros_like_shares(x: RSS) -> RSS:
+    return RSS(torch.zeros_like(x.shares), x.ring)
 
 
 def public_rss(c, shape, ring: RingSpec | None = None,

@@ -1,9 +1,10 @@
 """Secure inference executor: a trained BNN under the CBNN protocol stack.
 
 Port of ``repro/core/secure_model.py`` (``SecureModel``,
-``compile_secure``, ``_annotate_binary_paths``, ``_public_weight``,
-``_weight_limbs_for``, ``_infer_linear_shared``, ``_infer_linear_public``,
-``secure_infer``, ``secure_infer_cost``):
+``compile_secure`` with ``deployment`` / ``autotune_cache``,
+``_annotate_binary_paths``, ``_public_weight``, ``_weight_limbs_for``,
+``_infer_linear_shared``, ``_infer_linear_public``, ``secure_infer``,
+``secure_infer_cost``, ``post_sign_linear_cost``):
 
   setup (model owner): walk the layer spec, fold BN→Sign into a threshold
     (eq. 8) or BN into the linear's (W, b) (eqs. 10–11), then either share
@@ -18,10 +19,12 @@ Port of ``repro/core/secure_model.py`` (``SecureModel``,
     picks the post-Sign routing: "auto" the binary engine, "generic" the
     plain Alg-2 round (shared weights only; the engine's bit-identity
     reference), "off" the binarization-unaware ablation (±1 lifted to
-    scale f, full truncation paid).  Sign and ReLU run through the MSB
-    extraction, maxpool after a Sign through the §3.6 fusion and after a
-    ReLU through the pairwise-max tournament, a bare BN as the affine op,
-    and the logits are opened.
+    scale f, full truncation paid).  The cost model (cost_model.py)
+    re-derives every label at compile time and may pin the engine per op
+    (``op["engine"]``) and the kernels' launch choices (``op["kcfg"]``).
+    Sign and ReLU run through the MSB extraction, maxpool after a Sign
+    through the §3.6 fusion and after a ReLU through the pairwise-max
+    tournament, a bare BN as the affine op, and the logits are opened.
 
 ``linear.set_fused_rounds(False)`` switches every layer to the paper's
 round structure (linear + its own truncation round, Sign and ReLU by OT),
@@ -36,11 +39,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..kernels.bin_rss_matmul import (GroupedWeightLimbs, PublicGroupedLimbs,
-                                      PublicWeightLimbs, grouped_weight_limbs,
+from ..kernels.bin_rss_matmul import (grouped_weight_limbs,
                                       public_grouped_limbs,
                                       public_weight_limbs)
-from ..kernels.rss_matmul import WeightLimbs, precompute_weight_limbs
+from ..kernels.rss_matmul import precompute_weight_limbs
 from ..nn.bnn import ALL_NETS
 from . import comm, prf, transport
 from .activation import (relu_from_msb, relu_from_msb_arith, sign_from_msb,
@@ -56,7 +58,8 @@ from .ring import RingSpec, default_ring
 from .rss import RSS, share
 
 __all__ = ["SecureModel", "compile_secure", "secure_infer",
-           "secure_infer_cost", "WEIGHT_MODES", "BINARY_LINEAR_MODES"]
+           "secure_infer_cost", "post_sign_linear_cost", "WEIGHT_MODES",
+           "BINARY_LINEAR_MODES"]
 
 WEIGHT_MODES = ("shared", "public")
 BINARY_LINEAR_MODES = ("auto", "generic", "off")
@@ -69,6 +72,8 @@ class SecureModel:
     net: str
     weights: str = "shared"        # "shared" | "public"  (DESIGN.md §11)
     binary_linear: str = "auto"    # "auto" | "generic" | "off"
+    deployment: str | None = None  # descriptor the path solver ran against
+    predicted: Any = None          # cost_model.CostReport from compile time
 
 
 def _np(t) -> np.ndarray:
@@ -83,8 +88,8 @@ def _fold_bn(params, i):
 
 def compile_secure(params: dict, net: str, key: prf.Key,
                    ring: RingSpec | None = None, device=None,
-                   weights: str = "shared",
-                   binary_linear: str = "auto") -> SecureModel:
+                   weights: str = "shared", binary_linear: str = "auto",
+                   deployment=None, autotune_cache=None) -> SecureModel:
     """Model-owner setup: fuse + share (or publish).  ``params`` are
     float32 tensors in the bnn.py layout; the model lands on ``device``
     (default: the params').  Every linear weight gets its kernel operands
@@ -97,7 +102,17 @@ def compile_secure(params: dict, net: str, key: prf.Key,
     public model): linear layers become local share algebra.
     ``binary_linear`` selects the post-Sign routing ("auto", "generic",
     "off"); "generic" is a shared-weights reference mode and is refused
-    with public weights, as in the reference."""
+    with public weights, as in the reference.
+
+    ``deployment`` (a ``cost_model.DeploymentDescriptor`` or one of
+    "local" / "lan" / "wan") makes the cost model's solver pick each
+    linear layer's path by predicted time under it; with ``None`` it
+    minimises (bytes, rounds, flops), which gives the fixed preference
+    order's labels.  The prediction rides on ``op["cost"]`` and
+    ``model.predicted``.  The solver also reads the autotuner's cache
+    (``autotune_cache`` or the default path) and pins each launch's
+    measured-best ``KernelConfig`` as ``op["kcfg"]``: every launch choice
+    gives the same words, so this changes time, never values."""
     if weights not in WEIGHT_MODES:
         raise ValueError(f"weights must be one of {WEIGHT_MODES}, "
                          f"got {weights!r}")
@@ -188,8 +203,17 @@ def compile_secure(params: dict, net: str, key: prf.Key,
             ops.append({"op": "flatten"})
         i += 1
     _annotate_binary_paths(ops, weights, binary_linear)
-    return SecureModel(ops=ops, ring=ring, net=net, weights=weights,
-                       binary_linear=binary_linear)
+    from . import cost_model
+    dep = cost_model.resolve_deployment(deployment)
+    model = SecureModel(ops=ops, ring=ring, net=net, weights=weights,
+                        binary_linear=binary_linear,
+                        deployment=dep.name if dep else None)
+    # the solver re-derives every path label (ties keep the preference
+    # order) and stamps the prediction and the cached kernel configs
+    model.predicted = cost_model.annotate_model(
+        model, deployment=dep, autotune_cache=autotune_cache,
+        device=device)
+    return model
 
 
 def _annotate_binary_paths(ops: list, weights: str = "shared",
@@ -271,6 +295,7 @@ def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
     truncation, bit-identical to bin-shared (its reference)."""
     tp = transport.current()
     wlimbs = op["wlimbs"]
+    kcfgs = op.get("kcfg") or [None] * len(op["w"])
     kind = op["op"]
     if kind == "sepconv":
         cin = int(h.shape[-1])
@@ -285,19 +310,19 @@ def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
             if not binary_in:   # a post-Sign product already sits at f
                 h = truncate(h, parties, tag=f"l{idx}.dwtrunc")
         at_2f = True
-        lin, w_rss, wl = "pw", op["w"][1], wlimbs[1]
+        lin, w_rss, wl, kc = "pw", op["w"][1], wlimbs[1], kcfgs[1]
     else:
         at_2f = not binary_in
-        lin, w_rss, wl = kind, op["w"][0], wlimbs[0]
+        lin, w_rss, wl, kc = kind, op["w"][0], wlimbs[0], kcfgs[0]
     if not at_2f and binary_engine:
         bias = tp.own_view(op["b"].shares).reshape(
             (tp.parts_slots,) + (1,) * (h.ndim - 1) + (-1,))
         if lin == "fc":
             return bin_matmul(h, w_rss, parties, tag=f"l{idx}.fc.bin",
-                              w_limbs=wl, bias_parts=bias)
+                              w_limbs=wl, bias_parts=bias, kcfg=kc)
         return bin_conv2d(h, w_rss, parties, stride=op["stride"],
                           padding=op["pad"], tag=f"l{idx}.conv.bin",
-                          w_limbs=wl, bias_parts=bias)
+                          w_limbs=wl, bias_parts=bias, kcfg=kc)
     if at_2f and fused_rounds():
         # product + bias + Π_trunc in the one opening round; the bias rides
         # the additive parts, so only the own share
@@ -305,23 +330,25 @@ def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
             (tp.parts_slots,) + (1,) * (h.ndim - 1) + (-1,)) * ring.scale
         if lin == "fc":
             return matmul_truncate(h, w_rss, parties, tag=f"l{idx}.fc",
-                                   w_limbs=wl, bias_parts=bias)
+                                   w_limbs=wl, bias_parts=bias, kcfg=kc)
         if lin == "conv":
             return conv2d_truncate(h, w_rss, parties, stride=op["stride"],
                                    padding=op["pad"], tag=f"l{idx}.conv",
-                                   w_limbs=wl, bias_parts=bias)
+                                   w_limbs=wl, bias_parts=bias, kcfg=kc)
         return conv2d_truncate(h, w_rss, parties, tag=f"l{idx}.pwconv",
-                               w_limbs=wl, bias_parts=bias)
+                               w_limbs=wl, bias_parts=bias, kcfg=kc)
     # Alg 2's reshare, then the bias share-wise on the full RSS: the generic
     # route of a post-Sign layer (scale f, no truncation), or a fixed-point
     # layer paper-faithful (scale 2f, then its own truncation round)
     if lin == "fc":
-        z = matmul(h, w_rss, parties, tag=f"l{idx}.fc", w_limbs=wl)
+        z = matmul(h, w_rss, parties, tag=f"l{idx}.fc", w_limbs=wl,
+                   kcfg=kc)
     elif lin == "conv":
         z = conv2d(h, w_rss, parties, stride=op["stride"], padding=op["pad"],
-                   tag=f"l{idx}.conv", w_limbs=wl)
+                   tag=f"l{idx}.conv", w_limbs=wl, kcfg=kc)
     else:
-        z = conv2d(h, w_rss, parties, tag=f"l{idx}.pwconv", w_limbs=wl)
+        z = conv2d(h, w_rss, parties, tag=f"l{idx}.pwconv", w_limbs=wl,
+                   kcfg=kc)
     bias = op["b"].shares.reshape(
         (z.shares.shape[0],) + (1,) * (z.ndim - 1) + (-1,))
     if at_2f:
@@ -341,6 +368,7 @@ def _infer_linear_public(h: RSS, op: dict, parties: Parties, idx: int,
     zero rounds and zero bytes."""
     kind = op["op"]
     pub_b = op["pub_b"]
+    kcfgs = op.get("kcfg") or [None] * len(op["pub_w"])
     if kind == "sepconv":
         cin = int(h.shape[-1])
         h = bin_conv2d(h, op["pub_w"][0], parties, stride=op["stride"],
@@ -350,15 +378,17 @@ def _infer_linear_public(h: RSS, op: dict, parties: Parties, idx: int,
             h = truncate(h, parties, tag=f"l{idx}.dwtrunc")
         # the pointwise input carries scale f, so the product lands at 2f
         h = bin_conv2d(h, op["pub_w"][1], parties, tag=f"l{idx}.pwconv.pub",
-                       bias_public=pub_b * ring.scale)
+                       bias_public=pub_b * ring.scale, kcfg=kcfgs[1])
         return truncate(h, parties, tag=f"l{idx}.trunc")
     w = op["pub_w"][0]
     bias = pub_b if binary_in else pub_b * ring.scale
     if kind == "fc":
-        h = bin_matmul(h, w, parties, tag=f"l{idx}.fc.pub", bias_public=bias)
+        h = bin_matmul(h, w, parties, tag=f"l{idx}.fc.pub", bias_public=bias,
+                       kcfg=kcfgs[0])
     else:
         h = bin_conv2d(h, w, parties, stride=op["stride"], padding=op["pad"],
-                       tag=f"l{idx}.conv.pub", bias_public=bias)
+                       tag=f"l{idx}.conv.pub", bias_public=bias,
+                       kcfg=kcfgs[0])
     if not binary_in:
         h = truncate(h, parties, tag=f"l{idx}.trunc")
     return h
@@ -413,9 +443,12 @@ def secure_infer(model: SecureModel, x_shares: RSS, parties: Parties,
                                          binary_in)
                 pending_sign_threshold = op.get("pub_thresh")
             else:
+                # the compile-time solver may pin the engine per op; absent
+                # that, the model-wide routing decides
                 h = _infer_linear_shared(
                     h, op, parties, idx, ring, binary_in,
-                    binary_engine=model.binary_linear == "auto")
+                    binary_engine=op.get("engine",
+                                         model.binary_linear == "auto"))
                 pending_sign_threshold = op.get("sign_threshold")
             prev_sign = False
         elif kind == "sign":
@@ -463,33 +496,30 @@ def secure_infer(model: SecureModel, x_shares: RSS, parties: Parties,
     return h
 
 
-def _to_device(obj, device):
-    """A copy of a model-ops tree with every tensor moved to ``device``."""
-    if isinstance(obj, torch.Tensor):
-        return obj.to(device)
-    if isinstance(obj, RSS):
-        return RSS(obj.shares.to(device), obj.ring)
-    if isinstance(obj, PublicTensor):
-        return PublicTensor(obj.enc.to(device),
-                            _to_device(obj.limbs, device))
-    if isinstance(obj, (WeightLimbs, GroupedWeightLimbs, PublicWeightLimbs,
-                        PublicGroupedLimbs)):
-        return type(obj)(*(_to_device(a, device) for a in obj))
-    if isinstance(obj, dict):
-        return {k: _to_device(v, device) for k, v in obj.items()}
-    if isinstance(obj, list):
-        return [_to_device(v, device) for v in obj]
-    return obj
-
-
 def secure_infer_cost(model: SecureModel, input_shape) -> comm.CommLedger:
-    """Communication ledger of one query batch, from a run on ``meta``
-    tensors: every protocol records its messages from shapes alone, so
-    the ledger is exact and nothing is computed."""
-    meta = dataclasses.replace(model, ops=_to_device(model.ops, "meta"))
+    """Communication ledger of one query batch (``comm.estimate_cost``: a
+    run on ``meta`` tensors, exact, nothing computed)."""
     parties = Parties.setup(prf.PRNGKey(7), device="meta")
-    x = torch.empty((3,) + tuple(input_shape), dtype=model.ring.dtype,
-                    device="meta")
-    with comm.track() as led:
-        secure_infer(meta, RSS(x, model.ring), parties)
-    return led
+    x = torch.empty((3,) + tuple(input_shape), dtype=model.ring.dtype)
+    return comm.estimate_cost(
+        lambda m, xs: secure_infer(m, RSS(xs, m.ring), parties), model, x)
+
+
+def post_sign_linear_cost(model: SecureModel,
+                          led: comm.CommLedger) -> tuple[int, int]:
+    """(online bytes, online rounds) summed over the linear layers the
+    compiler marked ``binary_in``: the post-Sign layers the binary-domain
+    engine targets (DESIGN.md §11)."""
+    idxs = {i for i, op in enumerate(model.ops)
+            if op["op"] in ("conv", "sepconv", "fc")
+            and op.get("binary_in", False)}
+    nbytes = rounds = 0
+    for tag, (r, b) in led.by_tag.items():
+        if tag.startswith("pre:"):
+            continue
+        head = tag.split(".", 1)[0]
+        if head.startswith("l") and head[1:].isdigit() \
+                and int(head[1:]) in idxs:
+            nbytes += b
+            rounds += r
+    return nbytes, rounds

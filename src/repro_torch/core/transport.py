@@ -3,9 +3,10 @@
 Port of ``repro/core/transport.py::LocalTransport`` only: the stacked
 single-program simulation, with shares on a leading axis of size 3, the
 neighbour share ``x_{i+1}`` as a roll, and openings as stack sums.  The
-communication is accounted (comm.py), never performed.  The integrity and
-telemetry hooks of the reference, and ``MeshTransport``, belong to later
-slices of the port.
+communication is accounted (comm.py), never performed.  Each movement op
+calls ``telemetry.movement`` (one attribute test with no registry
+installed; per query with one).  The integrity hooks of the reference,
+and ``MeshTransport``, belong to later slices of the port.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from . import telemetry
+
 __all__ = ["LocalTransport", "current", "use_transport", "PARTIES"]
 
 PARTIES = 3
@@ -21,6 +24,8 @@ PARTIES = 3
 
 class LocalTransport:
     """Stacked-axis single-program simulation."""
+
+    name = "local"
 
     @property
     def rss_slots(self) -> int:
@@ -45,9 +50,11 @@ class LocalTransport:
     def complete(self, parts):
         """Additive parts -> RSS stack (P_i sends z_i to P_{i-1}); the
         stacked simulation already holds every slot."""
+        telemetry.movement("complete", self.name)
         return parts
 
     def send(self, x, frm: int, to: int):
+        telemetry.movement("send", self.name)
         return x
 
     def merge_recv(self, primary, received, holder: int):
@@ -57,10 +64,12 @@ class LocalTransport:
     # -- openings --------------------------------------------------------
     def open_parts(self, parts):
         """All parties learn the sum of the additive parts."""
+        telemetry.movement("open_parts", self.name)
         return parts[0] + parts[1] + parts[2]
 
     def open_rss(self, stack):
         """Reveal a shared value (P_i sends x_i to P_{i-1})."""
+        telemetry.movement("open_rss", self.name)
         return stack[0] + stack[1] + stack[2]
 
     # -- party-indexed construction --------------------------------------

@@ -23,7 +23,8 @@
 //    slots, staging each W tile once; a K loop stages 16-deep tiles of
 //    every slot's x and of W; each of the 256 threads owns a 4 x TN block
 //    of outputs per slot, strided by 16 so shared-memory reads are
-//    conflict-free or broadcast.  BN follows N (16, 32 or 64).
+//    conflict-free or broadcast.  BN is 16, 32 or 64: the caller's (the
+//    autotuner's launch choice), or by N when it passes 0.
 //
 // Ragged M/K/N edges are masked (the limb cache is padded instead): every
 // shape runs.
@@ -139,12 +140,12 @@ int launch(const void* x, const void* w, void* z, int S, long long M, int K,
 // x: (S, M, K) contiguous, S <= 3; w: (K, N) contiguous; z: (S, M, N)
 // contiguous; 32-bit words.  wt: (L, Np, Kp) int8, the K-major limbs of w.
 // tensor_core selects the route; per_split is the K stages of a split-K
-// block.
+// block; bn the CUDA-core route's tile width (16, 32, 64; 0: by N).
 extern "C" int bin_rss_matmul_launch(const void* x, const void* w,
                                      const void* wt, void* z, int S,
                                      long long M, int K, int N, int Kp,
                                      int Np, int L, int tensor_core,
-                                     int per_split, void* stream) {
+                                     int per_split, int bn, void* stream) {
   if (S < 1 || S > MAX_S) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (tensor_core) {
@@ -160,7 +161,11 @@ extern "C" int bin_rss_matmul_launch(const void* x, const void* w,
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  if (N <= 16) return launch<1>(x, w, z, S, M, K, N, st);
-  if (N <= 32) return launch<2>(x, w, z, S, M, K, N, st);
-  return launch<4>(x, w, z, S, M, K, N, st);
+  if (bn == 0) bn = N <= 16 ? 16 : N <= 32 ? 32 : 64;
+  switch (bn) {
+    case 16: return launch<1>(x, w, z, S, M, K, N, st);
+    case 32: return launch<2>(x, w, z, S, M, K, N, st);
+    case 64: return launch<4>(x, w, z, S, M, K, N, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

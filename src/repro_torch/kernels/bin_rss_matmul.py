@@ -38,7 +38,9 @@ count, 1–4) and the minimal limbs ``wl`` unpadded.  ``PublicWeightLimbs``
 adds ``wt``, the same limbs 128-padded and K-major: the operand of B3's
 tensor-core route (``csrc/limb_mma.cuh``, Σ_{q<L}(4 − q) int8 products a
 cell), which :func:`~.limbs.limb_mma_plan` takes at K > 16; at K <= 16 B3
-multiplies the 32-bit encoding ``w`` on the CUDA cores.  The grouped
+multiplies the 32-bit encoding ``w`` on the CUDA cores, in tiles 16, 32
+or 64 wide (by N).  A ``cfg`` (``lowering.KernelConfig``) replaces the
+plan's route, split count and width.  The grouped
 kernels multiply 32-bit words on the CUDA cores.
 """
 from __future__ import annotations
@@ -48,8 +50,8 @@ import typing
 import torch
 
 from . import build
-from .limbs import (K_STAGE, N_LIMBS, TENSOR_CORE, balanced_limbs,
-                    limb_mma_plan, sm_count)
+from .limbs import N_LIMBS, TENSOR_CORE, balanced_limbs, sm_count
+from .lowering import KernelConfig, resolve
 
 __all__ = ["PublicWeightLimbs", "min_public_limbs", "public_weight_limbs",
            "bin_rss_matmul_ref", "bin_rss_matmul_parts",
@@ -169,9 +171,10 @@ def _check_public(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
 
 
 def _launch_bin(x_stack: torch.Tensor, weights: PublicWeightLimbs,
-                route: str | None = None) -> torch.Tensor:
-    """Launch the kernel on the route of the plan (``route`` forces one,
-    unsplit: ``chip_smoke.py`` runs and times both routes)."""
+                cfg: KernelConfig | None = None) -> torch.Tensor:
+    """Launch the kernel on the plan's route, split and width, or on
+    ``cfg``'s (the autotuner and ``chip_smoke.py`` run and time the
+    others)."""
     s, m, k = x_stack.shape
     n, n_limbs = weights.n, weights.n_limbs
     _check_public("bin_rss_matmul", x_stack, weights.w)
@@ -189,28 +192,27 @@ def _launch_bin(x_stack: torch.Tensor, weights: PublicWeightLimbs,
     out = torch.empty((s, m, n), dtype=torch.int32, device=x_stack.device)
     if out.numel() == 0:
         return out
-    chosen, per, _ = limb_mma_plan(s, m, k, n, sm_count(x_stack.device))
-    if route is not None and route != chosen:   # one split where forced
-        chosen, per = route, -(-k // K_STAGE)
+    chosen, per, bn = resolve(cfg, s, m, k, n, sm_count(x_stack.device),
+                              "bin_rss_matmul")
     fn = build.library("bin_rss_matmul")
     err = fn(x_stack.data_ptr(), weights.w.data_ptr(), wt.data_ptr(),
              out.data_ptr(), s, m, k, n, wt.shape[2], wt.shape[1], n_limbs,
-             int(chosen == TENSOR_CORE), per,
+             int(chosen == TENSOR_CORE), per, bn,
              build.stream_ptr(x_stack.device))
     build.check("bin_rss_matmul", err)
     build.LAUNCHES["bin_rss_matmul"] += 1
     return out
 
 
-def bin_rss_matmul_parts(x_stack: torch.Tensor,
-                         weights: PublicWeightLimbs) -> torch.Tensor:
+def bin_rss_matmul_parts(x_stack: torch.Tensor, weights: PublicWeightLimbs,
+                         cfg: KernelConfig | None = None) -> torch.Tensor:
     """Every held slot's product with a public weight matrix,
     (S, M, K) -> (S, M, N) int32: a valid RSS stack of x @ W with no
-    communication.  CUDA tensors launch the kernel (or raise); CPU and
-    meta tensors run the plain version."""
+    communication.  CUDA tensors launch the kernel (on ``cfg``'s choice if
+    given) or raise; CPU and meta tensors run the plain version."""
     assert x_stack.shape[2] == weights.k, (x_stack.shape, weights.w.shape)
     if x_stack.device.type == "cuda":
-        return _launch_bin(x_stack, weights)
+        return _launch_bin(x_stack, weights, cfg)
     if x_stack.device.type in ("cpu", "meta"):
         return bin_rss_matmul_ref(x_stack, weights)
     raise ValueError(f"bin_rss_matmul: unsupported device {x_stack.device}")

@@ -42,7 +42,7 @@ KERNELS = {
                             _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
     "bin_rss_matmul": ("bin_rss_matmul", "bin_rss_matmul_launch",
                        [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I,
-                        _P]),
+                        _I, _P]),
     "bin_grouped_matmul": ("bin_grouped_matmul", "bin_grouped_matmul_launch",
                            [_P, _P, _P, _I, _I, _L, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _P]),

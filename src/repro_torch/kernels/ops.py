@@ -24,6 +24,7 @@ from .bin_rss_matmul import (GroupedWeightLimbs, PublicGroupedLimbs,
 from .binary_matmul import binary_binary_matmul, binary_weight_matmul
 from .flash_attention import flash_attention
 from .ring_matmul import ring_matmul
+from .lowering import KernelConfig
 from .rss_matmul import WeightLimbs, rss_matmul_parts
 
 __all__ = ["ring_matmul_op", "binary_weight_matmul_op",
@@ -78,27 +79,28 @@ def grouped_rss_matmul_op(x_stack: torch.Tensor,
     return _unfold_grouped(out, lead, weights.n)
 
 
-def rss_matmul_parts_op(x_stack: torch.Tensor,
-                        weights: WeightLimbs) -> torch.Tensor:
-    """Full 3-party additive-product stack from one kernel launch.
-    x_stack: (S, ..., K); returns (S, ..., N).  The neighbour share is
-    found by index inside the kernel."""
+def rss_matmul_parts_op(x_stack: torch.Tensor, weights: WeightLimbs,
+                        cfg: KernelConfig | None = None) -> torch.Tensor:
+    """Full 3-party additive-product stack from one kernel launch (on
+    ``cfg``'s launch choice if given).  x_stack: (S, ..., K); returns
+    (S, ..., N).  The neighbour share is found by index inside the
+    kernel."""
     s = x_stack.shape[0]
     lead = x_stack.shape[1:-1]
     x2 = x_stack.reshape(s, -1, x_stack.shape[-1]).contiguous()
-    out = rss_matmul_parts(x2, weights)
+    out = rss_matmul_parts(x2, weights, cfg)
     return out.reshape((s,) + tuple(lead) + (weights.n,))
 
 
-def bin_rss_matmul_op(x_stack: torch.Tensor,
-                      weights: PublicWeightLimbs) -> torch.Tensor:
+def bin_rss_matmul_op(x_stack: torch.Tensor, weights: PublicWeightLimbs,
+                      cfg: KernelConfig | None = None) -> torch.Tensor:
     """Local share-stack product with a PUBLIC weight matrix: z_s = x_s @ W
-    for every held slot, no communication.  x_stack: (S, ..., K);
-    returns (S, ..., N)."""
+    for every held slot, no communication (on ``cfg``'s launch choice if
+    given).  x_stack: (S, ..., K); returns (S, ..., N)."""
     s = x_stack.shape[0]
     lead = x_stack.shape[1:-1]
     x2 = x_stack.reshape(s, -1, x_stack.shape[-1]).contiguous()
-    out = bin_rss_matmul_parts(x2, weights)
+    out = bin_rss_matmul_parts(x2, weights, cfg)
     return out.reshape((s,) + tuple(lead) + (weights.n,))
 
 

@@ -14,7 +14,8 @@ that wrap mod 2^32.  torch has no integer matmul on CUDA, so the plain
 version is CPU-only.  The kernel takes the route of
 :func:`~.limbs.limb_mma_plan`: the int8 tensor cores over the limbs
 (split-K where the tile grid leaves SMs idle), or at K <= 16 the CUDA
-cores on the int32 words.
+cores on the int32 words; a ``cfg`` (``lowering.KernelConfig``, from the
+autotuner's cache) replaces the plan's choice.
 
 ``WeightLimbs`` keeps the reference's cache exactly: the int32 stacks
 ``ws`` / ``wf`` (the CUDA-core route's operands) and their balanced int8
@@ -29,8 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .limbs import (K_STAGE, TENSOR_CORE, balanced_limbs, limb_mma_plan,
-                    sm_count)
+from .limbs import TENSOR_CORE, balanced_limbs, sm_count
+from .lowering import KernelConfig, resolve
 
 __all__ = ["WeightLimbs", "precompute_weight_limbs", "rss_matmul_parts",
            "rss_matmul_parts_ref"]
@@ -88,9 +89,9 @@ def rss_matmul_parts_ref(x_stack: torch.Tensor,
 
 
 def _launch(x_stack: torch.Tensor, weights: WeightLimbs,
-            route: str | None = None) -> torch.Tensor:
-    """Launch the kernel on the route of the plan (``route`` forces one,
-    unsplit: ``chip_smoke.py`` runs and times both routes)."""
+            cfg: KernelConfig | None = None) -> torch.Tensor:
+    """Launch the kernel on the plan's route and split, or on ``cfg``'s
+    (the autotuner and ``chip_smoke.py`` run and time the others)."""
     s, m, k = x_stack.shape
     n = weights.n
     for name, t, dtype in (("x", x_stack, torch.int32),
@@ -112,9 +113,8 @@ def _launch(x_stack: torch.Tensor, weights: WeightLimbs,
     out = torch.empty((s, m, n), dtype=torch.int32, device=x_stack.device)
     if out.numel() == 0:
         return out
-    chosen, per, _ = limb_mma_plan(s, m, k, n, sm_count(x_stack.device))
-    if route is not None and route != chosen:   # one split where forced
-        chosen, per = route, -(-k // K_STAGE)
+    chosen, per, _ = resolve(cfg, s, m, k, n, sm_count(x_stack.device),
+                             "rss_matmul")
     fn = build.library("rss_matmul")
     err = fn(x_stack.data_ptr(), weights.wf.data_ptr(), weights.ws.data_ptr(),
              weights.wt.data_ptr(), out.data_ptr(), s, m, k, n, kp, np_,
@@ -124,15 +124,16 @@ def _launch(x_stack: torch.Tensor, weights: WeightLimbs,
     return out
 
 
-def rss_matmul_parts(x_stack: torch.Tensor,
-                     weights: WeightLimbs) -> torch.Tensor:
+def rss_matmul_parts(x_stack: torch.Tensor, weights: WeightLimbs,
+                     cfg: KernelConfig | None = None) -> torch.Tensor:
     """All parties' additive products z_i, (S, M, K) -> (S, M, N) int32.
 
-    CUDA tensors launch the kernel (or raise); CPU and meta tensors run
-    the plain version."""
+    CUDA tensors launch the kernel (on ``cfg``'s choice if given) or
+    raise; CPU and meta tensors run the plain version (``cfg`` has no
+    choice to make there)."""
     assert x_stack.shape[2] == weights.k, (x_stack.shape, weights.ws.shape)
     if x_stack.device.type == "cuda":
-        return _launch(x_stack, weights)
+        return _launch(x_stack, weights, cfg)
     if x_stack.device.type in ("cpu", "meta"):
         return rss_matmul_parts_ref(x_stack, weights)
     raise ValueError(f"rss_matmul: unsupported device {x_stack.device}")

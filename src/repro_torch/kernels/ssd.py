@@ -29,24 +29,24 @@ __all__ = ["ssd_chunked", "ssd_scan", "ssd_scan_ref", "SMEM_LIMIT",
 SMEM_LIMIT = 232_448     # bytes of shared memory a Hopper block may use
 
 
-def ssd_chunked(x, bmat, cmat, da, dt, chunk: int, state=None):
+def ssd_chunked(x, bmat, cmat, da, dt, chunk: int, state=None,
+                dtype: torch.dtype = torch.float32):
     """x (B,S,H,hd), bmat/cmat (B,S,N), da/dt (B,S,H), S % chunk == 0 ->
-    (y (B,S,H,hd) float32, final state (B,H,hd,N) float32), in float32
-    one chunk at a time from ``state`` (zeros by default)."""
+    (y (B,S,H,hd), final state (B,H,hd,N)) in ``dtype`` (float32, as the
+    reference; float64 gives the tests an exact yardstick), one chunk at a
+    time from ``state`` (zeros by default)."""
     b, s, h, hd = x.shape
     n = bmat.shape[-1]
     assert s % chunk == 0, (s, chunk)
     if state is None:
-        state = torch.zeros((b, h, hd, n), dtype=torch.float32,
-                            device=x.device)
+        state = torch.zeros((b, h, hd, n), dtype=dtype, device=x.device)
     mask = torch.ones((chunk, chunk), dtype=torch.bool,
                       device=x.device).tril()
     ys = []
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
-        xc, bc, cc = x[:, sl].float(), bmat[:, sl].float(), \
-            cmat[:, sl].float()
-        dac, dtc = da[:, sl].float(), dt[:, sl].float()
+        xc, bc, cc = (t[:, sl].to(dtype) for t in (x, bmat, cmat))
+        dac, dtc = da[:, sl].to(dtype), dt[:, sl].to(dtype)
         cum = torch.cumsum(dac, dim=1)                           # (B,Q,H)
         # intra-chunk (matrix form): L[i,j] = exp(cum_i - cum_j) for i >= j
         li = cum[:, :, None, :] - cum[:, None, :, :]             # (B,Q,Q,H)

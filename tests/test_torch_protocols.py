@@ -177,3 +177,178 @@ def test_sign_maxpool_fused_identical():
     jo, to = _run(lambda: jpool.sign_maxpool_fused(jx, jp, tag="mp"),
                   lambda: pooling.sign_maxpool_fused(tx, tp, tag="mp"))
     _same(jo, to)
+
+
+# ---------------------------------------------------------------------------
+# The protocol API of queue A item 1, held to the reference's cases in
+# tests/test_rss.py / tests/test_protocols.py
+# ---------------------------------------------------------------------------
+
+from repro.core import RING64 as JRING64  # noqa: E402
+from repro.core import rss as jrss  # noqa: E402
+from repro_torch.core import rss  # noqa: E402
+from repro_torch.core.ring import RING64, shr  # noqa: E402
+
+
+def test_share_bits_and_reconstruct_bits_identical():
+    bits = (np.random.default_rng(20).random((500,)) > 0.3).astype(np.uint8)
+    for seed in (0, 3):
+        j = jrss.share_bits(jnp.asarray(bits), jax.random.PRNGKey(seed))
+        t = rss.share_bits(torch.from_numpy(bits), prf.PRNGKey(seed))
+        _same(j, t)
+        assert np.array_equal(rss.reconstruct_bits(t).numpy(), bits)
+
+
+def test_b2a_of_shared_bits_identical():
+    """The reference's test_b2a: B2A of an XOR sharing opens to the bits."""
+    bits = (np.random.default_rng(21).random((200,)) > 0.3).astype(np.uint8)
+    jp, tp = _parties(22)
+    jb = jrss.share_bits(jnp.asarray(bits), jax.random.PRNGKey(23))
+    tb = rss.share_bits(torch.from_numpy(bits), prf.PRNGKey(23))
+    jo, to = _run(lambda: jmsb.b2a(jb, jp, JRING),
+                  lambda: msb.b2a(tb, tp, RING32))
+    _same(jo, to)
+    assert np.array_equal(ring_to_numpy(rss.reconstruct(to, decode=False)),
+                          bits.astype(np.uint32))
+
+
+def test_zeros_like_shares():
+    _, t = _shared(_floats((3, 4), 24), 24)
+    z = rss.zeros_like_shares(t)
+    assert z.shares.shape == t.shares.shape and not z.shares.any()
+    assert z.ring is t.ring
+
+
+def test_a2b_msb_identical():
+    """The MSB bit as binary shares (paper §3.3), the reference's edges."""
+    v = np.array([0.0, 1e-4, -1e-4, 31.9, -31.9, 1.0, -1.0] +
+                 list(_floats((40,), 25, 10.0)), np.float32)
+    jx, tx = _shared(v, 25)
+    jp, tp = _parties(26)
+    jo, to = _run(lambda: jmsb.a2b_msb(jx, jp), lambda: msb.a2b_msb(tx, tp))
+    _same(jo, to)
+    enc = ring_to_numpy(RING32.encode(torch.from_numpy(v)))
+    assert np.array_equal(rss.reconstruct_bits(to).numpy(),
+                          (enc >> 31).astype(np.uint8))
+
+
+def test_truncate_probabilistic_identical():
+    """ABY3's Π_trunc1 (the reference baseline): identical shares and
+    ledger rows, the offline reshare included; correct for small values."""
+    x = _floats((256,), 27, 0.01) * 4096     # at scale 2f
+    jx, tx = _shared(x, 27)
+    jp, tp = _parties(28)
+    jo, to = _run(lambda: jlinear.truncate_probabilistic(jx, jp),
+                  lambda: linear.truncate_probabilistic(tx, tp))
+    _same(jo, to)
+    err = np.abs(rss.reconstruct(to).numpy() - x / 4096)
+    assert np.median(err) < 1e-3
+
+
+def test_rand_rss_open_identical():
+    jp, tp = _parties(29)
+    (jr, jplain), (tr, tplain) = _run(
+        lambda: jp.rand_rss_open((5, 3), JRING),
+        lambda: tp.rand_rss_open((5, 3), RING32))
+    _same(jr, tr)
+    _same(jplain, tplain)
+    assert np.array_equal(ring_to_numpy(rss.reconstruct(tr, decode=False)),
+                          ring_to_numpy(tplain))
+
+
+def test_post_sign_linear_cost_equals_reference():
+    from repro.core import secure_model as jsm
+    from repro_torch.core import secure_model
+    from repro_torch.nn import bnn
+    params = {k: v.numpy() for k, v in bnn.init_bnn(0, "MnistNet3").items()}
+    shape = (2,) + bnn.INPUT_SHAPES["MnistNet3"]
+    for kw in ({}, {"binary_linear": "off"}, {"weights": "public"}):
+        t = secure_model.compile_secure(
+            {k: torch.from_numpy(v) for k, v in params.items()}, "MnistNet3",
+            prf.PRNGKey(1), RING32, device="cpu", **kw)
+        j = jsm.compile_secure(params, "MnistNet3", jax.random.PRNGKey(1),
+                               JRING, **kw)
+        got = secure_model.post_sign_linear_cost(
+            t, secure_model.secure_infer_cost(t, shape))
+        assert got == jsm.post_sign_linear_cost(
+            j, jsm.secure_infer_cost(j, shape)), kw
+        assert got[1] >= 0
+
+
+# RING64: int64 storage, the reference under jax's 64-bit mode
+
+def _same64(j, t):
+    j = np.asarray(getattr(j, "shares", j))
+    t = getattr(t, "shares", t)
+    assert t.dtype == torch.int64
+    assert np.array_equal(j, t.numpy().view(np.uint64))
+
+
+def test_ring64_spec():
+    assert (RING64.bits, RING64.frac, RING64.nbytes) == (64, 20, 8)
+    assert RING64.dtype == torch.int64 and RING64.float_dtype == torch.float64
+    assert RING64.half() == 1 << 63 and RING64.modulus == 1 << 64
+    x = torch.tensor([-1, -(1 << 40), 5], dtype=torch.int64)
+    # logical shifts masked as for int32
+    assert shr(x, 60).tolist() == [15, 15, 0]
+    assert shr(torch.tensor([-1], dtype=torch.int32), 28).tolist() == [15]
+    assert RING64.wrap((1 << 64) - 3).item() == -3
+    assert RING64.msb(x).tolist() == [1, 1, 0]
+
+
+def test_ring64_share_and_randomness_identical():
+    """Bit identity needs the reference's 64-bit words: low word
+    bits(k), high word bits(fold_in(k, 1))."""
+    x = _floats((6, 5), 30, 100.0)
+    with jax.enable_x64(True):
+        j = jshare(x, jax.random.PRNGKey(31), JRING64)
+        jp = JParties.setup(jax.random.PRNGKey(32))
+        jz = jp.zero_shares((7,), JRING64)
+        jr = jp.rand_rss((7,), JRING64, max_bits=40)
+        jro, jplain = jp.rand_rss_open((3,), JRING64)
+        jc = jp.common_pair(0, 1, (4,), JRING64)
+        jm = jp.ot_masks(1, (4,), JRING64)
+        jdec = np.asarray(jrss.reconstruct(j))
+    t = share(torch.from_numpy(x), prf.PRNGKey(31), RING64)
+    tp = Parties.setup(prf.PRNGKey(32))
+    _same64(j, t)
+    _same64(jz, tp.zero_shares((7,), RING64))
+    _same64(jr, tp.rand_rss((7,), RING64, max_bits=40))
+    tro, tplain = tp.rand_rss_open((3,), RING64)
+    _same64(jro, tro)
+    _same64(jplain, tplain)
+    _same64(jc, tp.common_pair(0, 1, (4,), RING64))
+    for a, b in zip(jm, tp.ot_masks(1, (4,), RING64)):
+        _same64(a, b)
+    got = rss.reconstruct(t)
+    assert got.dtype == torch.float64
+    assert np.array_equal(got.numpy(), jdec)
+    assert np.abs(got.numpy() - x).max() < 1e-6
+
+
+def test_ring64_mul_truncate_and_msb_identical():
+    """The reference's protocol cases at RING64: a product and its
+    truncation, and the MSB extraction, share for share and row for
+    row.  The MSB envelope at f = 20 is frac + 6 bits, the reference's own
+    rule for RING64 (tests/test_property.py ``_bound_bits``)."""
+    x, y = _floats((64,), 33, 2.0), _floats((64,), 34, 2.0)
+    with jax.enable_x64(True):
+        jx = jshare(x, jax.random.PRNGKey(35), JRING64)
+        jy = jshare(y, jax.random.PRNGKey(36), JRING64)
+        jp = JParties.setup(jax.random.PRNGKey(37))
+        with jcomm.track() as jl:
+            jz = jlinear.truncate(jlinear.mul(jx, jy, jp), jp)
+            jb = jmsb.a2b_msb(jx, jp, bound_bits=RING64.frac + 6)
+        jz, jb = np.asarray(jz.shares), np.asarray(jb.shares)
+    tx = share(torch.from_numpy(x), prf.PRNGKey(35), RING64)
+    ty = share(torch.from_numpy(y), prf.PRNGKey(36), RING64)
+    tp = Parties.setup(prf.PRNGKey(37))
+    with comm.track() as tl:
+        tz = linear.truncate(linear.mul(tx, ty, tp), tp)
+        tb = msb.a2b_msb(tx, tp, bound_bits=RING64.frac + 6)
+    assert _rows(tl) == _rows(jl)
+    _same64(jz, tz)
+    assert np.array_equal(jb, tb.shares.numpy())
+    assert np.abs(rss.reconstruct(tz).numpy() - x * y).max() < 1e-4
+    assert np.array_equal(rss.reconstruct_bits(tb).numpy(),
+                          (x < 0).astype(np.uint8))
