@@ -75,16 +75,39 @@ Phases, each fatal on failure:
               device time, the attribution summing to the ledger exactly,
               logits == the run without telemetry; q/s off and on from
               alternating runs.
-6. per-dot  - one secure fc layer of MnistNet4's width (32 x 3136 -> 512)
+6. offline + verify - the tape pool: MnistNet1 shared, CifarNet2 shared
+              and public at batch 32, each served inline and through
+              serve(offline="pool", pool_depth=4) for 8 queries (and one
+              profiled query each): the online query's ledger equals the
+              inline ledger's online rows and both equal PINNED; every
+              online query of the pool run calls the threefry kernel zero
+              times (the runners are wrapped to count it), every inline
+              one more than zero; the served model's tape-backed logits
+              equal the inline ones bit for bit at the same session keys;
+              prints online-only, amortised (the online time plus the
+              query's share of the plant's) and inline q/s, tape MB a
+              query, the plant's ms a buffer of 4 (in the pool, and in
+              turns against four one-query calls), the refills, and device
+              kernels a query inline against tape-backed.  One query's
+              tape generated on the card equals the CPU's (MnistNet1 at
+              batch 32, CifarNet2 at batch 2).  The verified runtime:
+              CifarNet2 shared under verify "off", "opens" and "full" in
+              turns (off, opens, full, full, opens, off) gives the
+              unverified logits every time, with q/s of each run,
+              and the 12-cell fault matrix {reshare P1, open P1, send} x
+              {corrupt, zero, replay, drop} on MnistNet1 at batch 32 under
+              "full" raises IntegrityError in every cell with the CPU
+              run's (op, index, tag, round, party).
+7. per-dot  - one secure fc layer of MnistNet4's width (32 x 3136 -> 512)
               through linear_layer(..., dot=ops.rss_matmul_dot) under the
               "opt2" and "paper3" matmul modes, fused rounds on and off: it
               must launch B5 only (6 / 9 times a layer) and open to the value
               of the same layer on cached weight limbs (B1).
-7. binary   - the binarized-product API at MnistNet4's layer shapes: a
+8. binary   - the binarized-product API at MnistNet4's layer shapes: a
               plaintext BNN layer (±1 x ±1, B7) and a public ±1-weight layer
               on the three shares of a secret (B6), each held to a float64
               product on the card.
-8. lm kernels - B8 flash_attention at the reference's kernel-test shapes
+9. lm kernels - B8 flash_attention at the reference's kernel-test shapes
               and a ragged S = 1000 in float32 (the CUDA-core route, at the
               reference's 2e-5), then in bf16 (the tensor-core route, each
               value within one bf16 rounding of the plain version's) a
@@ -99,7 +122,7 @@ Phases, each fatal on failure:
               shapes each of its passes timed alone.  The plain versions
               run on the host CPU.  Times as in phase 2; B8's library column is
               scaled_dot_product_attention (causal, GQA) at the same shape.
-9. lm paths - Mamba2-1.3B at full width and depth (48 layers): a 2 x 2048
+10. lm paths - Mamba2-1.3B at full width and depth (48 layers): a 2 x 2048
               prefill layer by layer, each layer's scan on B9 (48 launches)
               and its output held to ssd_prefill's within 2^-6 of its scale
               (only bf16 roundings of the scan's output before w_out can
@@ -207,6 +230,12 @@ LM_TOL, SSD_LAYER_TOL = 0.03, 2.0 ** -6
 # a 2.6x margin for the plain side's summation order on another host CPU
 SSD_REL_TOL = 2e-5
 SSD_REPEATS = 200          # repeats at each test shape (5 at Mamba2's)
+# phase 6: the tape pool's nets, depth and queries; the fault matrix
+POOL_NETS = [("MnistNet1", "shared"), ("CifarNet2", "shared"),
+             ("CifarNet2", "public")]
+POOL_DEPTH, POOL_QUERIES = 4, 8
+FAULT_OPS = (("reshare", 1), ("open", 1), ("send", None))
+FAULT_MODES = ("corrupt", "zero", "replay", "drop")
 
 
 def fail(msg: str) -> None:
@@ -917,6 +946,217 @@ def tuned_phase(kbuild, requests: dict, tmp: Path) -> dict:
     return launches
 
 
+def offline_verify_phase(kbuild) -> dict:
+    """Phase 6: the tape pool and the verified runtime on the card (see
+    the module docstring).  Returns the phase's kernel launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import integrity, prf, transport
+    from repro_torch.core import preprocessing as prep
+    from repro_torch.core.randomness import Parties
+    from repro_torch.core.ring import RING32
+    from repro_torch.core.rss import share
+    from repro_torch.core.secure_model import secure_infer
+    from repro_torch.launch import serve_secure
+    from repro_torch.nn.bnn import INPUT_SHAPES
+
+    launches = {name: 0 for name in kbuild.LAUNCHES}
+
+    def add_launches():
+        for name, c in kbuild.LAUNCHES.items():
+            launches[name] += c
+
+    def inputs(net, batch, device):
+        """serve()'s own input, its shares and party keys (seed 0)."""
+        x = np.random.default_rng(0).integers(
+            0, 2, (batch,) + INPUT_SHAPES[net]).astype(np.float32) - 0.5
+        xs = share(torch.as_tensor(x, device=device), prf.PRNGKey(3),
+                   RING32)
+        return xs, Parties.setup(prf.PRNGKey(7)).keys
+
+    # every online query the serving runners make reports the threefry
+    # evaluations it ran (warm-up, timed and profiled queries)
+    calls, per_query = [0], []
+    real_tf = prf._threefry_tensor
+    real_makers = (serve_secure.make_runner, serve_secure.make_tape_runner)
+
+    def counted_tf(*a):
+        calls[0] += 1
+        return real_tf(*a)
+
+    def counting(make):
+        def make_counted(*a, **kw):
+            run = make(*a, **kw)
+
+            def counted_run(*args):
+                c0 = calls[0]
+                out = run(*args)
+                per_query.append(calls[0] - c0)
+                return out
+            counted_run.verifier = run.verifier
+            return counted_run
+        return make_counted
+
+    prf._threefry_tensor = counted_tf
+    serve_secure.make_runner = counting(real_makers[0])
+    serve_secure.make_tape_runner = counting(real_makers[1])
+    try:
+        # -- the tape pool ---------------------------------------------------
+        base = {}
+        for net, weights in POOL_NETS:
+            shape = (BATCH,) + INPUT_SHAPES[net]
+            what = f"{net} {weights}"
+            kbuild.reset_launches()
+            per_query.clear()
+            inline = serve_secure.serve(net, BATCH, POOL_QUERIES,
+                                        device="cuda", weights=weights,
+                                        profile=True)
+            prf_inline = list(per_query)
+            per_query.clear()
+            pool = serve_secure.serve(net, BATCH, POOL_QUERIES,
+                                      device="cuda", weights=weights,
+                                      offline="pool", pool_depth=POOL_DEPTH,
+                                      profile=True)
+            prf_pool = list(per_query)
+            add_launches()
+            base[(net, weights)] = inline
+            if len(prf_pool) != POOL_QUERIES + 2 or any(prf_pool):
+                fail(f"{what} pool: threefry calls per online query "
+                     f"{prf_pool}, want {POOL_QUERIES + 2} zeros")
+            if len(prf_inline) != POOL_QUERIES + 2 or min(prf_inline) < 1:
+                fail(f"{what} inline: threefry calls per query {prf_inline}")
+            on_rows = {t: tuple(v) for t, v in inline["ledger"].by_tag.items()
+                       if not t.startswith("pre:")}
+            if {t: tuple(v) for t, v in pool["ledger"].by_tag.items()} \
+                    != on_rows:
+                fail(f"{what}: the tape-backed ledger is not the inline "
+                     f"ledger's online rows")
+            ledgers = [tuple(st[k] for k in ("online_rounds", "online_bytes",
+                                             "offline_rounds",
+                                             "offline_bytes"))
+                       for st in (inline, pool)]
+            if ledgers[0] != ledgers[1] \
+                    or ledgers[0] != PINNED[(net, weights, "auto", True)]:
+                fail(f"{what}: ledgers {ledgers} != pinned")
+            # tape == inline bit for bit at the same session keys, through
+            # the served model on the card
+            model = pool["model"]
+            spec = prep.trace_material(model, shape)
+            xs, keys = inputs(net, BATCH, "cuda")
+            tape = prep.generate_tape(spec, [keys], device="cuda")
+            out = prep.make_tape_infer(model, spec)(keys, xs.shares,
+                                                    tape.query_slice(0))
+            if not np.array_equal(out.float().cpu().numpy(),
+                                  inline["logits"]):
+                fail(f"{what}: tape-backed logits differ from inline ones "
+                     f"at the same keys")
+            # the plant a buffer: all four queries in one draw an item,
+            # against one query at a time, in turns
+            gen = prep.make_tape_generator(spec, "cuda")
+            keys4 = prep.tape_session_keys(prf.PRNGKey(100), POOL_DEPTH)
+            plant = {"batched": [], "one by one": []}
+            for turn in ("batched", "one by one", "one by one", "batched"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if turn == "batched":
+                    gen(keys4)
+                else:
+                    for k in keys4:
+                        gen([k])
+                torch.cuda.synchronize()
+                plant[turn].append(round((time.perf_counter() - t0) * 1e3,
+                                         1))
+            pi, pp = inline["profile"], pool["profile"]
+            print(f"[chip_smoke] pool {what} batch {BATCH} depth "
+                  f"{POOL_DEPTH}, {POOL_QUERIES} queries: online-only "
+                  f"{pool['query_per_s_online']:.3f} q/s, amortised "
+                  f"{pool['query_per_s']:.3f} q/s, inline "
+                  f"{inline['query_per_s']:.3f} q/s; tape "
+                  f"{pool['tape_mb_per_query']:.3f} MB a query "
+                  f"({spec.summary()}); plant "
+                  f"{pool['plant_ms_per_buffer']:.1f} ms a buffer of "
+                  f"{POOL_DEPTH} in the pool, {plant} ms in turns; "
+                  f"{pool['refills']} refills; online "
+                  f"{pool['online_seconds'] / POOL_QUERIES * 1e3:.2f} ms "
+                  f"a query; device kernels a query "
+                  f"inline {pi['device_kernels']} (busy "
+                  f"{100 * pi['busy_share']:.1f}%) vs tape-backed "
+                  f"{pp['device_kernels']} (busy "
+                  f"{100 * pp['busy_share']:.1f}%); threefry calls a query "
+                  f"inline {prf_inline[1]}, tape-backed 0; tape == inline "
+                  f"at the same keys")
+        # one query's tape on the card == on the CPU
+        for net, batch in (("MnistNet1", BATCH), ("CifarNet2", 2)):
+            model = serve_secure.build(net, device="cuda")
+            spec = prep.trace_material(model, (batch,) + INPUT_SHAPES[net])
+            keys = Parties.setup(prf.PRNGKey(7)).keys
+            card = prep.generate_tape(spec, [keys], device="cuda")
+            host = prep.generate_tape(spec, [keys], device="cpu")
+            for k, v in card.slabs.items():
+                if not torch.equal(v.cpu(), host.slabs[k]):
+                    fail(f"{net} batch {batch}: tape slab {k} on the card "
+                         f"differs from the CPU's")
+            print(f"[chip_smoke] {net} batch {batch}: tape on the card == "
+                  f"CPU ({len(card.slabs)} slabs, {card.nbytes:,} B)")
+
+        # -- the verified runtime --------------------------------------------
+        ref = base[("CifarNet2", "shared")]
+        rates = {"off": [], "opens": [], "full": []}
+        ops = {}
+        for mode in ("off", "opens", "full", "full", "opens", "off"):
+            kbuild.reset_launches()
+            st = serve_secure.serve("CifarNet2", BATCH, POOL_QUERIES,
+                                    device="cuda", verify=mode)
+            add_launches()
+            if not np.array_equal(st["logits"], ref["logits"]):
+                fail(f"CifarNet2 verify={mode}: logits differ from the "
+                     f"unverified run")
+            rates[mode].append(round(st["query_per_s"], 3))
+            ops[mode] = st.get("verified_ops", 0)
+        print(f"[chip_smoke] CifarNet2 shared batch {BATCH}, {POOL_QUERIES} "
+              f"queries a run, in turns: q/s {rates}; verified ops a query "
+              f"{ops}; logits == unverified")
+        # the 12-cell fault matrix, card against CPU
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            runs[dev] = (serve_secure.build("MnistNet1", device=dev),
+                         *inputs("MnistNet1", BATCH, dev))
+        kbuild.reset_launches()
+        cells = []
+        for op, party in FAULT_OPS:
+            for mode in FAULT_MODES:
+                got = {}
+                for dev, (model, xs, keys) in runs.items():
+                    ft = integrity.FaultInjectingTransport(
+                        transport.LocalTransport(),
+                        [integrity.Fault(op, 0, mode, party)])
+                    v = integrity.Verifier("full")
+                    with transport.use_transport(ft), \
+                            integrity.verify_scope(v):
+                        secure_infer(model, xs, Parties(keys, device=dev))
+                        report = v.traced_report()
+                    try:
+                        v.check(report)
+                    except integrity.IntegrityError as e:
+                        got[dev] = (e.op, e.index, e.tag, e.round, e.party)
+                    else:
+                        fail(f"fault {op}/{mode} on {dev}: not caught "
+                             f"(fired {ft.fired})")
+                if got["cuda"] != got["cpu"] or got["cuda"][0] != op:
+                    fail(f"fault {op}/{mode}: card {got['cuda']} vs CPU "
+                         f"{got['cpu']}")
+                cells.append(f"{op}/{mode}->{got['cuda']}")
+        add_launches()
+        print(f"[chip_smoke] fault matrix MnistNet1 batch {BATCH} "
+              f"(verify full): 12 of 12 caught, card == CPU fields: "
+              + "; ".join(cells))
+    finally:
+        prf._threefry_tensor = real_tf
+        serve_secure.make_runner, serve_secure.make_tape_runner = \
+            real_makers
+    return launches
+
+
 def _row(name, ms, pms, b_ms, o_ms, lib, err, detail) -> dict:
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
@@ -1335,14 +1575,20 @@ def main() -> None:
         by_phase["tuned"] = tuned_phase(kbuild, requests, Path(tmp))
     print(f"[chip_smoke] tuned phase {time.perf_counter() - t0:.1f} s")
 
-    # -- 6.-7. the per-dot route, the binarized products ---------------------
+    # -- 6. the tape pool and the verified runtime ---------------------------
+    t0 = time.perf_counter()
+    by_phase["offline-verify"] = offline_verify_phase(kbuild)
+    print(f"[chip_smoke] offline + verify phase "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 7.-8. the per-dot route, the binarized products ---------------------
     t0 = time.perf_counter()
     by_phase["per-dot"] = per_dot_phase(kbuild)
     by_phase["binary"] = binary_phase(kbuild)
     print(f"[chip_smoke] per-dot + binary phases {time.perf_counter() - t0:.1f}"
           f" s")
 
-    # -- 8.-9. the LM kernels and paths ------------------------------------
+    # -- 9.-10. the LM kernels and paths -----------------------------------
     from repro_torch.configs import get_config
     from repro_torch.nn.transformer import init_params
     t0 = time.perf_counter()

@@ -8,7 +8,10 @@ RING64 words are two 32-bit draws, as in the reference
 (``prf.ring_bits``).  Each party pair shares a PRF
 key; a monotone counter folded into the key gives freshness, consumed in
 exactly the reference's order so every draw is bit-identical.  The
-``device`` is where the draws land.
+``device`` is where the draws land.  Every draw evaluates the PRF through
+:meth:`Parties._stream` (the reference's ``_prf_bits``), one batched
+evaluation over the (key index, counter) pairs it needs; the offline plant
+overrides it to draw many queries' keys at once.
 
   3-out-of-3 randomness:  a_i = F(k_{i+1}, cnt) - F(k_i, cnt)   =>  Σ a_i = 0
   2-out-of-3 randomness:  (a_i, a_{i+1}) = (F(k_i, cnt), F(k_{i+1}, cnt))
@@ -16,8 +19,6 @@ exactly the reference's order so every draw is bit-identical.  The
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
-
 import torch
 
 from . import prf, transport
@@ -25,14 +26,6 @@ from .ring import RingSpec, default_ring
 from .rss import RSS, BinRSS, PARTIES
 
 __all__ = ["Parties"]
-
-
-def _prf_bits(keys: Sequence[prf.Key], cnt: int, shape, device,
-              ring: RingSpec | None = None):
-    """Stacked ring words of ``fold_in(k, cnt)`` over ``keys`` (the
-    reference's ``_prf_bits``), one batched evaluation."""
-    return prf.ring_bits([prf.fold_in(k, cnt) for k in keys], shape,
-                         (ring or default_ring()).bits, device=device)
 
 
 @dataclasses.dataclass
@@ -62,13 +55,24 @@ class Parties:
         self._cnt += 1
         return self._cnt
 
+    def _stream(self, pairs, shape, ring: RingSpec | None = None,
+                bits: bool = False) -> torch.Tensor:
+        """Stacked draws of ``fold_in(keys[i], cnt)`` over the ``(i, cnt)``
+        ``pairs``, one batched evaluation: ring words of ``ring`` (default
+        RING32), or with ``bits`` uint8 words."""
+        ks = [prf.fold_in(self.keys[i], c) for i, c in pairs]
+        if bits:
+            return prf.bits_multi(ks, shape, torch.uint8, self.device)
+        return prf.ring_bits(ks, shape, (ring or default_ring()).bits,
+                             device=self.device)
+
     # -- 3-out-of-3: additive sharing of zero ----------------------------
     def zero_shares(self, shape, ring: RingSpec | None = None):
         cnt = self._next()
         t = transport.current()
         f, fn = t.prf_parts_pair(
-            self.keys,
-            lambda ks: _prf_bits(ks, cnt, shape, self.device, ring))
+            range(PARTIES),
+            lambda idx: self._stream([(i, cnt) for i in idx], shape, ring))
         return fn - f
 
     # -- 2-out-of-3: RSS of a fresh random value --------------------------
@@ -79,13 +83,13 @@ class Parties:
         ring = ring or default_ring()
         cnt = self._next()
 
-        def draw(ks):
-            f = _prf_bits(ks, cnt, shape, self.device, ring)
+        def draw(idx):
+            f = self._stream([(i, cnt) for i in idx], shape, ring)
             if max_bits is not None:
                 f = f & ((1 << max(max_bits - 2, 1)) - 1)
             return f
 
-        return RSS(transport.current().prf_rss(self.keys, draw), ring)
+        return RSS(transport.current().prf_rss(range(PARTIES), draw), ring)
 
     def rand_rss_open(self, shape, ring: RingSpec | None = None):
         """(RSS of a random a, plaintext a): the simulation shortcut of
@@ -93,7 +97,7 @@ class Parties:
         every party's PRF stream is computed from the replicated keys."""
         ring = ring or default_ring()
         cnt = self._next()
-        fs = _prf_bits(self.keys, cnt, shape, self.device, ring)
+        fs = self._stream([(i, cnt) for i in range(PARTIES)], shape, ring)
         r = RSS(transport.current().build_rss(list(fs)), ring)
         return r, fs[0] + fs[1] + fs[2]
 
@@ -101,11 +105,11 @@ class Parties:
         """2-of-3 XOR sharing of a fresh random bit tensor."""
         cnt = self._next()
 
-        def draw(ks):
-            return prf.bits_multi([prf.fold_in(k, cnt) for k in ks], shape,
-                                  torch.uint8, self.device) & 1
+        def draw(idx):
+            return self._stream([(i, cnt) for i in idx], shape,
+                                bits=True) & 1
 
-        return BinRSS(transport.current().prf_rss(self.keys, draw))
+        return BinRSS(transport.current().prf_rss(range(PARTIES), draw))
 
     # -- pairwise common randomness ---------------------------------------
     def common_pair(self, a: int, b: int, shape,
@@ -118,14 +122,12 @@ class Parties:
             kidx = a
         else:
             raise ValueError(f"no common key for pair ({a},{b})")
-        return _prf_bits([self.keys[kidx]], self._next(), shape,
-                         self.device, ring)[0]
+        return self._stream([(kidx, self._next())], shape, ring)[0]
 
     def private_to(self, i: int, shape, ring: RingSpec | None = None):
         """Random tensor private to P_i (from both of its keys)."""
         cnt = self._next()
-        f = _prf_bits([self.keys[i], self.keys[(i + 1) % PARTIES]], cnt,
-                      shape, self.device, ring)
+        f = self._stream([(i, cnt), ((i + 1) % PARTIES, cnt)], shape, ring)
         return f[0] + f[1]
 
     # -- protocol material -------------------------------------------------
@@ -133,10 +135,7 @@ class Parties:
         """(mask0, mask1) of one 3-party OT: one counter tick, the second
         mask at a fixed offset so the two streams never collide."""
         cnt = self._next()
-        k = self.keys[kidx]
-        m = prf.ring_bits([prf.fold_in(k, cnt), prf.fold_in(k, cnt + 100003)],
-                          shape, (ring or default_ring()).bits,
-                          device=self.device)
+        m = self._stream([(kidx, cnt), (kidx, cnt + 100003)], shape, ring)
         return m[0], m[1]
 
     def msb_material(self, shape, ring: RingSpec, r_bits: int,

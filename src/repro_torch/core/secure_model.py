@@ -28,7 +28,8 @@ Port of ``repro/core/secure_model.py`` (``SecureModel``,
 
 ``linear.set_fused_rounds(False)`` switches every layer to the paper's
 round structure (linear + its own truncation round, Sign and ReLU by OT),
-as in the reference.  The offline tape pool belongs to a later slice.
+as in the reference.  The offline tape pool (preprocessing.py) runs the
+same ``secure_infer`` on a tape-backed ``Parties``.
 """
 from __future__ import annotations
 

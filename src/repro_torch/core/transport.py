@@ -5,8 +5,10 @@ single-program simulation, with shares on a leading axis of size 3, the
 neighbour share ``x_{i+1}`` as a roll, and openings as stack sums.  The
 communication is accounted (comm.py), never performed.  Each movement op
 calls ``telemetry.movement`` (one attribute test with no registry
-installed; per query with one).  The integrity hooks of the reference,
-and ``MeshTransport``, belong to later slices of the port.
+installed; per query with one) and pushes the digests of its message
+views into the active integrity verifier (core/integrity.py; one
+``integrity.active()`` test and no digest with none active).
+``MeshTransport`` belongs to a later slice of the port.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from . import telemetry
+from . import integrity, telemetry
 
 __all__ = ["LocalTransport", "current", "use_transport", "PARTIES"]
 
@@ -26,6 +28,9 @@ class LocalTransport:
     """Stacked-axis single-program simulation."""
 
     name = "local"
+    # shares are globally stacked: the neighbour slot is a roll, not a
+    # carried pair (what FaultInjectingTransport branches on)
+    carries_pair = False
 
     @property
     def rss_slots(self) -> int:
@@ -51,10 +56,18 @@ class LocalTransport:
         """Additive parts -> RSS stack (P_i sends z_i to P_{i-1}); the
         stacked simulation already holds every slot."""
         telemetry.movement("complete", self.name)
+        v = integrity.active()
+        if v is not None:
+            own = integrity.fold_digest_rows(parts)
+            v.observe_pair(own, torch.roll(own, -1, dims=0))
         return parts
 
     def send(self, x, frm: int, to: int):
         telemetry.movement("send", self.name)
+        v = integrity.active()
+        if v is not None:
+            row = integrity.fold_digest(x).expand(PARTIES)
+            v.observe_send(row, row, frm, to)
         return x
 
     def merge_recv(self, primary, received, holder: int):
@@ -65,12 +78,12 @@ class LocalTransport:
     def open_parts(self, parts):
         """All parties learn the sum of the additive parts."""
         telemetry.movement("open_parts", self.name)
-        return parts[0] + parts[1] + parts[2]
+        return _observe_open(parts[0] + parts[1] + parts[2])
 
     def open_rss(self, stack):
         """Reveal a shared value (P_i sends x_i to P_{i-1})."""
         telemetry.movement("open_rss", self.name)
-        return stack[0] + stack[1] + stack[2]
+        return _observe_open(stack[0] + stack[1] + stack[2])
 
     # -- party-indexed construction --------------------------------------
     def build_rss(self, vals: Sequence):
@@ -83,15 +96,24 @@ class LocalTransport:
 
     # -- PRF layout ------------------------------------------------------
     def prf_rss(self, keys, draw: Callable):
-        """RSS stack of PRF draws, slot i = F(keys[i]).  ``draw`` takes
-        the key list and returns the stacked draws (one batched PRF
+        """RSS stack of PRF draws, slot i = F(k_i).  ``draw`` takes the
+        list of key indices and returns the stacked draws (one batched PRF
         evaluation instead of one per key)."""
         return draw(list(keys))
 
     def prf_parts_pair(self, keys, draw: Callable):
-        """(F(k_i), F(k_{i+1})) in additive alignment."""
+        """(F(k_i), F(k_{i+1})) in additive alignment (``keys``: the key
+        indices, as in :meth:`prf_rss`)."""
         f = draw(list(keys))
         return f, torch.roll(f, -1, dims=0)
+
+
+def _observe_open(o):
+    """Every party's view of an honest opening is ``o``."""
+    v = integrity.active()
+    if v is not None:
+        v.observe_open(integrity.fold_digest(o).expand(PARTIES))
+    return o
 
 
 _STACK: list = []

@@ -1,42 +1,59 @@
 """Secure serving: batched secure-BNN classifier inference end to end.
 
-Port of ``repro/launch/serve_secure.py`` (``build``, ``make_runner`` with
-``backend="local"`` and verification off, ``_serve_bnn`` with inline
-offline material, the ``--deployment`` path solver, ``make_obs`` /
-``emit_obs`` and the ``--trace`` / ``--metrics-json`` / ``--metrics-prom``
-outputs; not ``--offline``, ``--verify`` or ``--model lm``).  The model
-owner compiles once (BN folds, secret sharing or publication, cached
-kernel operands, the cost model's path labels and the autotuner's kernel
-configs); every query batch then runs the full CBNN protocol stack on the
-device, its linear layers on the CUDA kernels: shared weights on the RSS
-products (rss_matmul, grouped_rss_matmul), public weights on the local
-public products (bin_rss_matmul, bin_grouped_matmul).  Every net of the
-zoo is served, the ReLU teachers (MnistNet4, CifarNet7) included.  Runs on
-the card unless ``--device cpu`` is given.  The round structure is an API
-toggle, as in the reference (``repro_torch.core.linear.set_fused_rounds``),
-not a flag.
+Port of ``repro/launch/serve_secure.py`` on the local backend
+(``build``, ``make_runner`` and ``make_tape_runner`` with ``verify``,
+``serve_pool``, ``_serve_bnn`` with ``--offline inline|pool``,
+``--pool-depth`` and ``--verify off|opens|full``, the ``--deployment``
+path solver, ``make_obs`` / ``emit_obs`` and the ``--trace`` /
+``--metrics-json`` / ``--metrics-prom`` outputs; not ``--backend mesh``
+or ``--model lm``).  The model owner compiles once (BN folds, secret
+sharing or publication, cached kernel operands, the cost model's path
+labels and the autotuner's kernel configs); every query batch then runs
+the full CBNN protocol stack on the device, its linear layers on the CUDA
+kernels: shared weights on the RSS products (rss_matmul,
+grouped_rss_matmul), public weights on the local public products
+(bin_rss_matmul, bin_grouped_matmul).  Every net of the zoo is served,
+the ReLU teachers (MnistNet4, CifarNet7) included.  Runs on the card
+unless ``--device cpu`` is given.  The round structure is an API toggle,
+as in the reference (``repro_torch.core.linear.set_fused_rounds``), not a
+flag.
+
+``--offline pool`` traces the model's MaterialSpec once and serves every
+query from a demand-gated pool of ``--pool-depth`` K tape slices
+generated ahead of need (core/preprocessing.py): the online query
+evaluates no PRF and records only the ledger's online rows.  ``--verify
+opens`` cross-checks every opened value across the parties' views with
+one deferred digest exchange a query; ``full`` also checks every reshare
+and send, the ingested model shares and every consumed tape slice
+(core/integrity.py).  A detected deviation aborts with exit code 3 after
+flushing the trace and metrics.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_secure --net CifarNet2 \
       --batch 32 --queries 4 [--weights shared|public] \
       [--binary-linear auto|generic|off] [--deployment local|lan|wan] \
+      [--offline inline|pool] [--pool-depth K] [--verify off|opens|full] \
       [--trace t.json] [--metrics-json m.json] [--metrics-prom m.prom] \
       [--device cpu] [--json PATH]
 
-Prints q/s and img/s, the per-query online/offline rounds and bytes, the
-cost model's prediction against the live ledger, and the launches of each
-kernel; with an observability output also the per-layer
-predicted-vs-measured attribution table and the time per phase.
+Prints q/s and img/s (under ``pool`` online-only and amortised), the
+per-query online/offline rounds and bytes, the cost model's prediction
+against the live ledger, and the launches of each kernel; with an
+observability output also the per-layer predicted-vs-measured attribution
+table and the time per phase.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
 import torch
 
-from ..core import comm, cost_model, prf, telemetry
+from ..core import comm, cost_model, integrity, prf, telemetry
+from ..core.preprocessing import (TapePool, make_tape_generator,
+                                  make_tape_infer, trace_material)
 from ..core.randomness import Parties
 from ..core.ring import RING32
 from ..core.rss import RSS, share
@@ -47,7 +64,10 @@ from ..kernels import build as kbuild
 from ..nn.bnn import INPUT_SHAPES, init_bnn
 from .profiling import print_profile, profile_once, sync
 
-__all__ = ["build", "make_runner", "serve", "make_obs", "emit_obs", "main"]
+__all__ = ["build", "make_runner", "make_tape_runner", "serve_pool",
+           "serve", "make_obs", "emit_obs", "main", "OFFLINE_MODES"]
+
+OFFLINE_MODES = ("inline", "pool")
 
 
 def build(net: str, device=None, params=None, weights: str = "shared",
@@ -66,14 +86,130 @@ def build(net: str, device=None, params=None, weights: str = "shared",
                           autotune_cache=autotune_cache)
 
 
-def make_runner(model):
-    """Runner ``fn(keys, x_stack) -> (B, classes)`` opened logits, on the
-    local (stacked) transport, the port's only one so far."""
+def make_runner(model, verify: str = "off"):
+    """Runner ``fn(keys, x_stack) -> (B, classes)`` opened logits on the
+    local (stacked) transport.  ``verify`` ("opens" / "full") runs each
+    query in a verify scope and checks its digest report on the host
+    before the logits are released, raising
+    :class:`~repro_torch.core.integrity.IntegrityError` on a deviation;
+    the verifier is ``fn.verifier`` (``None`` when off)."""
+    v = None if verify == "off" else integrity.Verifier(verify)
 
     def run(keys, x_stack):
-        return secure_infer(model, RSS(x_stack, model.ring),
-                            Parties(keys, device=x_stack.device))
+        return _verified(v, lambda: secure_infer(
+            model, RSS(x_stack, model.ring),
+            Parties(keys, device=x_stack.device)))
+    run.verifier = v
     return run
+
+
+def make_tape_runner(model, spec, verify: str = "off"):
+    """The online phase on a MaterialTape (DESIGN.md §12):
+    ``fn(keys, x_stack, slabs) -> logits`` consuming one tape slice, with
+    no PRF evaluation; ``verify`` as in :func:`make_runner`."""
+    v = None if verify == "off" else integrity.Verifier(verify)
+    base = make_tape_infer(model, spec)
+
+    def run(keys, x_stack, slabs):
+        return _verified(v, lambda: base(keys, x_stack, slabs))
+    run.verifier = v
+    return run
+
+
+def _verified(v, query):
+    """``query()`` under ``v``'s scope, its report checked after it."""
+    if v is None:
+        return query()
+    with integrity.verify_scope(v):
+        out = query()
+        rep = v.traced_report()
+    v.check(rep)
+    return out
+
+
+def serve_pool(run, gen, spec, keys, xs_shares, queries: int, depth: int,
+               master_key, verify: str = "off", device=None,
+               registry=None, spare: int = 0) -> dict:
+    """Serve ``queries`` batches from a demand-gated :class:`TapePool`:
+    ``ceil((queries + 1 + spare) / depth)`` buffers (the warm-up consumes
+    one slice, ``spare`` more stay for the caller), the next generated as
+    one drains.  Each slice is taken, and the device synchronised, before
+    the online clock starts, so no plant work is inside the online time.
+    The plant's buffers are timed too (host clock between synchronised
+    points), so the amortised time charges each timed query its online
+    time plus its share of every buffer: the loop's wall time would leave
+    out the two buffers generated before it.  ``registry`` is installed
+    around everything but the warm-up query: the pool's refill,
+    backpressure and supply metrics, the timed queries' latencies and
+    movements, and the plant's movements.  Returns the warm-up query's
+    ledger, the last logits, the online-only, plant and amortised
+    seconds, the refills and the pool."""
+    if queries < 1:
+        raise ValueError(f"queries must be >= 1, got {queries}")
+    device = resolve_device(device)
+    plant_s = 0.0
+
+    def timed_gen(keys_stack):
+        nonlocal plant_s
+        sync(device)
+        t = time.perf_counter()
+        slabs = gen(keys_stack)
+        sync(device)
+        plant_s += time.perf_counter() - t
+        return slabs
+
+    with telemetry.collecting(registry):
+        pool = TapePool(timed_gen, spec, depth, master_key,
+                        demand=queries + 1 + spare, verify=verify == "full")
+        sl = pool.take()
+    sync(device)
+    with telemetry.span("warmup", cat="compile"), comm.track() as led:
+        out = run(keys, xs_shares, sl)
+        sync(device)
+    online_s = 0.0
+    with telemetry.collecting(registry):
+        for q in range(queries):
+            sl = pool.take()
+            sync(device)            # plant work done before the clock
+            tq = time.perf_counter()
+            with telemetry.span(f"query[{q}]", cat="online",
+                                lane="parties"):
+                out = run(keys, xs_shares, sl)
+                sync(device)
+            dq = time.perf_counter() - tq
+            online_s += dq
+            telemetry.observe("query_latency_seconds", dq)
+    per_slice = plant_s / (pool.generated * depth)
+    return {"ledger": led, "logits": out, "online_s": online_s,
+            "plant_s": plant_s, "amortised_s": online_s + queries * per_slice,
+            "refills": pool.refills, "pool": pool}
+
+
+def _check_prediction(pred, led, offline, verifier):
+    """The cost model's prediction against a query's live ledger, online
+    and offline (``offline``: the plant's per-query ledger under the
+    pool, else the query's own ``pre:`` rows).  The verifier's
+    ``verify.digest`` row, which the model does not predict, is taken
+    out of the online totals and held to its own size: one round and
+    3 x 4 bytes an entry."""
+    vr, vb = led.by_tag.get("verify.digest", (0, 0))
+    if verifier is not None:
+        n = sum(len(e) for e in verifier.rows.values())
+        want = (1 if verifier.meta else 0, 3 * 4 * n)
+        if (vr, vb) != want:
+            raise RuntimeError(f"verify.digest row {(vr, vb)} != {want}")
+    if offline is not led and (offline.rounds, offline.nbytes, led.pre_rounds,
+                               led.pre_nbytes) != (0, 0, 0, 0):
+        raise RuntimeError("the plant recorded online rows or the "
+                           "tape-backed query offline ones")
+    got = (led.rounds - vr, led.nbytes - vb, offline.pre_rounds,
+           offline.pre_nbytes)
+    if (pred.rounds, pred.nbytes, pred.pre_rounds, pred.pre_nbytes) != got:
+        raise RuntimeError(
+            f"cost-model prediction {pred.total} diverged from the "
+            f"ledger {got[0]} / {got[1]} online, {got[2]} / {got[3]} "
+            f"offline")
+    return got
 
 
 def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
@@ -81,13 +217,26 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
           profile: bool = False, weights: str = "shared",
           binary_linear: str = "auto", deployment=None, autotune_cache=None,
           tracer: telemetry.Tracer | None = None,
-          registry: telemetry.MetricsRegistry | None = None) -> dict:
+          registry: telemetry.MetricsRegistry | None = None,
+          offline: str = "inline", pool_depth: int | None = None,
+          verify: str = "off") -> dict:
     """Build, compile, one warm-up query, then ``queries`` timed queries
     (and, with ``profile``, one profiled query after them).  ``x`` (float
     (B, H, W, C)) defaults to random ±0.5 pixels from ``seed``.
     ``deployment`` (a registry name or descriptor) is solved at
     ``batch``.  The cost model's prediction at ``batch`` must equal the
-    warm-up query's live ledger, or this raises.
+    warm-up query's live ledger (online, and offline: the query's
+    ``pre:`` rows, or under ``offline="pool"`` what the plant recorded
+    for one query), or this raises.
+
+    ``offline="pool"`` serves from a tape pool of ``pool_depth`` (default
+    8) slices a buffer, keyed from ``PRNGKey(seed + 11)``; the stats then
+    hold the online-only rate beside the amortised one (``seconds``: the
+    online time plus the queries' share of the plant's, see
+    :func:`serve_pool`).  ``verify``
+    ("opens" / "full") checks every query and raises
+    :class:`~repro_torch.core.integrity.IntegrityError` on a deviation
+    (``"full"`` also checks the model's shares and every tape slice).
 
     ``tracer`` records the compile, warm-up and per-query spans (and, via
     the comm listener, every query's protocol ops); ``registry`` collects
@@ -100,76 +249,128 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
                          + ", ".join(sorted(INPUT_SHAPES)))
     if batch < 1 or queries < 1:
         raise ValueError("batch and queries must be >= 1")
+    if offline not in OFFLINE_MODES or verify not in integrity.VERIFY_MODES:
+        raise ValueError(f"offline {offline!r} / verify {verify!r}")
+    if pool_depth is not None and (offline != "pool" or pool_depth < 1):
+        raise ValueError("pool_depth applies to offline='pool' and must "
+                         "be >= 1")
     device = resolve_device(device)
     shape = INPUT_SHAPES[net]
     dep = cost_model.resolve_deployment(deployment)
     if dep is not None:
         dep = dep.with_batch(batch)
-    with telemetry.tracing(tracer):
-        t0 = time.perf_counter()
-        with telemetry.span("compile_secure", cat="compile", net=net,
-                            batch=batch):
-            model = build(net, device=device, params=params,
-                          weights=weights, binary_linear=binary_linear,
-                          deployment=dep, autotune_cache=autotune_cache)
-            sync(device)
-        compile_s = time.perf_counter() - t0
-        pred = cost_model.model_cost(model, (batch,) + shape)
-        parties = Parties.setup(prf.PRNGKey(seed + 7), device=device)
-        if x is None:
-            rng = np.random.default_rng(seed)
-            x = rng.integers(0, 2, (batch,) + shape).astype(np.float32) - 0.5
-        xs = share(torch.as_tensor(x, device=device), prf.PRNGKey(seed + 3),
-                   RING32)
-        run = make_runner(model)
-        launches0 = dict(kbuild.LAUNCHES)
-        with telemetry.span("warmup", cat="compile"), \
-                comm.track() as led:     # the warm-up query's ledger
-            out = run(parties.keys, xs.shares)
-            sync(device)
-        assert tuple(out.shape) == (batch, 10), out.shape
-        if (pred.rounds, pred.nbytes, pred.pre_rounds, pred.pre_nbytes) != \
-                (led.rounds, led.nbytes, led.pre_rounds, led.pre_nbytes):
-            raise RuntimeError(
-                f"cost-model prediction {pred.total} diverged from the "
-                f"ledger {led.rounds} / {led.nbytes} online, "
-                f"{led.pre_rounds} / {led.pre_nbytes} offline")
-        t0 = time.perf_counter()
-        if telemetry.enabled():
-            with telemetry.collecting(registry):
-                for q in range(queries):
-                    with telemetry.span(f"query[{q}]", cat="online",
-                                        lane="parties"):
-                        tq = time.perf_counter()
+    led = pred = model = None
+    try:
+        with telemetry.tracing(tracer):
+            t0 = time.perf_counter()
+            with telemetry.span("compile_secure", cat="compile", net=net,
+                                batch=batch):
+                model = build(net, device=device, params=params,
+                              weights=weights, binary_linear=binary_linear,
+                              deployment=dep, autotune_cache=autotune_cache)
+                sync(device)
+            compile_s = time.perf_counter() - t0
+            if verify == "full":
+                # structural RSS pair-consistency check on the shares
+                integrity.verify_model_ingest(model)
+            pred = cost_model.model_cost(model, (batch,) + shape)
+            parties = Parties.setup(prf.PRNGKey(seed + 7), device=device)
+            if x is None:
+                rng = np.random.default_rng(seed)
+                x = rng.integers(0, 2, (batch,) + shape) \
+                    .astype(np.float32) - 0.5
+            xs = share(torch.as_tensor(x, device=device),
+                       prf.PRNGKey(seed + 3), RING32)
+            launches0 = dict(kbuild.LAUNCHES)
+            pool_st = None
+            if offline == "pool":
+                with telemetry.span("trace_material", cat="setup", net=net):
+                    spec = trace_material(model, (batch,) + shape)
+                gen = make_tape_generator(spec, device)
+                run = make_tape_runner(model, spec, verify=verify)
+                pool_st = serve_pool(
+                    run, gen, spec, parties.keys, xs.shares, queries,
+                    pool_depth or 8, prf.PRNGKey(seed + 11), verify=verify,
+                    device=device, registry=registry, spare=int(profile))
+                led, out = pool_st["ledger"], pool_st["logits"]
+                dt = pool_st["amortised_s"]
+                offline_led = gen.ledger
+            else:
+                run = make_runner(model, verify=verify)
+                with telemetry.span("warmup", cat="compile"), \
+                        comm.track() as led:     # the warm-up's ledger
+                    out = run(parties.keys, xs.shares)
+                    sync(device)
+                offline_led = led
+                t0 = time.perf_counter()
+                if telemetry.enabled():
+                    with telemetry.collecting(registry):
+                        for q in range(queries):
+                            with telemetry.span(f"query[{q}]", cat="online",
+                                                lane="parties"):
+                                tq = time.perf_counter()
+                                out = run(parties.keys, xs.shares)
+                                sync(device)
+                                telemetry.observe(
+                                    "query_latency_seconds",
+                                    time.perf_counter() - tq)
+                else:
+                    for _ in range(queries):
                         out = run(parties.keys, xs.shares)
-                        sync(device)
-                        telemetry.observe("query_latency_seconds",
-                                          time.perf_counter() - tq)
-        else:
-            for _ in range(queries):
-                out = run(parties.keys, xs.shares)
-        sync(device)
-        dt = time.perf_counter() - t0
-    qps = queries / dt
+                sync(device)
+                dt = time.perf_counter() - t0
+            assert tuple(out.shape) == (batch, 10), out.shape
+            got = _check_prediction(pred, led, offline_led, run.verifier)
+    except integrity.IntegrityError as e:
+        if registry is not None and not any(
+                k[0] == "integrity_aborts_total" for k in registry.counters):
+            # raised where the registry was not installed (the warm-up)
+            registry.inc("integrity_aborts_total", op=e.op or "?")
+        e.serve_context = {"ledger": led, "predicted": pred, "model": model}
+        raise
     per_query = {k: (v - launches0[k]) // (queries + 1)
                  for k, v in kbuild.LAUNCHES.items()}
-    prof = (profile_once(lambda: run(parties.keys, xs.shares), device,
-                         dt / queries) if profile else None)
-    return {"profile": prof, "net": net, "weights": weights,
-            "binary_linear": binary_linear, "batch": batch,
-            "queries": queries,
-            "device": str(device),
-            "kind": (torch.cuda.get_device_name(device)
-                     if device.type == "cuda" else "cpu"),
-            "compile_s": compile_s, "seconds": dt,
-            "query_per_s": qps, "img_per_s": qps * batch,
-            "online_rounds": led.rounds, "online_bytes": led.nbytes,
-            "offline_rounds": led.pre_rounds, "offline_bytes": led.pre_nbytes,
-            "launches_per_query": per_query,
-            "deployment": dep.name if dep is not None else None,
-            "predicted_rounds": pred.rounds, "predicted_bytes": pred.nbytes,
-            "logits": out.float().cpu().numpy(),
-            "ledger": led, "predicted": pred, "model": model}
+    prof = None
+    if profile:
+        if pool_st is not None:
+            sl = pool_st["pool"].take()
+            sync(device)
+            prof = profile_once(lambda: run(parties.keys, xs.shares, sl),
+                                device, pool_st["online_s"] / queries)
+        else:
+            prof = profile_once(lambda: run(parties.keys, xs.shares),
+                                device, dt / queries)
+    qps = queries / dt
+    st = {"profile": prof, "net": net, "weights": weights,
+          "binary_linear": binary_linear, "batch": batch,
+          "queries": queries, "offline": offline, "verify": verify,
+          "device": str(device),
+          "kind": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+          "compile_s": compile_s, "seconds": dt,
+          "query_per_s": qps, "img_per_s": qps * batch,
+          "online_rounds": got[0], "online_bytes": got[1],
+          "offline_rounds": got[2], "offline_bytes": got[3],
+          "launches_per_query": per_query,
+          "deployment": dep.name if dep is not None else None,
+          "predicted_rounds": pred.rounds, "predicted_bytes": pred.nbytes,
+          "logits": out.float().cpu().numpy(),
+          "ledger": led, "predicted": pred, "model": model}
+    if run.verifier is not None:
+        st["verified_ops"] = len(run.verifier.meta)
+    if pool_st is not None:
+        qps_on = queries / pool_st["online_s"]
+        st.update({"pool_depth": pool_depth or 8,
+                   "online_seconds": pool_st["online_s"],
+                   "plant_seconds": pool_st["plant_s"],
+                   "plant_ms_per_buffer": pool_st["plant_s"] * 1e3
+                   / pool_st["pool"].generated,
+                   "query_per_s_online": qps_on,
+                   "img_per_s_online": qps_on * batch,
+                   "refills": pool_st["refills"],
+                   "tape_mb_per_query": spec.nbytes_per_query / 1e6,
+                   "material": spec.summary()})
+    return st
 
 
 def make_obs(args, device=None):
@@ -188,18 +389,22 @@ def emit_obs(args, tracer, reg, led, predicted=None, model=None,
     per row come from the per-query ledger and sum to its totals exactly;
     the measured time (``online_s`` over ``queries``) is split by
     predicted time share.  The registry's comm counters are the ledger ×
-    ``queries``."""
+    ``queries``.  With ``led`` None (an abort before a query's ledger
+    closed) only the trace and metrics are written."""
     if tracer is None and reg is None:
         return None
-    if reg is not None:
-        reg.record_ledger(led, model, queries=queries)
-    per_q = online_s / queries if online_s and queries else None
-    rep = telemetry.attribution(predicted, led, online_s=per_q,
-                                deployment=args.deployment)
-    print(f"[serve_secure] attribution per {unit} "
-          f"(deployment={rep.deployment}, "
-          f"{'prediction exact' if rep.exact else 'prediction DIVERGED'}):")
-    print(rep.render())
+    rep = None
+    if led is not None:     # None: aborted before a query's ledger closed
+        if reg is not None:
+            reg.record_ledger(led, model, queries=queries)
+        per_q = online_s / queries if online_s and queries else None
+        rep = telemetry.attribution(predicted, led, online_s=per_q,
+                                    deployment=args.deployment)
+        print(f"[serve_secure] attribution per {unit} "
+              f"(deployment={rep.deployment}, "
+              f"{'prediction exact' if rep.exact else 'prediction DIVERGED'}"
+              f"):")
+        print(rep.render())
     if tracer is not None:
         print("[serve_secure] phases: "
               + "  ".join(f"{k}={v * 1e3:.1f}ms" for k, v in
@@ -236,6 +441,21 @@ def main(argv=None):
                     help="deployment the protocol-path solver optimises "
                          "for (DESIGN.md §15): local, lan or wan; default "
                          "keeps the lexicographic (bytes, rounds) order")
+    ap.add_argument("--offline", choices=OFFLINE_MODES, default="inline",
+                    help="preprocessing phase (DESIGN.md §12): draw "
+                         "correlated randomness inside the online query, "
+                         "or serve from a pool of tape slices generated "
+                         "ahead of need")
+    ap.add_argument("--pool-depth", type=int, default=None, metavar="K",
+                    help="queries of material per tape buffer (pool mode "
+                         "only; default 8)")
+    ap.add_argument("--verify", choices=integrity.VERIFY_MODES,
+                    default="off",
+                    help="integrity level (DESIGN.md §14): cross-check "
+                         "opened values across the parties' views (opens), "
+                         "plus reshare/send consistency, the model's shares "
+                         "and every tape slice (full); a deviation aborts "
+                         "with exit code 3 naming the layer/op/round/party")
     ap.add_argument("--json", default=None)
     ap.add_argument("--profile", action="store_true",
                     help="profile one more query: device time by kernel")
@@ -253,16 +473,48 @@ def main(argv=None):
                      help="write the same metrics in Prometheus text "
                           "exposition format")
     args = ap.parse_args(argv)
+    # the reference's argument errors (exit code 2) before any work
+    if args.net not in INPUT_SHAPES:
+        ap.error(f"unknown --net {args.net!r}; available: "
+                 + ", ".join(sorted(INPUT_SHAPES)))
     if args.deployment is not None \
             and args.deployment.lower() not in cost_model.DEPLOYMENTS:
         ap.error(f"unknown --deployment {args.deployment!r}; available: "
                  + ", ".join(sorted(cost_model.DEPLOYMENTS)))
+    if args.batch < 1:
+        ap.error(f"--batch must be >= 1, got {args.batch}")
+    if args.queries < 1:
+        ap.error(f"--queries must be >= 1, got {args.queries}")
+    if args.weights == "public" and args.binary_linear == "generic":
+        ap.error("--weights public has no generic Alg-2 route (public "
+                 "layers are local share algebra); use --binary-linear "
+                 "auto or off")
+    if args.pool_depth is not None and args.offline != "pool":
+        ap.error("--pool-depth only applies to --offline pool")
+    if args.pool_depth is not None and args.pool_depth < 1:
+        ap.error(f"--pool-depth must be >= 1, got {args.pool_depth}")
     tracer, reg = make_obs(args, resolve_device(args.device))
-    st = serve(args.net, args.batch, args.queries, args.device, args.seed,
-               profile=args.profile, weights=args.weights,
-               binary_linear=args.binary_linear, deployment=args.deployment,
-               tracer=tracer, registry=reg)
+    try:
+        st = serve(args.net, args.batch, args.queries, args.device,
+                   args.seed, profile=args.profile, weights=args.weights,
+                   binary_linear=args.binary_linear,
+                   deployment=args.deployment, tracer=tracer, registry=reg,
+                   offline=args.offline, pool_depth=args.pool_depth,
+                   verify=args.verify)
+    except integrity.IntegrityError as e:
+        # a deviation aborts with diagnostics, never a wrong answer; the
+        # trace and metrics are still flushed so the abort can be read
+        print(f"[serve_secure] ABORT: {e}", file=sys.stderr)
+        ctx = getattr(e, "serve_context", {})
+        emit_obs(args, tracer, reg, ctx.get("ledger"),
+                 predicted=ctx.get("predicted"), model=ctx.get("model"))
+        raise SystemExit(3)
     model, pred, led = st["model"], st["predicted"], st["ledger"]
+    if args.verify == "full":
+        print(f"[serve_secure] model ingest verified ({len(model.ops)} "
+              f"layers)")
+    if args.offline == "pool":
+        print(f"[serve_secure] material spec: {st['material']}")
     if args.deployment is not None:
         print(f"[serve_secure] path solver ({st['deployment']}): "
               + ", ".join(f"{e.name}={e.path}"
@@ -274,13 +526,22 @@ def main(argv=None):
               f"{pred.nbytes / 1e6:.3f} MB, "
               f"{pred.time(dep) * 1e3:.1f} ms/query")
     print(f"[serve_secure] cost model: predicted {pred.rounds} rounds / "
-          f"{pred.nbytes:,} B vs measured {led.rounds} / {led.nbytes:,} B "
-          f"-> exact")
+          f"{pred.nbytes:,} B vs measured {st['online_rounds']} / "
+          f"{st['online_bytes']:,} B -> exact")
     print(f"[serve_secure] {st['net']} weights={st['weights']} "
-          f"binary_linear={st['binary_linear']} device={st['device']} "
+          f"binary_linear={st['binary_linear']} offline={st['offline']} "
+          f"verify={st['verify']} device={st['device']} "
           f"({st['kind']}) batch={st['batch']}: {st['queries']} queries in "
           f"{st['seconds']:.4f}s = {st['query_per_s']:.3f} q/s "
           f"({st['img_per_s']:.1f} img/s)")
+    if args.offline == "pool":
+        print(f"[serve_secure] pool depth {st['pool_depth']}: online-only "
+              f"{st['query_per_s_online']:.3f} q/s "
+              f"({st['img_per_s_online']:.1f} img/s), amortised "
+              f"{st['query_per_s']:.3f} q/s (plant "
+              f"{st['plant_ms_per_buffer']:.1f} ms a buffer), "
+              f"{st['refills']} refills, {st['tape_mb_per_query']:.3f} MB "
+              f"of tape a query")
     print(f"[serve_secure] per-query comm: {st['online_bytes']:,} B online "
           f"({st['online_rounds']} rounds) + {st['offline_bytes']:,} B "
           f"offline ({st['offline_rounds']} rounds)")
@@ -289,7 +550,9 @@ def main(argv=None):
     if st["profile"] is not None:
         print_profile("serve_secure", "query", st["profile"])
     st["attribution"] = emit_obs(args, tracer, reg, led, predicted=pred,
-                                 model=model, online_s=st["seconds"],
+                                 model=model,
+                                 online_s=st.get("online_seconds",
+                                                 st["seconds"]),
                                  queries=st["queries"])
     if args.json:
         stats = {k: v for k, v in st.items()

@@ -898,3 +898,71 @@ def test_serve_with_telemetry_on_the_card(cuda, tmp_path):
     ev = [e for e in json.loads(trace.read_text())["traceEvents"]
           if e["ph"] == "X" and e["name"].startswith("query[")]
     assert len(ev) == 2 and all(e["args"]["device_ms"] > 0 for e in ev)
+
+
+def _secure_setup(net, batch, device):
+    """A compiled net (seed-0 weights), its input shares and party keys on
+    ``device``: the same values on every device."""
+    from repro_torch.launch.serve_secure import build
+    from repro_torch.nn.bnn import INPUT_SHAPES
+    model = build(net, device=device)
+    x = (np.random.default_rng(0).integers(0, 2, (batch,)
+                                           + INPUT_SHAPES[net])
+         .astype(np.float32) - 0.5)
+    xs = share(torch.as_tensor(x, device=device), prf.PRNGKey(3), RING32)
+    return model, xs, Parties.setup(prf.PRNGKey(7)).keys
+
+
+@pytest.mark.cuda
+def test_tape_on_the_card_equals_cpu_tape(cuda):
+    """One query's tape generated on the card == the CPU's, every slab."""
+    from repro_torch.core import preprocessing as prep
+    model, _, keys = _secure_setup("MnistNet1", 2, "cpu")
+    spec = prep.trace_material(model, (2, 28, 28, 1))
+    host = prep.generate_tape(spec, [keys], device="cpu")
+    card = prep.generate_tape(spec, [keys], device=cuda)
+    assert set(card.slabs) == set(host.slabs)
+    for k, v in card.slabs.items():
+        assert v.device.type == "cuda" and torch.equal(v.cpu(),
+                                                       host.slabs[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,party", [("reshare", 1), ("open", 1),
+                                      ("send", None)])
+def test_fault_cell_on_the_card_raises_the_cpu_fields(cuda, op, party):
+    """One fault cell per op kind under verify "full": the card raises
+    IntegrityError with the CPU run's (op, index, tag, round, party)."""
+    from repro_torch.core import integrity, secure_model, transport
+    fields = []
+    for dev in ("cpu", cuda):
+        model, xs, keys = _secure_setup("MnistNet1", 1, dev)
+        ft = integrity.FaultInjectingTransport(
+            transport.LocalTransport(),
+            [integrity.Fault(op, 0, "corrupt", party)])
+        v = integrity.Verifier("full")
+        with transport.use_transport(ft), integrity.verify_scope(v):
+            secure_model.secure_infer(model, xs, Parties(keys, device=dev))
+            rep = v.traced_report()
+        assert ft.fired
+        with pytest.raises(integrity.IntegrityError) as ei:
+            v.check(rep)
+        e = ei.value
+        fields.append((e.op, e.index, e.tag, e.round, e.party))
+    assert fields[0] == fields[1] and fields[0][0] == op
+
+
+@pytest.mark.cuda
+def test_tape_backed_cifarnet2_equals_inline_on_the_card(cuda):
+    """A tape-backed CifarNet2 query at batch 2 on the card == the inline
+    query, through the kernels."""
+    from repro_torch.core import preprocessing as prep, secure_model
+    model, xs, keys = _secure_setup("CifarNet2", 2, cuda)
+    spec = prep.trace_material(model, (2, 32, 32, 3))
+    tape = prep.generate_tape(spec, [keys], device=cuda)
+    launches = kbuild.LAUNCHES["rss_matmul"]
+    out = prep.make_tape_infer(model, spec)(keys, xs.shares,
+                                            tape.query_slice(0))
+    assert kbuild.LAUNCHES["rss_matmul"] > launches
+    inline = secure_model.secure_infer(model, xs, Parties(keys, device=cuda))
+    assert torch.equal(out, inline)
