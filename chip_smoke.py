@@ -134,9 +134,36 @@ Phases, each fatal on failure:
               outputs differ by an ulp here and there, and 22 layers carry
               it on); then the same serve.  One model is on the card at a
               time.  Prints prefill and decode tok/s and peak memory.
+11. secure lm - the secure decoder LM of core/secure_transformer.py at
+              TinyLlama-1.1B's widths (d 2048, 32 heads of 64, d_ff 5632,
+              vocab 32000) inside the reference's secure block (MHA, ReLU
+              FFN, no RoPE), 12 of TinyLlama's 22 blocks (a weight element
+              holds 84 B on the card).  First the batched B5 on its own at
+              the decode step's products (96 = 3 parties x 32 heads of
+              (1, 128) x (128, bucket) and (1, 2 bucket) x (2 bucket, 64) at
+              buckets 16 and 64: _bmm doubles K) == its plain version on CPU
+              copies, bit for bit and on repeats, both routes and the split
+              pass too, timed beside the 2-D entry looped over the batch;
+              and B1 at its decode shapes (M = 1: 2048 x 2048, 2048 x 5632,
+              5632 x 2048, 2048 x 32000) == its plain version, timed, with
+              the sum a token.  Then serve_lm (customized attention, full
+              RMSNorm; prompt 8, gen 8, buckets 16,64, a warm-up and 2 timed
+              generations) with the counts zeroed before
+              and read after: it must launch only B1 and the batched B5, at
+              their exact counts, and its ledger equals lm_step_cost (or it
+              raises); prints prefill seconds, decode tok/s, KB and rounds a
+              token, peak memory, launches a token, threefry calls a step,
+              and the logits' largest gap to plaintext_lm_forward relative
+              to its scale and the top-1 agreement (reported, not gated).
+              Last, at 2 blocks, a prompt of 4 and 2 tokens under customized
+              + RMSNorm, softmax + RMSNorm and customized + static norm:
+              every step's logits and the KV cache on the card == the
+              port's CPU run bit for bit; then one more customized + RMSNorm
+              step there, timed and profiled (device busy share, kernels).
 
-Prints the kernels' JSON line (nine kernels, each with its launches by
-phase), then the card's name and power limit, then the result line.  Exits
+Prints the kernels' JSON line (ten rows: the nine kernels and B5's batched
+entry, each with its launches by phase), then the card's name and power
+limit, then the result line.  Exits
 non-zero without a result when no CUDA device is available or when the
 port's sources are not beside this script.
 """
@@ -191,6 +218,7 @@ MNIST4_SHAPES = [(25088, 25, 32), (6272, 800, 64), (32, 3136, 512),
                  (32, 512, 10)]
 REPLACES = {
     "rss_matmul": "src/repro/kernels/rss_matmul.py:118",
+    "ring_matmul_batched": "src/repro/kernels/ring_matmul.py:27",
     "grouped_rss_matmul": "src/repro/kernels/bin_rss_matmul.py:331",
     "bin_rss_matmul": "src/repro/kernels/bin_rss_matmul.py:127",
     "bin_grouped_matmul": "src/repro/kernels/bin_rss_matmul.py:440",
@@ -203,6 +231,7 @@ REPLACES = {
 SOURCES = {**{name: f"src/repro_torch/csrc/{name}.cu"
               for name in LINEAR_KERNELS + ("ring_matmul", "flash_attention",
                                             "ssd_scan")},
+           "ring_matmul_batched": "src/repro_torch/csrc/ring_matmul.cu",
            "bin_weight_matmul": "src/repro_torch/csrc/binary_matmul.cu",
            "bin_bin_matmul": "src/repro_torch/csrc/binary_matmul.cu"}
 
@@ -236,6 +265,20 @@ POOL_NETS = [("MnistNet1", "shared"), ("CifarNet2", "shared"),
 POOL_DEPTH, POOL_QUERIES = 4, 8
 FAULT_OPS = (("reshare", 1), ("open", 1), ("send", None))
 FAULT_MODES = ("corrupt", "zero", "replay", "drop")
+# phase 11: the secure LM at TinyLlama-1.1B's widths inside the reference's
+# secure block (MHA, ReLU FFN, no RoPE: share_lm_params' architecture, not
+# TinyLlama's), 12 of its 22 blocks: a weight element holds 84 B on the
+# card (12 B of shares, 72 B of WeightLimbs), so 12 blocks are ~46 GB
+SLM = dict(d=2048, heads=32, d_ff=5632, vocab=32000)
+SLM_BLOCKS = 12
+SLM_SERVE = dict(prompt_len=8, gen=8, buckets=(16, 64), queries=2)
+SLM_CHECK = dict(blocks=2, prompt_len=4, gen=2)    # card == CPU
+SLM_MODES = ((True, False), (False, False), (True, True))  # custom/softmax
+B5_BATCH = 3 * 32          # one product per (party, head)
+# B1's decode shapes (K, N) at M = 1 and their launches a token at 12
+# blocks: wq wk wv wo, up, down, the head
+B1_DECODE = {(2048, 2048): 4 * SLM_BLOCKS, (2048, 5632): SLM_BLOCKS,
+             (5632, 2048): SLM_BLOCKS, (2048, 32000): 1}
 
 
 def fail(msg: str) -> None:
@@ -1231,6 +1274,24 @@ def mamba_layer_inputs(cfg, params, tokens):
     return tuple(t.float() for t in (x, bm, cm, da, dt))
 
 
+def ssd_diagnosis(ssd, dev, got, want, f64, chunk: int, tol: float) -> str:
+    """What a failed B9 comparison prints beside its error: which side
+    drifts from float64, the (batch, chunk, head) cells past the tolerance,
+    the serial kernel's error on the same inputs, and the card."""
+    bad = ((got - want).abs() > tol).nonzero()
+    cells = sorted({(int(i), int(j) // chunk, int(k))
+                    for i, j, k, _ in bad.tolist()})
+    serial = float((ssd._launch(*dev, chunk, "serial").cpu()
+                    - want).abs().max())
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,uuid,serial",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    return (f"vs float64 / max |y|: kernel {f64['kernel']:.3g}, plain "
+            f"{f64['plain']:.3g}; {len(bad)} elements in (batch, chunk, "
+            f"head) cells {cells[:16]}; serial kernel max abs err "
+            f"{serial}; card {r.stdout.strip()}")
+
+
 def check_ssd(layer_inputs) -> dict:
     """Phase 8, B9: kernel == plain version (host CPU) at the reference's
     test shapes and at Mamba2-1.3B's layer inputs at batch 1 and 2 (the
@@ -1271,14 +1332,16 @@ def check_ssd(layer_inputs) -> dict:
         pms = (time.perf_counter() - t0) * 1e3
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        if not err <= SSD_REL_TOL * scale:
-            fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: kernel != plain "
-                 f"version (max abs err {err}, max |y| {scale})")
         # each float32 side against the same math in float64: which one
         # drifts (printed, not gated)
         exact = ssd.ssd_chunked(*host, chunk, dtype=torch.float64)[0]
         f64 = {side: float((t.double() - exact).abs().max()) / scale
                for side, t in (("kernel", got), ("plain", want))}
+        if not err <= SSD_REL_TOL * scale:
+            fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: kernel != plain "
+                 f"version (max abs err {err}, max |y| {scale}); "
+                 + ssd_diagnosis(ssd, dev, got, want, f64, chunk,
+                                 SSD_REL_TOL * scale))
         err_max = max(err_max, err)
         ms = median_ms(run)
         # the serial kernel (one block per (head, batch) walks the chunks)
@@ -1428,6 +1491,289 @@ def mamba_phase(kbuild, params, cfg) -> dict:
           f"worst layer max |err| {worst:.3g} of its scale")
     print_serve(serve("mamba2-1.3b", device="cuda", params=params, **SERVE))
     return {"ssd_scan": cfg.n_layers}
+
+
+# ---------------------------------------------------------------------------
+# 11. the secure LM
+# ---------------------------------------------------------------------------
+
+def check_secure_lm_kernels(rows: list) -> dict:
+    """Phase 11 (kernels): the batched B5 at the decode step's shapes at
+    buckets 16 and 64 == its plain version on CPU copies, bit for bit and
+    on repeats, both routes and the split pass too; timed beside the 2-D
+    entry looped over the batch.  B1 at its decode shapes (M = 1) == its
+    plain version, timed; the B1 row gains the sum a token.  Returns the
+    batched B5's row."""
+    import torch
+    from repro_torch.kernels import limbs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ring_matmul as ringmm
+    from repro_torch.kernels import rss_matmul as dense
+
+    sms = limbs.sm_count(torch.device("cuda"))
+    g = torch.Generator().manual_seed(11)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             generator=g)
+
+    hd = SLM["d"] // SLM["heads"]
+    detail, tot = [], {"ms": 0.0, "plain_ms": 0.0, "b": 0.0, "o": 0.0}
+    main_bucket = min(b for b in SLM_SERVE["buckets"]
+                      if b >= SLM_SERVE["prompt_len"] + SLM_SERVE["gen"])
+    for bucket in SLM_SERVE["buckets"]:
+        # _bmm doubles K: [x_i | x_{i+1}] . [y_i + y_{i+1}; y_i]
+        for what, (m, k, n) in (("q.K^T", (1, 2 * hd, bucket)),
+                                ("probs.V", (1, 2 * bucket, hd))):
+            bt = B5_BATCH
+            a, b = words(bt, m, k), words(bt, k, n)
+            ad, bd = a.cuda(), b.cuda()
+            run = lambda: kops.ring_matmul_batched_op(ad, bd)
+            got = run()
+            torch.cuda.synchronize()
+            want = ringmm.ring_matmul_batched_ref(a, b)
+            if not torch.equal(got.cpu(), want):
+                fail(f"ring_matmul_batched {what} bucket {bucket}: kernel "
+                     f"!= plain version")
+            for _ in range(SPLIT_REPEATS):
+                if not torch.equal(run(), got):
+                    fail(f"ring_matmul_batched {what} bucket {bucket}: "
+                         f"repeats differ")
+            if not torch.equal(ringmm.split_weight_limbs_batched(bd).cpu(),
+                               ringmm.ring_weight_limbs_batched_ref(b)):
+                fail(f"ring_matmul_batched {what}: the split pass != its "
+                     f"plain version")
+            plan = limbs.limb_mma_plan(bt, m, k, n, sms)
+            alt = (limbs.CUDA_CORE if plan[0] == limbs.TENSOR_CORE
+                   else limbs.TENSOR_CORE)
+            if not torch.equal(ringmm._launch_batched(ad, bd, alt).cpu(),
+                               want):
+                fail(f"ring_matmul_batched {what}: the {alt} route != "
+                     f"plain version")
+            ms = median_ms(run)
+            alt_ms = median_ms(lambda: ringmm._launch_batched(ad, bd, alt))
+            loop_ms = median_ms(lambda: [kops.ring_matmul_op(ad[i], bd[i])
+                                         for i in range(bt)], reps=10)
+            pms = host_ms(lambda: ringmm.ring_matmul_batched_ref(a, b))
+            b_ms = 4 * bt * (m * k + k * n + m * n) / HBM_BPS * 1e3
+            o_ms = 2 * RING_DOTS["ring_matmul"] * bt * m * k * n \
+                / INT8_OPS * 1e3
+            bound = max(b_ms, o_ms)
+            detail.append({"what": what, "bucket": bucket, "Bt": bt, "M": m,
+                           "K": k, "N": n, "ms": ms, "plain_ms": pms,
+                           "bound_ms": bound, "limb_route": plan[0],
+                           "splits": plan[2], "other_route_ms": alt_ms,
+                           "loop_2d_ms": loop_ms})
+            print(f"[chip_smoke] ring_matmul_batched {what} bucket {bucket} "
+                  f"({bt}, {m}, {k}, {n}): {ms:.5f} ms ({plan[0]}, split-K "
+                  f"{plan[2]}, {SPLIT_REPEATS} repeats bit-identical; "
+                  f"{alt} {alt_ms:.5f} ms), bound {bound:.5f} ms (bytes "
+                  f"{b_ms:.5f}), the 2-D entry looped over the batch "
+                  f"{loop_ms:.4f} ms ({loop_ms / ms:.1f}x), plain on host "
+                  f"{pms:.3f} ms, exact")
+            if bucket == main_bucket:
+                tot["ms"] += ms
+                tot["plain_ms"] += pms
+                tot["b"] += b_ms
+                tot["o"] += o_ms
+    # torch has no integer batched product on CUDA: no library column
+    brow = _row("ring_matmul_batched", tot["ms"], tot["plain_ms"], tot["b"],
+                tot["o"], None, 0, detail)
+
+    # B1 at the decode shapes, M = 1 (3 parties)
+    dec, ms_tok, bound_tok = [], 0.0, 0.0
+    for (k, n), per_tok in B1_DECODE.items():
+        x = words(3, 1, k)
+        wl = dense.precompute_weight_limbs(words(3, k, n).cuda())
+        xd = x.cuda()
+        run = lambda: dense.rss_matmul_parts(xd, wl)
+        got = run()
+        torch.cuda.synchronize()
+        want = (torch.matmul(x, wl.wf.cpu())
+                + torch.matmul(torch.roll(x, -1, 0), wl.ws.cpu()))
+        if not torch.equal(got.cpu(), want):
+            fail(f"rss_matmul decode shape (1, {k}, {n}): kernel != plain "
+                 f"version")
+        plan = limbs.limb_mma_plan(3, 1, k, n, sms)
+        if plan[2] > 1:
+            for _ in range(SPLIT_REPEATS):
+                if not torch.equal(run(), got):
+                    fail(f"rss_matmul decode shape (1, {k}, {n}): repeats "
+                         f"differ")
+        ms = median_ms(run)
+        # x and out words once, the cached limbs (24 B a weight element)
+        b_ms = (4 * 3 * (k + n) + 24 * k * n) / HBM_BPS * 1e3
+        o_ms = 2 * 20 * 3 * k * n / INT8_OPS * 1e3
+        dec.append({"M": 1, "K": k, "N": n, "ms": ms,
+                    "bound_ms": max(b_ms, o_ms), "launches_per_token":
+                    per_tok, "limb_route": plan[0], "splits": plan[2]})
+        ms_tok += ms * per_tok
+        bound_tok += max(b_ms, o_ms) * per_tok
+        print(f"[chip_smoke] rss_matmul decode (3, 1, {k}) x ({k}, {n}): "
+              f"{ms:.5f} ms ({plan[0]}, split-K {plan[2]}), bound "
+              f"{max(b_ms, o_ms):.5f} ms ({100 * max(b_ms, o_ms) / ms:.1f}%)"
+              f", {per_tok} a token, exact")
+        del wl
+    torch.cuda.empty_cache()
+    b1 = next(r for r in rows if r["name"] == "rss_matmul")
+    b1.update(decode_shapes=dec, decode_ms_per_token=ms_tok,
+              decode_bound_ms_per_token=bound_tok)
+    print(f"[chip_smoke] rss_matmul a decode token at {SLM_BLOCKS} blocks: "
+          f"{ms_tok:.4f} ms, bound {bound_tok:.4f} ms "
+          f"({100 * bound_tok / ms_tok:.1f}%)")
+    return brow
+
+
+def secure_lm_phase(kbuild) -> dict:
+    """Phase 11 (serving): serve_lm at SLM's widths and SLM_BLOCKS blocks on
+    the card (its ledger == lm_step_cost, or it raises), launching only B1
+    and the batched B5; prints the rates, memory, launches and threefry
+    calls a step, and the logits' gap to the fp32 oracle (reported, not
+    gated: the fixed point's Newton envelope at this width is a finding
+    about the reference).  Returns the run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prf
+    from repro_torch.core.secure_transformer import plaintext_lm_forward
+    from repro_torch.launch.serve_secure import serve_lm
+
+    calls = [0]
+    real_tf = prf._threefry_tensor
+
+    def counted_tf(*a):
+        calls[0] += 1
+        return real_tf(*a)
+
+    torch.cuda.empty_cache()
+    prf._threefry_tensor = counted_tf
+    try:
+        kbuild.reset_launches()
+        st = serve_lm(**SLM, blocks=SLM_BLOCKS, **SLM_SERVE, device="cuda")
+        counts = launched(kbuild)
+    finally:
+        prf._threefry_tensor = real_tf
+    q, p, n = SLM_SERVE["queries"], SLM_SERVE["prompt_len"], SLM_SERVE["gen"]
+    steps = (q + 1) * (p + n - 1)          # the warm-up and timed ones
+    want = {"rss_matmul": steps * (6 * SLM_BLOCKS + 1),
+            "ring_matmul_batched": steps * 2 * SLM_BLOCKS}
+    if counts != want:
+        fail(f"secure LM served with launches {counts}, want {want}")
+    lg = st["logits"]
+    seq = st["prompt_tokens"] + st["tokens"][:-1]
+    if lg.shape != (p + n - 1, SLM["vocab"]) or not np.isfinite(lg).all():
+        fail(f"secure LM logits of shape {lg.shape} are not finite")
+    oracle = plaintext_lm_forward(st["plain"], np.asarray(seq, np.int32),
+                                  SLM["heads"], True, st["bucket"])
+    gap = float(np.abs(lg - oracle).max() / np.abs(oracle).max())
+    top1 = float((lg.argmax(-1) == oracle.argmax(-1)).mean())
+    print(f"[chip_smoke] secure LM d {SLM['d']} heads {SLM['heads']} d_ff "
+          f"{SLM['d_ff']} vocab {SLM['vocab']} blocks {SLM_BLOCKS} (the "
+          f"reference's secure block: MHA, ReLU FFN, no RoPE) on "
+          f"{st['kind']}, bucket {st['bucket']}: setup {st['setup_s']:.2f} s,"
+          f" prefill {st['prefill_s']:.3f} s a prompt of {p}, decode "
+          f"{st['decode_tok_per_s']:.4f} tok/s, {st['tok_per_s']:.4f} tok/s "
+          f"over {q} generations of {n}; {st['comm_kb_per_token']:.3f} KB "
+          f"and {st['rounds_per_token']} rounds a token (== lm_step_cost); "
+          f"peak memory {st['peak_mem_bytes'] / 2**30:.3f} GiB; launches a "
+          f"token {st['launches_per_token']}; threefry calls a step "
+          f"{calls[0] / steps:.1f}; {st['traces']} build")
+    print(f"[chip_smoke] secure LM logits vs plaintext_lm_forward: max |err| "
+          f"{gap:.4g} of the oracle's scale, top-1 agreement "
+          f"{top1:.3f} over {len(seq)} positions (reported, not gated)")
+    return counts
+
+
+def lm_on_host(lm):
+    """The port's CPU copy of a card's SecureLMParams: the same shares, no
+    limb caches (the CPU runs the plain products)."""
+    import dataclasses
+    from repro_torch.core.rss import RSS
+
+    host = lambda r: RSS(r.shares.cpu(), r.ring)
+    blocks = tuple(dataclasses.replace(
+        b, limbs=None, **{f: host(getattr(b, f)) for f in b._FIELDS})
+        for b in lm.blocks)
+    return dataclasses.replace(lm, embed=host(lm.embed), blocks=blocks,
+                               gf=host(lm.gf), w_out=host(lm.w_out),
+                               w_out_limbs=None)
+
+
+def secure_lm_card_vs_cpu() -> None:
+    """Phase 11 (card == CPU): at SLM's widths and 2 blocks, a prompt of 4
+    and 2 generated tokens under customized + RMSNorm, softmax + RMSNorm
+    and customized + static norm: every step's logits and the final KV
+    cache on the card == the port's CPU run, bit for bit.  Then one more
+    customized + RMSNorm decode step on the card, timed and profiled (the
+    profiler's cost grows with the step's ~30k kernels a block, so the
+    served depth is not profiled here)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prf
+    from repro_torch.launch.profiling import profile_once
+    from repro_torch.core.ring import RING32
+    from repro_torch.core import secure_transformer as st
+
+    c = SLM_CHECK
+    card, _ = st.share_lm_params(prf.PRNGKey(1), SLM["vocab"], SLM["d"],
+                                 SLM["heads"], SLM["d_ff"], c["blocks"],
+                                 RING32, device="cuda")
+    host = lm_on_host(card)
+    keys = prf.split(prf.PRNGKey(7), 3)
+    prompt = np.random.default_rng(0).integers(0, SLM["vocab"],
+                                               c["prompt_len"])
+    hd = SLM["d"] // SLM["heads"]
+    for customized, static_norm in SLM_MODES:
+        out = {}
+        for dev, lm in (("cuda", card), ("cpu", host)):
+            t0 = time.perf_counter()
+            cache = st.init_kv_cache(c["blocks"], SLM["heads"], hd, 16,
+                                     RING32, device=dev)
+            lgs, cache = st.secure_prefill(lm, cache, prompt, keys,
+                                           customized, static_norm)
+            rows = [lgs.cpu()]
+            tok = int(lgs[-1].argmax())
+            for pos in range(c["prompt_len"],
+                             c["prompt_len"] + c["gen"] - 1):
+                lg, cache = st.secure_decode_step(lm, cache, tok, pos, keys,
+                                                  customized, static_norm)
+                rows.append(lg.cpu()[None])
+                tok = int(lg.argmax())
+            out[dev] = (torch.cat(rows), cache.k.cpu(), cache.v.cpu(),
+                        time.perf_counter() - t0)
+        what = (f"{'customized' if customized else 'softmax'} + "
+                f"{'static norm' if static_norm else 'RMSNorm'}")
+        for a, b in zip(out["cuda"][:3], out["cpu"][:3]):
+            if not torch.equal(a, b):
+                fail(f"secure LM {what}: the card's logits or KV cache "
+                     f"differ from the CPU run")
+        if not torch.isfinite(out["cuda"][0]).all():
+            fail(f"secure LM {what}: logits are not finite")
+        print(f"[chip_smoke] secure LM {what} at {c['blocks']} blocks, "
+              f"prompt {c['prompt_len']}, gen {c['gen']}: card == CPU bit "
+              f"for bit (logits and KV cache; card {out['cuda'][3]:.2f} s, "
+              f"CPU {out['cpu'][3]:.2f} s)")
+    cache = st.init_kv_cache(c["blocks"], SLM["heads"], hd, 16, RING32,
+                             device="cuda")
+    _, cache = st.secure_prefill(card, cache, prompt, keys)
+    pos = c["prompt_len"]
+    step = lambda kc: st.secure_decode_step(card, kc, 1, pos, keys)
+    spare = lambda: st.SecureKVCache(cache.k.clone(), cache.v.clone())
+    kc = spare()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(kc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kc = spare()
+    pr = profile_once(lambda: step(kc), torch.device("cuda"), wall)
+    print(f"[chip_smoke] secure LM decode step at {c['blocks']} blocks "
+          f"(customized + RMSNorm), profiled: device busy "
+          f"{pr['device_us']:.0f} us of a {wall * 1e6:.0f} us step "
+          f"({100 * pr['busy_share']:.1f}%), {pr['device_kernels']} device "
+          f"kernels; " + ", ".join(f"{r['name'][:40]} {r['device_us']:.0f} us"
+                                   for r in pr["top"][:4]))
+    del card
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -1607,6 +1953,14 @@ def main() -> None:
     by_phase["tinyllama-prefill"] = tinyllama_phase(
         kbuild, init_params(llama_cfg, 0, "cuda"), llama_cfg)
     print(f"[chip_smoke] lm paths phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 11. the secure LM ---------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows.append(check_secure_lm_kernels(rows))
+    by_phase["secure-lm"] = secure_lm_phase(kbuild)
+    secure_lm_card_vs_cpu()
+    print(f"[chip_smoke] secure LM phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_phase"] = {ph: c.get(row["name"], 0)
                                     for ph, c in by_phase.items()}

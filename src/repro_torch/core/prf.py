@@ -75,21 +75,25 @@ def _rotl(v: torch.Tensor, r: int) -> torch.Tensor:
 def _threefry_tensor(keys: Sequence[Key], lo: torch.Tensor) -> torch.Tensor:
     """threefry2x32 of the counters ``(0, lo)`` under each key.
     Returns ``bits1 ^ bits2`` as int32 of shape (len(keys), lo.numel())."""
-    dev = lo.device
+    # every per-key constant in one table, one host-to-device copy (a copy
+    # from pageable memory waits for the stream): the two key words, then
+    # each group's two injections
+    table = torch.tensor(
+        [[signed(v) for v in (k1, k2, *(w for pair in _schedule(k1, k2)
+                                         for w in pair))]
+         for k1, k2 in keys], dtype=torch.int32, device=lo.device)
 
-    def col(vals):
-        return torch.tensor([signed(v) for v in vals], dtype=torch.int32,
-                            device=dev).reshape(-1, 1)
+    def col(j):
+        return table[:, j:j + 1]
 
-    sched = [_schedule(k1, k2) for k1, k2 in keys]
-    x0 = col([k1 for k1, _ in keys]).expand(len(keys), lo.numel())
-    x1 = lo.reshape(1, -1) + col([k2 for _, k2 in keys])
+    x0 = col(0).expand(len(keys), lo.numel())
+    x1 = lo.reshape(1, -1) + col(1)
     for g in range(5):
         for r in _ROT[g % 2]:
             x0 = x0 + x1
             x1 = _rotl(x1, r) ^ x0
-        x0 = x0 + col([s[g][0] for s in sched])
-        x1 = x1 + col([s[g][1] for s in sched])
+        x0 = x0 + col(2 + 2 * g)
+        x1 = x1 + col(3 + 2 * g)
     return x0 ^ x1
 
 

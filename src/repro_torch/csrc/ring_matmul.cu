@@ -34,6 +34,18 @@
 // What bounds it: at MnistNet4's shapes, bytes (4·(M·K + K·N + M·N) over
 // 3.35 TB/s; the limb planes, K·N bytes a plane, are written and read back
 // once more, mostly through L2).
+//
+// The batched entry (ring_matmul_batched_launch): Bt independent products
+// (Bt, M, K) x (Bt, K, N) -> (Bt, M, N), the secure attention's share x
+// share products batched over (party, head), in one split pass and one
+// product launch for the whole batch.  limb_mma.cuh's slot axis carries the
+// batch as it is: with one operand (OPS = 1) slot s multiplies x_s by its
+// own weight limbs at s · w_slot_stride, so each product is a slot whose
+// limb planes the split pass writes at z · 4 · Np · Kp (grid z = the
+// product).  The CUDA-core route takes the batch on grid z as well.  At the
+// secure decode step's shapes (M = 1, K and N of 16-128) every product is
+// one or two tiles: the launch floor and the 64-row tile's padding bound
+// it, not the bytes.
 
 #include "limb_mma.cuh"
 #include "ring_tile.cuh"
@@ -44,11 +56,14 @@ constexpr int SPLIT_T = 64;        // a split block's tile: 64 k x 64 n
 constexpr int SPLIT_THREADS = 256;
 
 // b (K, N) 32-bit words -> wt (4, Np, Kp) int8, wt[p][n][k] = limb p of
-// b[k][n], zero past K and N
+// b[k][n], zero past K and N; grid z walks a batch of such pairs, b at
+// z · K · N words and wt at z · 4 planes
 __global__ void __launch_bounds__(SPLIT_THREADS)
 split_limbs_kernel(const uint32_t* __restrict__ b, uint32_t* __restrict__ wt,
                    int K, int N, int Kp, long long plane) {
   __shared__ uint32_t v[SPLIT_T][SPLIT_T + 1];   // [n][k], split words
+  b += (long long)blockIdx.z * K * N;
+  wt += (long long)blockIdx.z * plane;           // 4 planes of plane bytes
   const int k0 = blockIdx.x * SPLIT_T, n0 = blockIdx.y * SPLIT_T;
   const int tid = threadIdx.x;
 #pragma unroll
@@ -102,4 +117,34 @@ extern "C" int ring_matmul_launch(const void* a, const void* b, void* wt,
   if (e != cudaSuccess || route == 2) return (int)e;
   return limb_mma::launch<1, 4>(a, wt, c, 1, M, K, N, Kp, Np, 0, per_split,
                                 st);
+}
+
+// The batched entry: a (Bt, M, K), b (Bt, K, N), c (Bt, M, N) contiguous
+// 32-bit words; wt (Bt, 4, Np, Kp) int8 scratch.  Routes as above: 0 splits
+// every b into wt, then one tensor-core launch over all Bt products (a slot
+// each); 1 the CUDA-core product on grid z; 2 the split alone.
+extern "C" int ring_matmul_batched_launch(const void* a, const void* b,
+                                          void* wt, void* c, int Bt,
+                                          long long M, int K, int N, int Kp,
+                                          int Np, int route, int per_split,
+                                          void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (Bt < 1 || Bt > 65535) return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    ring_tile::ring_tile_kernel<uint32_t>
+        <<<ring_tile::tile_grid(M, N, Bt), ring_tile::THREADS, 0, st>>>(
+            (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)c, M, K, N);
+    return (int)cudaGetLastError();
+  }
+  if (route != 0 && route != 2) return (int)cudaErrorInvalidValue;
+  if (Kp % 128 || Np % 128 || Kp < K || Np < N)
+    return (int)cudaErrorInvalidValue;
+  const long long plane = (long long)Np * Kp;
+  split_limbs_kernel<<<dim3(Kp / SPLIT_T, Np / SPLIT_T, Bt), SPLIT_THREADS,
+                       0, st>>>((const uint32_t*)b, (uint32_t*)wt, K, N, Kp,
+                                plane);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || route == 2) return (int)e;
+  return limb_mma::launch<1, 4>(a, wt, c, Bt, M, K, N, Kp, Np, 4 * plane,
+                                per_split, st);
 }

@@ -7,7 +7,10 @@
 // An int8 weight is sign-extended on load (the bits of the reference's
 // int8 -> uint32 cast), which is exact for any int8 weight.
 //
-// Layout: one block per (64-row, 64-col) output tile, as in rss_matmul.cu.
+// Layout: one block per (64-row, 64-col) output tile, as in rss_matmul.cu,
+// and per product of a batch along grid z (B5's batched entry: the z-th
+// product reads a + z·M·K and b + z·K·N and writes c + z·M·N; a 2-D launch
+// has one z).
 // A K loop stages 16-deep slabs of A and B in shared memory; each of the
 // 256 threads owns a 4 x 4 block of outputs, strided by 16 so shared-memory
 // reads are conflict-free.  Ragged M/K/N edges are masked in the loads and
@@ -43,6 +46,10 @@ ring_tile_kernel(const uint32_t* __restrict__ a,
   __shared__ uint32_t as[BK][BM + 1];
   __shared__ uint32_t bs[BK][BN];
 
+  const long long bz = blockIdx.z;
+  a += bz * M * K;
+  b += bz * K * N;
+  c += bz * M * N;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
@@ -100,8 +107,9 @@ ring_tile_kernel(const uint32_t* __restrict__ a,
   }
 }
 
-inline dim3 tile_grid(long long M, int N) {
-  return dim3((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
+inline dim3 tile_grid(long long M, int N, int batch = 1) {
+  return dim3((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
+              (unsigned)batch);
 }
 
 }  // namespace ring_tile

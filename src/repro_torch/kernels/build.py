@@ -48,6 +48,9 @@ KERNELS = {
                             _L, _L, _L, _L, _L, _L, _L, _L, _P]),
     "ring_matmul": ("ring_matmul", "ring_matmul_launch",
                     [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
+    "ring_matmul_batched": ("ring_matmul", "ring_matmul_batched_launch",
+                            [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
+                             _P]),
     "bin_weight_matmul": ("binary_matmul", "bin_weight_matmul_launch",
                           [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
     "bin_bin_matmul": ("binary_matmul", "bin_bin_matmul_launch",

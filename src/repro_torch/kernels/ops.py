@@ -1,6 +1,8 @@
 """Shape handling around the kernels.
 
 Port of ``repro/kernels/ops.py`` (``ring_matmul_op``,
+``ring_matmul_batched_op`` (the reference's batched attention products are
+``jnp.einsum``; the port's run on B5's batched entry),
 ``binary_weight_matmul_op``, ``binary_binary_matmul_op``,
 ``rss_matmul_dot``, ``_fold_grouped``, ``_unfold_grouped``,
 ``grouped_rss_matmul_op``, ``rss_matmul_parts_op``, ``bin_rss_matmul_op``,
@@ -23,11 +25,12 @@ from .bin_rss_matmul import (GroupedWeightLimbs, PublicGroupedLimbs,
                              bin_rss_matmul_parts, grouped_rss_matmul_parts)
 from .binary_matmul import binary_binary_matmul, binary_weight_matmul
 from .flash_attention import flash_attention
-from .ring_matmul import ring_matmul
+from .ring_matmul import ring_matmul, ring_matmul_batched
 from .lowering import KernelConfig
 from .rss_matmul import WeightLimbs, rss_matmul_parts
 
-__all__ = ["ring_matmul_op", "binary_weight_matmul_op",
+__all__ = ["ring_matmul_op", "ring_matmul_batched_op",
+           "binary_weight_matmul_op",
            "binary_binary_matmul_op", "rss_matmul_dot",
            "rss_matmul_parts_op", "grouped_rss_matmul_op",
            "bin_rss_matmul_op", "bin_grouped_matmul_op",
@@ -37,6 +40,20 @@ __all__ = ["ring_matmul_op", "binary_weight_matmul_op",
 def ring_matmul_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B mod 2^32 for any (M, K) x (K, N) int32 ring words."""
     return ring_matmul(a.contiguous(), b.contiguous())
+
+
+def ring_matmul_batched_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B mod 2^32 over shared leading dims: (..., M, K) x (..., K, N)
+    -> (..., M, N), the leading dims folded into one batch of products."""
+    lead = a.shape[:-2]
+    if b.shape[:-2] != lead:
+        raise ValueError(f"ring_matmul_batched: leading dims {tuple(lead)} "
+                         f"and {tuple(b.shape[:-2])} differ")
+    out = ring_matmul_batched(a.reshape((-1,) + tuple(a.shape[-2:]))
+                              .contiguous(),
+                              b.reshape((-1,) + tuple(b.shape[-2:]))
+                              .contiguous())
+    return out.reshape(tuple(lead) + tuple(out.shape[-2:]))
 
 
 def binary_weight_matmul_op(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

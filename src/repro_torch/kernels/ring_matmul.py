@@ -17,6 +17,12 @@ the int8 tensor cores (B3's ``limb_mma.cuh`` kernel with L = 4 limbs), after
 a pass that splits b into its balanced limbs, K-major and 128-padded
 (:func:`ring_weight_limbs_ref` is that pass's plain version); at K <= 16
 the CUDA cores multiply the words.
+
+:func:`ring_matmul_batched` is the batched entry, (Bt, M, K) x (Bt, K, N)
+-> (Bt, M, N): the share x share products of the secure attention
+(``core/secure_transformer.py::_bmm``), one product per (party, head), in
+one split pass and one product launch for the whole batch (the plan at Bt
+slots).  Its plain version is a batched int32 matmul on the CPU.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ from . import build
 from .limbs import K_STAGE, TENSOR_CORE, limb_mma_plan, sm_count
 
 __all__ = ["ring_matmul", "ring_matmul_ref", "ring_weight_limbs_ref",
-           "split_weight_limbs"]
+           "split_weight_limbs", "ring_matmul_batched",
+           "split_weight_limbs_batched",
+           "ring_matmul_batched_ref", "ring_weight_limbs_batched_ref"]
 
 _TILE = 128
 # 0x80808080 as an int32: adding it turns balanced digits into bytes
@@ -161,3 +169,99 @@ def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return _launch_ring(a, b)
     return _route("ring_matmul", a, b, torch.int32, torch.int32,
                   ring_matmul_ref)
+
+
+# ---------------------------------------------------------------------------
+# The batched entry
+# ---------------------------------------------------------------------------
+
+def ring_matmul_batched_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain version: (Bt, M, K) x (Bt, K, N) int32 -> (Bt, M, N), mod 2^32
+    (int64 words wrap mod 2^64 the same way)."""
+    return torch.matmul(a, b)
+
+
+def ring_weight_limbs_batched_ref(b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched split pass: (Bt, K, N) int32 words ->
+    (Bt, 4, Np, Kp) int8, each product's limbs as
+    :func:`ring_weight_limbs_ref` writes them."""
+    bt, k, n = b.shape
+    v = (b.to(torch.int32) + _BIAS) ^ _BIAS
+    limbs = v.contiguous().view(torch.int8).reshape(bt, k, n, 4) \
+        .permute(0, 3, 2, 1)
+    return torch.nn.functional.pad(
+        limbs, (0, (-k) % _TILE, 0, (-n) % _TILE)).contiguous()
+
+
+def _check_batched(a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.ndim != 3 or b.ndim != 3 or a.shape[0] != b.shape[0] \
+            or a.shape[2] != b.shape[1]:
+        raise ValueError(f"ring_matmul_batched: shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)} do not multiply")
+
+
+def _check_words(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != ts[0].device:
+            raise ValueError(f"ring_matmul_batched: operands must be "
+                             f"contiguous int32 tensors on {ts[0].device}")
+
+
+def _launch_batched(a: torch.Tensor, b: torch.Tensor,
+                    route: str | None = None) -> torch.Tensor:
+    """Launch the batched B5 on the route of the plan at Bt slots
+    (``route`` forces one, unsplit)."""
+    _check_batched(a, b)
+    _check_words(a, b)
+    bt, m, k = a.shape
+    n = b.shape[2]
+    out = torch.empty((bt, m, n), dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
+    chosen, per, _ = limb_mma_plan(bt, m, k, n, sm_count(a.device))
+    if route is not None and route != chosen:
+        chosen, per = route, -(-k // K_STAGE)
+    tc = chosen == TENSOR_CORE
+    wt = torch.empty((bt, 4, _padded(n), _padded(k)) if tc else (0,),
+                     dtype=torch.int8, device=a.device)
+    fn = build.library("ring_matmul_batched")
+    err = fn(a.data_ptr(), b.data_ptr(), wt.data_ptr(), out.data_ptr(), bt,
+             m, k, n, _padded(k), _padded(n), _ROUTE_TC if tc else _ROUTE_CC,
+             per, build.stream_ptr(a.device))
+    build.check("ring_matmul_batched", err)
+    build.LAUNCHES["ring_matmul_batched"] += 1
+    return out
+
+
+def split_weight_limbs_batched(b: torch.Tensor) -> torch.Tensor:
+    """The batched split pass alone on the card: (Bt, K, N) int32 ->
+    (Bt, 4, Np, Kp) int8 (``chip_smoke.py`` and the CUDA tests hold it to
+    :func:`ring_weight_limbs_batched_ref`)."""
+    if b.device.type != "cuda" or b.ndim != 3 or not 1 <= b.shape[0] <= 65535:
+        raise ValueError("ring_matmul_batched: b must be a (Bt, K, N) "
+                         "tensor on the card, 1 <= Bt <= 65535")
+    _check_words(b)
+    bt, k, n = b.shape
+    wt = torch.empty((bt, 4, _padded(n), _padded(k)), dtype=torch.int8,
+                     device=b.device)
+    fn = build.library("ring_matmul_batched")
+    err = fn(None, b.data_ptr(), wt.data_ptr(), None, bt, 0, k, n,
+             _padded(k), _padded(n), _ROUTE_SPLIT, 1,
+             build.stream_ptr(b.device))
+    build.check("ring_matmul_batched", err)
+    build.LAUNCHES["ring_matmul_batched"] += 1
+    return wt
+
+
+def ring_matmul_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C[z] = A[z] @ B[z] mod 2^32 for every z of a batch, (Bt, M, K) x
+    (Bt, K, N) int32 ring words.  CUDA tensors launch the kernel (one split
+    pass and one product for the whole batch) or raise; CPU and meta
+    tensors run the plain version."""
+    if a.device.type == "cuda":
+        return _launch_batched(a, b)
+    if a.device.type in ("cpu", "meta"):
+        _check_batched(a, b)
+        return ring_matmul_batched_ref(a, b)
+    raise ValueError(f"ring_matmul_batched: unsupported device {a.device}")

@@ -1,14 +1,18 @@
-"""Secure serving: batched secure-BNN classifier inference end to end.
+"""Secure serving: batched secure-BNN classifier inference and secure LM
+decode, end to end.
 
 Port of ``repro/launch/serve_secure.py`` on the local backend
 (``build``, ``make_runner`` and ``make_tape_runner`` with ``verify``,
 ``serve_pool``, ``_serve_bnn`` with ``--offline inline|pool``,
 ``--pool-depth`` and ``--verify off|opens|full``, the ``--deployment``
 path solver, ``make_obs`` / ``emit_obs`` and the ``--trace`` /
-``--metrics-json`` / ``--metrics-prom`` outputs; not ``--backend mesh``
-or ``--model lm``).  The model owner compiles once (BN folds, secret
-sharing or publication, cached kernel operands, the cost model's path
-labels and the autotuner's kernel configs); every query batch then runs
+``--metrics-json`` / ``--metrics-prom`` outputs, and ``--model lm``:
+``_serve_lm`` with ``--lm-d/heads/ffn/blocks/vocab``, ``--prompt``,
+``--gen``, ``--buckets``, ``--softmax-attention``, ``--static-norm`` and
+``--quick``; ``--backend mesh`` is ROADMAP item A7 and raises).  The
+model owner compiles once (BN folds, secret sharing or publication,
+cached kernel operands, the cost model's path labels and the autotuner's
+kernel configs); every query batch then runs
 the full CBNN protocol stack on the device, its linear layers on the CUDA
 kernels: shared weights on the RSS products (rss_matmul,
 grouped_rss_matmul), public weights on the local public products
@@ -40,6 +44,20 @@ per-query online/offline rounds and bytes, the cost model's prediction
 against the live ledger, and the launches of each kernel; with an
 observability output also the per-layer predicted-vs-measured attribution
 table and the time per phase.
+
+``--model lm`` serves the secure decoder LM of ``core/secure_transformer.py``
+(the reference's deterministic weights, ``share_lm_params``): a secure
+prefill of a random prompt, then a greedy decode loop whose step is built
+once per padded bucket length (the smallest of ``--buckets`` that holds
+prompt + gen); a warm-up generation, then ``--queries`` timed ones.  It
+prints tok/s, the online KB and rounds a token (one step's live ledger,
+held byte-exact to ``cost_model.lm_step_cost``: a mismatch raises) and the
+kernel launches a token; ``--quick`` (d 16, 2 heads, 1 block, static norm)
+also holds the greedy tokens to the fp32 oracle's.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve_secure --model lm \
+      --lm-d 2048 --lm-heads 32 --lm-ffn 5632 --lm-vocab 32000 \
+      --lm-blocks 12 --prompt 8 --gen 8 --buckets 16,64 --queries 2
 """
 from __future__ import annotations
 
@@ -59,15 +77,24 @@ from ..core.ring import RING32
 from ..core.rss import RSS, share
 from ..core.secure_model import (BINARY_LINEAR_MODES, WEIGHT_MODES,
                                  compile_secure, secure_infer)
+from ..core.secure_transformer import (CompiledDecodeStep, SecureKVCache,
+                                       init_kv_cache,
+                                       plaintext_lm_forward, scan_prefill,
+                                       secure_decode_step, share_lm_params)
 from ..device import resolve_device
 from ..kernels import build as kbuild
 from ..nn.bnn import INPUT_SHAPES, init_bnn
 from .profiling import print_profile, profile_once, sync
 
 __all__ = ["build", "make_runner", "make_tape_runner", "serve_pool",
-           "serve", "make_obs", "emit_obs", "main", "OFFLINE_MODES"]
+           "serve", "serve_lm", "make_obs", "emit_obs", "main",
+           "OFFLINE_MODES", "BACKENDS"]
 
 OFFLINE_MODES = ("inline", "pool")
+BACKENDS = ("local", "mesh")
+# --quick: the reference's CI preset (static norm, one block)
+QUICK_LM = dict(d=16, heads=2, d_ff=32, blocks=1, vocab=16, prompt_len=3,
+                gen=5, buckets=(8,))
 
 
 def build(net: str, device=None, params=None, weights: str = "shared",
@@ -373,6 +400,161 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
     return st
 
 
+def serve_lm(d: int = 32, heads: int = 2, d_ff: int = 64, blocks: int = 2,
+             vocab: int = 32, prompt_len: int = 4, gen: int = 8,
+             buckets=(16, 32), customized: bool = True,
+             static_norm: bool = False, queries: int = 4, seed: int = 0,
+             device=None, oracle: bool = False, profile: bool = False,
+             registry: telemetry.MetricsRegistry | None = None) -> dict:
+    """Secure autoregressive LM serving (DESIGN.md §16) on ``device`` (the
+    card unless ``"cpu"``).
+
+    Shares the reference's LM (``share_lm_params(PRNGKey(seed + 1))``, on
+    the card with every weight linear's limb cache), holds one decode
+    step's live ledger to ``cost_model.lm_step_cost`` byte for byte (a
+    mismatch raises), then serves a random prompt of ``prompt_len`` tokens
+    (``default_rng(seed)``) under the keys ``split(PRNGKey(seed + 7), 3)``:
+    the prefill, then ``gen`` greedy tokens, one warm-up generation and
+    ``queries`` timed ones.  The step is built once for the smallest bucket
+    of ``buckets`` that holds prompt + gen; serving asserts one build.
+    ``oracle`` holds the greedy tokens to the fp32 oracle's (raises on a
+    divergence); ``profile`` profiles one more decode step.  The active
+    tracer (``telemetry.tracing``) gets the warm-up, ``prefill[T]`` and
+    ``decode_step[bN]`` / ``decode_compile[bN]`` spans; ``registry``
+    collects ``token_latency_seconds`` over the timed generations.
+
+    Returns the stats: tok/s over the timed generations (prefill included,
+    as the reference counts it), decode tok/s and prefill seconds apart,
+    the step's ledger and prediction, kernel launches a step, peak device
+    memory, the tokens, and of the last generation the opened logits of
+    every step ((prompt + gen - 1, vocab), numpy, the prompt's first), the
+    cache and the plaintext weights (``plain``, for the fp32 oracle)."""
+    device = resolve_device(device)
+    need = prompt_len + gen
+    fitting = sorted(b for b in buckets if b >= need)
+    if not fitting or d % heads or queries < 1 or prompt_len < 1 \
+            or gen < 1:
+        raise ValueError(f"no bucket of {tuple(buckets)} holds prompt + gen "
+                         f"= {need}, or d {d} % heads {heads}, queries, "
+                         f"prompt or gen is out of range")
+    bucket = fitting[0]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with telemetry.span("share_lm_params", cat="setup", blocks=blocks):
+        lm, plain = share_lm_params(prf.PRNGKey(seed + 1), vocab, d, heads,
+                                    d_ff, blocks, RING32, device=device)
+        sync(device)
+    setup_s = time.perf_counter() - t0
+    keys = prf.split(prf.PRNGKey(seed + 7), 3)
+    prompt = np.random.default_rng(seed).integers(0, vocab, prompt_len) \
+        .astype(np.int32)
+    hd = d // heads
+
+    # the comm a token: the live ledger of one step, byte-exact against
+    # the closed form (serving never runs on a drifted cost table)
+    with telemetry.span("ledger_estimate", cat="setup", bucket=bucket):
+        led = comm.estimate_cost(
+            lambda m, c, t, p, k: secure_decode_step(m, c, t, p, k,
+                                                     customized, static_norm),
+            lm, init_kv_cache(blocks, heads, hd, bucket, RING32, device="cpu"),
+            0, 0, keys)
+    pred = cost_model.lm_step_cost(bucket, d, heads, d_ff, blocks, vocab,
+                                   RING32.nbytes, customized=customized,
+                                   static_norm=static_norm)
+    if (pred.rounds, pred.nbytes) != (led.rounds, led.nbytes):
+        raise RuntimeError(
+            f"cost-model prediction {pred.rounds} rounds / {pred.nbytes} B "
+            f"diverged from the ledger {led.rounds} / {led.nbytes} B")
+
+    step = CompiledDecodeStep(lm, customized, static_norm, bucket=bucket)
+    timing = {"prefill_s": 0.0, "decode_s": 0.0}
+
+    def one_generation():
+        cache = init_kv_cache(blocks, heads, hd, bucket, RING32,
+                              device=device)
+        sync(device)
+        tp = time.perf_counter()
+        with telemetry.span(f"prefill[{prompt_len}]", cat="online",
+                            lane="parties"):
+            lgs, cache = scan_prefill(step.raw, cache, prompt, keys)
+            lg = lgs[-1].cpu().numpy()
+        timing["prefill_s"] += time.perf_counter() - tp
+        toks, rows = [], [lgs.cpu().numpy()]
+        for p in range(prompt_len, prompt_len + gen):
+            nxt = int(np.argmax(lg))   # public greedy selection
+            toks.append(nxt)
+            if p == prompt_len + gen - 1:
+                break
+            tq = time.perf_counter()
+            lg, cache = step(cache, nxt, p, keys)
+            lg = lg.cpu().numpy()
+            dq = time.perf_counter() - tq
+            timing["decode_s"] += dq
+            telemetry.observe("token_latency_seconds", dq,
+                              bucket=str(bucket))
+            rows.append(lg[None])
+        return toks, np.concatenate(rows), cache
+
+    with telemetry.span("warmup", cat="compile", bucket=bucket):
+        one_generation()
+    timing.update(prefill_s=0.0, decode_s=0.0)
+    launches0 = dict(kbuild.LAUNCHES)
+    t0 = time.perf_counter()
+    with telemetry.collecting(registry):
+        for _ in range(queries):
+            toks, logits, cache = one_generation()
+    sync(device)
+    dt = time.perf_counter() - t0
+    if step.traces != 1:
+        raise RuntimeError(f"the decode step was built {step.traces} times "
+                           f"for one bucket length")
+    steps = queries * (prompt_len + gen - 1)
+    per_step = {k: (v - launches0[k]) / steps
+                for k, v in kbuild.LAUNCHES.items() if v > launches0[k]}
+    st = {"model": "lm", "backend": "local", "customized": customized,
+          "static_norm": static_norm, "d": d, "heads": heads, "d_ff": d_ff,
+          "blocks": blocks, "vocab": vocab, "bucket": bucket,
+          "prompt": prompt_len, "gen": gen, "queries": queries,
+          "device": str(device),
+          "kind": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+          "setup_s": setup_s, "seconds": dt, "tok_per_s": queries * gen / dt,
+          "prefill_s": timing["prefill_s"] / queries,
+          "decode_s": timing["decode_s"] / queries,
+          "decode_tok_per_s": (queries * (gen - 1) / timing["decode_s"]
+                               if gen > 1 else None),
+          "comm_kb_per_token": led.nbytes / 1e3,
+          "rounds_per_token": led.rounds, "predicted_rounds": pred.rounds,
+          "predicted_bytes": pred.nbytes, "traces": step.traces,
+          "launches_per_token": per_step, "tokens": toks,
+          "prompt_tokens": prompt.tolist(),
+          "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
+                             if device.type == "cuda" else None),
+          "ledger": led, "predicted": pred, "logits": logits,
+          "cache": cache, "profile": None}
+    st["plain"] = plain
+    if profile:     # one more step, on a copy of the cache
+        spare = SecureKVCache(cache.k.clone(), cache.v.clone())
+        st["profile"] = profile_once(
+            lambda: step(spare, toks[-1], prompt_len + gen - 1, keys),
+            device, timing["decode_s"] / max(queries * (gen - 1), 1))
+    if oracle:
+        # token-identical to the fp32 oracle's greedy rollout
+        otoks, cur = [], list(prompt)
+        for _ in range(gen):
+            olg = plaintext_lm_forward(plain, np.asarray(cur, np.int32),
+                                       heads, customized, bucket,
+                                       static_norm)
+            otoks.append(int(olg[-1].argmax()))
+            cur.append(otoks[-1])
+        if toks != otoks:
+            raise RuntimeError(f"secure decode diverged from the fp32 "
+                               f"oracle: {toks} vs {otoks}")
+        st["oracle_tokens"] = otoks
+    return st
+
+
 def make_obs(args, device=None):
     """``--trace`` / ``--metrics-*`` -> (Tracer | None, registry | None):
     both or neither.  The tracer times online spans with CUDA events on a
@@ -423,8 +605,87 @@ def emit_obs(args, tracer, reg, led, predicted=None, model=None,
     return rep
 
 
+def _serve_lm(args, ap, tracer=None, reg=None):
+    """``--model lm``: the reference's argument checks (exit code 2), then
+    :func:`serve_lm` under the tracer; prints tok/s, the comm a token and
+    the kernel launches a token."""
+    if args.quick:
+        cfg = dict(QUICK_LM)
+        args.static_norm = True
+    else:
+        try:
+            buckets = tuple(sorted(int(b) for b in args.buckets.split(",")))
+        except ValueError:
+            ap.error(f"--buckets {args.buckets!r} is not a comma-separated "
+                     f"list of lengths")
+        cfg = dict(d=args.lm_d, heads=args.lm_heads, d_ff=args.lm_ffn,
+                   blocks=args.lm_blocks, vocab=args.lm_vocab,
+                   prompt_len=args.prompt, gen=args.gen, buckets=buckets)
+    if cfg["heads"] < 1 or cfg["d"] % cfg["heads"]:
+        ap.error(f"--lm-d {cfg['d']} must divide by --lm-heads "
+                 f"{cfg['heads']}")
+    if cfg["prompt_len"] < 1 or cfg["gen"] < 1:
+        ap.error("--prompt and --gen must be >= 1")
+    need = cfg["prompt_len"] + cfg["gen"]
+    if not any(b >= need for b in cfg["buckets"]):
+        ap.error(f"no bucket in {list(cfg['buckets'])} fits prompt+gen = "
+                 f"{need}; grow --buckets or shrink --prompt/--gen")
+    if args.queries < 1:
+        ap.error(f"--queries must be >= 1, got {args.queries}")
+    customized = not args.softmax_attention
+    with telemetry.tracing(tracer):
+        st = serve_lm(**cfg, customized=customized,
+                      static_norm=args.static_norm, queries=args.queries,
+                      seed=args.seed, device=args.device, oracle=args.quick,
+                      profile=args.profile, registry=reg)
+    led, pred = st["ledger"], st["predicted"]
+    print(f"[serve_secure] lm cost model: predicted {pred.rounds} rounds / "
+          f"{pred.nbytes:,} B/token vs measured {led.rounds} / "
+          f"{led.nbytes:,} B -> exact")
+    print(f"[serve_secure] lm backend=local "
+          f"{'customized' if customized else 'softmax'}"
+          f"{'+static-norm' if st['static_norm'] else ''} d={st['d']} "
+          f"heads={st['heads']} d_ff={st['d_ff']} blocks={st['blocks']} "
+          f"vocab={st['vocab']} bucket={st['bucket']} device={st['device']} "
+          f"({st['kind']}): {st['queries']}x{st['gen']} tokens in "
+          f"{st['seconds']:.3f}s = {st['tok_per_s']:.3f} tok/s (prefill "
+          f"{st['prefill_s']:.3f} s a prompt of {st['prompt']}; "
+          f"{st['traces']} build/bucket)")
+    print(f"[serve_secure] per-token comm: {led.nbytes / 1e3:.3f} KB online "
+          f"({led.rounds} rounds) + {led.pre_nbytes / 1e3:.3f} KB offline "
+          f"({led.pre_rounds} rounds); modeled LAN "
+          f"{led.time(comm.LAN) * 1e3:.1f} ms / WAN "
+          f"{led.time(comm.WAN) * 1e3:.0f} ms per token")
+    print("[serve_secure] kernel launches per token: "
+          + (", ".join(f"{k}={v:g}" for k, v in
+                       st["launches_per_token"].items()) or "none"))
+    if st["profile"] is not None:
+        print_profile("serve_secure", "decode step", st["profile"])
+    if args.quick:
+        print(f"[serve_secure] quick check OK: {st['gen']} greedy tokens "
+              f"token-identical to the fp32 oracle ({st['tokens']})")
+    st["attribution"] = emit_obs(args, tracer, reg, led,
+                                 online_s=st["seconds"],
+                                 queries=st["queries"] * st["gen"],
+                                 unit="token")
+    if args.json:
+        stats = {k: v for k, v in st.items()
+                 if k not in ("ledger", "predicted", "logits", "cache",
+                              "plain", "attribution", "profile")}
+        with open(args.json, "w") as f:
+            json.dump(stats, f, indent=2)
+        print(f"[serve_secure] wrote {args.json}")
+    return st
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=("bnn", "lm"), default="bnn",
+                    help="serve the BNN classifier zoo or the secure "
+                         "autoregressive LM decode loop (DESIGN.md §16)")
+    ap.add_argument("--backend", choices=BACKENDS, default="local",
+                    help="local: the stacked three-party simulation; mesh "
+                         "(one party a device) is ROADMAP item A7")
     ap.add_argument("--net", default="MnistNet1")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--queries", type=int, default=4)
@@ -472,7 +733,42 @@ def main(argv=None):
     obs.add_argument("--metrics-prom", default="", metavar="PATH",
                      help="write the same metrics in Prometheus text "
                           "exposition format")
+    lm = ap.add_argument_group("lm serving (--model lm, DESIGN.md §16)")
+    lm.add_argument("--lm-d", type=int, default=32, metavar="D",
+                    help="model width")
+    lm.add_argument("--lm-heads", type=int, default=2)
+    lm.add_argument("--lm-ffn", type=int, default=64)
+    lm.add_argument("--lm-blocks", type=int, default=2)
+    lm.add_argument("--lm-vocab", type=int, default=32)
+    lm.add_argument("--prompt", type=int, default=4, metavar="T",
+                    help="prompt length (synthetic random tokens)")
+    lm.add_argument("--gen", type=int, default=8, metavar="N",
+                    help="tokens to generate greedily")
+    lm.add_argument("--buckets", default="16,32", metavar="L1,L2",
+                    help="padded decode lengths; the smallest bucket >= "
+                         "prompt+gen is built (once)")
+    lm.add_argument("--softmax-attention", action="store_true",
+                    help="serve the un-customized comparison mode (full "
+                         "secure softmax) instead of ReLU-attention")
+    lm.add_argument("--static-norm", action="store_true",
+                    help="CBNN norm customization: RMSNorm folded into the "
+                         "adjacent linear at setup (zero online rounds)")
+    lm.add_argument("--quick", action="store_true",
+                    help="small static-norm preset + token-parity check "
+                         "against the fp32 oracle")
     args = ap.parse_args(argv)
+    if args.backend == "mesh":
+        raise SystemExit("--backend mesh (one party a device) is ROADMAP "
+                         "item A7; the port serves on the local backend")
+    if args.model == "lm":
+        if args.quick and args.queries == 4:
+            args.queries = 1
+        tracer, reg = make_obs(args, resolve_device(args.device))
+        return _serve_lm(args, ap, tracer, reg)
+    for flag, dflt in (("quick", False), ("softmax_attention", False),
+                       ("static_norm", False)):
+        if getattr(args, flag) != dflt:
+            ap.error(f"--{flag.replace('_', '-')} requires --model lm")
     # the reference's argument errors (exit code 2) before any work
     if args.net not in INPUT_SHAPES:
         ap.error(f"unknown --net {args.net!r}; available: "

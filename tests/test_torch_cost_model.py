@@ -314,6 +314,66 @@ def test_lm_step_cost_equals_reference(fused, customized, static_norm):
             jcost.lm_step_cost(bucket, 32, 2, 64, 2, 32, **kw).as_dict()
 
 
+# ---------------------------------------------------------------------------
+# lm_step_cost == the port's own live ledger of one secure_decode_step, over
+# the reference's grid (tests/test_cost_model.py:229-258, with the bucket
+# swept as its block test sweeps seq), and the published comm a token
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _port_lm():
+    from repro_torch.core import secure_transformer as st
+    lm, _ = st.share_lm_params(prf.PRNGKey(0), 32, 32, 2, 64, 2, RING32,
+                               device="cpu")
+    return lm
+
+
+def _port_step_ledger(bucket, customized, static_norm):
+    from repro_torch.core import comm
+    from repro_torch.core import secure_transformer as st
+    return comm.estimate_cost(
+        lambda m, c: st.secure_decode_step(
+            m, c, 0, 0, prf.split(prf.PRNGKey(7), 3), customized,
+            static_norm), _port_lm(),
+        st.init_kv_cache(2, 2, 16, bucket, RING32, device="cpu"))
+
+
+@pytest.mark.parametrize("static_norm", [False, True],
+                         ids=["rmsnorm", "staticnorm"])
+@pytest.mark.parametrize("customized", [True, False],
+                         ids=["custom", "softmax"])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "paper"])
+@pytest.mark.parametrize("seq", [8, 16, 32])
+def test_lm_step_cost_equals_port_ledger(seq, fused, customized,
+                                         static_norm):
+    linear.set_fused_rounds(fused)
+    try:
+        led = _port_step_ledger(seq, customized, static_norm)
+    finally:
+        linear.set_fused_rounds(True)
+    pred = cost_model.lm_step_cost(seq, 32, 2, 64, 2, 32, fused=fused,
+                                   customized=customized,
+                                   static_norm=static_norm)
+    assert (pred.rounds, pred.nbytes) == (led.rounds, led.nbytes), \
+        (seq, fused, customized, static_norm, pred, led.summary())
+
+
+def test_lm_comm_per_token_equals_published():
+    """BENCH_secure_e2e.json's secure.lm.comm rows, at
+    benchmarks/secure_lm.py's configuration (d 32, 2 heads, d_ff 64, 2
+    blocks, vocab 32, bucket 16, the default RMSNorm path)."""
+    import json
+    from pathlib import Path
+    bench = json.loads((Path(__file__).resolve().parent.parent
+                        / "BENCH_secure_e2e.json").read_text())
+    for tag, customized in (("custom", True), ("softmax", False)):
+        led = _port_step_ledger(16, customized, False)
+        assert led.nbytes / 1e3 == \
+            bench[f"secure.lm.comm.{tag}.kb_per_token"], tag
+    assert (bench["secure.lm.comm.custom.kb_per_token"],
+            bench["secure.lm.comm.softmax.kb_per_token"]) == (39.276, 52.572)
+
+
 def test_primitive_closed_forms_equal_reference():
     """Every closed form of the attention table, both round structures
     and both ring widths, with the defaults taken from the process

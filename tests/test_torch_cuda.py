@@ -966,3 +966,92 @@ def test_tape_backed_cifarnet2_equals_inline_on_the_card(cuda):
     assert kbuild.LAUNCHES["rss_matmul"] > launches
     inline = secure_model.secure_infer(model, xs, Parties(keys, device=cuda))
     assert torch.equal(out, inline)
+
+
+# ---------------------------------------------------------------------------
+# B5's batched entry and the secure LM decode step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bt,m,k,n", [(96, 1, 128, 16), (96, 1, 32, 64),
+                                      (96, 1, 128, 64), (6, 3, 16, 5),
+                                      (4, 70, 200, 130), (1, 1, 1, 1)])
+def test_ring_matmul_batched_cuda_equals_plain(cuda, bt, m, k, n):
+    a = ring_from_numpy(_words((bt, m, k), 60))
+    b = ring_from_numpy(_words((bt, k, n), 61))
+    ad, bd = a.to(cuda), b.to(cuda)
+    launches = kbuild.LAUNCHES["ring_matmul_batched"]
+    got = ops.ring_matmul_batched_op(ad, bd)
+    assert kbuild.LAUNCHES["ring_matmul_batched"] == launches + 1
+    assert torch.equal(got.cpu(), ringmm.ring_matmul_batched_ref(a, b))
+    for _ in range(3):     # split-K blocks add with atomics: bit-identical
+        assert torch.equal(ops.ring_matmul_batched_op(ad, bd), got)
+    for route in (limbs.TENSOR_CORE, limbs.CUDA_CORE):
+        assert torch.equal(ringmm._launch_batched(ad, bd, route).cpu(),
+                           ringmm.ring_matmul_batched_ref(a, b)), route
+    assert torch.equal(ringmm.split_weight_limbs_batched(bd).cpu(),
+                       ringmm.ring_weight_limbs_batched_ref(b))
+
+
+@pytest.mark.cuda
+def test_ring_matmul_batched_never_takes_the_plain_version(cuda,
+                                                           monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version on a CUDA tensor")
+    monkeypatch.setattr(ringmm, "ring_matmul_batched_ref", boom)
+    a = torch.ones((2, 1, 4), dtype=torch.int32, device=cuda)
+    assert int(ops.ring_matmul_batched_op(a, a.transpose(1, 2)
+                                          .contiguous())[1, 0, 0]) == 4
+    with pytest.raises(ValueError):
+        ops.ring_matmul_batched_op(a.long(), a.long().transpose(1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("customized,static_norm", [(True, False),
+                                                    (False, False),
+                                                    (True, True)])
+def test_secure_decode_step_on_the_card_equals_cpu(cuda, customized,
+                                                   static_norm):
+    """Logits and KV cache of the card's decode steps (B1 on cached limbs,
+    batched B5) == the CPU's plain products, bit for bit; the step
+    launches B1 and the batched B5 only."""
+    from repro_torch.core import secure_transformer as st
+    keys = prf.split(prf.PRNGKey(7), 3)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        lm, _ = st.share_lm_params(prf.PRNGKey(1), 40, 64, 4, 96, 2, RING32,
+                                   device=dev)
+        cache = st.init_kv_cache(2, 4, 16, 16, RING32, device=dev)
+        before = dict(kbuild.LAUNCHES)
+        lgs = []
+        for p, t in enumerate((3, 17, 5)):
+            lg, cache = st.secure_decode_step(lm, cache, t, p, keys,
+                                              customized, static_norm)
+            lgs.append(lg.cpu())
+        diff = {k: v - before[k] for k, v in kbuild.LAUNCHES.items()
+                if v != before[k]}
+        runs[dev] = (torch.stack(lgs), cache.k.cpu(), cache.v.cpu(), diff)
+    assert runs["cpu"][3] == {}
+    assert runs["cuda"][3] == {"rss_matmul": 3 * (6 * 2 + 1),
+                               "ring_matmul_batched": 3 * 2 * 2}
+    for a, b in zip(runs["cpu"][:3], runs["cuda"][:3]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_secure_lm_limb_caches_on_the_card(cuda):
+    """On the card every weight linear carries its limb cache; a linear
+    without one raises there (no plain product on a CUDA tensor)."""
+    import dataclasses
+    from repro_torch.core import secure_transformer as st
+    lm, _ = st.share_lm_params(prf.PRNGKey(1), 16, 16, 2, 32, 1, RING32,
+                               device=cuda)
+    assert sorted(lm.blocks[0].limbs) == sorted(st.WEIGHT_LINEARS)
+    assert lm.w_out_limbs.n == 16
+    bare = dataclasses.replace(
+        lm, w_out_limbs=None,
+        blocks=tuple(dataclasses.replace(b, limbs=None) for b in lm.blocks))
+    cache = st.init_kv_cache(1, 2, 8, 8, RING32, device=cuda)
+    with pytest.raises(RuntimeError, match="cached weight limbs"):
+        st.secure_decode_step(bare, cache, 0, 0,
+                              prf.split(prf.PRNGKey(7), 3))

@@ -216,3 +216,19 @@ def test_ssd_decode_matches_reference():
         assert _close(got, want.astype(jnp.float32), 2.0 ** -7)
         assert _close(c["state"], jc["state"], 1e-5)
         assert _within_bf16(c["conv"], jc["conv"])
+
+
+@pytest.mark.parametrize("mutant", [False, True])
+def test_jitter_source_patches_every_site(mutant):
+    """``kernels/ssd_jitter.py`` finds each of its anchors once in
+    ``csrc/ssd_scan.cu`` (a change to the source that moves one fails
+    here, not on the card); the mutant drops exactly one barrier."""
+    from repro_torch.kernels import ssd_jitter
+    src = (kbuild.SOURCE_DIR / "ssd_scan.cu").read_text()
+    out = ssd_jitter.jittered_source(mutant)
+    calls = out.count("jitter(") - out.count("void jitter(") \
+        - out.count("ssd_set_jitter(")
+    assert calls == len(ssd_jitter.SITES) - 1 + 2   # sites 2 and 5 add two
+    assert "ssd_set_jitter" in out
+    assert out.count("__syncthreads();") \
+        == src.count("__syncthreads();") - (1 if mutant else 0)
