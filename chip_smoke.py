@@ -147,8 +147,8 @@ Phases, each fatal on failure:
               and B1 at its decode shapes (M = 1: 2048 x 2048, 2048 x 5632,
               5632 x 2048, 2048 x 32000) == its plain version, timed, with
               the sum a token.  Then serve_lm (customized attention, full
-              RMSNorm; prompt 8, gen 8, buckets 16,64, a warm-up and 2 timed
-              generations) with the counts zeroed before
+              RMSNorm; prompt 8, gen 8, buckets 16,64, a warm-up and 1 timed
+              generation) with the counts zeroed before
               and read after: it must launch only B1 and the batched B5, at
               their exact counts, and its ledger equals lm_step_cost (or it
               raises); prints prefill seconds, decode tok/s, KB and rounds a
@@ -161,9 +161,39 @@ Phases, each fatal on failure:
               port's CPU run bit for bit; then one more customized + RMSNorm
               step there, timed and profiled (device busy share, kernels).
 
-Prints the kernels' JSON line (ten rows: the nine kernels and B5's batched
-entry, each with its launches by phase), then the card's name and power
-limit, then the result line.  Exits
+12. mesh    - one party a process: three gloo ranks on the same card
+              (core/party_group.py; every kernel built before they start).
+              First B1's and B2's pair entries (one party, S = 1, the
+              neighbour share from its own pointer) at every per-party
+              shape of the paths below (CifarNet2 and MnistNet1 with
+              shared weights; the secure LM's decode shapes at 2 blocks)
+              == their plain versions, exactly (B1 on both routes, split
+              shapes repeated), each timed beside the stacked entry on the
+              same S = 1 inputs.  Then serve(backend="mesh"): CifarNet2
+              with shared weights (B1 and B2 on their pair entries) and
+              public ones (B3 and B4 at S = 2) at batch 32, local and mesh
+              in turns (local, mesh, mesh, local; 4 queries a run, the
+              second mesh run also profiled in every rank): the opened
+              logits == local bit for bit, each rank launches the path's
+              kernels once a linear layer a query (once a projection a
+              step on the LM), exactly, by its own count; the three
+              ranks' wire within 2% of the
+              ledger's online + offline bytes; prints q/s of both, each
+              rank's wire bytes, messages, staging ms and device busy
+              share.  MnistNet1 from the tape pool (depth 4): zero
+              threefry calls a query in every rank, online wire == online
+              ledger exactly, logits == inline local; under verify "full"
+              the logits == unverified, and the carried-pair fault cells
+              (reshare P1, open P1, send; corrupt) raise with the local
+              backend's (op, index, tag, round, party).  Last the secure
+              LM at SLM's widths and 2 blocks (prompt 4, gen 4, bucket 16)
+              on both backends: logits, tokens and every rank's pair of
+              the KV cache == local bit for bit, tok/s of both, the wire a
+              decode step == its ledger.
+
+Prints the kernels' JSON line (twelve rows: the nine kernels, B5's batched
+entry and B1's and B2's pair entries, each with its launches by phase),
+then the card's name and power limit, then the result line.  Exits
 non-zero without a result when no CUDA device is available or when the
 port's sources are not beside this script.
 """
@@ -218,6 +248,8 @@ MNIST4_SHAPES = [(25088, 25, 32), (6272, 800, 64), (32, 3136, 512),
                  (32, 512, 10)]
 REPLACES = {
     "rss_matmul": "src/repro/kernels/rss_matmul.py:118",
+    "rss_matmul_pair": "src/repro/kernels/rss_matmul.py:118",
+    "grouped_rss_matmul_pair": "src/repro/kernels/bin_rss_matmul.py:331",
     "ring_matmul_batched": "src/repro/kernels/ring_matmul.py:27",
     "grouped_rss_matmul": "src/repro/kernels/bin_rss_matmul.py:331",
     "bin_rss_matmul": "src/repro/kernels/bin_rss_matmul.py:127",
@@ -232,6 +264,9 @@ SOURCES = {**{name: f"src/repro_torch/csrc/{name}.cu"
               for name in LINEAR_KERNELS + ("ring_matmul", "flash_attention",
                                             "ssd_scan")},
            "ring_matmul_batched": "src/repro_torch/csrc/ring_matmul.cu",
+           "rss_matmul_pair": "src/repro_torch/csrc/rss_matmul.cu",
+           "grouped_rss_matmul_pair":
+               "src/repro_torch/csrc/grouped_rss_matmul.cu",
            "bin_weight_matmul": "src/repro_torch/csrc/binary_matmul.cu",
            "bin_bin_matmul": "src/repro_torch/csrc/binary_matmul.cu"}
 
@@ -271,7 +306,8 @@ FAULT_MODES = ("corrupt", "zero", "replay", "drop")
 # card (12 B of shares, 72 B of WeightLimbs), so 12 blocks are ~46 GB
 SLM = dict(d=2048, heads=32, d_ff=5632, vocab=32000)
 SLM_BLOCKS = 12
-SLM_SERVE = dict(prompt_len=8, gen=8, buckets=(16, 64), queries=2)
+# one timed generation (two until phase 12 came: the script's time limit)
+SLM_SERVE = dict(prompt_len=8, gen=8, buckets=(16, 64), queries=1)
 SLM_CHECK = dict(blocks=2, prompt_len=4, gen=2)    # card == CPU
 SLM_MODES = ((True, False), (False, False), (True, True))  # custom/softmax
 B5_BATCH = 3 * 32          # one product per (party, head)
@@ -279,6 +315,13 @@ B5_BATCH = 3 * 32          # one product per (party, head)
 # blocks: wq wk wv wo, up, down, the head
 B1_DECODE = {(2048, 2048): 4 * SLM_BLOCKS, (2048, 5632): SLM_BLOCKS,
              (5632, 2048): SLM_BLOCKS, (2048, 32000): 1}
+# phase 12: the classifier paths served with one party a process (their
+# per-party B1 / B2 shapes are the stacked ones at S = 1), queries a run,
+# and the secure LM at SLM's widths, 2 blocks
+MESH_PATHS = (("CifarNet2", "shared", "auto", True),
+              ("MnistNet1", "shared", "auto", True))
+MESH_QUERIES = 4
+MESH_LM = dict(blocks=2, prompt_len=4, gen=4, buckets=(16,), queries=1)
 
 
 def fail(msg: str) -> None:
@@ -349,7 +392,7 @@ def path_shapes(net: str, weights: str, binary_linear: str, fused: bool):
     saved = {name: getattr(kops, fn) for name, fn in wrappers.items()}
 
     def recorder(name):
-        def rec(x, w, *args):
+        def rec(x, w, *args, **kw):
             key = (tuple(x.shape), w.n)
             if "grouped" in name:
                 key += (x.stride()[1] == 1,)
@@ -360,7 +403,7 @@ def path_shapes(net: str, weights: str, binary_linear: str, fused: bool):
             calls.append((name, *x.shape[-2:], w.n,
                           w.n_limbs if name.startswith("bin_") else 4,
                           x.shape[1] if grouped else None))
-            return saved[name](x, w, *args)
+            return saved[name](x, w, *args, **kw)
         return rec
 
     for name, fn in wrappers.items():
@@ -1776,6 +1819,339 @@ def secure_lm_card_vs_cpu() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 12. the mesh: one party a process
+# ---------------------------------------------------------------------------
+
+def check_pair_kernels(paths: dict) -> list:
+    """Phase 12 (kernels): B1's and B2's pair entries (one party, S = 1,
+    the neighbour share from its own pointer) at every per-party shape
+    phase 12's paths give them (CifarNet2 and MnistNet1 with shared
+    weights: the stacked shapes with S = 1; the secure LM's decode shapes
+    at MESH_LM's depth) == their plain versions, exactly (B1 on both
+    routes, split shapes repeated bit for bit); timed beside the stacked
+    entry on the same S = 1 inputs.  Returns the two rows; ``ms`` and the
+    bounds sum one rank's launches of one query of each classifier path
+    and of one LM token."""
+    import torch
+    from repro_torch.kernels import bin_rss_matmul as grp
+    from repro_torch.kernels import limbs
+    from repro_torch.kernels import rss_matmul as dense
+    from repro_torch.kernels.lowering import KernelConfig
+
+    sms = limbs.sm_count(torch.device("cuda"))
+    g = torch.Generator().manual_seed(12)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             generator=g)
+
+    dense_shapes, grouped_shapes = {}, {}
+    for key in MESH_PATHS:
+        for (xs, n), cnt in paths[key]["rss_matmul"].items():
+            k1 = ((1,) + xs[1:], n)
+            dense_shapes[k1] = dense_shapes.get(k1, 0) + cnt
+        for (xs, n, c_contig), cnt in paths[key]["grouped_rss_matmul"] \
+                .items():
+            k1 = ((1,) + xs[1:], n, c_contig)
+            grouped_shapes[k1] = grouped_shapes.get(k1, 0) + cnt
+    for (k, n), per_tok in B1_DECODE.items():   # at MESH_LM's depth
+        blocks_tok = per_tok // SLM_BLOCKS * MESH_LM["blocks"] if n != \
+            SLM["vocab"] else 1
+        k1 = ((1, 1, k), n)
+        dense_shapes[k1] = dense_shapes.get(k1, 0) + blocks_tok
+    rows = []
+    for name, shapes in (("rss_matmul_pair", dense_shapes),
+                         ("grouped_rss_matmul_pair", grouped_shapes)):
+        tot = {"ms": 0.0, "stacked_ms": 0.0, "plain_ms": 0.0, "b": 0.0,
+               "o": 0.0}
+        detail = []
+        for key, per in sorted(shapes.items()):
+            plan = None
+            if name == "rss_matmul_pair":
+                (s, m, k), n = key
+                x, xn = words(s, m, k), words(s, m, k)
+                wl = dense.pair_weight_limbs(words(2, k, n))
+                xd, xnd, wd = x.cuda(), xn.cuda(), on_card(wl)
+                run = lambda: dense.rss_matmul_parts(xd, wd, x_next_stack=xnd)
+                stacked = lambda: dense.rss_matmul_parts(xd, wd)
+                plain = lambda: dense.rss_matmul_parts_ref(x, wl, xn)
+                plan = limbs.limb_mma_plan(s, m, k, n, sms)
+                other = lambda r: dense._launch(xd, wd, KernelConfig(r), xnd)
+                nbytes = 4 * (2 * m * k + 2 * k * n + m * n)
+                ops = 40 * m * k * n
+                desc = {"S": s, "M": m, "K": k, "N": n}
+            else:
+                (s, c, m, k), n, c_contig = key
+                x, xd = _grouped_x(words, s, c, m, k, c_contig)
+                xn, xnd = _grouped_x(words, s, c, m, k, c_contig)
+                full = grp.grouped_weight_limbs(words(3, c, k, n))
+                wl = grp.GroupedWeightLimbs(*(a[0:1] for a in full))
+                wd = on_card(wl)
+                run = lambda: grp.grouped_rss_matmul_parts(
+                    xd, wd, x_next_stack=xnd)
+                stacked = lambda: grp.grouped_rss_matmul_parts(xd, wd)
+                plain = lambda: grp.grouped_rss_matmul_ref(x, wl, xn)
+                nbytes = 4 * (2 * c * m * k + 2 * c * k * n + c * m * n)
+                ops = 40 * c * m * k * n
+                desc = {"S": s, "C": c, "M": m, "K": k, "N": n}
+            got = run()
+            torch.cuda.synchronize()
+            want = plain()
+            err = int((got.cpu().long() - want.long()).abs().max())
+            if err != 0:
+                fail(f"{name} {desc}: kernel != plain version (max abs err "
+                     f"{err})")
+            route = ""
+            if plan is not None:
+                desc.update(route=plan[0], splits=plan[2])
+                route = f", {plan[0]}, split-K {plan[2]}"
+                if plan[2] > 1:
+                    for _ in range(SPLIT_REPEATS):
+                        if not torch.equal(run(), got):
+                            fail(f"{name} {desc}: repeats differ")
+                alt = (limbs.CUDA_CORE if plan[0] == limbs.TENSOR_CORE
+                       else limbs.TENSOR_CORE)
+                if not torch.equal(other(alt), got):
+                    fail(f"{name} {desc}: the {alt} route != plain version")
+            ms, st_ms = median_ms(run), median_ms(stacked)
+            pms = host_ms(plain)
+            b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
+            bound = max(b_ms, o_ms)
+            detail.append({**desc, "per_rank_query": per, "ms": ms,
+                           "stacked_s1_ms": st_ms, "plain_ms": pms,
+                           "bound_ms": bound})
+            print(f"[chip_smoke] {name} {desc} x{per}/rank: {ms:.5f} ms, the "
+                  f"stacked entry at S = 1 {st_ms:.5f} ms (bound "
+                  f"{bound:.5f} ms, {100 * bound / ms:.1f}%), plain on host "
+                  f"{pms:.3f} ms, exact{route}")
+            tot["ms"] += per * ms
+            tot["stacked_ms"] += per * st_ms
+            tot["plain_ms"] += per * pms
+            tot["b"] += per * b_ms
+            tot["o"] += per * o_ms
+        print(f"[chip_smoke] {name} over one rank's query of each mesh path "
+              f"and an LM token: {tot['ms']:.5f} ms, the stacked entry "
+              f"{tot['stacked_ms']:.5f} ms, bound "
+              f"{max(tot['b'], tot['o']):.5f} ms")
+        row = _row(name, tot["ms"], tot["plain_ms"], tot["b"], tot["o"],
+                   None, 0, detail)
+        row["stacked_ms"] = tot["stacked_ms"]
+        rows.append(row)
+    return rows
+
+
+def mesh_phase() -> dict:
+    """Phase 12 (paths): three gloo ranks on the card serve CifarNet2
+    (shared and public weights, inline), MnistNet1 (tape pool; verify
+    full and the carried-pair fault cells) and the secure LM, each held to
+    the local backend on the card; prints q/s of both backends in turns,
+    every rank's wire beside the ledger, staging and busy share.  Each
+    rank's launches, as it counted them, are held exactly to one a linear
+    layer a query (one a projection a step on the LM) on the path's
+    kernels.  Returns the ranks' launches, summed."""
+    import numpy as np
+    import torch
+    from repro_torch.core import integrity, prf, transport
+    from repro_torch.core.party_group import PartyGroup
+    from repro_torch.core.preprocessing import generate_tape, trace_material
+    from repro_torch.core.randomness import Parties
+    from repro_torch.core.ring import RING32
+    from repro_torch.core.rss import share
+    from repro_torch.core.secure_model import (make_secure_infer_mesh,
+                                               secure_infer)
+    from repro_torch.launch.serve_secure import build, serve, serve_lm
+    from repro_torch.nn.bnn import ALL_NETS, INPUT_SHAPES
+    import functools
+
+    launches: dict = {}
+
+    def one_query(net, dense, grouped):
+        """A rank's launches in one query of ``net``: ``dense`` once a
+        linear layer, ``grouped`` once a sepconv's depthwise half."""
+        spec = ALL_NETS[net]
+        want = {dense: sum(l.kind in ("conv", "fc", "sepconv")
+                           for l in spec),
+                grouped: sum(l.kind == "sepconv" for l in spec)}
+        return {k: v for k, v in want.items() if v}
+
+    def take(what, rank_counts, per_run, runs):
+        """Hold each rank's launches to ``runs`` × ``per_run`` exactly and
+        add them to the phase's."""
+        for r, got in enumerate(rank_counts):
+            got = {k: c for k, c in got.items() if c}
+            want = {k: runs * c for k, c in per_run.items()}
+            if got != want:
+                fail(f"{what}: rank {r} launched {got}, want {want}")
+            for k, c in got.items():
+                launches[k] = launches.get(k, 0) + c
+
+    with PartyGroup("cuda", timeout=120, deadline=600) as g:
+        # -- CifarNet2 shared and public, inline: local and mesh in turns --
+        for weights, kernels in (("shared", ("rss_matmul_pair",
+                                             "grouped_rss_matmul_pair")),
+                                 ("public", ("bin_rss_matmul",
+                                             "bin_grouped_matmul"))):
+            what = f"CifarNet2 {weights} batch {BATCH}"
+            qps = {"local": [], "mesh": []}
+            runs = {}
+            for backend in ("local", "mesh", "mesh", "local"):
+                st = serve("CifarNet2", BATCH, MESH_QUERIES, device="cuda",
+                           weights=weights, backend=backend, group=g,
+                           profile=backend == "mesh" and "mesh" in runs)
+                qps[backend].append(round(st["query_per_s"], 4))
+                runs.setdefault(backend, st)
+                if backend == "mesh":
+                    take(what, st["rank_launches"],
+                         one_query("CifarNet2", *kernels), st["mesh_runs"])
+                    runs["mesh_last"] = st
+            loc, msh = runs["local"], runs["mesh_last"]
+            if not np.array_equal(msh["logits"], loc["logits"]):
+                fail(f"{what}: mesh logits != local logits on the card")
+            if not msh["wire_rel_diff"] < 0.02:
+                fail(f"{what}: wire {msh['wire_bytes']} vs ledger "
+                     f"{msh['ledger_bytes']}")
+            busy = msh["rank_busy_share"]
+            per_q = {k: v for k, v in msh["launches_per_query"].items() if v}
+            staging = [round(v, 4) for v in msh["rank_staging_ms_per_query"]]
+            secs = [round(v, 5) for v in msh["rank_seconds"]]
+            print(f"[chip_smoke] mesh {what}: logits == local bit for bit; "
+                  f"q/s in turns (local, mesh, mesh, local) local "
+                  f"{qps['local']} mesh {qps['mesh']}; wire "
+                  f"{msh['wire_bytes']:,} B over the ranks "
+                  f"{msh['rank_wire_bytes']} ({msh['rank_wire_messages']} "
+                  f"messages) vs ledger {msh['ledger_bytes']:,} B online + "
+                  f"offline (rel diff {msh['wire_rel_diff']:.2e}); staging "
+                  f"ms a query {staging}; rank seconds {secs} (dealer's "
+                  f"wall {msh['wall_seconds']:.4f} s); device busy share a "
+                  f"rank {[round(b, 4) for b in busy] if busy else None}; "
+                  f"launches a query {per_q}")
+
+        # -- MnistNet1: tape pool, verify full, the fault cells -----------
+        inline = serve("MnistNet1", BATCH, MESH_QUERIES, device="cuda")
+        local_pool = serve("MnistNet1", BATCH, MESH_QUERIES, device="cuda",
+                           offline="pool", pool_depth=4)
+        pool = serve("MnistNet1", BATCH, MESH_QUERIES, device="cuda",
+                     backend="mesh", group=g, offline="pool", pool_depth=4)
+        mnist = one_query("MnistNet1", "rss_matmul_pair", None)
+        take("MnistNet1 mesh pool", pool["rank_launches"], mnist,
+             pool["mesh_runs"])
+        if pool["rank_prf_calls_per_query"] != [0, 0, 0]:
+            fail(f"MnistNet1 mesh pool: threefry calls a query "
+                 f"{pool['rank_prf_calls_per_query']}")
+        if not pool["wire_bytes"] == pool["wire_online_bytes"] \
+                == pool["online_bytes"]:
+            fail(f"MnistNet1 mesh pool: wire {pool['wire_bytes']} (online "
+                 f"{pool['wire_online_bytes']}) != online ledger "
+                 f"{pool['online_bytes']}")
+        if not np.array_equal(pool["logits"], local_pool["logits"]):
+            fail("MnistNet1 mesh pool: logits != the local pool's")
+        # a tape slice at the inline run's keys: tape-backed mesh == inline
+        model = build("MnistNet1", device="cuda")
+        x = np.random.default_rng(0).integers(
+            0, 2, (BATCH,) + INPUT_SHAPES["MnistNet1"]).astype(np.float32) \
+            - 0.5
+        xs = share(torch.as_tensor(x, device="cuda"), prf.PRNGKey(3), RING32)
+        keys = Parties.setup(prf.PRNGKey(7)).keys
+        spec = trace_material(model, tuple(x.shape))
+        fn = make_secure_infer_mesh(model, g, tape_spec=spec)
+        try:
+            tape_out = fn(keys, xs.shares, generate_tape(
+                spec, [keys], device="cuda").query_slice(0))
+        finally:
+            fn.close()
+        take("MnistNet1 mesh tape", [rk["launches"] for rk in
+                                     fn.last["ranks"]], mnist, 1)
+        if not torch.equal(tape_out.cuda(), secure_infer(
+                model, xs, Parties(keys, device="cuda"))):
+            fail("MnistNet1 mesh tape != inline local at the same keys")
+        print(f"[chip_smoke] mesh MnistNet1 batch {BATCH} pool (depth 4): 0 "
+              f"threefry calls a query in every rank; online wire "
+              f"{pool['wire_bytes']:,} B == online ledger "
+              f"{pool['online_bytes']:,} B; logits == the local pool's, and "
+              f"a tape slice at the inline keys == inline local; online "
+              f"{pool['query_per_s_online']:.3f} q/s, amortised "
+              f"{pool['query_per_s']:.3f} q/s (local: online "
+              f"{local_pool['query_per_s_online']:.3f}, amortised "
+              f"{local_pool['query_per_s']:.3f}, inline "
+              f"{inline['query_per_s']:.3f} q/s)")
+        ver = serve("MnistNet1", BATCH, MESH_QUERIES, device="cuda",
+                    backend="mesh", group=g, verify="full")
+        take("MnistNet1 mesh verify", ver["rank_launches"], mnist,
+             ver["mesh_runs"])
+        if not np.array_equal(ver["logits"], inline["logits"]):
+            fail("MnistNet1 mesh verify full: logits != unverified")
+        cells = []
+        for op, party in FAULT_OPS:
+            f = integrity.Fault(op, 0, "corrupt", party)
+            ft = integrity.FaultInjectingTransport(transport.LocalTransport(),
+                                                   [f])
+            v = integrity.Verifier("full")
+            with transport.use_transport(ft), integrity.verify_scope(v):
+                secure_infer(model, xs, Parties(keys, device="cuda"))
+                rep = v.traced_report()
+            try:
+                v.check(rep)
+                fail(f"fault {op}: not caught on the local backend")
+            except integrity.IntegrityError as e:
+                want = (e.op, e.index, e.tag, e.round, e.party)
+            fn = make_secure_infer_mesh(
+                model, g, verifier=integrity.Verifier("full"),
+                transport_wrap=functools.partial(
+                    integrity.FaultInjectingTransport, faults=[f]))
+            try:
+                fn(keys, xs.shares)
+                fail(f"fault {op}: not caught on the mesh")
+            except integrity.IntegrityError as e:
+                got = (e.op, e.index, e.tag, e.round, e.party)
+            finally:
+                fn.close()
+            take(f"fault {op}", [rk["launches"] for rk in
+                                 fn.last["ranks"]], mnist, 1)
+            if got != want:
+                fail(f"fault {op}: mesh {got} vs local {want}")
+            cells.append(f"{op}->{got}")
+        print(f"[chip_smoke] mesh MnistNet1 verify full: logits == "
+              f"unverified ({ver['verified_ops']} ops a query, "
+              f"{ver['query_per_s']:.3f} q/s); carried-pair fault cells "
+              f"== local fields: " + "; ".join(cells))
+
+        # -- the secure LM at TinyLlama's widths, MESH_LM's depth ----------
+        torch.cuda.empty_cache()
+        lm_kw = dict(**SLM, **MESH_LM, device="cuda")
+        loc = serve_lm(**lm_kw)
+        loc_cache = (loc["cache"].k.cpu(), loc["cache"].v.cpu())
+        del loc["cache"]
+        torch.cuda.empty_cache()
+        msh = serve_lm(**lm_kw, backend="mesh", group=g)
+        steps = (MESH_LM["queries"] + 1) * (MESH_LM["prompt_len"]
+                                            + MESH_LM["gen"] - 1)
+        take("secure LM mesh", msh["rank_launches"],
+             {"rss_matmul_pair": 6 * MESH_LM["blocks"] + 1,
+              "ring_matmul_batched": 2 * MESH_LM["blocks"]}, steps)
+        if msh["tokens"] != loc["tokens"] \
+                or not np.array_equal(msh["logits"], loc["logits"]):
+            fail("secure LM mesh: logits or tokens != local on the card")
+        k, v = msh["cache"]
+        for got, want in ((k, loc_cache[0]), (v, loc_cache[1])):
+            if not (torch.equal(got[0::2], want) and torch.equal(
+                    got[1::2], torch.roll(want, -1, dims=0))):
+                fail("secure LM mesh: a rank's KV cache pair != its rows "
+                     "of the local cache")
+        print(f"[chip_smoke] mesh secure LM d {SLM['d']} {MESH_LM['blocks']}"
+              f" blocks, prompt {MESH_LM['prompt_len']}, gen "
+              f"{MESH_LM['gen']}: logits, tokens and every rank's KV cache "
+              f"== local bit for bit; tok/s local {loc['tok_per_s']:.4f} "
+              f"mesh {msh['tok_per_s']:.4f} (decode local "
+              f"{loc['decode_tok_per_s']:.4f} mesh "
+              f"{msh['decode_tok_per_s']:.4f}); wire a decode step "
+              f"{msh['wire_bytes_per_step']:,} B == ledger "
+              f"{msh['ledger_bytes_per_step']:,} B; staging ms a step "
+              f"{[round(v, 3) for v in msh['rank_staging_ms_per_step']]}; "
+              f"launches a token (all ranks) {msh['launches_per_token']}")
+    return launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -1961,6 +2337,13 @@ def main() -> None:
     by_phase["secure-lm"] = secure_lm_phase(kbuild)
     secure_lm_card_vs_cpu()
     print(f"[chip_smoke] secure LM phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 12. the mesh: one party a process -----------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    rows += check_pair_kernels(paths)
+    by_phase["mesh"] = mesh_phase()
+    print(f"[chip_smoke] mesh phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_phase"] = {ph: c.get(row["name"], 0)
                                     for ph, c in by_phase.items()}

@@ -74,6 +74,20 @@ class CommLedger:
     def megabytes(self) -> float:
         return self.nbytes / 1e6
 
+    def as_dict(self) -> dict:
+        """Plain-dict copy (picklable: what a party process sends back)."""
+        return {"rounds": self.rounds, "nbytes": self.nbytes,
+                "pre_rounds": self.pre_rounds, "pre_nbytes": self.pre_nbytes,
+                "by_tag": {k: list(v) for k, v in self.by_tag.items()}}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "CommLedger":
+        led = cls(rounds=d["rounds"], nbytes=d["nbytes"],
+                  pre_rounds=d["pre_rounds"], pre_nbytes=d["pre_nbytes"])
+        for k, v in d["by_tag"].items():
+            led.by_tag[k] = list(v)
+        return led
+
     def summary(self) -> str:
         """Per-tag breakdown, hottest online tags first (offline ``pre:``
         tags follow, against the offline total)."""

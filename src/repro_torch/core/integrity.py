@@ -6,10 +6,12 @@ Port of ``repro/core/integrity.py``: the typed failures
 compare-view :class:`Verifier` in ``opens`` / ``full`` mode with
 :func:`verify_scope` / :func:`active`, the fault-injection harness
 (:class:`Fault`, :class:`FaultInjectingTransport`) and the ingest checks
-(:func:`verify_tape_slice`, :func:`verify_model_ingest`).  Only the
-stacked ``LocalTransport`` layout exists in the port so far, so the
-harness has the reference's stacked branch alone; its carried-pair
-(mesh) branch comes with the party-per-process transport.
+(:func:`verify_tape_slice`, :func:`verify_model_ingest`).  The harness
+has the reference's two branches: the stacked ``LocalTransport`` one and
+the carried-pair one, where it wraps one rank's ``MeshTransport`` and
+only the victim rank's received view is tampered.  Under the mesh each
+rank records 0-d digests, its report is one (n,) row per key, and the
+caller stacks the three ranks' rows to (3, n) before :meth:`Verifier.check`.
 
 The reference records digests while jax traces one program; the port
 runs eagerly, so a "trace" is one query: :func:`verify_scope` calls
@@ -186,10 +188,11 @@ class Verifier:
         comm.record("verify.digest", rounds=1 if n_ops else 0,
                     nbytes=PARTIES * sum(len(v) for v in self.rows.values())
                     * 4)
+        from . import transport
         dev = next((v[0].device for v in self.rows.values() if v), "cpu")
+        empty = (0,) if transport.current().carries_pair else (PARTIES, 0)
         return {k: (torch.stack(v, dim=-1) if v
-                    else torch.zeros((PARTIES, 0), dtype=torch.int32,
-                                     device=dev))
+                    else torch.zeros(empty, dtype=torch.int32, device=dev))
                 for k, v in self.rows.items()}
 
     # -- host-side check ---------------------------------------------------
@@ -315,22 +318,19 @@ class Fault:
 
 class FaultInjectingTransport:
     """Transport wrapper injecting configured :class:`Fault` s over the
-    stacked ``LocalTransport``.
+    stacked ``LocalTransport`` or one rank's ``MeshTransport``.
 
     Reimplements the four movement ops (never delegating movement to the
-    base, so honest digests are not observed twice); everything else
-    forwards to the base.  The program follows the victim's view, so an
-    unverified run returns what the victim would compute; the verifier's
-    digests see the other parties' honest views, so ``check`` names the
-    configured receiving party.  The op counters run from construction
-    (or :meth:`fresh`) on, across queries."""
+    base's observed ops, so honest digests are not observed twice);
+    everything else forwards to the base.  Stacked, the program follows
+    the victim's view, so an unverified run returns what the victim would
+    compute; under the mesh only the victim rank's received message is
+    tampered and every rank follows its own view.  Either way the
+    verifier's digests see the other parties' honest views, so ``check``
+    names the configured receiving party.  The op counters run from
+    construction (or :meth:`fresh`) on, across queries."""
 
     def __init__(self, base, faults):
-        if getattr(base, "carries_pair", False):
-            raise NotImplementedError(
-                "the port's fault harness wraps the stacked LocalTransport "
-                "only (the carried-pair branch comes with the mesh "
-                "transport)")
         self.base = base
         self.faults = [f if isinstance(f, Fault) else Fault(**f)
                        for f in faults]
@@ -373,6 +373,16 @@ class FaultInjectingTransport:
     def complete(self, parts):
         f = self._match("reshare")
         v = active()
+        if self.base.carries_pair:
+            recv = honest = self.base._recv_from_next(parts, "complete")
+            if f is not None:
+                bad = self._tamper(f, recv, "reshare")
+                if self.base.pid == f.party:
+                    recv = bad
+            self._stale["reshare"] = honest
+            if v is not None:
+                v.observe_pair(fold_digest(parts[0]), fold_digest(recv[0]))
+            return torch.cat([parts, recv])
         recv_msgs = [parts[(i + 1) % PARTIES] for i in range(PARTIES)]
         out = parts
         if f is not None:
@@ -396,6 +406,8 @@ class FaultInjectingTransport:
 
     def _open(self, shares, which: str):
         f = self._match("open")
+        if self.base.carries_pair:
+            return self._open_pair(shares, which, f)
         o = shares[0] + shares[1] + shares[2]
         views = [o] * PARTIES
         if f is not None:
@@ -413,9 +425,42 @@ class FaultInjectingTransport:
         # the program follows the victim's trajectory
         return views[f.party] if f is not None else o
 
+    def _open_pair(self, shares, which: str, f: Fault | None):
+        """The carried-pair opening: the victim's copy of the message it
+        received (open_parts: the part from its successor; open_rss: the
+        missing share x_{i+2}) is tampered on the victim rank only."""
+        if which == "parts":
+            g = self.base._gather(shares[0])
+            o = g[0] + g[1] + g[2]
+            stale = g[0]
+        else:
+            stale = self.base._recv_from_next(shares[1], "open_rss")
+            o = shares[0] + shares[1] + stale
+        if f is not None:
+            honest = g[(f.party + 1) % PARTIES] if which == "parts" else stale
+            bad = self._tamper(f, honest, "open")
+            if self.base.pid == f.party:
+                o = o - honest + bad
+        self._stale["open"] = stale
+        v = active()
+        if v is not None:
+            v.observe_open(fold_digest(o))
+        return o
+
     def send(self, x, frm: int, to: int):
         f = self._match("send")
         live = f is not None and f.party in (None, to)
+        if self.base.carries_pair:
+            r = self.base._p2p(x, frm, to)
+            if live:
+                bad = self._tamper(f, r, "send")
+                if self.base.pid == to:
+                    r = bad
+            self._stale["send"] = x
+            v = active()
+            if v is not None:
+                v.observe_send(fold_digest(x), fold_digest(r), frm, to)
+            return r
         out = x
         if live:
             out = self._tamper(f, x, "send")

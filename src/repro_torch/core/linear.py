@@ -140,6 +140,13 @@ def _plain_route(x: RSS, what: str) -> None:
                            f"caches the limbs for the CUDA kernels")
 
 
+def _next(t, stack):
+    """The neighbour operand of a kernel's pair entry: the carried second
+    slot under a pair-carrying transport; ``None`` on the stacked layout,
+    where the kernel finds x_{i+1} by index (no rolled copy)."""
+    return t.next_view(stack) if t.carries_pair else None
+
+
 def _matmul_parts(x: RSS, w: RSS | None, w_limbs=None,
                   dot=None, kcfg=None) -> torch.Tensor:
     """Additive product stack z_i (parts layout): local compute, no comm.
@@ -152,7 +159,8 @@ def _matmul_parts(x: RSS, w: RSS | None, w_limbs=None,
     t = transport.current()
     if w_limbs is not None:
         from ..kernels.ops import rss_matmul_parts_op
-        return rss_matmul_parts_op(t.own_view(x.shares), w_limbs, cfg=kcfg)
+        return rss_matmul_parts_op(t.own_view(x.shares), _next(t, x.shares),
+                                   w_limbs, cfg=kcfg)
     if dot is None:
         _plain_route(x, "matmul")
         dot = torch.matmul
@@ -278,7 +286,8 @@ def _grouped_conv_parts(x: RSS, w: RSS, stride: int, padding: int,
     t = transport.current()
     if w_limbs is not None:
         from ..kernels.ops import grouped_rss_matmul_op
-        z = grouped_rss_matmul_op(t.own_view(cols4.shares), w_limbs)
+        z = grouped_rss_matmul_op(t.own_view(cols4.shares),
+                                  _next(t, cols4.shares), w_limbs)
         return z.reshape(z.shape[0], b, ho, wo, cout)
     _plain_route(x, "depthwise conv")
     slots = t.rss_slots
@@ -464,7 +473,7 @@ def truncate_probabilistic(x: RSS, parties: Parties, frac: int | None = None,
     t = transport.current()
     r, r_plain = parties.rand_rss_open(x.shape, ring)
     zero = parties.zero_shares(x.shape, ring)
-    rp_parts = _add_slot0(zero, ring.to_signed(r_plain) >> f)
+    rp_parts = _add_slot0(zero, ring.to_signed(r_plain) >> f, parts=True)
     # the preprocessing reshare that turns the additive [r >> f] into RSS
     comm.record(tag, rounds=1, nbytes=3 * _numel(x.shape) * ring.nbytes,
                 preprocess=True)

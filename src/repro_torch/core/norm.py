@@ -21,7 +21,7 @@ import torch
 from .linear import (fused_rounds, mul, mul_truncate, square,
                      square_truncate, truncate)
 from .randomness import Parties
-from .rss import RSS, PARTIES, public_rss
+from .rss import RSS, public_rss
 
 __all__ = ["fuse_bn_sign_threshold", "fuse_bn_linear", "apply_sign_bn_shift",
            "secure_rmsnorm", "newton_rsqrt", "newton_reciprocal"]
@@ -69,7 +69,8 @@ def fuse_bn_linear(w, b, gamma, beta, mean, var, eps: float = 1e-5):
 
 def apply_sign_bn_shift(x: RSS, t_shares: RSS) -> RSS:
     """Online part of BN→Sign fusing: add the pre-shared threshold. Local."""
-    tsh = t_shares.shares.reshape((PARTIES,) + (1,) * (x.ndim - 1) + (-1,))
+    tsh = t_shares.shares.reshape((t_shares.shares.shape[0],)
+                                  + (1,) * (x.ndim - 1) + (-1,))
     return RSS(x.shares + tsh, x.ring)
 
 

@@ -145,6 +145,11 @@ class MaterialSpec:
     def __len__(self):
         return len(self.items)
 
+    def __getstate__(self):
+        # the cached plants stay with their process (a party process gets
+        # the spec alone)
+        return {**self.__dict__, "_gen": {}}
+
     def slab_structs(self) -> dict:
         """Per-query slabs as ``meta`` tensors: shape and dtype only (what
         a shape-only run of the online program takes)."""

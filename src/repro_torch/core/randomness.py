@@ -25,7 +25,14 @@ from . import prf, transport
 from .ring import RingSpec, default_ring
 from .rss import RSS, BinRSS, PARTIES
 
-__all__ = ["Parties"]
+__all__ = ["Parties", "party_keys"]
+
+
+def party_keys(keys, pid: int) -> list:
+    """What P_pid holds of the three keys: k_pid and k_{pid+1}, each shared
+    with one neighbour, and ``None`` in the third slot."""
+    return [tuple(k) if i in (pid, (pid + 1) % PARTIES) else None
+            for i, k in enumerate(keys)]
 
 
 @dataclasses.dataclass
@@ -34,14 +41,21 @@ class Parties:
 
     ``keys[i]`` is k_i (shared between P_i and P_{i+1}).  Program entry
     points call :meth:`fresh` so every run starts from the construction
-    base, as in the reference (one ``secure_infer`` per Parties)."""
+    base, as in the reference (one ``secure_infer`` per Parties).
+
+    A mesh rank holds two keys (:func:`party_keys`).  It runs every
+    party's expressions, as the reference's one SPMD program does, and
+    keeps only its own; a draw from the key it lacks is zeros, so a value
+    it holds or opens that depended on that key would differ from the
+    local run's."""
 
     keys: list  # three prf.Key
     _cnt: int = 0
     device: torch.device | str = "cpu"
 
     def __post_init__(self):
-        self.keys = [tuple(int(w) for w in k) for k in self.keys]
+        self.keys = [None if k is None else tuple(int(w) for w in k)
+                     for k in self.keys]
         self._base = self._cnt
 
     @classmethod
@@ -59,7 +73,18 @@ class Parties:
                 bits: bool = False) -> torch.Tensor:
         """Stacked draws of ``fold_in(keys[i], cnt)`` over the ``(i, cnt)``
         ``pairs``, one batched evaluation: ring words of ``ring`` (default
-        RING32), or with ``bits`` uint8 words."""
+        RING32), or with ``bits`` uint8 words; zeros for an absent key."""
+        held = [j for j, (i, _) in enumerate(pairs)
+                if self.keys[i] is not None]
+        if len(held) < len(pairs):
+            out = torch.zeros(
+                (len(pairs),) + tuple(int(d) for d in shape),
+                dtype=torch.uint8 if bits else (ring or default_ring()).dtype,
+                device=self.device)
+            if held:
+                out[held] = self._stream([pairs[j] for j in held], shape,
+                                         ring, bits)
+            return out
         ks = [prf.fold_in(self.keys[i], c) for i, c in pairs]
         if bits:
             return prf.bits_multi(ks, shape, torch.uint8, self.device)
@@ -95,6 +120,9 @@ class Parties:
         """(RSS of a random a, plaintext a): the simulation shortcut of
         the baselines that need the opened mask (``truncate_probabilistic``);
         every party's PRF stream is computed from the replicated keys."""
+        if None in self.keys:
+            raise ValueError("rand_rss_open opens the mask from all three "
+                             "keys: a simulation shortcut, not a party's")
         ring = ring or default_ring()
         cnt = self._next()
         fs = self._stream([(i, cnt) for i in range(PARTIES)], shape, ring)

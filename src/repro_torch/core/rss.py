@@ -5,9 +5,10 @@ Port of ``repro/core/rss.py`` (``RSS``, ``BinRSS``, ``share``,
 ``zeros_like_shares``, ``public_rss``).  The three additive shares are
 stacked on a leading axis of size 3 (``shares[i]`` is x_i, party P_i's
 view is ``(x_i, x_{i+1})``), as int32 (int64 for RING64) for arithmetic
-shares and uint8 {0, 1} for XOR shares.  Only the stacked single-program
-layout (``LocalTransport``) exists in the port so far, so
-party-conditional adds touch slot 0 directly.
+shares and uint8 {0, 1} for XOR shares.  Under a per-party transport
+(``MeshTransport``) the leading axis is the rank's pair ``[x_i, x_{i+1}]``;
+party-conditional adds (a public constant on slot 0) ask the transport
+for the slot mask there, and touch slot 0 directly on the stacked layout.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import dataclasses
 
 import torch
 
-from . import prf
+from . import prf, transport
 from .ring import RingSpec, default_ring, signed
 
 __all__ = ["RSS", "BinRSS", "share", "reconstruct", "share_bits",
@@ -35,8 +36,15 @@ def _as_ring(c, ring: RingSpec, device) -> torch.Tensor:
     return ring.wrap(c)
 
 
-def _add_slot0(stack: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """stack + c on share slot 0 only (the reference's party-0 mask)."""
+def _add_slot0(stack: torch.Tensor, c: torch.Tensor,
+               parts: bool = False) -> torch.Tensor:
+    """stack + c on absolute share slot 0 only (the reference's party-0
+    mask); ``parts``: ``stack`` is an additive-parts stack."""
+    t = transport.current()
+    if t.carries_pair:
+        mask = (t.party_mask_parts if parts else t.party_mask_rss)(
+            0, stack.ndim - 1, stack.dtype, stack.device)
+        return stack + c * mask
     return torch.cat([(stack[0] + c)[None], stack[1:]])
 
 
@@ -129,6 +137,11 @@ class BinRSS:
             return BinRSS(self.shares ^ other.shares)
         b = torch.as_tensor(other, dtype=torch.uint8,
                             device=self.shares.device)
+        t = transport.current()
+        if t.carries_pair:
+            mask = t.party_mask_rss(0, self.shares.ndim - 1, torch.uint8,
+                                    self.shares.device)
+            return BinRSS(self.shares ^ (b * mask))
         return BinRSS(torch.cat([(self.shares[0] ^ b)[None],
                                  self.shares[1:]]))
 
@@ -175,6 +188,6 @@ def public_rss(c, shape, ring: RingSpec | None = None,
     """Deterministic RSS of a public value: x_0 = c, x_1 = x_2 = 0."""
     ring = ring or default_ring()
     c = _as_ring(c, ring, device)
-    sh = torch.zeros((PARTIES,) + tuple(shape), dtype=ring.dtype,
-                     device=device)
+    sh = torch.zeros((transport.current().rss_slots,) + tuple(shape),
+                     dtype=ring.dtype, device=device)
     return RSS(_add_slot0(sh, c), ring)

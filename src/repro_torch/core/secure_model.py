@@ -35,15 +35,19 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
-from ..kernels.bin_rss_matmul import (grouped_weight_limbs,
+from ..kernels.bin_rss_matmul import (GroupedWeightLimbs,
+                                      grouped_weight_limbs,
+                                      pair_grouped_limbs,
                                       public_grouped_limbs,
                                       public_weight_limbs)
-from ..kernels.rss_matmul import precompute_weight_limbs
+from ..kernels.rss_matmul import (WeightLimbs, pair_weight_limbs,
+                                  precompute_weight_limbs)
 from ..nn.bnn import ALL_NETS
 from . import comm, prf, transport
 from .activation import (relu_from_msb, relu_from_msb_arith, sign_from_msb,
@@ -54,13 +58,14 @@ from .linear import (PublicTensor, bin_conv2d, bin_matmul, conv2d,
 from .msb import msb_extract, msb_extract_arith
 from .norm import fuse_bn_linear, fuse_bn_sign_threshold
 from .pooling import secure_maxpool, sign_maxpool_fused
-from .randomness import Parties
+from .randomness import Parties, party_keys
 from .ring import RingSpec, default_ring
 from .rss import RSS, share
 
 __all__ = ["SecureModel", "compile_secure", "secure_infer",
            "secure_infer_cost", "post_sign_linear_cost", "WEIGHT_MODES",
-           "BINARY_LINEAR_MODES"]
+           "BINARY_LINEAR_MODES", "make_secure_infer_mesh",
+           "secure_infer_mesh", "MeshSecureInfer"]
 
 WEIGHT_MODES = ("shared", "public")
 BINARY_LINEAR_MODES = ("auto", "generic", "off")
@@ -272,16 +277,19 @@ def _public_weight(enc: torch.Tensor, kind: str,
 def _weight_limbs_for(w: RSS, kind: str, part_idx: int):
     """Setup-time kernel operands of one weight-share stack: dense layers
     get ``WeightLimbs``; the depthwise half of a sepconv gets the
-    per-channel ``GroupedWeightLimbs`` (multiplier 1, so Cout == Cin)."""
+    per-channel ``GroupedWeightLimbs`` (multiplier 1, so Cout == Cin).
+    A stack of three gives every slot's; a party's pair (2, ...) gives its
+    own slot's alone, as a mesh rank builds it."""
+    s = int(w.shares.shape[0])
+    dense, grouped = ((precompute_weight_limbs, grouped_weight_limbs)
+                      if s == 3 else (pair_weight_limbs, pair_grouped_limbs))
     if kind == "fc":
-        return precompute_weight_limbs(w.shares)
+        return dense(w.shares)
     kh, kw, cin_g, cout = (int(d) for d in w.shape)
     if kind == "conv" or (kind == "sepconv" and part_idx == 1):
-        return precompute_weight_limbs(
-            w.shares.reshape(3, kh * kw * cin_g, cout))
+        return dense(w.shares.reshape(s, kh * kw * cin_g, cout))
     assert cin_g == 1, "depthwise kernels are (kh, kw, 1, Cin)"
-    return grouped_weight_limbs(
-        w.shares.reshape(3, kh * kw, cout, 1).permute(0, 2, 1, 3))
+    return grouped(w.shares.reshape(s, kh * kw, cout, 1).permute(0, 2, 1, 3))
 
 
 def _infer_linear_shared(h: RSS, op: dict, parties: Parties, idx: int,
@@ -524,3 +532,394 @@ def post_sign_linear_cost(model: SecureModel,
             nbytes += b
             rounds += r
     return nbytes, rounds
+
+
+# ---------------------------------------------------------------------------
+# Mesh backend: one party's program in each of three processes
+# ---------------------------------------------------------------------------
+
+def _is_public_key(k) -> bool:
+    """A model-ops entry is public iff it sits under a ``pub_*`` key (the
+    bin-public path's weights, bias, threshold and affine): such tensors
+    go whole to every party, not as a pair."""
+    return isinstance(k, str) and k.startswith("pub")
+
+
+# the kernel caches of share weights: each holds wf = w_s + w_{s+1} per slot
+_SHARE_CACHES = (WeightLimbs, GroupedWeightLimbs)
+# what the dealer's hand-off leaves where a share weight had a kernel cache:
+# the rank builds its own slot's there, from its pair
+OWN_SLOT = "own slot"
+
+
+def _map_tensors(obj, fn, public: bool = False, caches=None):
+    """``obj`` with every tensor leaf ``a`` replaced by ``fn(a, public)``,
+    through dicts (``public`` set under a ``pub_*`` key), lists, tuples,
+    NamedTuples (the kernels' caches) and dataclasses (``RSS``,
+    ``PublicTensor``).  With ``caches``, a share weight's kernel cache is
+    replaced by ``caches(cache)`` whole."""
+    if caches is not None and isinstance(obj, _SHARE_CACHES):
+        return caches(obj)
+    if isinstance(obj, torch.Tensor):
+        return fn(obj, public)
+    sub = lambda v, pub=public: _map_tensors(v, fn, pub, caches)
+    if isinstance(obj, dict):
+        return {k: sub(v, public or _is_public_key(k))
+                for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [sub(v) for v in obj]
+    if isinstance(obj, tuple):
+        items = [sub(v) for v in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: sub(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def _split_arrays(tree):
+    """(party-stacked tensor leaves, public ``pub_*`` tensor leaves, a
+    ``rebuild(shared, public)`` that puts new leaves back in order)."""
+    shared, public = [], []
+    _map_tensors(tree, lambda a, pub: (public if pub else shared).append(a))
+
+    def rebuild(new_shared, new_public):
+        its, itp = iter(new_shared), iter(new_public)
+        return _map_tensors(tree, lambda a, pub: next(itp if pub else its))
+
+    return shared, public, rebuild
+
+
+def _pair(a: torch.Tensor, pid: int) -> torch.Tensor:
+    """Rows (pid, pid+1) of a party-stacked tensor: P_pid's pair."""
+    return a[[pid, (pid + 1) % 3]]
+
+
+def hand_off(tree, pid: int):
+    """The dealer's hand-off of a party-stacked tree (a classifier's ops,
+    an LM's parameters) to P_pid: every share tensor as its pair, every
+    public (``pub_*``) one whole, all on the host, and no kernel cache of
+    a share weight: :data:`OWN_SLOT` stands in its place.  A cache's fused
+    operand in the next slot is w_{i+1} + w_{i+2}, which beside w_i is the
+    whole weight; each rank builds its own slot's cache from its pair
+    instead (:func:`_weight_limbs_for`, ``pair_weight_limbs``), and 8 B a
+    weight element cross rather than 56."""
+    def pair(a, pub):
+        if pub:
+            return a.cpu()
+        assert int(a.shape[0]) == 3, f"expected a party-stacked tensor: " \
+            f"{tuple(a.shape)}"
+        return _pair(a, pid).cpu()
+
+    return _map_tensors(tree, pair, caches=lambda c: OWN_SLOT)
+
+
+def check_pairs(tree, rank: int) -> None:
+    """A rank's check of what the dealer handed it: every share tensor a
+    pair (leading size 2) and no kernel cache of a share weight."""
+    bad = []
+
+    def see(a, pub):
+        if not pub and int(a.shape[0]) != 2:
+            bad.append(tuple(a.shape))
+
+    _map_tensors(tree, see, caches=lambda c: bad.append(type(c).__name__))
+    if bad:
+        raise AssertionError(f"P{rank} holds more than its pair: {bad}")
+
+
+def _pair_model(model: SecureModel, pid: int) -> SecureModel:
+    """The dealer's hand-off of a classifier to P_pid (:func:`hand_off`)."""
+    return dataclasses.replace(model, ops=hand_off(model.ops, pid),
+                               predicted=None)
+
+
+def _own_slot_caches(model: SecureModel) -> SecureModel:
+    """A rank's pair model with its own slot's weight cache wherever the
+    dealer's had one, built from its pair as ``compile_secure`` builds the
+    stacked ones."""
+    ops = []
+    for op in model.ops:
+        if "wlimbs" in op:
+            op = dict(op, wlimbs=[
+                _weight_limbs_for(w, op["op"], j) if c == OWN_SLOT else c
+                for j, (w, c) in enumerate(zip(op["w"], op["wlimbs"]))])
+        ops.append(op)
+    return dataclasses.replace(model, ops=ops)
+
+
+def _pair_slabs(slabs: dict, layout: dict, pid: int) -> dict:
+    """One query's tape slabs for P_pid: stack-pair slabs as pairs, parts
+    slabs as the own row, replicated slabs whole (host copies)."""
+    from .preprocessing import REPLICATED, STACK_PAIR
+    out = {}
+    for k, v in slabs.items():
+        if layout[k] == STACK_PAIR:
+            out[k] = _pair(v, pid)
+        elif layout[k] == REPLICATED:
+            out[k] = v
+        else:
+            out[k] = v[pid:pid + 1]
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _rank_setup_infer(state, key, model, spec, reveal_output, verify,
+                      transport_wrap):
+    """Party side of :class:`MeshSecureInfer`: check that the pair model
+    holds no third slot, take it onto this rank's device and build its own
+    slot's weight caches there."""
+    from . import integrity
+    dev = state["device"]
+    check_pairs(model.ops, state["rank"])
+    m = _own_slot_caches(comm._to_device(model, dev))
+    t = transport.MeshTransport(state["rank"])
+    state[key] = {"model": m, "spec": spec, "reveal": reveal_output,
+                  "wire": t.wire,
+                  "transport": transport_wrap(t) if transport_wrap else t,
+                  "verifier": (None if verify == "off"
+                               else integrity.Verifier(verify))}
+    _sync(dev)
+
+
+def _check_keys(keys, rank: int) -> None:
+    """A rank's check that the dealer sent it its two keys only."""
+    if keys[(rank + 2) % 3] is not None or None in (
+            keys[rank], keys[(rank + 1) % 3]):
+        raise AssertionError(f"P{rank} was sent other keys than k_{rank} "
+                             f"and k_{(rank + 1) % 3}")
+
+
+def _rank_drop(state, key):
+    state.pop(key, None)
+
+
+def _protocol_modes() -> tuple:
+    """The process-global protocol toggles (fused rounds, matmul mode),
+    which the dealer carries to the party processes with every task."""
+    from . import linear
+    return linear.fused_rounds(), linear._MATMUL_MODE
+
+
+def _set_protocol_modes(modes: tuple) -> None:
+    from . import linear
+    linear.set_fused_rounds(modes[0])
+    linear.set_matmul_mode(modes[1])
+
+
+def _rank_infer(state, key, keys, inputs, modes, profile=False):
+    """Party side of one batch of queries: ``inputs`` is a list of (x
+    pair, tape slabs or None), staged onto the device before the clock;
+    the ranks start together (a barrier) and each query is timed to the
+    device's completion.  Returns the last query's output, and per query
+    its seconds, wire counts, digest report (under a verifier) and, for
+    the first, its ledger and the verifier's op list."""
+    import torch.distributed as dist
+
+    from ..kernels import build as kbuild
+    from . import integrity
+    from .preprocessing import TapeParties
+    _check_keys(keys, state["rank"])
+    _set_protocol_modes(modes)
+    st = state[key]
+    dev = state["device"]
+    m, spec, v, t, wire = (st["model"], st["spec"], st["verifier"],
+                           st["transport"], st["wire"])
+    staged = [comm._to_device(i, dev) for i in inputs]
+    _sync(dev)
+
+    prf_calls = [0]
+    threefry = prf._threefry_tensor
+
+    def counted(*a):   # this rank's PRF evaluations, counted per query
+        prf_calls[0] += 1
+        return threefry(*a)
+
+    def query(x_pair, slabs):
+        prt = (TapeParties(keys, slabs, spec) if spec is not None
+               else Parties(keys, device=dev))
+        prf._threefry_tensor = counted
+        try:
+            with transport.use_transport(t), comm.listening(wire.listen), \
+                    comm.track() as led, integrity.verify_scope(v):
+                out = secure_infer(m, RSS(x_pair, m.ring), prt,
+                                   reveal_output=st["reveal"])
+                rep = v.traced_report() if v is not None else None
+        finally:
+            prf._threefry_tensor = threefry
+        return out, led, rep
+
+    launches0 = dict(kbuild.LAUNCHES)
+    records = []
+    dist.barrier()
+    t_all = time.perf_counter()
+    out = None
+    for q, (x_pair, slabs) in enumerate(staged):
+        wire.reset()
+        prf_calls[0] = 0
+        tq = time.perf_counter()
+        out, led, rep = query(x_pair, slabs)
+        _sync(dev)
+        rec = {"start": tq, "seconds": time.perf_counter() - tq,
+               "wire": wire.summary(), "prf_calls": prf_calls[0]}
+        if rep is not None:
+            rec["report"] = {k: r.cpu() for k, r in rep.items()}
+        if q == 0:
+            rec["ledger"] = led.as_dict()
+            if v is not None:
+                rec["meta"] = list(v.meta)
+        records.append(rec)
+    seconds = time.perf_counter() - t_all
+    launches = {k: c - launches0[k] for k, c in kbuild.LAUNCHES.items()
+                if c != launches0[k]}
+    prof = None
+    if profile and dev.type == "cuda":
+        from ..launch.profiling import profile_once
+        x_pair, slabs = staged[-1]
+        prof = profile_once(lambda: query(x_pair, slabs), dev,
+                            seconds / len(staged))
+    if st["reveal"]:
+        res = out.cpu()
+    else:
+        res = t.own_view(out.shares).cpu()
+    return {"out": res, "queries": records, "seconds": seconds,
+            "launches": launches, "profile": prof}
+
+
+class MeshSecureInfer:
+    """The runner :func:`make_secure_infer_mesh` returns: the dealer side
+    of secure inference with one party a process.
+
+    ``runner(keys, x_stack)`` (or ``runner(keys, x_stack, slabs)`` with a
+    tape spec) runs one query and returns the opened logits (the three
+    ranks' openings, checked equal) or, with ``reveal_output=False``, the
+    output RSS stacked from the ranks' own shares.  :meth:`run` serves a
+    batch of queries and returns every rank's measurements too."""
+
+    _count = 0
+
+    def __init__(self, model: SecureModel, group, reveal_output, tape_spec,
+                 verifier, transport_wrap):
+        MeshSecureInfer._count += 1
+        self.key = f"infer{MeshSecureInfer._count}"
+        self.model, self.group = model, group
+        self.reveal_output = reveal_output
+        self.tape_spec, self.verifier = tape_spec, verifier
+        self.layout = ({k: v.layout for k, v in tape_spec.slabs.items()}
+                       if tape_spec is not None else None)
+        self.last = None
+        group.run(_rank_setup_infer, [
+            (self.key, _pair_model(model, r), tape_spec, reveal_output,
+             verifier.mode if verifier is not None else "off",
+             transport_wrap) for r in range(3)])
+
+    def prepare(self, x_stack: torch.Tensor, slabs: dict | None = None):
+        """The dealer's staging of one query, outside the online program:
+        each rank's input pair and tape slabs, on the host."""
+        if (slabs is None) != (self.tape_spec is None):
+            raise ValueError("tape slabs go with a tape spec, and only then")
+        return [(_pair(x_stack, r).cpu(),
+                 None if slabs is None
+                 else _pair_slabs(slabs, self.layout, r))
+                for r in range(3)]
+
+    def run(self, keys, prepared: list, profile: bool = False) -> dict:
+        """Serve ``prepared`` (a list of :meth:`prepare` results, one a
+        query) in one batch.  Checks every query's digest report under a
+        verifier (raising ``IntegrityError`` before any output is
+        released) and that the ranks opened the same logits; returns
+        ``{"out", "ranks": [each rank's measurements]}``."""
+        ranks = self.group.run(_rank_infer, [
+            (self.key, party_keys(keys, r), [p[r] for p in prepared],
+             _protocol_modes(), profile) for r in range(3)])
+        self.last = {"out": None, "ranks": ranks}
+        if self.verifier is not None:
+            v = self.verifier
+            first = ranks[0]["queries"][0]
+            # the op list and rank 0's digests, as a local run leaves them
+            v.meta = first["meta"]
+            v.rows = {k: list(r.unbind(-1))
+                      for k, r in first["report"].items()}
+            for q in range(len(prepared)):
+                rows = [ranks[r]["queries"][q]["report"] for r in range(3)]
+                v.check({k: torch.stack([rw[k] for rw in rows])
+                         for k in rows[0]})
+        outs = [rk["out"] for rk in ranks]
+        if self.reveal_output:
+            for r in (1, 2):
+                if not torch.equal(outs[r], outs[0]):
+                    raise RuntimeError(f"P{r} opened other logits than P0")
+            out = outs[0]
+        else:
+            out = RSS(torch.cat(outs), self.model.ring)
+        self.last["out"] = out
+        return self.last
+
+    def __call__(self, keys, x_stack, slabs=None):
+        return self.run(keys, [self.prepare(x_stack, slabs)])["out"]
+
+    def close(self) -> None:
+        if not self.group.closed:
+            self.group.run(_rank_drop, (self.key,))
+
+
+def make_secure_infer_mesh(model: SecureModel, group=None, *,
+                           reveal_output: bool = True, tape_spec=None,
+                           verifier=None,
+                           transport_wrap=None) -> MeshSecureInfer:
+    """Secure inference with each party's program in its own process: a
+    :class:`MeshSecureInfer` over ``group`` (a
+    :class:`~.party_group.PartyGroup`; default: a new one on the model's
+    device).  Port of the reference's ``make_secure_infer_mesh`` on a
+    party-only mesh (its ``batch_axis`` is ROADMAP item A7b).
+
+    The dealer (this process) splits the model's party-stacked tensors
+    from its ``pub_*`` tensors and hands each rank only its pair (own +
+    next) and the public tensors whole; each rank checks that it holds no
+    third slot.  Every rank runs :func:`secure_infer` under a
+    :class:`~.transport.MeshTransport` with its own ``Parties`` (or, with
+    ``tape_spec``, a ``TapeParties`` on its slabs: stack-pair slabs as
+    pairs, parts slabs as its row, replicated slabs whole; no PRF call).
+    Same shapes give the local run's PRF words, so the opened logits equal
+    ``secure_infer``'s on the stacked simulation bit for bit.
+
+    ``verifier`` (an ``integrity.Verifier``): every rank digests its
+    message views; the reports come back through the task channel (not
+    the process group, so the wire holds only protocol traffic) and the
+    dealer stacks them to (3, n) and runs ``verifier.check`` before it
+    releases the logits.  ``transport_wrap(t)`` wraps each rank's
+    transport (``integrity.FaultInjectingTransport``, as a picklable
+    ``functools.partial``)."""
+    if group is None:
+        from .party_group import PartyGroup
+        group = PartyGroup(_model_device(model))
+    return MeshSecureInfer(model, group, reveal_output, tape_spec, verifier,
+                           transport_wrap)
+
+
+def _model_device(model: SecureModel) -> torch.device:
+    shared, public, _ = _split_arrays(model.ops)
+    return (shared or public)[0].device
+
+
+def secure_infer_mesh(model: SecureModel, x_shares: RSS, parties: Parties,
+                      group=None, *, reveal_output: bool = True):
+    """One secure inference with each party a process (the reference's
+    ``secure_infer_mesh``): the opened logits, bit-identical to
+    :func:`secure_infer` on the stacked simulation, or with
+    ``reveal_output=False`` the output RSS.  Without a ``group`` one is
+    started on the model's device and stopped after the query."""
+    from .party_group import PartyGroup
+    own = group is None
+    group = group or PartyGroup(_model_device(model))
+    try:
+        fn = make_secure_infer_mesh(model, group, reveal_output=reveal_output)
+        return fn(parties.keys, x_shares.shares)
+    finally:
+        if own:
+            group.close()

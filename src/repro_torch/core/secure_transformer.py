@@ -5,9 +5,10 @@ Port of ``repro/core/secure_transformer.py`` on the local transport:
 ``plaintext_block``, ``SecureKVCache`` / ``init_kv_cache`` (3 additive
 slots), ``SecureLMParams`` / ``share_lm_params``, ``secure_decode_step``,
 ``scan_prefill``, ``secure_prefill``, ``CompiledDecodeStep``,
-``plaintext_lm_forward`` and ``block_comm_profile``.  The same seeds give
-the reference's shares, logits, KV cache and ledger rows bit for bit.
-``make_secure_lm_mesh`` (the party-per-device step) is ROADMAP item A7.
+``plaintext_lm_forward``, ``block_comm_profile`` and
+``make_secure_lm_mesh`` (one party a process, core/party_group.py).  The
+same seeds give the reference's shares, logits, KV cache and ledger rows
+bit for bit.
 
 The customization recipe carried to the LM (DESIGN.md §4/§16): every linear
 is an Alg-2 RSS matmul fused with Π_trunc, the attention softmax is replaced
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -57,19 +59,20 @@ from .linear import (_open_shift, _reshare, fused_rounds, matmul,
                      matmul_truncate, reveal, set_fused_rounds,
                      set_matmul_mode, truncate)
 from .norm import _f32, secure_rmsnorm
-from .randomness import Parties
+from .randomness import Parties, party_keys
 from .ring import RingSpec, default_ring
 from .rss import RSS, share
 from .softmax import relu_attention_scores, secure_softmax
 from ..device import resolve_device
 from ..kernels.ops import ring_matmul_batched_op
-from ..kernels.rss_matmul import precompute_weight_limbs
+from ..kernels.rss_matmul import pair_weight_limbs, precompute_weight_limbs
 
 __all__ = ["SecureBlockParams", "share_block_params", "secure_block",
            "plaintext_block", "SecureKVCache", "init_kv_cache",
            "SecureLMParams", "share_lm_params", "secure_decode_step",
            "scan_prefill", "secure_prefill", "CompiledDecodeStep",
-           "make_secure_lm_mesh", "plaintext_lm_forward",
+           "make_secure_lm_mesh", "MeshDecodeStep", "MeshKVCache",
+           "plaintext_lm_forward",
            "block_comm_profile", "WEIGHT_LINEARS"]
 
 # the weight linears of a block, in SecureBlockParams' field order
@@ -102,11 +105,12 @@ class SecureBlockParams:
 
 def share_block_params(key: prf.Key, d: int, n_heads: int, d_ff: int,
                        ring: RingSpec | None = None,
-                       numpy_params: dict | None = None, device=None):
+                       numpy_params: dict | None = None, device=None,
+                       limbs: bool | None = None):
     """Model-owner setup: create (or take) plaintext weights and share them
-    on ``device`` (the card unless ``"cpu"``); on the card each weight
-    linear also gets its ``WeightLimbs`` cache.  Returns
-    ``(SecureBlockParams, plain numpy dict)``."""
+    on ``device`` (the card unless ``"cpu"``); each weight linear also gets
+    its ``WeightLimbs`` cache where ``limbs`` (default: on the card).
+    Returns ``(SecureBlockParams, plain numpy dict)``."""
     ring = ring or default_ring()
     device = resolve_device(device)
     hd = d // n_heads
@@ -129,8 +133,10 @@ def share_block_params(key: prf.Key, d: int, n_heads: int, d_ff: int,
     shared_p["wq"] = p["wq"] / math.sqrt(hd)
     sh = {k: share(torch.as_tensor(v, device=device), kk, ring)
           for (k, v), kk in zip(shared_p.items(), ks)}
+    if limbs is None:
+        limbs = device.type == "cuda"
     lm = ({k: precompute_weight_limbs(sh[k].shares) for k in WEIGHT_LINEARS}
-          if device.type == "cuda" else None)
+          if limbs else None)
     return SecureBlockParams(n_heads=n_heads, head_dim=hd, limbs=lm,
                              **sh), p
 
@@ -259,9 +265,10 @@ def plaintext_block(x, p, n_heads: int, customized: bool = True,
 @dataclasses.dataclass
 class SecureKVCache:
     """RSS-shared K/V cache of every block: ``k`` / ``v`` of shape
-    ``(3, n_blocks, n_heads, bucket, head_dim)`` in the ring dtype, the 3
-    additive slots of the local transport.  Unwritten rows are exact ring
-    zeros, so scores against them are exactly 0 before masking."""
+    ``(slots, n_blocks, n_heads, bucket, head_dim)`` in the ring dtype,
+    the 3 additive slots of the local transport or one party's pair (2
+    slots) under the mesh.  Unwritten rows are exact ring zeros, so scores
+    against them are exactly 0 before masking."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -270,17 +277,19 @@ class SecureKVCache:
     def bucket(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def device(self):
+        return self.k.device
+
 
 def init_kv_cache(n_blocks: int, n_heads: int, head_dim: int, bucket: int,
                   ring: RingSpec | None = None, slots: int = 3,
                   device=None) -> SecureKVCache:
-    """A zero cache on ``device`` (the card unless ``"cpu"``).  Only the
-    local transport's 3 slots: the mesh's 6-slot pair layout is ROADMAP
-    item A7."""
-    if slots != 3:
-        raise NotImplementedError(
-            f"a {slots}-slot cache is the mesh backend's pair layout "
-            f"(ROADMAP item A7); the port has the local transport's 3 slots")
+    """A zero cache on ``device`` (the card unless ``"cpu"``): 3 slots on
+    the local transport, 2 (a party's pair) in a mesh rank."""
+    if slots not in (2, 3):
+        raise ValueError(f"a cache has 3 slots (stacked) or 2 (one party's "
+                         f"pair), not {slots}")
     ring = ring or default_ring()
     device = resolve_device(device)
     shape = (slots, n_blocks, n_heads, bucket, head_dim)
@@ -320,16 +329,19 @@ class SecureLMParams:
 
 def share_lm_params(key: prf.Key, vocab: int, d: int, n_heads: int,
                     d_ff: int, n_blocks: int, ring: RingSpec | None = None,
-                    device=None):
+                    device=None, limbs: bool | None = None):
     """Model-owner setup for the LM: the reference's deterministic plaintext
     weights (numpy ``default_rng(7)``, scaled so every intermediate stays
     inside the Newton / bound envelopes of the fixed point) and their RSS
     sharing under the same key splits, on ``device`` (the card unless
-    ``"cpu"``; there every weight linear also gets its ``WeightLimbs``
-    cache).  Returns ``(SecureLMParams, plain_dict)``; the dict drives the
-    fp32 oracle."""
+    ``"cpu"``).  Where ``limbs`` (default: on the card) every weight linear
+    also gets its ``WeightLimbs`` cache; a mesh dealer passes ``False``
+    and each party builds its own.  Returns ``(SecureLMParams,
+    plain_dict)``; the dict drives the fp32 oracle."""
     ring = ring or default_ring()
     device = resolve_device(device)
+    if limbs is None:
+        limbs = device.type == "cuda"
     rng = np.random.default_rng(7)
     blocks, plain_blocks = [], []
     keys = prf.split(key, n_blocks + 3)
@@ -347,7 +359,8 @@ def share_lm_params(key: prf.Key, vocab: int, d: int, n_heads: int,
             "g2": np.ones((d,), np.float32),
         }
         bp, _ = share_block_params(keys[i], d, n_heads, d_ff, ring,
-                                   numpy_params=p, device=device)
+                                   numpy_params=p, device=device,
+                                   limbs=limbs)
         blocks.append(bp)
         plain_blocks.append(p)
     embed = rng.normal(0, 0.5, (vocab, d)).astype(np.float32)
@@ -359,7 +372,7 @@ def share_lm_params(key: prf.Key, vocab: int, d: int, n_heads: int,
         embed=share(on(embed), keys[-3], ring), blocks=tuple(blocks),
         gf=share(on(gf), keys[-2], ring), w_out=w_out_sh, vocab=vocab,
         w_out_limbs=(precompute_weight_limbs(w_out_sh.shares)
-                     if device.type == "cuda" else None))
+                     if limbs else None))
     plain = {"embed": embed, "blocks": plain_blocks, "gf": gf,
              "w_out": w_out}
     return lm, plain
@@ -382,7 +395,8 @@ def secure_decode_step(lm: SecureLMParams, cache: SecureKVCache, tok: int,
     ring = lm.embed.ring
     dev = lm.embed.shares.device
     pos, tok = int(pos), int(tok)
-    parties = Parties([prf.fold_in(k, pos) for k in keys], device=dev)
+    parties = Parties([None if k is None else prf.fold_in(k, pos)
+                       for k in keys], device=dev)
     h, hd = lm.n_heads, lm.head_dim
     d = h * hd
     bucket = cache.bucket
@@ -482,27 +496,33 @@ class CompiledDecodeStep:
     A build makes the bucket's constants on the device (the position range
     that masks the cache) and binds them to the step; ``traces`` counts
     builds, so serving can assert one per bucket.  ``raw`` is the uncounted
-    body (``raw(cache, tok, pos, keys)``), what a prefill loop runs.  The
-    reference's ``step_fn`` (the mesh step) is ROADMAP item A7's."""
+    body (``raw(cache, tok, pos, keys)``), what a prefill loop runs.
+    ``step_fn`` (as the reference's) replaces the local step, e.g. the
+    mesh step of :func:`make_secure_lm_mesh`, whose party processes build
+    their bucket constants themselves."""
 
-    def __init__(self, lm: SecureLMParams, customized: bool = True,
-                 static_norm: bool = False, tag: str = "lm", bucket=None):
+    def __init__(self, lm: SecureLMParams | None = None,
+                 customized: bool = True, static_norm: bool = False,
+                 tag: str = "lm", bucket=None, step_fn=None):
         self.traces = 0
         self.bucket = bucket   # padded bucket length (telemetry label)
         self._built = {}
 
         def raw(cache, tok, pos, keys, positions=None):
+            if step_fn is not None:
+                return step_fn(cache, tok, pos, keys)
             return secure_decode_step(lm, cache, tok, pos, keys, customized,
                                       static_norm, tag, positions=positions)
         self.raw = raw
 
-    def __call__(self, cache: SecureKVCache, tok: int, pos: int, keys):
-        key = (cache.bucket, str(cache.k.device))
+    def __call__(self, cache, tok: int, pos: int, keys):
+        key = (cache.bucket, str(cache.device))
         built = key in self._built
         if not built:
             self.traces += 1
-            self._built[key] = torch.arange(cache.bucket,
-                                            device=cache.k.device)
+            self._built[key] = (None if isinstance(cache, MeshKVCache)
+                                else torch.arange(cache.bucket,
+                                                  device=cache.device))
 
         def run():
             return self.raw(cache, tok, pos, keys,
@@ -518,11 +538,173 @@ class CompiledDecodeStep:
         return out
 
 
-def make_secure_lm_mesh(*args, **kwargs):
-    """The party-per-device decode step: ROADMAP item A7."""
-    raise NotImplementedError(
-        "make_secure_lm_mesh is the mesh backend (ROADMAP item A7); the port "
-        "serves the LM on the local transport")
+@dataclasses.dataclass
+class MeshKVCache:
+    """A KV cache that lives in the party processes of a
+    :class:`MeshDecodeStep`: each rank holds its pair ``(2, n_blocks,
+    n_heads, bucket, head_dim)`` of ``k`` and ``v`` between steps.  The
+    dealer keeps this handle only; :meth:`MeshDecodeStep.gather` reads
+    the pairs back."""
+
+    name: str
+    bucket: int
+    device: str = "mesh"
+
+
+def _rank_lm_setup(state, key, lm, customized, static_norm):
+    """Party side of :class:`MeshDecodeStep`: check that the LM the dealer
+    handed over (``secure_model.hand_off``) holds no third slot, take it
+    onto this rank's device, and there build the own slot's kernel caches
+    from the pairs: on the card (the kernels read them, and the dealer
+    need not build them), and wherever the dealer's LM had them."""
+    from .comm import _to_device
+    from .secure_model import _sync, check_pairs
+    dev = state["device"]
+    check_pairs(lm, state["rank"])
+    lm = _to_device(lm, dev)
+    build = lambda c: dev.type == "cuda" or c is not None
+    own = lambda w: pair_weight_limbs(w.shares)
+    lm = dataclasses.replace(
+        lm, w_out_limbs=own(lm.w_out) if build(lm.w_out_limbs) else None,
+        blocks=tuple(dataclasses.replace(
+            b, limbs={k: own(getattr(b, k)) for k in WEIGHT_LINEARS}
+            if build(b.limbs) else None) for b in lm.blocks))
+    state[key] = {"lm": lm, "customized": customized,
+                  "static_norm": static_norm, "caches": {},
+                  "transport": transport.MeshTransport(state["rank"])}
+    _sync(dev)
+
+
+def _rank_lm_cache(state, key, name, bucket):
+    st = state[key]
+    lm, dev = st["lm"], state["device"]
+    st["caches"][name] = (
+        init_kv_cache(lm.n_blocks, lm.n_heads, lm.head_dim, bucket,
+                      lm.embed.ring, slots=2, device=dev),
+        torch.arange(bucket, device=dev))
+
+
+def _rank_lm_step(state, key, name, tok, pos, keys, modes):
+    """One decode step on this rank's pair cache: the opened logits, the
+    step's seconds (to the device's completion), wire counts, ledger and
+    kernel launches."""
+    from ..kernels import build as kbuild
+    from .comm import listening, track
+    from .secure_model import _check_keys, _set_protocol_modes, _sync
+    _check_keys(keys, state["rank"])
+    _set_protocol_modes(modes)
+    st = state[key]
+    cache, positions = st["caches"][name]
+    t = st["transport"]
+    t.wire.reset()
+    launches0 = dict(kbuild.LAUNCHES)
+    t0 = time.perf_counter()
+    with transport.use_transport(t), listening(t.wire.listen), \
+            track() as led:
+        logits, _ = secure_decode_step(
+            st["lm"], cache, tok, pos, keys, st["customized"],
+            st["static_norm"], positions=positions)
+    _sync(state["device"])
+    return {"logits": logits.cpu(), "seconds": time.perf_counter() - t0,
+            "wire": t.wire.summary(), "ledger": led.as_dict(),
+            "launches": {k: c - launches0[k]
+                         for k, c in kbuild.LAUNCHES.items()
+                         if c != launches0[k]}}
+
+
+def _rank_lm_gather(state, key, name):
+    cache, _ = state[key]["caches"][name]
+    return cache.k.cpu(), cache.v.cpu()
+
+
+def _rank_lm_drop(state, key, name=None):
+    if name is None:
+        state.pop(key, None)
+    else:
+        state[key]["caches"].pop(name, None)
+
+
+class MeshDecodeStep:
+    """The decode step with one party a process (what
+    :func:`make_secure_lm_mesh` returns): ``step(cache, tok, pos, keys) ->
+    (logits, cache)`` on a :class:`MeshKVCache` from :meth:`new_cache`.
+    Every rank runs :func:`secure_decode_step` on its pair LM and pair
+    cache under a ``MeshTransport``; the three ranks' opened logits are
+    checked equal.  ``last`` holds the ranks' measurements of the last
+    step, ``rank_launches`` each rank's kernel launches over every step
+    and ``launches`` their sum."""
+
+    _count = 0
+
+    def __init__(self, lm: SecureLMParams, group, customized: bool = True,
+                 static_norm: bool = False):
+        MeshDecodeStep._count += 1
+        self.key = f"lm{MeshDecodeStep._count}"
+        self.group = group
+        self._caches = 0
+        self.last = None
+        self.rank_launches: list = [{} for _ in range(3)]
+        from .secure_model import hand_off
+        group.run(_rank_lm_setup, [(self.key, hand_off(lm, r), customized,
+                                    static_norm) for r in range(3)])
+
+    @property
+    def launches(self) -> dict:
+        return {k: sum(rl.get(k, 0) for rl in self.rank_launches)
+                for k in set().union(*self.rank_launches)}
+
+    def new_cache(self, bucket: int) -> MeshKVCache:
+        """A zero cache of ``bucket`` positions in every rank."""
+        self._caches += 1
+        cache = MeshKVCache(f"c{self._caches}", int(bucket))
+        self.group.run(_rank_lm_cache, (self.key, cache.name, cache.bucket))
+        return cache
+
+    def __call__(self, cache: MeshKVCache, tok: int, pos: int, keys):
+        from .secure_model import _protocol_modes
+        ranks = self.group.run(_rank_lm_step, [
+            (self.key, cache.name, int(tok), int(pos), party_keys(keys, r),
+             _protocol_modes()) for r in range(3)])
+        for r in (1, 2):
+            if not torch.equal(ranks[r]["logits"], ranks[0]["logits"]):
+                raise RuntimeError(f"P{r} opened other logits than P0")
+        for rl, rk in zip(self.rank_launches, ranks):
+            for k, c in rk["launches"].items():
+                rl[k] = rl.get(k, 0) + c
+        self.last = ranks
+        return ranks[0]["logits"], cache
+
+    def gather(self, cache: MeshKVCache):
+        """Every rank's pair cache in the reference's global pair layout:
+        ``(k, v)`` each ``(6, n_blocks, n_heads, bucket, head_dim)``, rows
+        2r and 2r+1 rank r's pair (own share, then its neighbour's)."""
+        got = self.group.run(_rank_lm_gather, (self.key, cache.name))
+        return (torch.cat([g[0] for g in got]),
+                torch.cat([g[1] for g in got]))
+
+    def drop(self, cache: MeshKVCache) -> None:
+        self.group.run(_rank_lm_drop, (self.key, cache.name))
+
+    def close(self) -> None:
+        if not self.group.closed:
+            self.group.run(_rank_lm_drop, (self.key,))
+
+
+def make_secure_lm_mesh(lm: SecureLMParams, group=None,
+                        customized: bool = True,
+                        static_norm: bool = False) -> MeshDecodeStep:
+    """The decode step with each party a process of ``group`` (a
+    :class:`~.party_group.PartyGroup`; default: a new one on the LM's
+    device).  Port of the reference's ``make_secure_lm_mesh``: the weights
+    enter pre-paired (the dealer hands each rank its pairs; on the card
+    each rank builds its own slot's ``WeightLimbs`` from them), and the KV
+    cache stays in each rank in pair layout between steps.  Same shapes
+    give the local step's PRF words, so logits and caches equal
+    :func:`secure_decode_step`'s bit for bit."""
+    if group is None:
+        from .party_group import PartyGroup
+        group = PartyGroup(lm.embed.shares.device)
+    return MeshDecodeStep(lm, group, customized, static_norm)
 
 
 def plaintext_lm_forward(plain: dict, tokens, n_heads: int,

@@ -181,7 +181,8 @@ class Tracer:
             if lane not in ("main", "parties") and lane not in lanes:
                 lanes[lane] = len(lanes)
         for p in range(self.parties):
-            lanes[f"party{p}"] = len(lanes)
+            # a span may name its party lane itself (the mesh's rank spans)
+            lanes.setdefault(f"party{p}", len(lanes))
         return lanes
 
     def _fan(self, lane: str) -> list[str]:

@@ -51,6 +51,14 @@
 // launch (about 5 µs between two CUDA events on the H100, whatever the
 // kernel) is a large share of each one.
 //
+// pair_kernel is the pair entry (grouped_rss_matmul_pair_launch): the TPU
+// kernel with S = 1 and an explicit neighbour, for a party under the mesh
+// transport that holds [x_i, x_{i+1}] and passes x_{i+1} as its own
+// operand.  With one slot there is no next party to keep in flight, so a
+// thread owns one (m, channel group) row of one slot and reads its x and
+// x_next rows (all loads of a chunk issued first) against the staged wf_s
+// and ws_s slabs.
+//
 // per_party_kernel is the first design (kept for chip_smoke.py's same-call
 // comparison): the party on blockIdx.y, each thread one (channel, m) row of
 // one party with a K loop of dependent loads.  It reads every share slot of
@@ -80,6 +88,7 @@ struct Args {
   long long szs, szc, szm, szn;      // z (S, C, M, N) element strides
   bool c_fast;                       // channels are the contiguous axis
   bool vec_z;                        // 16-byte z stores (V = 4, N = 1)
+  const uint32_t* xn = nullptr;      // the pair entry's neighbour stack
 };
 
 // V lanes of consecutive words
@@ -318,6 +327,56 @@ party_walk_any_kernel(const Args a) {
   }
 }
 
+// The pair entry: z_s[c] = x_s[c]·wf_s[c] + xn_s[c]·ws_s[c], xn read
+// through x's strides.  K runs in register chunks of CH words (one chunk
+// at the 3 x 3 windows), the loads of both rows issued before the chunk's
+// first multiply-add.
+template <int CH, int V>
+__global__ void __launch_bounds__(THREADS)
+pair_kernel(const Args a) {
+  extern __shared__ __align__(16) uint32_t wsh[];
+  const int C = a.C, K = a.K, N = a.N, kc = K * C, nkc = N * kc;
+  stage_weights(a, wsh);
+  __syncthreads();
+  const long long rows = a.M * (C / V);
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < rows * a.S; t += (long long)gridDim.x * blockDim.x) {
+    const int s = (int)(t / rows);
+    int c;
+    long long m;
+    locate<V>(a, t % rows, c, m);
+    const long long off = s * a.sxs + c * a.sxc + m * a.sxm;
+    uint32_t* zr = a.z + s * a.szs + c * a.szc + m * a.szm;
+    for (int n = 0; n < N; ++n) {
+      const uint32_t* wo = wsh + 2 * s * nkc + n * kc + c;   // wf_s
+      const uint32_t* wn = wo + nkc;                          // ws_s
+      uint32_t acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0u;
+      for (int k0 = 0; k0 < K; k0 += CH) {
+        uint32_t xv[CH][V], yv[CH][V];
+#pragma unroll
+        for (int j = 0; j < CH; ++j)
+          if (k0 + j < K) {
+            load_global<V>(xv[j], a.x + off + (k0 + j) * a.sxk);
+            load_global<V>(yv[j], a.xn + off + (k0 + j) * a.sxk);
+          }
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          if (k0 + j >= K) continue;
+          uint32_t f[V], g[V];
+          load_shared<V>(f, wo + (k0 + j) * C);
+          load_shared<V>(g, wn + (k0 + j) * C);
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[v] += xv[j][v] * f[v] + yv[j][v] * g[v];
+        }
+      }
+      store_z<V>(a, zr + n * a.szn, acc);
+    }
+  }
+}
+
 // One block a THREADS-row slice, at most BLOCKS_PER_SM blocks an SM (past
 // that the blocks stride over the rows, so a large slab is staged a bounded
 // number of times).
@@ -331,7 +390,8 @@ int launch_rows(void (*kernel)(const Args), const Args& a, int V,
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long rows = a.M * (a.C / V);
+  // the pair entry's threads take one slot's row each
+  const long long rows = a.M * (a.C / V) * (a.xn != nullptr ? a.S : 1);
   long long blocks = (rows + THREADS - 1) / THREADS;
   if (blocks > (long long)BLOCKS_PER_SM * sms)
     blocks = (long long)BLOCKS_PER_SM * sms;
@@ -432,4 +492,30 @@ extern "C" int grouped_rss_matmul_launch(
   a.vec_z = vec && szc == 1 && szm % 4 == 0 && szs % 4 == 0
       && (N == 1 || szn % 4 == 0) && (uintptr_t)z % 16 == 0;
   return vec ? launch_all<4>(a, smem, st) : launch_all<1>(a, smem, st);
+}
+
+// The pair entry: x and xn (S, C, M, K) with the same element strides sx*,
+// x_{p+1} read from xn; otherwise as grouped_rss_matmul_launch's mode 0
+// (8·S·C·K·N bytes of shared memory).
+extern "C" int grouped_rss_matmul_pair_launch(
+    const void* x, const void* xn, const void* wf, const void* ws, void* z,
+    int S, int C, long long M, int K, int N, long long sxs, long long sxc,
+    long long sxm, long long sxk, long long szs, long long szc, long long szm,
+    long long szn, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (xn == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)S * C * K * N * sizeof(uint32_t);
+  Args a{(const uint32_t*)x, (const uint32_t*)wf, (const uint32_t*)ws,
+         (uint32_t*)z, S, C, K, N, M, sxs, sxc, sxm, sxk, szs, szc, szm, szn,
+         sxc <= sxm, false, (const uint32_t*)xn};
+  const bool vec = a.c_fast && sxc == 1 && C % 4 == 0 && sxm % 4 == 0
+      && sxk % 4 == 0 && sxs % 4 == 0 && (uintptr_t)x % 16 == 0
+      && (uintptr_t)xn % 16 == 0;
+  a.vec_z = vec && szc == 1 && szm % 4 == 0 && szs % 4 == 0
+      && (N == 1 || szn % 4 == 0) && (uintptr_t)z % 16 == 0;
+  // chunks of 9 words with 4 channels a thread (two 9 x 4 rows fit the
+  // registers), of 25 with one
+  if (vec) return launch_rows(pair_kernel<9, 4>, a, 4, smem, st);
+  return launch_rows(K == 9 ? pair_kernel<9, 1> : pair_kernel<K_CHUNK, 1>, a,
+                     1, smem, st);
 }

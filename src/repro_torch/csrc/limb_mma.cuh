@@ -6,6 +6,9 @@
 //
 //     z_s += x_{(s+o) % S} · W_{s,o}      (mod 2^32)
 //
+// or, given the neighbour stack xn (B1's pair entry: one party holding
+// its pair [x_i, x_{i+1}], S = 1), x_s for o = 0 and xn_s for o = 1.
+//
 // where W_{s,o} is given as L int8 limbs, K-major and 128-padded:
 // (S_w, OPS, L, Np, Kp), S_w = S (B1: o = 0 the fused operand wf_s, o = 1
 // the share ws_s, which multiplies x_{s+1}) or 1 (B3: one public weight,
@@ -208,6 +211,7 @@ __device__ __forceinline__ void load_stage(
 template <int OPS, int L>
 __global__ void __launch_bounds__(THREADS, 2)
 limb_mma_kernel(const uint32_t* __restrict__ x,
+                const uint32_t* __restrict__ xn,
                 const int8_t* __restrict__ w,
                 uint32_t* __restrict__ z, int S, long long M, int K, int N,
                 int Kp, int Np, long long w_slot_stride, int n_tiles,
@@ -230,7 +234,9 @@ limb_mma_kernel(const uint32_t* __restrict__ x,
 
   const uint32_t* xo[OPS];
 #pragma unroll
-  for (int o = 0; o < OPS; ++o) xo[o] = x + (long long)((s + o) % S) * M * K;
+  for (int o = 0; o < OPS; ++o)
+    xo[o] = (o == 1 && xn != nullptr) ? xn + (long long)s * M * K
+                                      : x + (long long)((s + o) % S) * M * K;
   const int8_t* ws = w + s * w_slot_stride;
   const long long plane = (long long)Np * Kp;
   auto load = [&](int t, int stage) {
@@ -313,11 +319,12 @@ limb_mma_kernel(const uint32_t* __restrict__ x,
 // x (S, M, K) words, w (S_w, OPS, L, Np, Kp) int8 limbs (w_slot_stride 0
 // for one weight shared by every slot), z (S, M, N) words; per_split K
 // stages a block.  zeroed: the caller has zeroed z on the stream already
-// (a split-K launch adds into it).
+// (a split-K launch adds into it).  xn: the neighbour stack (S, M, K) that
+// operand 1 reads, or null for x_{(s+1) % S}.
 template <int OPS, int L>
 int launch(const void* x, const void* w, void* z, int S, long long M, int K,
            int N, int Kp, int Np, long long w_slot_stride, int per_split,
-           cudaStream_t st, bool zeroed = false) {
+           cudaStream_t st, bool zeroed = false, const void* xn = nullptr) {
   const size_t out_bytes = (size_t)S * M * N * sizeof(uint32_t);
   if (K == 0) return (int)cudaMemsetAsync(z, 0, out_bytes, st);
   if (per_split < 1 || Kp % BK || Np % BN || Kp < K || Np < N)
@@ -335,11 +342,13 @@ int launch(const void* x, const void* w, void* z, int S, long long M, int K,
       limb_mma_kernel<OPS, L>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return (int)e;
-  const bool vec = K % 4 == 0 && (uintptr_t)x % 16 == 0;
+  const bool vec = K % 4 == 0 && (uintptr_t)x % 16 == 0
+      && (uintptr_t)xn % 16 == 0;
   const dim3 grid((unsigned)(S * m_tiles * n_tiles), (unsigned)splits);
   limb_mma_kernel<OPS, L><<<grid, THREADS, smem, st>>>(
-      (const uint32_t*)x, (const int8_t*)w, (uint32_t*)z, S, M, K, N, Kp, Np,
-      w_slot_stride, n_tiles, per_split * BK, vec);
+      (const uint32_t*)x, (const uint32_t*)xn, (const int8_t*)w,
+      (uint32_t*)z, S, M, K, N, Kp, Np, w_slot_stride, n_tiles,
+      per_split * BK, vec);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,12 @@
 //    and ws_p in shared memory; each of the 256 threads owns a 4 x 4 block
 //    of outputs, strided by 16 so shared-memory reads are conflict-free.
 //
+// The pair entry (rss_matmul_pair_launch) is the TPU kernel with S = 1 and
+// an explicit xnl: a party under the mesh transport holds its pair
+// [x_i, x_{i+1}] and passes x_{i+1} as its own operand, which both routes
+// read in place of slot (p + 1) % S.  The stacked entry passes no
+// neighbour and is unchanged.
+//
 // Ragged M/K/N edges are masked (the limb cache is padded instead): every
 // shape the secure path produces (pointwise K = 3, fc N = 10) launches.
 //
@@ -44,6 +50,7 @@ constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
 rss_matmul_kernel(const uint32_t* __restrict__ x,
+                  const uint32_t* __restrict__ xn,
                   const uint32_t* __restrict__ wf,
                   const uint32_t* __restrict__ ws,
                   uint32_t* __restrict__ z,
@@ -63,7 +70,8 @@ rss_matmul_kernel(const uint32_t* __restrict__ x,
   const int ty = tid / 16;
 
   const uint32_t* xp = x + (long long)p * M * K;
-  const uint32_t* xnp = x + (long long)pn * M * K;
+  const uint32_t* xnp = xn != nullptr ? xn + (long long)p * M * K
+                                      : x + (long long)pn * M * K;
   const uint32_t* wfp = wf + (long long)p * K * N;
   const uint32_t* wsp = ws + (long long)p * K * N;
 
@@ -131,6 +139,26 @@ rss_matmul_kernel(const uint32_t* __restrict__ x,
 
 }  // namespace
 
+namespace {
+
+int launch_any(const void* x, const void* xn, const void* wf, const void* ws,
+               const void* wt, void* z, int S, long long M, int K, int N,
+               int Kp, int Np, int tensor_core, int per_split,
+               cudaStream_t st) {
+  if (tensor_core)
+    return limb_mma::launch<2, 4>(x, wt, z, S, M, K, N, Kp, Np,
+                                  2LL * 4 * Np * Kp, per_split, st, false,
+                                  xn);
+  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
+            (unsigned)S);
+  rss_matmul_kernel<<<grid, THREADS, 0, st>>>(
+      (const uint32_t*)x, (const uint32_t*)xn, (const uint32_t*)wf,
+      (const uint32_t*)ws, (uint32_t*)z, S, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // x: (S, M, K), wf / ws: (S, K, N), z: (S, M, N) contiguous 32-bit words;
 // wt: (S, 2, 4, Np, Kp) int8, the K-major limbs of wf and ws.  tensor_core
 // selects the route; per_split is the K stages of a split-K block.
@@ -139,14 +167,18 @@ extern "C" int rss_matmul_launch(const void* x, const void* wf, const void* ws,
                                  int K, int N, int Kp, int Np,
                                  int tensor_core, int per_split,
                                  void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (tensor_core)
-    return limb_mma::launch<2, 4>(x, wt, z, S, M, K, N, Kp, Np,
-                                  2LL * 4 * Np * Kp, per_split, st);
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
-            (unsigned)S);
-  rss_matmul_kernel<<<grid, THREADS, 0, st>>>(
-      (const uint32_t*)x, (const uint32_t*)wf, (const uint32_t*)ws,
-      (uint32_t*)z, S, M, K, N);
-  return (int)cudaGetLastError();
+  return launch_any(x, nullptr, wf, ws, wt, z, S, M, K, N, Kp, Np,
+                    tensor_core, per_split, (cudaStream_t)stream);
+}
+
+// The pair entry: as rss_matmul_launch, with x_{p+1} read from xn (S, M, K).
+extern "C" int rss_matmul_pair_launch(const void* x, const void* xn,
+                                      const void* wf, const void* ws,
+                                      const void* wt, void* z, int S,
+                                      long long M, int K, int N, int Kp,
+                                      int Np, int tensor_core, int per_split,
+                                      void* stream) {
+  if (xn == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_any(x, xn, wf, ws, wt, z, S, M, K, N, Kp, Np, tensor_core,
+                    per_split, (cudaStream_t)stream);
 }

@@ -26,7 +26,9 @@ Port of ``repro/kernels/bin_rss_matmul.py``:
   ``csrc/grouped_rss_matmul.cu`` (replaces ``_make_grouped_shared_kernel``)
   or raises: one thread reads each share slot's row once and writes every
   party's output, with all S parties' weight slabs in shared memory (up to
-  the card's opt-in limit).
+  the card's opt-in limit).  The pair entry (``x_next_stack`` given: a
+  party under ``MeshTransport``, S = 1) reads x_{i+1}[c] from that operand
+  (``grouped_rss_matmul_pair``).
 
 On a CPU or meta tensor every wrapper runs its plain version.  The grouped
 kernels read x through its strides, so callers may pass a permuted view
@@ -57,7 +59,7 @@ __all__ = ["PublicWeightLimbs", "min_public_limbs", "public_weight_limbs",
            "bin_rss_matmul_ref", "bin_rss_matmul_parts",
            "PublicGroupedLimbs", "public_grouped_limbs",
            "bin_grouped_matmul_ref", "bin_grouped_matmul_parts",
-           "GroupedWeightLimbs", "grouped_weight_limbs",
+           "GroupedWeightLimbs", "grouped_weight_limbs", "pair_grouped_limbs",
            "grouped_rss_matmul_ref", "grouped_rss_matmul_parts"]
 
 _SMEM_LIMIT = 48 * 1024
@@ -285,16 +287,31 @@ class GroupedWeightLimbs(typing.NamedTuple):
 def grouped_weight_limbs(w_shares: torch.Tensor) -> GroupedWeightLimbs:
     """Cache a (3, C, K, N) grouped weight-share stack, once at setup."""
     ws = w_shares.contiguous()
-    wf = ws + torch.roll(ws, -1, dims=0)
+    return _grouped_cache(ws, ws + torch.roll(ws, -1, dims=0))
+
+
+def pair_grouped_limbs(w_pair: torch.Tensor) -> GroupedWeightLimbs:
+    """One party's cache from its pair [w_i, w_{i+1}] (2, C, K, N): the own
+    slot alone (leading axis 1), wf_i = w_i + w_{i+1}, what the kernel's
+    pair entry reads; the same words as slot i of the stacked cache."""
+    ws = w_pair[0:1].contiguous()
+    return _grouped_cache(ws, ws + w_pair[1:2])
+
+
+def _grouped_cache(ws: torch.Tensor, wf: torch.Tensor) -> GroupedWeightLimbs:
     lim = lambda a: balanced_limbs(a).transpose(0, 1).contiguous()
     return GroupedWeightLimbs(ws=ws, wf=wf, wl=lim(ws), wfl=lim(wf))
 
 
 def grouped_rss_matmul_ref(x_stack: torch.Tensor,
-                           weights: GroupedWeightLimbs) -> torch.Tensor:
+                           weights: GroupedWeightLimbs,
+                           x_next_stack: torch.Tensor | None = None
+                           ) -> torch.Tensor:
     """Plain version: per-channel batched int32 matmuls on the cached
-    fused operand, (S, C, M, K) -> (S, C, M, N) (CPU / meta only)."""
-    xn = torch.roll(x_stack, -1, dims=0)
+    fused operand, (S, C, M, K) -> (S, C, M, N) (CPU / meta only); the
+    neighbour is ``x_next_stack`` or, stacked, the party-axis roll."""
+    xn = (torch.roll(x_stack, -1, dims=0) if x_next_stack is None
+          else x_next_stack)
     return torch.matmul(x_stack, weights.wf) + torch.matmul(xn, weights.ws)
 
 
@@ -305,13 +322,22 @@ _GROUPED_MODES = {ALL_PARTIES: 0, PER_PARTY: 1}
 
 
 def _launch(x_stack: torch.Tensor, weights: GroupedWeightLimbs,
-            design: str = ALL_PARTIES) -> torch.Tensor:
+            design: str = ALL_PARTIES,
+            x_next_stack: torch.Tensor | None = None) -> torch.Tensor:
     """Launch B2 (``design`` PER_PARTY: the first design, which
-    ``chip_smoke.py`` times beside it)."""
+    ``chip_smoke.py`` times beside it; with ``x_next_stack`` the pair
+    entry, whose neighbour rows share x's strides)."""
     s, c, m, k = x_stack.shape
     n = weights.n
     if x_stack.dtype != torch.int32:
         raise ValueError("grouped_rss_matmul: x must be int32")
+    if x_next_stack is not None and (
+            x_next_stack.dtype != torch.int32
+            or x_next_stack.shape != x_stack.shape
+            or x_next_stack.stride() != x_stack.stride()
+            or x_next_stack.device != x_stack.device):
+        raise ValueError("grouped_rss_matmul: x_next must be an int32 "
+                         "tensor of x's shape and strides on x's device")
     for name, t in (("ws", weights.ws), ("wf", weights.wf)):
         if t.dtype != torch.int32 or not t.is_contiguous() \
                 or t.device != x_stack.device:
@@ -332,26 +358,36 @@ def _launch(x_stack: torch.Tensor, weights: GroupedWeightLimbs,
     out = buf.permute(0, 2, 1, 3)
     if out.numel() == 0:
         return out
-    fn = build.library("grouped_rss_matmul")
-    err = fn(x_stack.data_ptr(), weights.wf.data_ptr(), weights.ws.data_ptr(),
-             out.data_ptr(), s, c, m, k, n, *x_stack.stride(), *out.stride(),
-             _GROUPED_MODES[design], build.stream_ptr(x_stack.device))
-    build.check("grouped_rss_matmul", err)
-    build.LAUNCHES["grouped_rss_matmul"] += 1
+    tail = (weights.wf.data_ptr(), weights.ws.data_ptr(), out.data_ptr(),
+            s, c, m, k, n, *x_stack.stride(), *out.stride())
+    if x_next_stack is None:
+        name = "grouped_rss_matmul"
+        err = build.library(name)(x_stack.data_ptr(), *tail,
+                                  _GROUPED_MODES[design],
+                                  build.stream_ptr(x_stack.device))
+    else:
+        name = "grouped_rss_matmul_pair"
+        err = build.library(name)(x_stack.data_ptr(), x_next_stack.data_ptr(),
+                                  *tail, build.stream_ptr(x_stack.device))
+    build.check(name, err)
+    build.LAUNCHES[name] += 1
     return out
 
 
 def grouped_rss_matmul_parts(x_stack: torch.Tensor,
-                             weights: GroupedWeightLimbs) -> torch.Tensor:
+                             weights: GroupedWeightLimbs,
+                             x_next_stack: torch.Tensor | None = None
+                             ) -> torch.Tensor:
     """All parties' additive grouped products, (S, C, M, K) ->
-    (S, C, M, N) int32.  CUDA tensors launch the kernel (or raise); CPU
-    and meta tensors run the plain version."""
+    (S, C, M, N) int32.  CUDA tensors launch the kernel (the pair entry
+    with ``x_next_stack``) or raise; CPU and meta tensors run the plain
+    version."""
     s, c, m, k = x_stack.shape
     assert (c, k) == (weights.channels, weights.k), \
         (x_stack.shape, weights.ws.shape)
     if x_stack.device.type == "cuda":
-        return _launch(x_stack, weights)
+        return _launch(x_stack, weights, x_next_stack=x_next_stack)
     if x_stack.device.type in ("cpu", "meta"):
-        return grouped_rss_matmul_ref(x_stack, weights)
+        return grouped_rss_matmul_ref(x_stack, weights, x_next_stack)
     raise ValueError(f"grouped_rss_matmul: unsupported device "
                      f"{x_stack.device}")

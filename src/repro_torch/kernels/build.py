@@ -4,7 +4,11 @@ Each ``csrc/<stem>.cu`` has a plain C interface (one or more entry points;
 shared device code lives in ``csrc/*.cuh``) and is compiled by nvcc into
 ``build/repro_torch/lib<name>-<hash>.so`` at the checkout's root at first
 use, then loaded with ``ctypes`` (no PyTorch headers: a build takes
-seconds).  :func:`build_all` starts one nvcc per source at once.
+seconds).  :func:`build_all` starts one nvcc per source at once.  Builds
+are safe under concurrent first use (the three party processes of a mesh
+run): a build holds a file lock in the build directory, and a library
+lands under its final name only by an atomic rename, so no process loads
+a half-written ``.so``.
 
 ``LAUNCHES`` counts kernel launches per kernel name: each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
@@ -12,7 +16,9 @@ went through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -37,9 +43,16 @@ KERNELS = {
     "rss_matmul": ("rss_matmul", "rss_matmul_launch",
                    [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I,
                     _P]),
+    "rss_matmul_pair": ("rss_matmul", "rss_matmul_pair_launch",
+                        [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I,
+                         _I, _P]),
     "grouped_rss_matmul": ("grouped_rss_matmul", "grouped_rss_matmul_launch",
                            [_P, _P, _P, _P, _I, _I, _L, _I, _I,
                             _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
+    "grouped_rss_matmul_pair": ("grouped_rss_matmul",
+                                "grouped_rss_matmul_pair_launch",
+                                [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I,
+                                 _L, _L, _L, _L, _L, _L, _L, _L, _P]),
     "bin_rss_matmul": ("bin_rss_matmul", "bin_rss_matmul_launch",
                        [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P]),
@@ -113,17 +126,32 @@ def _finish(stem: str, proc, tmp: Path, out: Path, log) -> None:
     os.replace(tmp, out)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Exclusive across processes: one builds, the others wait and then
+    find the library built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> dict[str, str]:
     """Build every kernel not yet built, one nvcc per source started
     together; returns {kernel name: nvcc log (ptxas register report)}."""
     stems = {stem for stem, _, _ in KERNELS.values()}
-    pending = {s: _start(s) for s in sorted(stems) if not _target(s).exists()}
-    errors = []
-    for s, job in pending.items():   # wait for every nvcc before raising
-        try:
-            _finish(s, *job)
-        except RuntimeError as e:
-            errors.append(e)
+    with _build_lock():
+        pending = {s: _start(s) for s in sorted(stems)
+                   if not _target(s).exists()}
+        errors = []
+        for s, job in pending.items():   # wait for every nvcc before raising
+            try:
+                _finish(s, *job)
+            except RuntimeError as e:
+                errors.append(e)
     if errors:
         raise errors[0]
     return {name: (BUILD_DIR / f"{KERNELS[name][0]}.log").read_text()
@@ -138,7 +166,9 @@ def library(name: str):
             stem, fn_name, argtypes = KERNELS[name]
             out = _target(stem)
             if not out.exists():
-                _finish(stem, *_start(stem))
+                with _build_lock():
+                    if not out.exists():
+                        _finish(stem, *_start(stem))
             lib = ctypes.CDLL(str(out))
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes

@@ -7,7 +7,13 @@ Port of ``repro/kernels/ops.py`` (``ring_matmul_op``,
 ``rss_matmul_dot``, ``_fold_grouped``, ``_unfold_grouped``,
 ``grouped_rss_matmul_op``, ``rss_matmul_parts_op``, ``bin_rss_matmul_op``,
 ``bin_grouped_matmul_op``, ``flash_attention_op``).  The leading dims of
-a share stack fold into M.  Unlike the
+a share stack fold into M.  ``rss_matmul_parts_op`` and
+``grouped_rss_matmul_op`` take the neighbour stack explicitly, as the
+reference's do: under a pair-carrying transport (``MeshTransport``) a
+party passes its own share and its neighbour's with S = 1 and the
+weights' own slot, and the kernels' pair entries read the neighbour from
+that operand; on the stacked layout the neighbour is found by index inside
+the kernel and ``x_next_stack`` is unused (callers pass ``None``).  Unlike the
 reference there is no 128-padding and no small-shape fallback: the CUDA
 kernels mask ragged edges and take every shape.  The grouped fold/unfold
 are views here (no copies): the grouped kernel reads and writes through
@@ -88,24 +94,47 @@ def _unfold_grouped(out: torch.Tensor, lead, n: int) -> torch.Tensor:
 
 
 def grouped_rss_matmul_op(x_stack: torch.Tensor,
+                          x_next_stack: torch.Tensor | None,
                           weights: GroupedWeightLimbs) -> torch.Tensor:
     """Depthwise additive-product stack from one kernel launch.
-    x_stack: (S, ..., K, C) patches; returns (S, ..., C, N)."""
+    x_stack / x_next_stack: (S, ..., K, C) patches of the own and the
+    neighbour share (the neighbour read only under a pair-carrying
+    transport, with the weights' own slot); returns (S, ..., C, N)."""
+    from ..core import transport
+    t = transport.current()
     lead = x_stack.shape[1:-2]
-    out = grouped_rss_matmul_parts(_fold_grouped(x_stack), weights)
+    if not t.carries_pair:
+        w_own, xn = weights, None
+    else:
+        w_own = GroupedWeightLimbs(*(t.own_view(a) for a in weights))
+        xn = _fold_grouped(x_next_stack)
+    out = grouped_rss_matmul_parts(_fold_grouped(x_stack), w_own,
+                                   x_next_stack=xn)
     return _unfold_grouped(out, lead, weights.n)
 
 
-def rss_matmul_parts_op(x_stack: torch.Tensor, weights: WeightLimbs,
+def rss_matmul_parts_op(x_stack: torch.Tensor,
+                        x_next_stack: torch.Tensor | None,
+                        weights: WeightLimbs,
                         cfg: KernelConfig | None = None) -> torch.Tensor:
-    """Full 3-party additive-product stack from one kernel launch (on
-    ``cfg``'s launch choice if given).  x_stack: (S, ..., K); returns
-    (S, ..., N).  The neighbour share is found by index inside the
-    kernel."""
+    """Additive-product stack from one kernel launch (on ``cfg``'s launch
+    choice if given).  x_stack / x_next_stack: (S, ..., K) own and
+    neighbour shares; returns (S, ..., N).  Stacked (S = 3): the
+    neighbour is found by index inside the kernel.  Under a pair-carrying
+    transport (S = 1) the weights' own slot and ``x_next_stack`` feed the
+    kernel's pair entry."""
+    from ..core import transport
+    t = transport.current()
     s = x_stack.shape[0]
     lead = x_stack.shape[1:-1]
     x2 = x_stack.reshape(s, -1, x_stack.shape[-1]).contiguous()
-    out = rss_matmul_parts(x2, weights, cfg)
+    if not t.carries_pair:
+        w_own, xn2 = weights, None
+    else:
+        w_own = WeightLimbs(*(t.own_view(a) for a in weights))
+        xn2 = x_next_stack.reshape(s, -1, x_next_stack.shape[-1]) \
+            .contiguous()
+    out = rss_matmul_parts(x2, w_own, cfg, x_next_stack=xn2)
     return out.reshape((s,) + tuple(lead) + (weights.n,))
 
 

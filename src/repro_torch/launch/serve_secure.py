@@ -72,13 +72,15 @@ import torch
 from ..core import comm, cost_model, integrity, prf, telemetry
 from ..core.preprocessing import (TapePool, make_tape_generator,
                                   make_tape_infer, trace_material)
+from ..core.party_group import PartyGroup
 from ..core.randomness import Parties
 from ..core.ring import RING32
 from ..core.rss import RSS, share
 from ..core.secure_model import (BINARY_LINEAR_MODES, WEIGHT_MODES,
-                                 compile_secure, secure_infer)
+                                 compile_secure, make_secure_infer_mesh,
+                                 secure_infer)
 from ..core.secure_transformer import (CompiledDecodeStep, SecureKVCache,
-                                       init_kv_cache,
+                                       init_kv_cache, make_secure_lm_mesh,
                                        plaintext_lm_forward, scan_prefill,
                                        secure_decode_step, share_lm_params)
 from ..device import resolve_device
@@ -212,6 +214,125 @@ def serve_pool(run, gen, spec, keys, xs_shares, queries: int, depth: int,
             "refills": pool.refills, "pool": pool}
 
 
+def _mesh_queries(model, spec, parties, xs, queries: int, depth: int,
+                  verify: str, device, group, master_key, registry=None,
+                  profile: bool = False) -> dict:
+    """``--backend mesh``: one warm-up query, then ``queries`` timed ones,
+    each party's program in its own process of ``group``
+    (core/party_group.py).  The dealer stages each query (the ranks'
+    input pairs, and under the pool their tape slices) before the clock;
+    the online time is the slowest rank's, from a barrier to its last
+    query's device completion.  Under the pool the plant runs here, timed
+    as in :func:`serve_pool`.  Returns the warm-up query's ledger (rank
+    0's), the last logits, the times, every rank's per-query wire counts
+    and launches, the pool and the verifier."""
+    verifier = None if verify == "off" else integrity.Verifier(verify)
+    run = make_secure_infer_mesh(model, group, tape_spec=spec,
+                                 verifier=verifier)
+    plant_s = 0.0
+    pool = None
+    if spec is not None:
+        gen = make_tape_generator(spec, device)
+
+        def timed_gen(keys_stack):
+            nonlocal plant_s
+            sync(device)
+            t = time.perf_counter()
+            slabs = gen(keys_stack)
+            sync(device)
+            plant_s += time.perf_counter() - t
+            return slabs
+
+        with telemetry.collecting(registry):
+            pool = TapePool(timed_gen, spec, depth, master_key,
+                            demand=queries + 1, verify=verify == "full")
+
+    def staged(n):
+        return [run.prepare(xs.shares, pool.take() if pool else None)
+                for _ in range(n)]
+
+    try:
+        with telemetry.span("warmup", cat="compile"):
+            warm = run.run(parties.keys, staged(1))
+        led = comm.CommLedger.from_dict(warm["ranks"][0]["queries"][0]
+                                        ["ledger"])
+        prepared = staged(queries)
+        t0 = time.perf_counter()
+        with telemetry.span(f"queries[{queries}]", cat="online",
+                            lane="parties"):
+            timed = run.run(parties.keys, prepared)
+        wall_s = time.perf_counter() - t0
+        prof = (run.run(parties.keys, prepared[-1:], profile=True)
+                if profile else None)
+    finally:
+        run.close()
+    ranks = timed["ranks"]
+    tr = telemetry.tracer()
+    for r, rk in enumerate(ranks):
+        for q, rec in enumerate(rk["queries"]):
+            w = rec["wire"]
+            if tr is not None:
+                tr.spans.append(telemetry.Span(
+                    f"query[{q}]", "online", rec["start"], rec["seconds"],
+                    lane=f"party{r}",
+                    args={"wire_bytes": w["nbytes"],
+                          "messages": w["messages"],
+                          "staging_ms": w["staging_s"] * 1e3}))
+            if registry is not None:
+                registry.observe("query_latency_seconds", rec["seconds"],
+                                 party=str(r))
+    online_s = max(rk["seconds"] for rk in ranks)
+    per_slice = plant_s / (pool.generated * depth) if pool else 0.0
+    # each rank's launches as it counted them: warm-up, timed, profiled
+    launches = [{} for _ in range(3)]
+    runs = (warm, timed) + ((prof,) if prof else ())
+    for res in runs:
+        for r in range(3):
+            for k, c in res["ranks"][r]["launches"].items():
+                launches[r][k] = launches[r].get(k, 0) + c
+    return {"ledger": led, "logits": timed["out"], "online_s": online_s,
+            "wall_s": wall_s, "plant_s": plant_s,
+            "amortised_s": online_s + queries * per_slice,
+            "refills": pool.refills if pool else 0, "pool": pool,
+            "verifier": verifier, "ranks": ranks, "rank_launches": launches,
+            "runs": sum(len(res["ranks"][0]["queries"]) for res in runs),
+            "profile": ([rk["profile"] for rk in prof["ranks"]] if prof
+                        else None)}
+
+
+def _mesh_stats(ms: dict, led) -> dict:
+    """The per-rank wire against the ledger (its ``verify.digest`` row
+    left out: the digest reports travel by the task channel, not the
+    process group), for the stats."""
+    ranks = ms["ranks"]
+    first = [rk["queries"][0]["wire"] for rk in ranks]
+    n = len(ranks[0]["queries"])
+    wire = sum(w["nbytes"] for w in first)
+    online = sum(sum(b for t, (_, b) in w["by_tag"].items()
+                     if t is None or not t.startswith("pre:"))
+                 for w in first)
+    ledger = (led.nbytes + led.pre_nbytes
+              - led.by_tag.get("verify.digest", (0, 0))[1])
+    return {"rank_wire_bytes": [w["nbytes"] for w in first],
+            "rank_wire_messages": [w["messages"] for w in first],
+            "wire_bytes": wire, "wire_online_bytes": online,
+            "ledger_bytes": ledger,
+            "wire_rel_diff": abs(wire - ledger) / ledger if ledger else
+            float(wire != 0),
+            "rank_seconds": [rk["seconds"] for rk in ranks],
+            "rank_staging_ms_per_query": [
+                1e3 * sum(q["wire"]["staging_s"] for q in rk["queries"]) / n
+                for rk in ranks],
+            "rank_prf_calls_per_query": [
+                sum(q["prf_calls"] for q in rk["queries"]) / n
+                for rk in ranks],
+            "rank_launches": ms["rank_launches"], "mesh_runs": ms["runs"],
+            "rank_busy_share": ([p["busy_share"] if p else None
+                                 for p in ms["profile"]]
+                                if ms["profile"] else None),
+            "wall_seconds": ms["wall_s"]}
+
+
 def _check_prediction(pred, led, offline, verifier):
     """The cost model's prediction against a query's live ledger, online
     and offline (``offline``: the plant's per-query ledger under the
@@ -246,7 +367,8 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
           tracer: telemetry.Tracer | None = None,
           registry: telemetry.MetricsRegistry | None = None,
           offline: str = "inline", pool_depth: int | None = None,
-          verify: str = "off") -> dict:
+          verify: str = "off", backend: str = "local",
+          group=None) -> dict:
     """Build, compile, one warm-up query, then ``queries`` timed queries
     (and, with ``profile``, one profiled query after them).  ``x`` (float
     (B, H, W, C)) defaults to random ±0.5 pixels from ``seed``.
@@ -270,14 +392,23 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
     the query latency histogram and the movement counters over the timed
     queries only.  Returns the stats dict: logits under ``"logits"``, the
     warm-up query's ``"ledger"``, the ``"predicted"`` report and the
-    ``"model"``."""
+    ``"model"``.
+
+    ``backend="mesh"`` runs each party's program in its own process of
+    ``group`` (a ``PartyGroup`` on ``device``; default: one started and
+    stopped here), with every reshare, send and opening a real message
+    (:func:`_mesh_queries`); the stats then add every rank's wire bytes,
+    messages, staging time and launches beside the ledger's bytes, and
+    the per-party spans go to the tracer's party lanes."""
     if net not in INPUT_SHAPES:
         raise ValueError(f"unknown net {net!r}; available: "
                          + ", ".join(sorted(INPUT_SHAPES)))
     if batch < 1 or queries < 1:
         raise ValueError("batch and queries must be >= 1")
-    if offline not in OFFLINE_MODES or verify not in integrity.VERIFY_MODES:
-        raise ValueError(f"offline {offline!r} / verify {verify!r}")
+    if offline not in OFFLINE_MODES or verify not in integrity.VERIFY_MODES \
+            or backend not in BACKENDS:
+        raise ValueError(f"offline {offline!r} / verify {verify!r} / "
+                         f"backend {backend!r}")
     if pool_depth is not None and (offline != "pool" or pool_depth < 1):
         raise ValueError("pool_depth applies to offline='pool' and must "
                          "be >= 1")
@@ -309,8 +440,31 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
             xs = share(torch.as_tensor(x, device=device),
                        prf.PRNGKey(seed + 3), RING32)
             launches0 = dict(kbuild.LAUNCHES)
-            pool_st = None
-            if offline == "pool":
+            pool_st = mesh_st = None
+            if backend == "mesh":
+                spec = None
+                if offline == "pool":
+                    with telemetry.span("trace_material", cat="setup",
+                                        net=net):
+                        spec = trace_material(model, (batch,) + shape)
+                own = group is None
+                if own:
+                    group = PartyGroup(device)
+                try:
+                    mesh_st = _mesh_queries(
+                        model, spec, parties, xs, queries, pool_depth or 8,
+                        verify, device, group, prf.PRNGKey(seed + 11),
+                        registry=registry, profile=profile)
+                finally:
+                    if own:
+                        group.close()
+                led, out = mesh_st["ledger"], mesh_st["logits"]
+                dt = mesh_st["amortised_s"]
+                pool_st = mesh_st if offline == "pool" else None
+                offline_led = (make_tape_generator(spec, device).ledger
+                               if spec is not None else led)
+                run = mesh_st
+            elif offline == "pool":
                 with telemetry.span("trace_material", cat="setup", net=net):
                     spec = trace_material(model, (batch,) + shape)
                 gen = make_tape_generator(spec, device)
@@ -347,7 +501,9 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
                 sync(device)
                 dt = time.perf_counter() - t0
             assert tuple(out.shape) == (batch, 10), out.shape
-            got = _check_prediction(pred, led, offline_led, run.verifier)
+            verifier = (mesh_st["verifier"] if mesh_st is not None
+                        else run.verifier)
+            got = _check_prediction(pred, led, offline_led, verifier)
     except integrity.IntegrityError as e:
         if registry is not None and not any(
                 k[0] == "integrity_aborts_total" for k in registry.counters):
@@ -357,8 +513,13 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
         raise
     per_query = {k: (v - launches0[k]) // (queries + 1)
                  for k, v in kbuild.LAUNCHES.items()}
+    if mesh_st is not None:   # the ranks launched them
+        per_query = {k: sum(rl.get(k, 0) for rl in mesh_st["rank_launches"])
+                     // mesh_st["runs"] for k in kbuild.LAUNCHES}
     prof = None
-    if profile:
+    if profile and mesh_st is not None:
+        prof = mesh_st["profile"]
+    elif profile:
         if pool_st is not None:
             sl = pool_st["pool"].take()
             sync(device)
@@ -371,6 +532,7 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
     st = {"profile": prof, "net": net, "weights": weights,
           "binary_linear": binary_linear, "batch": batch,
           "queries": queries, "offline": offline, "verify": verify,
+          "backend": backend,
           "device": str(device),
           "kind": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
@@ -383,8 +545,10 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
           "predicted_rounds": pred.rounds, "predicted_bytes": pred.nbytes,
           "logits": out.float().cpu().numpy(),
           "ledger": led, "predicted": pred, "model": model}
-    if run.verifier is not None:
-        st["verified_ops"] = len(run.verifier.meta)
+    if verifier is not None:
+        st["verified_ops"] = len(verifier.meta)
+    if mesh_st is not None:
+        st.update(_mesh_stats(mesh_st, led))
     if pool_st is not None:
         qps_on = queries / pool_st["online_s"]
         st.update({"pool_depth": pool_depth or 8,
@@ -405,7 +569,8 @@ def serve_lm(d: int = 32, heads: int = 2, d_ff: int = 64, blocks: int = 2,
              buckets=(16, 32), customized: bool = True,
              static_norm: bool = False, queries: int = 4, seed: int = 0,
              device=None, oracle: bool = False, profile: bool = False,
-             registry: telemetry.MetricsRegistry | None = None) -> dict:
+             registry: telemetry.MetricsRegistry | None = None,
+             backend: str = "local", group=None) -> dict:
     """Secure autoregressive LM serving (DESIGN.md §16) on ``device`` (the
     card unless ``"cpu"``).
 
@@ -428,7 +593,19 @@ def serve_lm(d: int = 32, heads: int = 2, d_ff: int = 64, blocks: int = 2,
     the step's ledger and prediction, kernel launches a step, peak device
     memory, the tokens, and of the last generation the opened logits of
     every step ((prompt + gen - 1, vocab), numpy, the prompt's first), the
-    cache and the plaintext weights (``plain``, for the fp32 oracle)."""
+    cache and the plaintext weights (``plain``, for the fp32 oracle).
+
+    ``backend="mesh"``: the step runs with each party a process of
+    ``group`` (default: one started and stopped here), the KV cache kept
+    in the ranks (:func:`make_secure_lm_mesh`); the dealer shares the LM
+    without kernel caches and each rank builds its own.  The stats then
+    hold the cache gathered in the global pair layout ``(k, v)`` each
+    ``(6, ...)``, every rank's wire bytes, messages and staging a step
+    beside the step's ledger, and the ranks' launches a step."""
+    if backend not in BACKENDS or (profile and backend == "mesh"):
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}, "
+                         f"or profile is asked of the mesh (it profiles "
+                         f"the local step)")
     device = resolve_device(device)
     need = prompt_len + gen
     fitting = sorted(b for b in buckets if b >= need)
@@ -443,7 +620,9 @@ def serve_lm(d: int = 32, heads: int = 2, d_ff: int = 64, blocks: int = 2,
     t0 = time.perf_counter()
     with telemetry.span("share_lm_params", cat="setup", blocks=blocks):
         lm, plain = share_lm_params(prf.PRNGKey(seed + 1), vocab, d, heads,
-                                    d_ff, blocks, RING32, device=device)
+                                    d_ff, blocks, RING32, device=device,
+                                    limbs=None if backend == "local"
+                                    else False)
         sync(device)
     setup_s = time.perf_counter() - t0
     keys = prf.split(prf.PRNGKey(seed + 7), 3)
@@ -467,12 +646,31 @@ def serve_lm(d: int = 32, heads: int = 2, d_ff: int = 64, blocks: int = 2,
             f"cost-model prediction {pred.rounds} rounds / {pred.nbytes} B "
             f"diverged from the ledger {led.rounds} / {led.nbytes} B")
 
-    step = CompiledDecodeStep(lm, customized, static_norm, bucket=bucket)
+    mesh = own_group = None
+    if backend == "mesh":
+        own_group = group is None
+        group = group or PartyGroup(device)
+        with telemetry.span("mesh_setup", cat="setup", blocks=blocks):
+            mesh = make_secure_lm_mesh(lm, group, customized, static_norm)
+        del lm    # the ranks hold the pairs
+        step = CompiledDecodeStep(step_fn=mesh, bucket=bucket)
+    else:
+        step = CompiledDecodeStep(lm, customized, static_norm, bucket=bucket)
     timing = {"prefill_s": 0.0, "decode_s": 0.0}
+    wire = []    # (each rank's wire summary, seconds) of every timed step
+
+    def new_cache(prev=None):
+        if mesh is None:
+            return init_kv_cache(blocks, heads, hd, bucket, RING32,
+                                 device=device)
+        if prev is not None:
+            mesh.drop(prev)
+        return mesh.new_cache(bucket)
+
+    caches = [None]
 
     def one_generation():
-        cache = init_kv_cache(blocks, heads, hd, bucket, RING32,
-                              device=device)
+        cache = caches[0] = new_cache(caches[0])
         sync(device)
         tp = time.perf_counter()
         with telemetry.span(f"prefill[{prompt_len}]", cat="online",
@@ -490,29 +688,42 @@ def serve_lm(d: int = 32, heads: int = 2, d_ff: int = 64, blocks: int = 2,
             lg, cache = step(cache, nxt, p, keys)
             lg = lg.cpu().numpy()
             dq = time.perf_counter() - tq
+            if mesh is not None:
+                wire.append(([rk["wire"] for rk in mesh.last],
+                             [rk["seconds"] for rk in mesh.last]))
             timing["decode_s"] += dq
             telemetry.observe("token_latency_seconds", dq,
                               bucket=str(bucket))
             rows.append(lg[None])
         return toks, np.concatenate(rows), cache
 
-    with telemetry.span("warmup", cat="compile", bucket=bucket):
-        one_generation()
-    timing.update(prefill_s=0.0, decode_s=0.0)
-    launches0 = dict(kbuild.LAUNCHES)
-    t0 = time.perf_counter()
-    with telemetry.collecting(registry):
-        for _ in range(queries):
-            toks, logits, cache = one_generation()
-    sync(device)
-    dt = time.perf_counter() - t0
+    try:
+        with telemetry.span("warmup", cat="compile", bucket=bucket):
+            one_generation()
+        timing.update(prefill_s=0.0, decode_s=0.0)
+        wire.clear()
+        launches0 = dict(kbuild.LAUNCHES if mesh is None else mesh.launches)
+        t0 = time.perf_counter()
+        with telemetry.collecting(registry):
+            for _ in range(queries):
+                toks, logits, cache = one_generation()
+        sync(device)
+        dt = time.perf_counter() - t0
+        if mesh is not None:
+            launched = mesh.launches
+            cache = mesh.gather(cache)
+        else:
+            launched = kbuild.LAUNCHES
+    finally:
+        if own_group:
+            group.close()
     if step.traces != 1:
         raise RuntimeError(f"the decode step was built {step.traces} times "
                            f"for one bucket length")
     steps = queries * (prompt_len + gen - 1)
-    per_step = {k: (v - launches0[k]) / steps
-                for k, v in kbuild.LAUNCHES.items() if v > launches0[k]}
-    st = {"model": "lm", "backend": "local", "customized": customized,
+    per_step = {k: (v - launches0.get(k, 0)) / steps
+                for k, v in launched.items() if v > launches0.get(k, 0)}
+    st = {"model": "lm", "backend": backend, "customized": customized,
           "static_norm": static_norm, "d": d, "heads": heads, "d_ff": d_ff,
           "blocks": blocks, "vocab": vocab, "bucket": bucket,
           "prompt": prompt_len, "gen": gen, "queries": queries,
@@ -534,6 +745,22 @@ def serve_lm(d: int = 32, heads: int = 2, d_ff: int = 64, blocks: int = 2,
           "ledger": led, "predicted": pred, "logits": logits,
           "cache": cache, "profile": None}
     st["plain"] = plain
+    if mesh is not None:
+        st["rank_launches"] = [dict(rl) for rl in mesh.rank_launches]
+        n = len(wire)
+        st.update({
+            "rank_wire_bytes_per_step": [
+                sum(w[0][r]["nbytes"] for w in wire) / n for r in range(3)],
+            "rank_wire_messages_per_step": [
+                sum(w[0][r]["messages"] for w in wire) / n
+                for r in range(3)],
+            "rank_staging_ms_per_step": [
+                1e3 * sum(w[0][r]["staging_s"] for w in wire) / n
+                for r in range(3)],
+            "rank_step_seconds": [sum(w[1][r] for w in wire) / n
+                                  for r in range(3)],
+            "wire_bytes_per_step": sum(w["nbytes"] for w in wire[-1][0]),
+            "ledger_bytes_per_step": led.nbytes + led.pre_nbytes})
     if profile:     # one more step, on a copy of the cache
         spare = SecureKVCache(cache.k.clone(), cache.v.clone())
         st["profile"] = profile_once(
@@ -555,13 +782,16 @@ def serve_lm(d: int = 32, heads: int = 2, d_ff: int = 64, blocks: int = 2,
     return st
 
 
-def make_obs(args, device=None):
+def make_obs(args, device=None, parties: int = 0):
     """``--trace`` / ``--metrics-*`` -> (Tracer | None, registry | None):
     both or neither.  The tracer times online spans with CUDA events on a
-    CUDA ``device``."""
+    CUDA ``device``; ``parties`` > 0 (the mesh backend, whose queries run
+    in the party processes: host clock only) gives it one lane a party."""
     if not (args.trace or args.metrics_json or args.metrics_prom):
         return None, None
-    return (telemetry.Tracer(device=device), telemetry.MetricsRegistry())
+    return (telemetry.Tracer(parties=parties,
+                             device=None if parties else device),
+            telemetry.MetricsRegistry())
 
 
 def emit_obs(args, tracer, reg, led, predicted=None, model=None,
@@ -637,12 +867,13 @@ def _serve_lm(args, ap, tracer=None, reg=None):
         st = serve_lm(**cfg, customized=customized,
                       static_norm=args.static_norm, queries=args.queries,
                       seed=args.seed, device=args.device, oracle=args.quick,
-                      profile=args.profile, registry=reg)
+                      profile=args.profile, registry=reg,
+                      backend=args.backend)
     led, pred = st["ledger"], st["predicted"]
     print(f"[serve_secure] lm cost model: predicted {pred.rounds} rounds / "
           f"{pred.nbytes:,} B/token vs measured {led.rounds} / "
           f"{led.nbytes:,} B -> exact")
-    print(f"[serve_secure] lm backend=local "
+    print(f"[serve_secure] lm backend={st['backend']} "
           f"{'customized' if customized else 'softmax'}"
           f"{'+static-norm' if st['static_norm'] else ''} d={st['d']} "
           f"heads={st['heads']} d_ff={st['d_ff']} blocks={st['blocks']} "
@@ -659,6 +890,16 @@ def _serve_lm(args, ap, tracer=None, reg=None):
     print("[serve_secure] kernel launches per token: "
           + (", ".join(f"{k}={v:g}" for k, v in
                        st["launches_per_token"].items()) or "none"))
+    if st["backend"] == "mesh":
+        print(f"[serve_secure] mesh wire a decode step: "
+              f"{st['wire_bytes_per_step']:,} B over the three ranks vs "
+              f"ledger {st['ledger_bytes_per_step']:,} B (online + "
+              f"offline); per rank "
+              + ", ".join(f"P{r} {b:,.0f} B / {m:.0f} msgs / staging "
+                          f"{ms:.3f} ms" for r, (b, m, ms) in enumerate(zip(
+                              st["rank_wire_bytes_per_step"],
+                              st["rank_wire_messages_per_step"],
+                              st["rank_staging_ms_per_step"]))))
     if st["profile"] is not None:
         print_profile("serve_secure", "decode step", st["profile"])
     if args.quick:
@@ -684,8 +925,9 @@ def main(argv=None):
                     help="serve the BNN classifier zoo or the secure "
                          "autoregressive LM decode loop (DESIGN.md §16)")
     ap.add_argument("--backend", choices=BACKENDS, default="local",
-                    help="local: the stacked three-party simulation; mesh "
-                         "(one party a device) is ROADMAP item A7")
+                    help="local: the stacked three-party simulation; mesh: "
+                         "one party a process (three gloo ranks on the "
+                         "same device), every message really sent")
     ap.add_argument("--net", default="MnistNet1")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--queries", type=int, default=4)
@@ -757,13 +999,13 @@ def main(argv=None):
                     help="small static-norm preset + token-parity check "
                          "against the fp32 oracle")
     args = ap.parse_args(argv)
-    if args.backend == "mesh":
-        raise SystemExit("--backend mesh (one party a device) is ROADMAP "
-                         "item A7; the port serves on the local backend")
+    parties = 3 if args.backend == "mesh" else 0
+    if args.backend == "mesh" and args.profile and args.model == "lm":
+        ap.error("--profile of --model lm profiles the local step")
     if args.model == "lm":
         if args.quick and args.queries == 4:
             args.queries = 1
-        tracer, reg = make_obs(args, resolve_device(args.device))
+        tracer, reg = make_obs(args, resolve_device(args.device), parties)
         return _serve_lm(args, ap, tracer, reg)
     for flag, dflt in (("quick", False), ("softmax_attention", False),
                        ("static_norm", False)):
@@ -789,14 +1031,14 @@ def main(argv=None):
         ap.error("--pool-depth only applies to --offline pool")
     if args.pool_depth is not None and args.pool_depth < 1:
         ap.error(f"--pool-depth must be >= 1, got {args.pool_depth}")
-    tracer, reg = make_obs(args, resolve_device(args.device))
+    tracer, reg = make_obs(args, resolve_device(args.device), parties)
     try:
         st = serve(args.net, args.batch, args.queries, args.device,
                    args.seed, profile=args.profile, weights=args.weights,
                    binary_linear=args.binary_linear,
                    deployment=args.deployment, tracer=tracer, registry=reg,
                    offline=args.offline, pool_depth=args.pool_depth,
-                   verify=args.verify)
+                   verify=args.verify, backend=args.backend)
     except integrity.IntegrityError as e:
         # a deviation aborts with diagnostics, never a wrong answer; the
         # trace and metrics are still flushed so the abort can be read
@@ -826,7 +1068,8 @@ def main(argv=None):
           f"{st['online_bytes']:,} B -> exact")
     print(f"[serve_secure] {st['net']} weights={st['weights']} "
           f"binary_linear={st['binary_linear']} offline={st['offline']} "
-          f"verify={st['verify']} device={st['device']} "
+          f"verify={st['verify']} backend={st['backend']} "
+          f"device={st['device']} "
           f"({st['kind']}) batch={st['batch']}: {st['queries']} queries in "
           f"{st['seconds']:.4f}s = {st['query_per_s']:.3f} q/s "
           f"({st['img_per_s']:.1f} img/s)")
@@ -842,8 +1085,23 @@ def main(argv=None):
           f"({st['online_rounds']} rounds) + {st['offline_bytes']:,} B "
           f"offline ({st['offline_rounds']} rounds)")
     print("[serve_secure] kernel launches per query: "
-          + ", ".join(f"{k}={v}" for k, v in st["launches_per_query"].items()))
-    if st["profile"] is not None:
+          + (", ".join(f"{k}={v:g}" for k, v in
+                       st["launches_per_query"].items() if v) or "none"))
+    if args.backend == "mesh":
+        print(f"[serve_secure] mesh wire a query: {st['wire_bytes']:,} B "
+              f"over the three ranks ({st['wire_online_bytes']:,} B online) "
+              f"vs ledger {st['ledger_bytes']:,} B online + offline "
+              f"(rel diff {st['wire_rel_diff']:.2e}); per rank "
+              + ", ".join(f"P{r} {b:,} B / {m} msgs / staging {ms:.3f} ms"
+                          for r, (b, m, ms) in enumerate(zip(
+                              st["rank_wire_bytes"],
+                              st["rank_wire_messages"],
+                              st["rank_staging_ms_per_query"]))))
+    if isinstance(st["profile"], list):     # the mesh: one a rank
+        for r, pr in enumerate(st["profile"]):
+            if pr is not None:
+                print_profile("serve_secure", f"P{r} query", pr)
+    elif st["profile"] is not None:
         print_profile("serve_secure", "query", st["profile"])
     st["attribution"] = emit_obs(args, tracer, reg, led, predicted=pred,
                                  model=model,

@@ -68,6 +68,48 @@ def test_grouped_cuda_equals_plain(cuda, c, m, k, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(40, 136, 24), (72, 20, 9), (1, 3, 1),
+                                   (130, 784, 10), (1, 256, 640)])
+def test_rss_matmul_pair_entry_cuda_equals_plain(cuda, m, k, n):
+    """B1's pair entry (one party, the neighbour share explicit) on both
+    routes == its plain version."""
+    x = ring_from_numpy(_words((1, m, k), 5))
+    xn = ring_from_numpy(_words((1, m, k), 6))
+    wl = dense.pair_weight_limbs(ring_from_numpy(_words((2, k, n), 7)))
+    xd, xnd = x.to(cuda), xn.to(cuda)
+    wd = dense.WeightLimbs(*(a.to(cuda) for a in wl))
+    want = dense.rss_matmul_parts_ref(x, wl, xn)
+    launches = dict(kbuild.LAUNCHES)
+    got = dense.rss_matmul_parts(xd, wd, x_next_stack=xnd)
+    assert kbuild.LAUNCHES["rss_matmul_pair"] == \
+        launches["rss_matmul_pair"] + 1
+    assert kbuild.LAUNCHES["rss_matmul"] == launches["rss_matmul"]
+    assert torch.equal(got.cpu(), want)
+    for route in (limbs.TENSOR_CORE, limbs.CUDA_CORE):
+        got = dense._launch(xd, wd, KernelConfig(route), xnd)
+        assert torch.equal(got.cpu(), want), route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m,k,n", [(5, 40, 9, 1), (7, 24, 25, 2),
+                                     (3, 1000, 9, 1), (64, 512, 9, 1)])
+def test_grouped_pair_entry_cuda_equals_plain(cuda, c, m, k, n):
+    """B2's pair entry == its plain version, in both x layouts."""
+    x = ring_from_numpy(_words((1, m, k, c), 8)).permute(0, 3, 1, 2)
+    xn = ring_from_numpy(_words((1, m, k, c), 9)).permute(0, 3, 1, 2)
+    wl = grp.grouped_weight_limbs(ring_from_numpy(_words((3, c, k, n), 10)))
+    own = grp.GroupedWeightLimbs(*(a[1:2] for a in wl))
+    wd = grp.GroupedWeightLimbs(*(a.to(cuda) for a in own))
+    want = grp.grouped_rss_matmul_ref(x, own, xn)
+    for xd, xnd in ((x.to(cuda), xn.to(cuda)),
+                    (x.contiguous().to(cuda), xn.contiguous().to(cuda))):
+        launches = kbuild.LAUNCHES["grouped_rss_matmul_pair"]
+        got = grp.grouped_rss_matmul_parts(xd, wd, x_next_stack=xnd)
+        assert kbuild.LAUNCHES["grouped_rss_matmul_pair"] == launches + 1
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_never_takes_the_plain_version(cuda, monkeypatch):
     """A refused launch raises; there is no fallback to the plain path."""
     monkeypatch.setattr(dense, "rss_matmul_parts_ref",

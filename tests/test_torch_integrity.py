@@ -220,6 +220,76 @@ def test_opens_mode_catches_open_fault():
     assert _fields(ei.value) == _fields(jei.value)
 
 
+# ---------------------------------------------------------------------------
+# the carried-pair branch: one party a process (three gloo ranks)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mesh_group():
+    from repro_torch.core.party_group import PartyGroup
+    with PartyGroup("cpu", timeout=60, deadline=90) as g:
+        yield g
+
+
+def _mesh_runner(group, mode, faults=None):
+    _, tm, _, _, _, _ = _setup()
+    wrap = (functools.partial(integrity.FaultInjectingTransport,
+                              faults=faults) if faults else None)
+    return secure_model.make_secure_infer_mesh(
+        tm, group, verifier=integrity.Verifier(mode) if mode else None,
+        transport_wrap=wrap)
+
+
+@pytest.mark.parametrize("mode", ["opens", "full"])
+def test_mesh_verified_query_equals_local(mesh_group, mode):
+    """Each rank digests its own views; the dealer's (3, n) stack of the
+    ranks' reports equals the local run's report wherever the check reads
+    it (every opening and reshare entry; a send's sender and receiver
+    entries: the other ranks digest values they do not hold), and the
+    verified logits equal the unverified ones."""
+    _, _, _, txs, _, tk = _setup()
+    out, v, rep, _ = _port_run(mode)
+    fn = _mesh_runner(mesh_group, mode)
+    try:
+        got = fn(tk, txs.shares)
+    finally:
+        fn.close()
+    assert np.array_equal(got.numpy(), out)
+    assert fn.verifier.meta == v.meta
+    rows = [r["queries"][0]["report"] for r in fn.last["ranks"]]
+    stacked = {k: torch.stack([rw[k] for rw in rows])
+               for k in integrity.REPORT_KEYS}
+    for k in ("open", "pair_own", "pair_recv"):
+        assert torch.equal(stacked[k], rep[k].reshape(3, -1)), k
+    sends = [m for m in v.meta if m["kind"] == "send"]
+    assert len(sends) == stacked["send_own"].shape[1]
+    assert sends or mode == "opens"
+    for m in sends:
+        for k, who in (("send_own", m["frm"]), ("send_recv", m["to"])):
+            assert stacked[k][who, m["idx"]] == rep[k][who, m["idx"]]
+
+
+@pytest.mark.parametrize("mode", FAULT_MODES)
+@pytest.mark.parametrize("op,party", FAULT_OPS, ids=lambda p: str(p))
+def test_mesh_fault_matrix_equals_local(mesh_group, op, party, mode):
+    """FaultInjectingTransport wraps every rank's MeshTransport and
+    tampers the victim rank's received message only; the dealer's check
+    raises with the local backend's (op, index, tag, round, party), which
+    are the reference's."""
+    _, _, _, txs, _, tk = _setup()
+    _, v, rep, _ = _port_run("full", [integrity.Fault(op, 0, mode, party)])
+    with pytest.raises(integrity.IntegrityError) as want:
+        v.check(rep)
+    fn = _mesh_runner(mesh_group, "full",
+                      [integrity.Fault(op, 0, mode, party)])
+    try:
+        with pytest.raises(integrity.IntegrityError) as ei:
+            fn(tk, txs.shares)
+    finally:
+        fn.close()
+    assert _fields(ei.value) == _fields(want.value)
+
+
 def test_fault_spec_validation():
     with pytest.raises(ValueError):
         integrity.Fault("open", 0, "corrupt")         # names no party

@@ -61,7 +61,8 @@ def test_rss_matmul_op_folds_leading_dims():
     want = np.asarray(jops.rss_matmul_parts_op(
         jnp.asarray(x), jnp.roll(jnp.asarray(x), -1, 0), jwl))
     got = ops.rss_matmul_parts_op(
-        ring_from_numpy(x), dense.precompute_weight_limbs(ring_from_numpy(w)))
+        ring_from_numpy(x), None,
+        dense.precompute_weight_limbs(ring_from_numpy(w)))
     assert got.shape == (3, 2, 5, 4, 11)
     assert np.array_equal(ring_to_numpy(got), want)
 
@@ -104,5 +105,5 @@ def test_grouped_op_reads_patch_layout():
     jwl = jgrp.grouped_weight_limbs(jnp.asarray(w))
     want = np.asarray(jops.grouped_rss_matmul_op(jnp.asarray(x), None, jwl))
     got = ops.grouped_rss_matmul_op(
-        ring_from_numpy(x), grp.grouped_weight_limbs(ring_from_numpy(w)))
+        ring_from_numpy(x), None, grp.grouped_weight_limbs(ring_from_numpy(w)))
     assert np.array_equal(ring_to_numpy(got), want)

@@ -68,11 +68,12 @@ def _public(shape, n_limbs, seed, kind):
 
 
 def limb_model(x: torch.Tensor, wt: torch.Tensor, n: int,
-               split_k: int) -> torch.Tensor:
+               split_k: int, xn: torch.Tensor | None = None) -> torch.Tensor:
     """The tensor-core route's arithmetic: x (S, M, K) int32 words, wt
     (S_w, OPS, L, Np, Kp) int8 K-major limbs (S_w = S, or 1 for a weight
-    shared by every slot); operand o of slot s multiplies x_{(s+o) % S};
-    K split into ranges of ``split_k``."""
+    shared by every slot); operand o of slot s multiplies x_{(s+o) % S},
+    or with ``xn`` (B1's pair entry) operand 1 multiplies xn_s; K split
+    into ranges of ``split_k``."""
     s_count, m, k = x.shape
     _, ops, n_limbs = wt.shape[:3]
     out = torch.zeros((s_count, m, n), dtype=torch.int64)
@@ -82,7 +83,8 @@ def limb_model(x: torch.Tensor, wt: torch.Tensor, n: int,
             k1 = min(k, k0 + split_k)
             acc = [torch.zeros((m, n), dtype=torch.int32) for _ in range(4)]
             for o in range(ops):
-                xs = x[(s + o) % s_count, :, k0:k1]
+                xs = (xn[s] if o == 1 and xn is not None
+                      else x[(s + o) % s_count])[:, k0:k1]
                 u = [(xs >> (8 * p)) & 0xFF for p in range(4)]  # unsigned
                 for q in range(n_limbs):
                     v = w[o, q, :n, k0:k1].to(torch.int32).T     # signed
@@ -115,6 +117,49 @@ def test_b1_limb_model_equals_pallas_kernel(m, k, n, s, kind):
     for split_k in _splits(k):
         got = limb_model(xt, wl.wt, n, split_k)
         assert np.array_equal(ring_to_numpy(got), want), split_k
+
+
+@pytest.mark.parametrize("kind", ["full", "carry"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_b1_pair_entry_limb_model_equals_pallas_kernel(m, k, n, kind):
+    """B1's pair entry (one party, S = 1, the neighbour share explicit):
+    the plain version and the limb model on ``pair_weight_limbs`` of P_1's
+    pair == the Pallas kernel with an explicit ``xnl`` on the own slot of
+    the stacked cache, as the reference's mesh program calls it."""
+    x, xn = _words((1, m, k), m, kind), _words((1, m, k), m + 1, kind)
+    w = _words((3, k, n), k, kind)
+    jwl = jdense.precompute_weight_limbs(jnp.asarray(w))
+    own = jdense.WeightLimbs(*(a[1:2] for a in jwl))
+    want = np.asarray(jdense.rss_matmul(
+        jnp.asarray(x), own, x_next_stack=jnp.asarray(xn), interpret=True))
+    wl = dense.pair_weight_limbs(ring_from_numpy(w[[1, 2]]))
+    stacked = dense.precompute_weight_limbs(ring_from_numpy(w))
+    for name in ("ws", "wf", "wt"):
+        assert torch.equal(getattr(wl, name), getattr(stacked, name)[1:2])
+    xt, xnt = ring_from_numpy(x), ring_from_numpy(xn)
+    assert np.array_equal(
+        ring_to_numpy(dense.rss_matmul_parts(xt, wl, x_next_stack=xnt)), want)
+    for split_k in _splits(k):
+        got = limb_model(xt, wl.wt, n, split_k, xn=xnt)
+        assert np.array_equal(ring_to_numpy(got), want), split_k
+
+
+@pytest.mark.parametrize("c,m,k,n", [(5, 40, 9, 1), (7, 24, 25, 2)])
+def test_b2_pair_entry_plain_equals_pallas_kernel(c, m, k, n):
+    """B2's pair entry: the plain version with the neighbour explicit and
+    the weights' own slot == the reference's grouped Pallas kernel called
+    the same way (S = 1)."""
+    x, xn = _words((1, c, m, k), c, "full"), _words((1, c, m, k), m, "full")
+    w = _words((3, c, k, n), k, "full")
+    jwl = jbin.grouped_weight_limbs(jnp.asarray(w))
+    own = jbin.GroupedWeightLimbs(*(a[2:3] for a in jwl))
+    want = np.asarray(jbin.grouped_rss_matmul_parts(
+        jnp.asarray(x), own, x_next_stack=jnp.asarray(xn), interpret=True))
+    wl = grp.grouped_weight_limbs(ring_from_numpy(w))
+    got = grp.grouped_rss_matmul_parts(
+        ring_from_numpy(x), grp.GroupedWeightLimbs(*(a[2:3] for a in wl)),
+        x_next_stack=ring_from_numpy(xn))
+    assert np.array_equal(ring_to_numpy(got), want)
 
 
 @pytest.mark.parametrize("k,n", [(27, 10), (131, 24)])

@@ -325,10 +325,91 @@ def test_block_comm_profile_identical():
 
 
 def test_mesh_layout_raises():
-    with pytest.raises(NotImplementedError, match="A7"):
-        st.make_secure_lm_mesh(None, None)
-    with pytest.raises(NotImplementedError, match="A7"):
+    """A cache holds 3 slots (stacked) or one party's pair (2 slots); the
+    reference's global 6-row pair layout is only the view
+    ``MeshDecodeStep.gather`` returns, never a cache."""
+    with pytest.raises(ValueError, match="pair"):
         st.init_kv_cache(1, 2, 8, 8, RING32, slots=6, device="cpu")
+    pair = st.init_kv_cache(1, 2, 8, 8, RING32, slots=2, device="cpu")
+    assert pair.k.shape == (2, 1, 2, 8, 8) and not pair.k.any()
+
+
+@pytest.mark.parametrize("customized,static_norm", [(True, True),
+                                                    (False, False)],
+                         ids=["custom-static", "softmax-rms"])
+def test_mesh_decode_step_equals_local(lm_pair, customized, static_norm):
+    """make_secure_lm_mesh (three gloo ranks, each holding its pair of the
+    weights and of the KV cache) == the local decode step over three
+    positions: logits bit for bit, every rank's pair cache equal to its
+    rows of the local cache, the step's ledger equal, and the wire equal
+    to the ledger.  Values only: the port builds no jitted program, so
+    there is no trace count to hold (the reference's mesh test fails on
+    its count alone)."""
+    from repro_torch.core.party_group import PartyGroup
+    jlm, _, jkeys, lm, _, keys, tokens = lm_pair
+    cache = _cache(lm)
+    with PartyGroup("cpu", timeout=60, deadline=90) as g:
+        mesh = st.make_secure_lm_mesh(lm, g, customized, static_norm)
+        mc = mesh.new_cache(BUCKET)
+        for p in range(3):
+            with comm.track() as led:
+                lg, cache = st.secure_decode_step(
+                    lm, cache, int(tokens[p]), p, keys, customized,
+                    static_norm)
+            mlg, mc = mesh(mc, int(tokens[p]), p, keys)
+            assert torch.equal(mlg, lg), p
+            rk = mesh.last
+            assert all(r["ledger"] == led.as_dict() for r in rk)
+            assert sum(r["wire"]["nbytes"] for r in rk) \
+                == led.nbytes + led.pre_nbytes
+        k, v = mesh.gather(mc)
+    for got, want in ((k, cache.k), (v, cache.v)):
+        assert got.shape == (6,) + tuple(want.shape[1:])
+        assert torch.equal(got[0::2], want)
+        assert torch.equal(got[1::2], torch.roll(want, -1, dims=0))
+    if static_norm:   # the reference's step, short under the static norm
+        jc = jst.init_kv_cache(BLOCKS, HEADS, D // HEADS, BUCKET, JRING)
+        for p in range(3):
+            jlg, jc = jst.secure_decode_step(
+                jlm, jc, jnp.asarray(int(tokens[p])), jnp.asarray(p), jkeys,
+                customized, static_norm)
+        assert np.array_equal(np.asarray(jlg), mlg.numpy())
+        _same(jc.k, cache.k)
+
+
+@pytest.mark.parametrize("pid", range(3))
+def test_mesh_lm_rank_builds_own_slot_caches(lm_pair, pid):
+    """The LM's hand-off carries no kernel cache; a rank whose dealer had
+    caches builds its own slot's from its pair (slot ``pid`` of the
+    stacked caches, word for word), and one whose dealer had none builds
+    none off the card."""
+    import dataclasses
+
+    from repro_torch.core import secure_model
+    from repro_torch.kernels.rss_matmul import precompute_weight_limbs
+    _, _, _, lm, _, _, _ = lm_pair
+    cached = dataclasses.replace(
+        lm, w_out_limbs=precompute_weight_limbs(lm.w_out.shares),
+        blocks=tuple(dataclasses.replace(
+            b, limbs={k: precompute_weight_limbs(getattr(b, k).shares)
+                      for k in st.WEIGHT_LINEARS}) for b in lm.blocks))
+    for dealer in (cached, lm):
+        sent = secure_model.hand_off(dealer, pid)
+        secure_model.check_pairs(sent, pid)
+        state = {"rank": pid, "device": torch.device("cpu")}
+        st._rank_lm_setup(state, "lm", sent, True, False)
+        got = state["lm"]["lm"]
+        if dealer is lm:
+            assert got.w_out_limbs is None
+            assert all(b.limbs is None for b in got.blocks)
+            continue
+        pairs = [(got.w_out_limbs, cached.w_out_limbs)] + [
+            (gb.limbs[k], cb.limbs[k])
+            for gb, cb in zip(got.blocks, cached.blocks)
+            for k in st.WEIGHT_LINEARS]
+        for own, full in pairs:
+            for a, b in zip(own, full):
+                assert torch.equal(a, b[pid:pid + 1])
 
 
 def test_decode_step_meta_ledger_equals_live(lm_pair):

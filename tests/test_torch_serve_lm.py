@@ -128,7 +128,10 @@ def test_lm_flags_require_model_lm(flag, capsys):
 
 
 @pytest.mark.parametrize("model", ["lm", "bnn"])
-def test_backend_mesh_raises(model):
-    with pytest.raises(SystemExit, match="A7"):
-        serve_secure.main(["--model", model, "--backend", "mesh",
-                           "--device", "cpu"])
+def test_backend_mesh_raises(model, monkeypatch):
+    """--backend mesh serves both models (test_torch_serve_mesh.py); with
+    no card and no --device cpu it raises, as the local backend does,
+    before any party process starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve_secure.main(["--model", model, "--backend", "mesh"])
