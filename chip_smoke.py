@@ -190,16 +190,58 @@ Phases, each fatal on failure:
               on both backends: logits, tokens and every rank's pair of
               the KV cache == local bit for bit, tok/s of both, the wire a
               decode step == its ledger.
+13. distill - distill.run_pipeline at the reference's defaults (both
+              families, 6,000 / 1,000 synthetic images, 2 epochs, batch
+              128, λ 0.1, T 10, all three modes, secure accuracy in every
+              mode on the first 64 test images): teachers and students
+              trained on the card with torch's deterministic algorithms
+              (without them two runs trained students up to 2.07 apart in a
+              weight, so the rows would change run to run), every student
+              compiled and served securely on its trained weights (B1 and
+              B2 shared, B3 and B4 public).  Each secure evaluation's
+              logits on its first batch of 16 must equal the CPU run of
+              the port on the same weights and keys (the reference
+              protocol's) bit for bit.  Each secure evaluation runs with
+              the counts zeroed
+              before and read after and must launch exactly its path's
+              meta-run kernels, per batch of 16, and records the shape
+              each of B1-B4 is given; every recorded shape phase 2 lacks
+              (all of them: phase 2 runs batch 32) is held exactly to its
+              plain version as in phase 2, untimed.  Its secure accuracy
+              must equal the plaintext evaluate on the same images (on
+              synthetic data both read about 1.000 in every row, so this
+              gate alone would pass a wrong kernel that flips no argmax;
+              the fixed-point protocol's logits sit a few units from the
+              plaintext ones, so it holds only while no image's top-2
+              margin is that small, and a failure prints each
+              disagreeing image's margin and gap); each
+              student's accuracy may sit at most 0.05 below its
+              BENCH_pareto.json row, and params, online KB, rounds and
+              post-Sign KB (the BN folds change no message) must equal it.
+              Prints the 18 rows beside the reference's and the seconds of
+              training, compiling and the secure queries.
+14. train-lm - make_train_step at TinyLlama-1.1B's full widths and depth
+              (22 blocks) on token_stream batches of 4 x 256, 8 steps at
+              warm-up 3: the mean loss of the last 3 steps must sit below
+              that of the first 3; prints each step, the median step time,
+              tok/s and peak memory, and profiles one more step.  Then
+              the reduced trainer with checkpoints in a temporary
+              directory, crashed at step 4 and resumed, against an
+              uninterrupted run (the reference test's rtol/atol 2e-4,
+              loss 2e-3).
 
 Prints the kernels' JSON line (twelve rows: the nine kernels, B5's batched
-entry and B1's and B2's pair entries, each with its launches by phase),
+entry and B1's and B2's pair entries, each with its launches by phase,
+phase 13's secure evaluations among them),
 then the card's name and power limit, then the result line.  Exits
 non-zero without a result when no CUDA device is available or when the
 port's sources are not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -322,6 +364,20 @@ MESH_PATHS = (("CifarNet2", "shared", "auto", True),
               ("MnistNet1", "shared", "auto", True))
 MESH_QUERIES = 4
 MESH_LM = dict(blocks=2, prompt_len=4, gen=4, buckets=(16,), queries=1)
+# phase 13: run_pipeline at the reference's defaults (BENCH_pareto.json's
+# meta), secure accuracy in every mode on the first 64 test images; its
+# secure batch; a student's accuracy may sit this far below the reference's
+DISTILL = dict(epochs=2, batch=128, lam=0.1, temperature=10.0, seed=0,
+               secure_eval_size=-64)
+DISTILL_EVAL_BATCH = 16
+DISTILL_ACC_TOL = 0.05
+# phase 14: TinyLlama-1.1B's train step at full width and depth; the
+# reduced trainer's crash at step 4 of 6 and its resume (the reference
+# test's shape and tolerance)
+TRAIN_LM = dict(batch=4, seq=256, steps=8, warmup=3)
+RESUME = dict(steps=6, global_batch=2, seq_len=16, ckpt_every=2,
+              log_every=100)
+RESUME_TOL, RESUME_LOSS_TOL = 2e-4, 2e-3
 
 
 def fail(msg: str) -> None:
@@ -372,16 +428,13 @@ def dots(n_limbs: int) -> int:
     return sum(4 - q for q in range(n_limbs))
 
 
-def path_shapes(net: str, weights: str, binary_linear: str, fused: bool):
-    """Shapes (the grouped kernels' x layout, the public limb count) each
-    wrapper receives on a path, from a shape-only (meta) run of it; and
-    the cost model's kernel requests of the path, which must list those
-    launches exactly, in order (the autotuner tunes what they name)."""
+@contextlib.contextmanager
+def recording_shapes():
+    """Within the block, every call of the four linear kernels' wrappers
+    records its shape key (the grouped kernels' x layout, the public limb
+    count) in ``seen[name]`` and its launch request in ``calls``; yields
+    ``(seen, calls)``."""
     import repro_torch.kernels.ops as kops
-    from repro_torch.core import cost_model, linear
-    from repro_torch.core.secure_model import secure_infer_cost
-    from repro_torch.launch.serve_secure import build
-    from repro_torch.nn.bnn import INPUT_SHAPES
 
     seen = {name: {} for name in LINEAR_KERNELS}
     calls = []
@@ -408,17 +461,35 @@ def path_shapes(net: str, weights: str, binary_linear: str, fused: bool):
 
     for name, fn in wrappers.items():
         setattr(kops, fn, recorder(name))
+    try:
+        yield seen, calls
+    finally:
+        for name, fn in wrappers.items():
+            setattr(kops, fn, saved[name])
+
+
+def path_shapes(net: str, weights: str, binary_linear: str, fused: bool,
+                batch: int = BATCH):
+    """Shapes (the grouped kernels' x layout, the public limb count) each
+    wrapper receives on a path at ``batch``, from a shape-only (meta) run
+    of it; and the cost model's kernel requests of the path, which must
+    list those launches exactly, in order (the autotuner tunes what they
+    name)."""
+    from repro_torch.core import cost_model, linear
+    from repro_torch.core.secure_model import secure_infer_cost
+    from repro_torch.launch.serve_secure import build
+    from repro_torch.nn.bnn import INPUT_SHAPES
+
     linear.set_fused_rounds(fused)
     try:
-        model = build(net, device="cpu", weights=weights,
-                      binary_linear=binary_linear)
-        shape = (BATCH,) + INPUT_SHAPES[net]
-        secure_infer_cost(model, shape)
+        with recording_shapes() as (seen, calls):
+            model = build(net, device="cpu", weights=weights,
+                          binary_linear=binary_linear)
+            shape = (batch,) + INPUT_SHAPES[net]
+            secure_infer_cost(model, shape)
         reqs = cost_model.model_cost(model, shape).kernel_requests()
     finally:
         linear.set_fused_rounds(True)
-        for name, fn in wrappers.items():
-            setattr(kops, fn, saved[name])
     if reqs != calls:
         fail(f"{net} {weights}/{binary_linear} fused={fused}: the cost "
              f"model's kernel requests {reqs} != the launches {calls}")
@@ -442,8 +513,11 @@ def on_card(cache):
                          for a in cache))
 
 
-def check_kernels(shapes: dict) -> list:
-    """Phase 2: every kernel at every main-path shape == plain version."""
+def check_kernels(shapes: dict, timed: bool = True) -> list:
+    """Phase 2: every kernel at every main-path shape == plain version.
+    Untimed (phase 13's shapes that phase 2 lacks), each shape is only
+    held to its plain version, split-K repeats included, and no row is
+    returned."""
     import torch
     from repro_torch.kernels import bin_rss_matmul as grp
     from repro_torch.kernels import limbs
@@ -544,6 +618,10 @@ def check_kernels(shapes: dict) -> list:
                             fail(f"{name} {desc}: repeats of one launch "
                                  f"differ")
                     route += f", {SPLIT_REPEATS} repeats bit-identical"
+            if not timed:
+                print(f"[chip_smoke] {name} {desc} x{per_query}: exact"
+                      f"{route}")
+                continue
             ms = median_ms(run)
             pms = host_ms(plain)
             if plan is not None:   # time the route not taken
@@ -588,6 +666,8 @@ def check_kernels(shapes: dict) -> list:
             if first is not None:
                 tot["per_party_ms"] = tot.get("per_party_ms", 0.0) \
                     + per_query * first_ms
+        if not timed:
+            continue
         if not detail:
             fail(f"{name}: no main-path shape was collected")
         print(f"[chip_smoke] {name} over one query of each path: "
@@ -2152,6 +2232,297 @@ def mesh_phase() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 13. distillation: the customization pipeline
+# ---------------------------------------------------------------------------
+
+def distill_phase(kbuild, checked: dict) -> dict:
+    """Phase 13: ``run_pipeline`` at the reference's defaults on the card,
+    every row beside BENCH_pareto.json's.  Each secure evaluation runs
+    with the launch counts zeroed before and read after: it must launch
+    exactly its meta run's kernels, once a query of the path's count per
+    batch; its first batch's logits must equal the same batch on the CPU
+    bit for bit, and its secure accuracy the plaintext ``evaluate`` on
+    the same images.  Training runs with torch's deterministic algorithms.  The
+    shapes B1-B4 are given there that are not in ``checked`` (phase 2's)
+    are held to their plain versions after the pipeline.  Returns the
+    secure evaluations' launches."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.distill import kd, pipeline
+    from repro_torch.nn import bnn
+
+    ref = {(r["net"], r["mode"]): r for r in json.loads(
+        (ROOT / "BENCH_pareto.json").read_text())["rows"]}
+    modes = {json.dumps(kw, sort_keys=True): m
+             for m, kw in pipeline.MODES.items()}
+    n_eval = abs(DISTILL["secure_eval_size"])
+    per_query = {}
+    for fam in pipeline.FAMILIES.values():
+        for net, _ in fam["students"]:
+            for mode, kw in pipeline.MODES.items():
+                seen, _ = path_shapes(net, kw.get("weights", "shared"),
+                                      kw.get("binary_linear", "auto"), True,
+                                      batch=DISTILL_EVAL_BATCH)
+                per_query[(net, mode)] = {
+                    name: sum(d.values()) for name, d in seen.items() if d}
+    secs = {"train": 0.0, "compile": 0.0, "secure": 0.0, "cpu": 0.0}
+    evals, launches = {}, {}
+    outs = []          # the logits of the secure evaluation in progress
+    ran = {name: {} for name in LINEAR_KERNELS}   # the shapes given to B1-B4
+
+    def timed(what, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            secs[what] += time.perf_counter() - t0
+            return out
+        return run
+
+    secure_accuracy = pipeline._secure_accuracy
+
+    def counted(params, net, x, y, *, mode_kw, **kw):
+        mode = modes[json.dumps(mode_kw, sort_keys=True)]
+        outs.clear()
+        kbuild.reset_launches()
+        with recording_shapes() as (seen, _):
+            acc = secure_accuracy(params, net, x, y, mode_kw=mode_kw, **kw)
+        got = launched(kbuild)
+        if {k: sum(d.values()) for k, d in seen.items() if d} != got:
+            fail(f"distill {net} {mode}: the recorded wrapper calls {seen} "
+                 f"do not account for the launches {got}")
+        for name, d in seen.items():
+            for key, c in d.items():
+                ran[name][key] = ran[name].get(key, 0) + c
+        queries = -(-len(x) // DISTILL_EVAL_BATCH)
+        want = {k: queries * c for k, c in per_query[(net, mode)].items()}
+        if got != want:
+            fail(f"distill {net} {mode}: the secure evaluation launched "
+                 f"{got}, its meta run calls {want}")
+        for k, c in got.items():
+            launches[k] = launches.get(k, 0) + c
+        card = np.concatenate(outs)
+        # the first batch again on the CPU: the port's CPU path, which
+        # the tests hold bit for bit to the reference's _secure_accuracy
+        # (the same keys: batch 0's parties, input shares and weights)
+        outs.clear()
+        t0 = time.perf_counter()
+        host = {k: v.cpu() for k, v in params.items()}
+        pipeline.compile_secure = saved["compile_secure"]
+        pipeline.secure_infer = capture
+        try:
+            secure_accuracy(host, net, x[:DISTILL_EVAL_BATCH],
+                            y[:DISTILL_EVAL_BATCH], mode_kw=mode_kw, **kw)
+        finally:
+            pipeline.compile_secure = card_compile
+            pipeline.secure_infer = card_secure
+        secs["cpu"] += time.perf_counter() - t0
+        cpu = np.concatenate(outs)
+        if not np.array_equal(card[:len(cpu)], cpu):
+            err = np.abs(card[:len(cpu)].astype(np.float64) - cpu).max()
+            fail(f"distill {net} {mode}: the card's secure logits differ "
+                 f"from the CPU's on the same weights and images, max "
+                 f"{err:.6g}")
+        with torch.no_grad():
+            plain, _ = bnn.bnn_forward(params, torch.as_tensor(
+                x, device=next(iter(params.values())).device), net)
+        evals[(net, mode)] = (acc, kd.evaluate(params, net, x, y),
+                              card, plain.cpu().numpy())
+        return acc
+
+    saved = {k: getattr(pipeline, k) for k in (
+        "train_bnn", "compile_secure", "secure_infer_cost", "secure_infer",
+        "_secure_accuracy")}
+
+    def train(net, data, **kw):
+        before = secs["train"]
+        torch.use_deterministic_algorithms(True)
+        try:
+            res = timed("train", saved["train_bnn"])(net, data, **kw)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        digest = hashlib.sha256()
+        for k in sorted(res.params):
+            digest.update(res.params[k].detach().cpu().numpy().tobytes())
+        print(f"[chip_smoke] distill train {net}: "
+              f"{secs['train'] - before:.2f} s, history {res.history}, "
+              f"params sha256 {digest.hexdigest()[:16]}")
+        return res
+
+    def capture(*a, **kw):
+        out = saved["secure_infer"](*a, **kw)
+        outs.append(out.cpu().numpy())
+        return out
+
+    timed_secure = timed("secure", saved["secure_infer"])
+
+    def card_secure(*a, **kw):
+        out = timed_secure(*a, **kw)
+        outs.append(out.cpu().numpy())
+        return out
+
+    card_compile = timed("compile", saved["compile_secure"])
+    pipeline.train_bnn = train
+    pipeline.compile_secure = card_compile
+    pipeline.secure_infer_cost = timed("compile",
+                                       saved["secure_infer_cost"])
+    pipeline.secure_infer = card_secure
+    pipeline._secure_accuracy = counted
+    t0 = time.perf_counter()
+    try:
+        result = pipeline.run_pipeline(device="cuda", **DISTILL)
+    finally:
+        for k, fn in saved.items():
+            setattr(pipeline, k, fn)
+    total = time.perf_counter() - t0
+    rows = result["rows"]
+    if len(rows) != 18:
+        fail(f"distill: {len(rows)} rows, want 18")
+    print(f"[chip_smoke] distill rows (card | BENCH_pareto.json): "
+          f"net mode acc secure_acc params online_kb rounds postsign_kb")
+    for r in rows:
+        key = (r["net"], r["mode"])
+        b = ref[key]
+        sec, plain, s_logits, p_logits = evals[key]
+        top2 = np.sort(p_logits, -1)
+        margin = top2[:, -1] - top2[:, -2]       # plaintext top-2 margin
+        gap = np.abs(s_logits - p_logits).max(-1)
+        print(f"[chip_smoke] distill {r['net']:13s} {r['mode']:6s} "
+              f"acc {r['acc']:.3f} | {b['acc']:.3f}  secure "
+              f"{r['secure_acc']:.4f} (plain {plain:.4f}) | "
+              f"{b['secure_acc']}  params {r['params']} | {b['params']}  "
+              f"KB {r['online_kb']} | {b['online_kb']}  rounds "
+              f"{r['rounds']} | {b['rounds']}  post-Sign KB "
+              f"{r['postsign_kb']} | {b['postsign_kb']}  pareto "
+              f"{r['pareto']} | {b['pareto']}  least margin "
+              f"{margin.min():.4f}, most |secure - plain| {gap.max():.4f}")
+        if not (math.isfinite(r["acc"])
+                and r["secure_acc"] == sec == plain):
+            bad = np.nonzero(s_logits.argmax(-1) != p_logits.argmax(-1))[0]
+            fail(f"distill {key}: secure accuracy {sec} != plaintext "
+                 f"accuracy {plain} on the same {n_eval} images; on the "
+                 f"first {DISTILL_EVAL_BATCH} the card's secure logits "
+                 f"equal the CPU's; images "
+                 f"{bad.tolist()} change their argmax: plaintext top-2 "
+                 f"margin {margin[bad].tolist()}, largest |secure - "
+                 f"plain| logit {gap[bad].tolist()}")
+        if r["acc"] < b["acc"] - DISTILL_ACC_TOL:
+            fail(f"distill {key}: accuracy {r['acc']} is more than "
+                 f"{DISTILL_ACC_TOL} below the reference's {b['acc']}")
+        # the BN folds change no message: these do not depend on the
+        # trained values
+        for col in ("params", "online_kb", "rounds", "postsign_kb"):
+            if r[col] != b[col]:
+                fail(f"distill {key}: {col} {r[col]} != the reference's "
+                     f"{b[col]}")
+    print(f"[chip_smoke] distill: {total:.1f} s (training "
+          f"{secs['train']:.1f} s, compiling and meta runs "
+          f"{secs['compile']:.1f} s, secure queries {secs['secure']:.1f} s, "
+          f"each first batch again on the CPU {secs['cpu']:.1f} s, == the "
+          f"card's bit for bit); secure launches {launches}")
+    new = {name: {k: c for k, c in d.items() if k not in checked[name]}
+           for name, d in ran.items()}
+    t0 = time.perf_counter()
+    check_kernels(new, timed=False)
+    print(f"[chip_smoke] distill: {sum(map(len, new.values()))} of "
+          f"{sum(map(len, ran.values()))} kernel shapes not in phase 2, each "
+          f"== its plain version ({time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 14. LM training
+# ---------------------------------------------------------------------------
+
+def train_lm_phase() -> None:
+    """Phase 14: TinyLlama-1.1B's train step at full width and depth on
+    ``token_stream`` batches (the loss must fall), then the reduced
+    trainer's crash and resume against an uninterrupted run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_stream
+    from repro_torch.launch.profiling import print_profile, profile_once
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.transformer import init_params
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import Trainer, TrainerConfig, latest_step
+
+    cfg = get_config("tinyllama-1.1b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, "cuda")
+    opt = adamw_init(dict(params.named_parameters()))
+    step = make_train_step(cfg, OptConfig(warmup_steps=TRAIN_LM["warmup"]))
+    losses, times = [], []
+    for batch, s in token_stream(TRAIN_LM["batch"], TRAIN_LM["seq"],
+                                 cfg.vocab, seed=0):
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in batch.items()}
+        if s >= TRAIN_LM["steps"]:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        print(f"[chip_smoke] train TinyLlama-1.1B step {s}: loss "
+              f"{losses[-1]:.4f} grad norm {float(m['grad_norm']):.4f} "
+              f"{times[-1]:.4f} s")
+    peak = torch.cuda.max_memory_allocated()
+    warm = statistics.median(times[1:])
+    # one more step (the next batch) under the profiler
+    print_profile("chip_smoke", "train step", profile_once(
+        lambda: step(params, opt, batch), torch.device("cuda"), warm))
+    n_params = sum(p.numel() for p in params.parameters())
+    del params, opt, step, m
+    torch.cuda.empty_cache()
+    toks = TRAIN_LM["batch"] * TRAIN_LM["seq"]
+    first3, last3 = np.mean(losses[:3]), np.mean(losses[-3:])
+    print(f"[chip_smoke] train TinyLlama-1.1B ({cfg.n_layers} blocks, "
+          f"{n_params} params) batch {TRAIN_LM['batch']} x "
+          f"{TRAIN_LM['seq']}: first step {times[0]:.3f} s, median step "
+          f"{warm:.4f} s = {toks / warm:.0f} tok/s, peak memory "
+          f"{peak / 2**30:.3f} GiB; loss first 3 {first3:.4f}, last 3 "
+          f"{last3:.4f}")
+    if not np.isfinite(losses).all() or not last3 < first3:
+        fail(f"TinyLlama training: the loss did not fall ({losses})")
+
+    rcfg = cfg.reduced()
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(name):
+            return Trainer(rcfg, TrainerConfig(ckpt_dir=f"{tmp}/{name}",
+                                               **RESUME), device="cuda")
+        t0 = time.perf_counter()
+        p_ref, _, m_ref = trainer("ref").run(resume=False)
+        try:
+            trainer("ab").run(resume=False, fail_at_step=4)
+            fail("the injected failure did not fire")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        last = latest_step(f"{tmp}/ab")
+        if last != 4:
+            fail(f"the crash at step 4 left checkpoint {last}")
+        p_res, _, m_res = trainer("ab").run(resume=True)
+        secs = time.perf_counter() - t0
+    err = max(float(((a - b).abs() - RESUME_TOL * b.abs()).max())
+              for a, b in zip(p_res.parameters(), p_ref.parameters()))
+    tail = [m for m in m_ref if m["step"] >= 4]
+    loss_err = max(abs(a["loss"] - b["loss"]) for a, b in zip(tail, m_res))
+    print(f"[chip_smoke] train reduced TinyLlama, crash at step 4 and "
+          f"resume vs uninterrupted: params max (|err| - rtol·|ref|) "
+          f"{err:.3g}, loss max |err| {loss_err:.3g} ({secs:.1f} s)")
+    if len(tail) != len(m_res) or not err <= RESUME_TOL \
+            or not loss_err < RESUME_LOSS_TOL:
+        fail("the resumed run differs from the uninterrupted one")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -2344,6 +2715,17 @@ def main() -> None:
     rows += check_pair_kernels(paths)
     by_phase["mesh"] = mesh_phase()
     print(f"[chip_smoke] mesh phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 13. distillation ----------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    by_phase["distill"] = distill_phase(kbuild, shapes)
+    print(f"[chip_smoke] distill phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 14. LM training -----------------------------------------------------
+    t0 = time.perf_counter()
+    train_lm_phase()
+    print(f"[chip_smoke] train-lm phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_phase"] = {ph: c.get(row["name"], 0)
                                     for ph, c in by_phase.items()}

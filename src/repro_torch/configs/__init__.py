@@ -7,7 +7,8 @@ Two of the reference's ten architectures are ported: the dense GQA family
 raise ``NotImplementedError`` from :func:`get_config` until their layers
 (MoE, MLA, the jamba interleave, the audio and vision frontends) are
 ported; ROADMAP.md §A lists them.  The reference's ``remat`` field has no
-counterpart: the port has no training step yet.
+counterpart: the port's train step keeps every activation
+(``nn/transformer.py``).
 """
 from __future__ import annotations
 

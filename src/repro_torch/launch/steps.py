@@ -1,9 +1,13 @@
-"""Step functions of the plaintext LM path (prefill, decode).
+"""Step functions of the plaintext LM path (train, prefill, decode).
 
-Port of ``repro/launch/steps.py`` (``make_prefill_step``,
-``make_decode_step``).  The train step and the abstract input specs of the
-dry-run path wait for the training slice (ROADMAP.md §A item 8).  The
-steps run without autograd.
+Port of ``repro/launch/steps.py`` (``make_train_step``,
+``make_prefill_step``, ``make_decode_step``).  The train step takes the
+gradient of ``nn.transformer.loss_fn`` with respect to every parameter of
+the ``LM`` module (``nn.layers.trainable`` turns gradients on for the step
+only) and applies ``optim.adamw_update`` in place.  The prefill and decode
+steps run without autograd.  The abstract input specs of the dry-run path
+(``input_specs``, ``abstract_state``) wait for the launchers of ROADMAP.md
+§A item 8.
 """
 from __future__ import annotations
 
@@ -11,8 +15,30 @@ import torch
 
 from ..configs import ArchConfig
 from ..nn import transformer as tfm
+from ..nn.layers import trainable
+from ..optim import OptConfig, adamw_update
 
-__all__ = ["make_prefill_step", "make_decode_step"]
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step"]
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig | None = None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss", "grad_norm"})``: ``params`` is the ``LM`` module, updated in
+    place and returned; ``opt_state`` is ``optim.adamw_init`` of
+    ``dict(params.named_parameters())``; ``batch`` holds (B, S) "tokens"
+    and "labels".  The metrics are 0-d device tensors."""
+    opt_cfg = opt_cfg or OptConfig()
+
+    def train_step(params, opt_state, batch):
+        named = dict(params.named_parameters())
+        with trainable(params) as leaves:
+            loss = tfm.loss_fn(params, batch, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        _, opt_state, gnorm = adamw_update(
+            named, dict(zip(named, grads)), opt_state, opt_cfg)
+        return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ArchConfig, flash_impl=None):

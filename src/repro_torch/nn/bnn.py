@@ -2,15 +2,18 @@
 CifarNet families, initialisation and the plaintext forward.
 
 Port of ``repro/nn/bnn.py`` (``L``, ``MNIST_NETS``, ``CIFAR_NETS``,
-``ALL_NETS``, ``INPUT_SHAPES``, ``init_bnn``, ``bnn_forward``).  The port
-keeps its own copy of the specs.  ``bnn_forward`` is inference only: it is
-the plaintext oracle the secure executor is held against, in the
-reference's layout (NHWC activations, HWIO weights).  ``init_bnn`` draws
-from a ``torch.Generator``, so its weights differ from the reference's;
+``ALL_NETS``, ``INPUT_SHAPES``, ``sign_ste``, ``init_bnn``, ``bnn_forward``,
+``param_count``).  The port keeps its own copy of the specs.  In eval mode
+``bnn_forward`` is the plaintext oracle the secure executor is held
+against and runs without autograd; ``train=True`` is the training forward
+(batch statistics, the clipped straight-through Sign), in the reference's
+layout (NHWC activations, HWIO weights).  ``init_bnn`` draws from a
+``torch.Generator``, so its weights differ from the reference's;
 ``weights.params_from_numpy`` carries a reference parameter dict across.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -21,7 +24,7 @@ import torch.nn.functional as F
 Params = dict[str, Any]
 
 __all__ = ["L", "MNIST_NETS", "CIFAR_NETS", "ALL_NETS", "INPUT_SHAPES",
-           "init_bnn", "bnn_forward"]
+           "sign_ste", "init_bnn", "bnn_forward", "param_count"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +111,25 @@ INPUT_SHAPES = {**{k: (28, 28, 1) for k in MNIST_NETS},
                 **{k: (32, 32, 3) for k in CIFAR_NETS}}
 
 
+class _SignSTE(torch.autograd.Function):
+    """Sign with the clipped straight-through gradient: forward ``x >= 0 ->
+    +1`` else -1, backward ``g * (|x| <= 1)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * (x.abs() <= 1.0).to(g.dtype)
+
+
+def sign_ste(x: torch.Tensor) -> torch.Tensor:
+    return _SignSTE.apply(x)
+
+
 def init_bnn(seed: int, net: str, in_shape=None, device="cpu") -> Params:
     """He-normal weights from ``torch.Generator(seed)``, zero biases,
     identity BN statistics; float32 tensors on ``device``."""
@@ -160,11 +182,21 @@ def _conv(x, w, stride, pad, groups=1):
     return y.permute(0, 2, 3, 1)
 
 
-@torch.no_grad()
 def bnn_forward(params: Params, x: torch.Tensor, net: str,
-                binarize: bool = True):
-    """Inference forward.  x: (B, H, W, C) float.  Returns (logits, {})
-    like the reference's ``(logits, new_running_stats)``."""
+                train: bool = False, binarize: bool = True):
+    """x: (B, H, W, C) float.  Returns ``(logits, new_running_stats)``.
+
+    Eval mode (the default) runs without autograd on the running BN
+    statistics.  ``train=True`` normalises each BN by its batch mean and
+    population variance (as ``jnp.var``), returns them detached under
+    ``l{i}_mu`` / ``l{i}_var``, and binarizes through :func:`sign_ste`."""
+    with contextlib.nullcontext() if train else torch.no_grad():
+        return _forward(params, x, net, train, binarize)
+
+
+def _forward(params: Params, x: torch.Tensor, net: str, train: bool,
+             binarize: bool):
+    stats = {}
     for i, l in enumerate(ALL_NETS[net]):
         if l.kind == "conv":
             x = _conv(x, params[f"l{i}_w"], l.stride, l.pad) + params[f"l{i}_b"]
@@ -175,18 +207,36 @@ def bnn_forward(params: Params, x: torch.Tensor, net: str,
         elif l.kind == "fc":
             x = x @ params[f"l{i}_w"] + params[f"l{i}_b"]
         elif l.kind == "bn":
-            x = (x - params[f"l{i}_mu"]) \
-                * torch.rsqrt(params[f"l{i}_var"] + 1e-5) \
-                * params[f"l{i}_g"] + params[f"l{i}_beta"]
+            if train:
+                dims = tuple(range(x.ndim - 1))
+                mu = x.mean(dims)
+                var = x.var(dims, correction=0)
+                stats[f"l{i}_mu"] = mu.detach()
+                stats[f"l{i}_var"] = var.detach()
+            else:
+                mu, var = params[f"l{i}_mu"], params[f"l{i}_var"]
+            x = (x - mu) * torch.rsqrt(var + 1e-5) * params[f"l{i}_g"] \
+                + params[f"l{i}_beta"]
         elif l.kind == "act":
             if l.act == "sign" and binarize:
-                x = torch.where(x >= 0, 1.0, -1.0)
+                x = sign_ste(x)
             elif l.act == "sign":
                 x = torch.tanh(x)
             else:
                 x = torch.relu(x)
         elif l.kind == "maxpool":
-            x = F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+            x = _maxpool(x)
         elif l.kind == "flatten":
             x = x.reshape(x.shape[0], -1)
-    return x, {}
+    return x, stats
+
+
+def _maxpool(x: torch.Tensor) -> torch.Tensor:
+    """2x2 / stride 2 over NHWC.  Its gradient goes to each window's first
+    maximum in row-major order, as the reference's select-and-scatter does:
+    after a Sign nearly every window ties."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def param_count(params: Params) -> int:
+    return sum(p.numel() for p in params.values())

@@ -8,10 +8,12 @@ float32 norms, softmax and RoPE.  Weights keep the reference's layout,
 ``(d_in, d_out)`` with ``x @ w``.  Parameters live on ``nn.Module``s (the
 reference's pytree leaves become attributes of the same names); an
 initialiser given no ``torch.Generator`` allocates without filling, for
-loading converted weights (``weights.lm_params_from_numpy``).
+loading converted weights (``weights.lm_params_from_numpy``).  Parameters
+take no gradient, except inside :func:`trainable` (the train step's).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -21,7 +23,7 @@ import torch.nn.functional as F
 __all__ = ["COMPUTE_DTYPE", "PARAM_DTYPE", "param", "dense_init", "dense",
            "embedding_init", "embed", "rmsnorm", "LayerNorm", "layernorm",
            "apply_norm", "norm_init", "act_fn", "MLP", "mlp_init", "mlp",
-           "rope_freqs", "apply_rope"]
+           "rope_freqs", "apply_rope", "trainable"]
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
@@ -30,6 +32,20 @@ PARAM_DTYPE = torch.float32
 def param(t: torch.Tensor) -> nn.Parameter:
     """An inference parameter (no gradient)."""
     return nn.Parameter(t, requires_grad=False)
+
+
+@contextlib.contextmanager
+def trainable(module: nn.Module):
+    """Every parameter of ``module`` takes a gradient inside the block and
+    none after it."""
+    ps = list(module.parameters())
+    for p in ps:
+        p.requires_grad_(True)
+    try:
+        yield ps
+    finally:
+        for p in ps:
+            p.requires_grad_(False)
 
 
 def _uniform(gen, shape, lo, hi, device) -> torch.Tensor:

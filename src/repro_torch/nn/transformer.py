@@ -1,17 +1,21 @@
-"""Model assembly of the plaintext LM path: parameters, the prefill forward
-and the one-token decode step, for the dense GQA and the SSM families.
+"""Model assembly of the plaintext LM path: parameters, the prefill forward,
+the training loss and the one-token decode step, for the dense GQA and the
+SSM families.
 
 Port of ``repro/nn/transformer.py`` (``layer_groups``, ``_layer_init``,
 ``init_params``, ``_ffn_apply``, ``_block_fwd``, ``_embed_inputs`` for text
-tokens, ``forward``, ``_layer_cache``/``init_cache``, ``_block_decode``,
-``decode_step``, ``prefill_step``).  The reference stacks each group's
-layers on a leading axis and runs them with ``lax.scan`` under
-``jax.checkpoint``; here the layers are an ``nn.ModuleList`` walked by a
-Python loop, and there is no remat (a training concern) and no sharding
-hint (identity on one card).  Caches are one dict per layer, updated in
-place by the decode step.  MoE, MLA, the jamba interleave, the audio and
-vision frontends and the MTP head raise ``NotImplementedError``: they are
-queued in ROADMAP.md §A item 8.
+tokens, ``forward``, ``_ce``, ``loss_fn``, ``_layer_cache``/``init_cache``,
+``_block_decode``, ``decode_step``, ``prefill_step``).  The reference
+stacks each group's layers on a leading axis and runs them with
+``lax.scan`` under ``jax.checkpoint``; here the layers are an
+``nn.ModuleList`` walked by a Python loop, with no sharding hint (identity
+on one card) and no remat: the train step keeps every activation for the
+backward pass (TinyLlama-1.1B at batch 4 x 256 tokens: ~17.6 GB of float32
+parameters, gradients and AdamW moments, activations on top, on one 80 GB
+card).  Caches are one dict per layer, updated in place by the decode
+step.  MoE, MLA, the jamba interleave, the audio and vision frontends and
+the MTP head and loss raise ``NotImplementedError``: they are queued in
+ROADMAP.md §A item 8.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from .layers import (COMPUTE_DTYPE, apply_norm, dense_init, embed,
                      embedding_init, mlp, mlp_init, norm_init, param)
 
 __all__ = ["Group", "layer_groups", "Block", "MambaLayer", "LM",
-           "init_params", "forward", "init_cache", "decode_step",
+           "init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill_step"]
 
 
@@ -153,6 +157,21 @@ def forward(params: LM, batch: dict, cfg: ArchConfig,
         h = _block_fwd(lp, h, cfg, kind, flash_impl)
     h = apply_norm(cfg.norm, params.final_norm, h)
     return h.to(COMPUTE_DTYPE) @ _head(params).to(COMPUTE_DTYPE)
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 over labels >= 0."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = labels >= 0
+    nll = torch.where(mask, lse - gold, 0.0)
+    return nll.sum() / mask.sum().clamp(min=1)
+
+
+def loss_fn(params: LM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Training loss of ``batch`` {"tokens", "labels"} (B, S)."""
+    return _ce(forward(params, batch, cfg), batch["labels"])
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ the plaintext forward's to within the fixed-point noise.
 ``lm_params_from_numpy`` takes the JAX package's LM parameters (its
 ``nn.transformer.init_params`` output as numpy arrays) into the port's
 ``LM`` module, splitting each stacked layer group along its first axis.
+``params_to_numpy`` and ``lm_params_to_numpy`` go the other way (the LM's
+layers restacked per group), for checkpoints either package restores;
+``lm_tree`` / ``lm_flat`` convert any per-parameter mapping (AdamW's
+moments too) between the two layouts.
 """
 from __future__ import annotations
 
@@ -18,13 +22,20 @@ import torch
 
 from .nn.transformer import LM, layer_groups
 
-__all__ = ["params_from_numpy", "lm_params_from_numpy", "ring_from_numpy",
-           "ring_to_numpy", "grid_quantize"]
+__all__ = ["params_from_numpy", "params_to_numpy", "lm_params_from_numpy",
+           "lm_params_to_numpy", "lm_tree", "lm_flat", "ring_from_numpy",
+           "ring_to_numpy", "grid_quantize", "to_host"]
 
 
 def params_from_numpy(params: dict, device="cpu") -> dict:
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in params.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's BNN parameter dict -> float32 numpy arrays (the
+    reference's layout: the same keys and shapes)."""
+    return {k: to_host(v) for k, v in params.items()}
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -35,23 +46,67 @@ def _leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{k}", np.asarray(v, np.float32)
 
 
+def lm_flat(tree: dict, cfg) -> dict:
+    """The reference's nested LM layout (``group{i}`` leaves stacked over
+    the group's layers) -> a flat ``{module name: array}`` mapping in the
+    port's names (``layers.{j}.attn.wq``, ``embed``, ...)."""
+    flat, first = {}, 0
+    for gi, g in enumerate(layer_groups(cfg)):
+        for name, arr in _leaves(tree[f"group{gi}"]):
+            assert arr.shape[0] == g.count, (name, arr.shape, g.count)
+            for i in range(g.count):
+                flat[f"layers.{first + i}.{name}"] = arr[i]
+        first += g.count
+    flat.update(_leaves({k: v for k, v in tree.items()
+                         if not k.startswith("group")}))
+    return flat
+
+
+def lm_tree(flat: dict, cfg) -> dict:
+    """Inverse of :func:`lm_flat`: each group's layers restacked on a
+    leading axis, other names nested by their dots."""
+    tree, first = {}, 0
+    for gi, g in enumerate(layer_groups(cfg)):
+        names = sorted({k.split(".", 2)[2] for k in flat
+                        if k.startswith("layers.")
+                        and first <= int(k.split(".")[1]) < first + g.count})
+        for name in names:
+            _nest(tree, f"group{gi}.{name}", np.stack(
+                [to_host(flat[f"layers.{first + i}.{name}"])
+                 for i in range(g.count)]))
+        first += g.count
+    for k, v in flat.items():
+        if not k.startswith("layers."):
+            _nest(tree, k, to_host(v))
+    return tree
+
+
+def to_host(a) -> np.ndarray:
+    """A tensor (any device) or array-like -> a numpy array."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def _nest(tree: dict, dotted: str, value) -> None:
+    *path, leaf = dotted.split(".")
+    for p in path:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = value
+
+
 def lm_params_from_numpy(params: dict, cfg, device="cpu") -> LM:
     """The reference's nested LM parameter dict (``group{i}`` leaves stacked
     over the group's layers) -> the port's ``LM`` on ``device``."""
-    state, first = {}, 0
-    for gi, g in enumerate(layer_groups(cfg)):
-        for name, arr in _leaves(params[f"group{gi}"]):
-            assert arr.shape[0] == g.count, (name, arr.shape, g.count)
-            for i in range(g.count):
-                state[f"layers.{first + i}.{name}"] = arr[i]
-        first += g.count
-    state.update(_leaves({k: v for k, v in params.items()
-                          if not k.startswith("group")}))
     model = LM(cfg, device="meta")
     model.load_state_dict({k: torch.tensor(v, device=device)
-                           for k, v in state.items()}, strict=True,
-                          assign=True)
+                           for k, v in lm_flat(params, cfg).items()},
+                          strict=True, assign=True)
     return model
+
+
+def lm_params_to_numpy(model: LM, cfg) -> dict:
+    """The port's ``LM`` -> the reference's nested float32 numpy layout."""
+    return lm_tree(model.state_dict(), cfg)
 
 
 def ring_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:
