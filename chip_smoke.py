@@ -112,7 +112,12 @@ Phases, each fatal on failure:
               reference's 2e-5), then in bf16 (the tensor-core route, each
               value within one bf16 rounding of the plain version's) a
               ragged S = 1000 with GQA, hd 32, MHA, and TinyLlama-1.1B's
-              prefill shape (2, 2048, 32, 4, 64); B9 ssd_scan at the
+              prefill shape (2, 2048, 32, 4, 64) (the row's numbers); the
+              wide heads: hd 96 and 128 in float32 and at a ragged S = 1000
+              with GQA in bf16, and the 2 x 2048 prefill shapes of
+              phi3-mini-3.8b (32 heads of 96), minitron-4b (24 / 8 of
+              128), jamba-v0.1-52b (32 / 8 of 128) and deepseek-67b (64 /
+              8 of 128), each timed beside SDPA; B9 ssd_scan at the
               reference's three kernel-test shapes and at Mamba2-1.3B's
               layer shape (1 and 2, 2048, 64, 64, 128; chunk 256) on the
               inputs of a full-width Mamba2 layer, all within 2e-5 of max
@@ -229,10 +234,31 @@ Phases, each fatal on failure:
               directory, crashed at step 4 and resumed, against an
               uninterrupted run (the reference test's rtol/atol 2e-4,
               loss 2e-3).
+15. zoo     - phi3-mini-3.8b and minitron-4b at full width and depth (32
+              layers each) and jamba-v0.1-52b at full width and one period,
+              8 of its 32 layers (a period is 49.4 GiB in float32; four
+              would not fit the card), one model on the card at a time:
+              the prefill step at 2 x 2048 on the _sdpa route and through
+              flash_impl (B8 exactly 32, 32 and 1 times, nothing else); the
+              dense two's last-position logits within 3% of their scale
+              of each other, jamba's gap printed, not gated (a bf16 ulp
+              flips a top-2 expert choice), with the routing decisions
+              (expert id or kept slot) that differ between the routes at
+              each MoE layer.  Then jamba sub-layer by sub-layer as in
+              phase 10, each sub-layer given the same input on both routes
+              and the plain result carried on: the attention sub-layer on
+              B8 against _sdpa (within 3%), each Mamba sub-layer's scan on
+              B9 against ssd_prefill (within 2^-6), launches exactly B8 1
+              and B9 7; B9 alone at jamba's layer shape (2, 2048, 128, 64,
+              N 16) against its plain version, as in phase 9.  Then serve
+              (batch 4, prompt 16, gen 16) of each: tok/s, peak memory,
+              tokens in range, logits finite; jamba's decode capacity is 1
+              slot an expert (the reference's rule), its drop share
+              printed, and one more decode step profiled.
 
 Prints the kernels' JSON line (twelve rows: the nine kernels, B5's batched
 entry and B1's and B2's pair entries, each with its launches by phase,
-phase 13's secure evaluations among them),
+phase 13's secure evaluations and phase 15's zoo among them),
 then the card's name and power limit, then the result line.  Exits
 non-zero without a result when no CUDA device is available or when the
 port's sources are not beside this script.
@@ -315,12 +341,23 @@ SOURCES = {**{name: f"src/repro_torch/csrc/{name}.cu"
 
 # B8: the reference's kernel-test shapes (B, S, H, Hkv, hd) in float32 and
 # a ragged S; in bf16 a ragged S with GQA, hd 32, MHA, and TinyLlama-1.1B's
-# prefill at batch 2 x 2048 (last: the row's numbers)
+# prefill at batch 2 x 2048 (FLASH_ROW: the row's numbers); then the wide
+# heads: float32 and a ragged S with GQA at hd 96 and 128, and the 2 x 2048
+# prefill shapes of phi3-mini-3.8b, minitron-4b, jamba-v0.1-52b and
+# deepseek-67b
+FLASH_ROW = (2, 2048, 32, 4, 64, "bfloat16")
 FLASH_SHAPES = [(2, 256, 4, 4, 64, "float32"), (2, 256, 8, 2, 64, "float32"),
                 (2, 128, 4, 1, 32, "float32"), (2, 1000, 4, 2, 64, "float32"),
                 (2, 1000, 8, 2, 64, "bfloat16"),
                 (2, 128, 4, 1, 32, "bfloat16"), (2, 256, 4, 4, 64, "bfloat16"),
-                (2, 2048, 32, 4, 64, "bfloat16")]
+                FLASH_ROW,
+                (2, 256, 4, 2, 96, "float32"), (2, 256, 4, 2, 128, "float32"),
+                (2, 1000, 8, 2, 96, "bfloat16"),
+                (2, 1000, 8, 2, 128, "bfloat16"),
+                (2, 2048, 32, 32, 96, "bfloat16"),
+                (2, 2048, 24, 8, 128, "bfloat16"),
+                (2, 2048, 32, 8, 128, "bfloat16"),
+                (2, 2048, 64, 8, 128, "bfloat16")]
 BB_REPEATS = 5             # B7 repeats at MnistNet4's shapes, bit for bit
 SPLIT_REPEATS = 5          # B1 / B3 repeats at their split-K shapes
 # B9: the reference's kernel-test shapes (B, S, H, hd, N, chunk); Mamba2's
@@ -378,6 +415,11 @@ TRAIN_LM = dict(batch=4, seq=256, steps=8, warmup=3)
 RESUME = dict(steps=6, global_batch=2, seq_len=16, ckpt_every=2,
               log_every=100)
 RESUME_TOL, RESUME_LOSS_TOL = 2e-4, 2e-3
+# phase 15: the zoo at published widths: phi3-mini-3.8b and minitron-4b at
+# full depth, jamba-v0.1-52b at one period, 8 of its 32 layers (one card
+# holds 49.4 GiB of a period in float32; four periods are ~192 GiB)
+ZOO_DENSE = ("phi3-mini-3.8b", "minitron-4b")
+JAMBA_LAYERS = 8
 
 
 def fail(msg: str) -> None:
@@ -1333,14 +1375,15 @@ def _row(name, ms, pms, b_ms, o_ms, lib, err, detail) -> dict:
 
 def check_flash() -> dict:
     """Phase 8, B8: kernel == plain version (host CPU) at FLASH_SHAPES; the
-    row's numbers are TinyLlama's shape (the last), the main path's."""
+    row's numbers are TinyLlama's shape (FLASH_ROW), the main path's; the
+    wide heads' numbers are in its shapes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.flash_attention import flash_attention_ref
 
     g = torch.Generator().manual_seed(7)
-    detail, err_max = [], 0.0
+    detail, err_max, row = [], 0.0, None
     for b, s, h, hkv, hd, dtype in FLASH_SHAPES:
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn((b, s, n, hd), generator=g).to(dt)
@@ -1377,10 +1420,11 @@ def check_flash() -> dict:
         print(f"[chip_smoke] flash_attention {(b, s, h, hkv, hd)} {dtype}: "
               f"{ms:.5f} ms (bound {max(b_ms, o_ms):.5f} ms, "
               f"{100 * max(b_ms, o_ms) / ms:.1f}% of bound), plain on host "
-              f"{pms:.3f} ms, sdpa {lib:.5f} ms ({ms / lib:.1f}x), max |err| "
+              f"{pms:.3f} ms, sdpa {lib:.5f} ms ({ms / lib:.2f}x), max |err| "
               f"{err:.3g}")
-    return _row("flash_attention", ms, pms, b_ms, o_ms, lib, err_max,
-                detail)
+        if (b, s, h, hkv, hd, dtype) == FLASH_ROW:
+            row = (ms, pms, b_ms, o_ms, lib)
+    return _row("flash_attention", *row, err_max, detail)
 
 
 def mamba_layer_inputs(cfg, params, tokens):
@@ -1415,13 +1459,87 @@ def ssd_diagnosis(ssd, dev, got, want, f64, chunk: int, tol: float) -> str:
             f"{serial}; card {r.stdout.strip()}")
 
 
+def ssd_case(host, chunk: int, reps: int, label: str = "") -> dict:
+    """B9 on one input set (host tensors, moved to the card): kernel ==
+    plain version (host CPU) within SSD_REL_TOL of max |y|, ``reps``
+    repeats bit-identical, the serial kernel beside it; at chunk CHUNK each
+    pass timed alone.  Returns the shape's record (``ms``, ``plain_ms``,
+    ``b_ms``, ``o_ms`` and the error among it)."""
+    import torch
+    from repro_torch.kernels import ssd
+    from repro_torch.nn.ssm import CHUNK
+
+    dev = tuple(t.cuda() for t in host)
+    run = lambda: ssd.ssd_scan(*dev, chunk=chunk)
+    got = run()
+    # the kernel's sums run in a fixed order: a repeat that differs in any
+    # bit is a race between its threads
+    (b, s, h, hd), n = host[0].shape, host[1].shape[-1]
+    for _ in range(reps):
+        if not torch.equal(run(), got):
+            fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: repeats of one "
+                 f"launch differ")
+    got = got.cpu()
+    t0 = time.perf_counter()
+    want = ssd.ssd_scan_ref(*host, chunk=chunk)
+    pms = (time.perf_counter() - t0) * 1e3
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    # each float32 side against the same math in float64: which one drifts
+    # (printed, not gated)
+    exact = ssd.ssd_chunked(*host, chunk, dtype=torch.float64)[0]
+    f64 = {side: float((t.double() - exact).abs().max()) / scale
+           for side, t in (("kernel", got), ("plain", want))}
+    if not err <= SSD_REL_TOL * scale:
+        fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: kernel != plain "
+             f"version (max abs err {err}, max |y| {scale}); "
+             + ssd_diagnosis(ssd, dev, got, want, f64, chunk,
+                             SSD_REL_TOL * scale))
+    ms = median_ms(run)
+    # the serial kernel (one block per (head, batch) walks the chunks)
+    old_run = lambda: ssd._launch(*dev, chunk, "serial")
+    old_err = float((old_run().cpu() - want).abs().max())
+    if not old_err <= SSD_REL_TOL * scale:
+        fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: the serial kernel != "
+             f"plain version (max abs err {old_err})")
+    old_ms = median_ms(old_run, reps=10)
+    passes = {}
+    if chunk == CHUNK:   # each pass alone, on buffers the others fill
+        buf = ssd.scratch(b, s, h, hd, n, chunk, dev[0].device)
+        for mode in ("gram", "states", "pass", "scan"):
+            passes[mode] = median_ms(
+                lambda: ssd._launch(*dev, chunk, mode, buf))
+    b_ms = 4 * (2 * b * s * h * hd + 2 * b * s * n + 2 * b * s * h) \
+        / HBM_BPS * 1e3
+    # per (b, chunk): the causal triangle of C·Bᵀ (B and C are shared
+    # across heads); per (b, h, chunk): its decayed product with x·dt, the
+    # carried-state term and the state update
+    tri = chunk * (chunk + 1) // 2
+    ops = 2 * b * (s // chunk) * (tri * n + h * (tri * hd
+                                                  + 2 * chunk * n * hd))
+    o_ms = ops / FP32_OPS * 1e3
+    print(f"[chip_smoke] ssd_scan {label}{(b, s, h, hd, n)} chunk {chunk}: "
+          f"{ms:.5f} ms (bound {max(b_ms, o_ms):.5f} ms, "
+          f"{100 * max(b_ms, o_ms) / ms:.1f}% of bound), plain on host "
+          f"{pms:.3f} ms, max |err| {err:.3g} (max |y| {scale:.3g}; "
+          f"vs float64 / max |y|: kernel {f64['kernel']:.3g}, plain "
+          f"{f64['plain']:.3g}); "
+          f"{reps} repeats bit-identical; serial kernel {old_ms:.5f} ms "
+          f"({old_ms / ms:.1f}x)"
+          + "".join(f"; {k} {v:.5f} ms" for k, v in passes.items()))
+    return {"B": b, "S": s, "H": h, "hd": hd, "N": n, "chunk": chunk,
+            "ms": ms, "plain_ms": pms, "bound_ms": max(b_ms, o_ms),
+            "b_ms": b_ms, "o_ms": o_ms, "max_abs_err": err,
+            "max_abs_y": scale, "repeats": reps, "serial_ms": old_ms,
+            "pass_ms": passes, "rel_err_vs_float64": f64}
+
+
 def check_ssd(layer_inputs) -> dict:
     """Phase 8, B9: kernel == plain version (host CPU) at the reference's
     test shapes and at Mamba2-1.3B's layer inputs at batch 1 and 2 (the
     row's numbers), each beside the serial kernel; at the layer shapes each
     pass is also timed alone."""
     import torch
-    from repro_torch.kernels import ssd
     from repro_torch.nn.ssm import CHUNK
 
     g = torch.Generator().manual_seed(8)
@@ -1437,76 +1555,13 @@ def check_ssd(layer_inputs) -> dict:
     # Mamba2's layer at batch 1, then at batch 2 (the row's numbers)
     cases.append((tuple(t[:1].contiguous() for t in layer), CHUNK, 5))
     cases.append((layer, CHUNK, 5))
-    detail, err_max = [], 0.0
-    for host, chunk, reps in cases:
-        dev = tuple(t.cuda() for t in host)
-        run = lambda: ssd.ssd_scan(*dev, chunk=chunk)
-        got = run()
-        # the kernel's sums run in a fixed order: a repeat that differs in
-        # any bit is a race between its threads
-        (b, s, h, hd), n = host[0].shape, host[1].shape[-1]
-        for _ in range(reps):
-            if not torch.equal(run(), got):
-                fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: repeats of one "
-                     f"launch differ")
-        got = got.cpu()
-        t0 = time.perf_counter()
-        want = ssd.ssd_scan_ref(*host, chunk=chunk)
-        pms = (time.perf_counter() - t0) * 1e3
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        # each float32 side against the same math in float64: which one
-        # drifts (printed, not gated)
-        exact = ssd.ssd_chunked(*host, chunk, dtype=torch.float64)[0]
-        f64 = {side: float((t.double() - exact).abs().max()) / scale
-               for side, t in (("kernel", got), ("plain", want))}
-        if not err <= SSD_REL_TOL * scale:
-            fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: kernel != plain "
-                 f"version (max abs err {err}, max |y| {scale}); "
-                 + ssd_diagnosis(ssd, dev, got, want, f64, chunk,
-                                 SSD_REL_TOL * scale))
-        err_max = max(err_max, err)
-        ms = median_ms(run)
-        # the serial kernel (one block per (head, batch) walks the chunks)
-        old_run = lambda: ssd._launch(*dev, chunk, "serial")
-        old_err = float((old_run().cpu() - want).abs().max())
-        if not old_err <= SSD_REL_TOL * scale:
-            fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: the serial kernel != "
-                 f"plain version (max abs err {old_err})")
-        old_ms = median_ms(old_run, reps=10)
-        passes = {}
-        if chunk == CHUNK:   # each pass alone, on buffers the others fill
-            buf = ssd.scratch(b, s, h, hd, n, chunk, dev[0].device)
-            for mode in ("gram", "states", "pass", "scan"):
-                passes[mode] = median_ms(
-                    lambda: ssd._launch(*dev, chunk, mode, buf))
-        b_ms = 4 * (2 * b * s * h * hd + 2 * b * s * n + 2 * b * s * h) \
-            / HBM_BPS * 1e3
-        # per (b, chunk): the causal triangle of C·Bᵀ (B and C are shared
-        # across heads); per (b, h, chunk): its decayed product with x·dt,
-        # the carried-state term and the state update
-        tri = chunk * (chunk + 1) // 2
-        ops = 2 * b * (s // chunk) * (tri * n + h * (tri * hd
-                                                      + 2 * chunk * n * hd))
-        o_ms = ops / FP32_OPS * 1e3
-        detail.append({"B": b, "S": s, "H": h, "hd": hd, "N": n,
-                       "chunk": chunk, "ms": ms, "plain_ms": pms,
-                       "bound_ms": max(b_ms, o_ms), "max_abs_err": err,
-                       "max_abs_y": scale, "repeats": reps,
-                       "serial_ms": old_ms, "pass_ms": passes,
-                       "rel_err_vs_float64": f64})
-        print(f"[chip_smoke] ssd_scan {(b, s, h, hd, n)} chunk {chunk}: "
-              f"{ms:.5f} ms (bound {max(b_ms, o_ms):.5f} ms, "
-              f"{100 * max(b_ms, o_ms) / ms:.1f}% of bound), plain on host "
-              f"{pms:.3f} ms, max |err| {err:.3g} (max |y| {scale:.3g}; "
-              f"vs float64 / max |y|: kernel {f64['kernel']:.3g}, plain "
-              f"{f64['plain']:.3g}); "
-              f"{reps} repeats bit-identical; serial kernel {old_ms:.5f} ms "
-              f"({old_ms / ms:.1f}x)"
-              + "".join(f"; {k} {v:.5f} ms" for k, v in passes.items()))
+    detail = [ssd_case(*case) for case in cases]
+    last = detail[-1]
     # no single PyTorch call computes the SSD scan
-    row = _row("ssd_scan", ms, pms, b_ms, o_ms, None, err_max, detail)
-    row["serial_ms"], row["pass_ms"] = old_ms, passes
+    row = _row("ssd_scan", last["ms"], last["plain_ms"], last["b_ms"],
+               last["o_ms"], None, max(d["max_abs_err"] for d in detail),
+               detail)
+    row["serial_ms"], row["pass_ms"] = last["serial_ms"], last["pass_ms"]
     return row
 
 
@@ -1516,9 +1571,15 @@ def lm_tokens(vocab: int):
                          generator=torch.Generator().manual_seed(1)).cuda()
 
 
-def print_serve(st) -> None:
-    if st["tokens"].shape != (SERVE["batch"], SERVE["gen"]):
-        fail(f"{st['arch']} served tokens of shape {st['tokens'].shape}")
+def print_serve(st, vocab: int) -> None:
+    """One serve's numbers; the tokens must be in range and of the asked
+    shape, every sampled token's logits finite."""
+    toks = st["tokens"]
+    if toks.shape != (SERVE["batch"], SERVE["gen"]):
+        fail(f"{st['arch']} served tokens of shape {toks.shape}")
+    if not ((toks >= 0) & (toks < vocab)).all() or not st["logits_finite"]:
+        fail(f"{st['arch']} served tokens out of range or non-finite "
+             f"logits")
     print(f"[chip_smoke] serve {st['arch']} batch {st['batch']} prompt "
           f"{st['prompt_len']} gen {st['gen']} on {st['kind']}: prefill "
           f"{st['prefill_tok_s']:.1f} tok/s ({st['prefill_s']:.4f} s), "
@@ -1526,33 +1587,41 @@ def print_serve(st) -> None:
           f"peak memory {st['peak_mem_bytes'] / 2**30:.3f} GiB")
 
 
-def tinyllama_phase(kbuild, params, cfg) -> dict:
-    """Phase 9: TinyLlama-1.1B's prefill step on B8 (22 launches) == the
-    _sdpa route; then serve."""
+def prefill_routes(kbuild, params, cfg, gate: bool = True):
+    """The prefill step at LM_BATCH x LM_SEQ on the _sdpa route and through
+    flash_impl=flash_attention_op: the flash route launches B8 exactly once
+    an attention layer and nothing else, the _sdpa route nothing; the
+    last-position logits of the two are within LM_TOL of their scale
+    (``gate``) or only printed.  Returns ({route: logits}, {route: the MoE
+    calls' routing}, the flash route's launches)."""
     import torch
     from repro_torch.kernels import ops as kops
-    from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn import moe
 
     batch = {"tokens": lm_tokens(cfg.vocab)}
+    n_attn = cfg.n_layers // cfg.attn_period if cfg.attn_period \
+        else cfg.n_layers
     routes = {"sdpa": make_prefill_step(cfg),
               "flash": make_prefill_step(cfg,
                                          flash_impl=kops.flash_attention_op)}
-    out, secs = {}, {}
+    out, routing, secs = {}, {}, {}
     for name, step in routes.items():
         step(params, batch)                     # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kbuild.reset_launches()
-        t0 = time.perf_counter()
-        out[name] = step(params, batch).float()
-        torch.cuda.synchronize()
-        secs[name] = time.perf_counter() - t0
+        with moe.record_routing() as routing[name]:
+            t0 = time.perf_counter()
+            out[name] = step(params, batch).float()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
         counts = launched(kbuild)
-        want = {"flash_attention": cfg.n_layers} if name == "flash" else {}
+        want = {"flash_attention": n_attn} if name == "flash" else {}
         if counts != want:
-            fail(f"TinyLlama prefill ({name}) launched {counts}, want {want}")
-        print(f"[chip_smoke] TinyLlama-1.1B prefill step {LM_BATCH}x{LM_SEQ} "
+            fail(f"{cfg.name} prefill ({name}) launched {counts}, want "
+                 f"{want}")
+        print(f"[chip_smoke] {cfg.name} prefill step {LM_BATCH}x{LM_SEQ} "
               f"({name} route): {secs[name]:.4f} s = "
               f"{LM_BATCH * LM_SEQ / secs[name]:.0f} tok/s, launches "
               f"{counts}, peak memory "
@@ -1561,14 +1630,25 @@ def tinyllama_phase(kbuild, params, cfg) -> dict:
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if got.shape != (LM_BATCH, cfg.vocab) or not torch.isfinite(got).all() \
-            or not err <= LM_TOL * scale:
-        fail(f"TinyLlama prefill: flash route differs from the _sdpa route "
+            or not torch.isfinite(want).all() \
+            or (gate and not err <= LM_TOL * scale):
+        fail(f"{cfg.name} prefill: flash route differs from the _sdpa route "
              f"by {err} (logits scale {scale})")
-    print(f"[chip_smoke] TinyLlama-1.1B last-position logits: flash route vs "
-          f"_sdpa route max |err| {err:.4g} of scale {scale:.4g}")
+    print(f"[chip_smoke] {cfg.name} last-position logits: flash route vs "
+          f"_sdpa route max |err| {err:.4g} of scale {scale:.4g} "
+          f"({100 * err / scale:.2f}%{'' if gate else ', not gated'})")
+    return out, routing, {"flash_attention": n_attn}
+
+
+def tinyllama_phase(kbuild, params, cfg) -> dict:
+    """Phase 9: TinyLlama-1.1B's prefill step on B8 (22 launches) == the
+    _sdpa route; then serve."""
+    from repro_torch.launch.serve import serve
+
+    _, _, counts = prefill_routes(kbuild, params, cfg)
     print_serve(serve("tinyllama-1.1b", device="cuda", params=params,
-                      **SERVE))
-    return {"flash_attention": cfg.n_layers}
+                      **SERVE), cfg.vocab)
+    return counts
 
 
 def mamba_phase(kbuild, params, cfg) -> dict:
@@ -1612,7 +1692,8 @@ def mamba_phase(kbuild, params, cfg) -> dict:
           f"{cfg.n_layers} layers, "
           f"each on B9 and on ssd_prefill: {secs:.3f} s, launches {counts}, "
           f"worst layer max |err| {worst:.3g} of its scale")
-    print_serve(serve("mamba2-1.3b", device="cuda", params=params, **SERVE))
+    print_serve(serve("mamba2-1.3b", device="cuda", params=params,
+                      **SERVE), cfg.vocab)
     return {"ssd_scan": cfg.n_layers}
 
 
@@ -2523,6 +2604,158 @@ def train_lm_phase() -> None:
         fail("the resumed run differs from the uninterrupted one")
 
 
+# ---------------------------------------------------------------------------
+# 15. the zoo: phi3-mini-3.8b, minitron-4b, jamba-v0.1-52b
+# ---------------------------------------------------------------------------
+
+def routing_gaps(a: list, b: list) -> tuple:
+    """Per MoE call, between two runs' ``record_routing`` lists: the
+    (token, choice) decisions whose expert id differs, and those whose
+    expert id or kept slot differs (one changed choice moves the slot of
+    every later token of its expert)."""
+    ids, slots = [], []
+    for (ea, pa, ka, _), (eb, pb, kb, _) in zip(a, b):
+        slot_a = ka.to(pa.dtype) * (pa + 1)     # 0 where dropped
+        slot_b = kb.to(pb.dtype) * (pb + 1)
+        ids.append(int((ea != eb).sum()))
+        slots.append(int(((ea != eb) | (slot_a != slot_b)).sum()))
+    return ids, slots
+
+
+def jamba_layers(kbuild, params, cfg) -> tuple:
+    """Jamba's 2 x 2048 prefill sub-layer by sub-layer: each gets the same
+    input on both routes, the plain result is carried on.  The attention
+    sub-layer on B8 against _sdpa (within LM_TOL of its scale), each Mamba
+    sub-layer's scan on B9 (ssd_inputs -> ssd_scan -> ssd_output) against
+    ssd_prefill (within SSD_LAYER_TOL); launches exactly B8 once and B9
+    seven times a period.  Returns (the launches, the first Mamba
+    sub-layer's scan inputs on the host)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ssd
+    from repro_torch.nn import attention as attn
+    from repro_torch.nn import ssm
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.nn.layers import apply_norm, embed
+
+    tokens = lm_tokens(cfg.vocab)
+    errs, layer_in = [], None
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        h = embed(params.embed, tokens)
+        for period in params.layers:
+            for lp in period.children():
+                hin = apply_norm(cfg.norm, lp.norm1, h)
+                if lp.is_attn:
+                    got, _ = attn.gqa_prefill(
+                        lp.attn, hin, cfg, flash_impl=kops.flash_attention_op)
+                    want, _ = attn.gqa_prefill(lp.attn, hin, cfg)
+                    tol, kind = LM_TOL, "attention"
+                else:
+                    z, x, bm, cm, da, dt = ssm.ssd_inputs(lp.mamba, hin, cfg)
+                    xs = (x.float(), bm.float(), cm.float(), da, dt)
+                    if layer_in is None:
+                        layer_in = tuple(t.cpu() for t in xs)
+                    y = ssd.ssd_scan(*xs, chunk=ssm.CHUNK)
+                    got = ssm.ssd_output(lp.mamba, y, x, z, cfg)
+                    want, _ = ssm.ssd_prefill(lp.mamba, hin, cfg)
+                    tol, kind = SSD_LAYER_TOL, "mamba"
+                err = float((got.float() - want.float()).abs().max())
+                scale = float(want.float().abs().max())
+                errs.append((kind, err / scale))
+                if not err <= tol * scale or not torch.isfinite(got).all():
+                    fail(f"jamba {kind} sub-layer on its kernel differs "
+                         f"from the plain route by {err:.4g} of scale "
+                         f"{scale:.4g}")
+                h = h + want
+                h = h + tfm._ffn_apply(lp.ffn, apply_norm(cfg.norm,
+                                                          lp.norm2, h), cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launched(kbuild)
+    n_per = cfg.n_layers // cfg.attn_period
+    want = {"flash_attention": n_per, "ssd_scan": n_per * (cfg.attn_period
+                                                         - 1)}
+    if counts != want:
+        fail(f"jamba layer by layer launched {counts}, want {want}")
+    print(f"[chip_smoke] {cfg.name} prefill {LM_BATCH}x{LM_SEQ} sub-layer "
+          f"by sub-layer, each on its kernel and on the plain route: "
+          f"{secs:.3f} s, launches {counts}, max |err| / scale: "
+          + ", ".join(f"{k} {e:.3g}" for k, e in errs))
+    return counts, layer_in
+
+
+def zoo_phase(kbuild, rows: list) -> dict:
+    """Phase 15: phi3-mini-3.8b and minitron-4b at full width and depth,
+    jamba-v0.1-52b at full width and JAMBA_LAYERS layers: the prefill step
+    on both routes, jamba sub-layer by sub-layer and B9 alone at its layer
+    shape, then serve.  One model on the card at a time."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profiling import print_profile
+    from repro_torch.launch.serve import serve
+    from repro_torch.nn import moe
+    from repro_torch.nn.ssm import CHUNK
+    from repro_torch.nn.transformer import init_params
+
+    launches = {"flash_attention": 0, "ssd_scan": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    print(f"[chip_smoke] zoo: device memory in use at the start "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+    for arch in ZOO_DENSE:
+        cfg = get_config(arch)
+        torch.cuda.empty_cache()
+        params = init_params(cfg, 0, "cuda")
+        add(prefill_routes(kbuild, params, cfg)[2])
+        print_serve(serve(cfg, device="cuda", params=params, **SERVE),
+                    cfg.vocab)
+        del params
+
+    full = get_config("jamba-v0.1-52b")
+    cfg = dataclasses.replace(full, name=f"{full.name}-{JAMBA_LAYERS}L",
+                              n_layers=JAMBA_LAYERS)
+    print(f"[chip_smoke] {full.name} cut to {JAMBA_LAYERS} of "
+          f"{full.n_layers} layers: one card holds "
+          f"{cfg.param_count() * 4 / 2**30:.1f} GiB of a period in float32; "
+          f"{full.n_layers // JAMBA_LAYERS} periods are "
+          f"{full.param_count() * 4 / 2**30:.0f} GiB")
+    torch.cuda.empty_cache()
+    params = init_params(cfg, 0, "cuda")
+    out, routing, counts = prefill_routes(kbuild, params, cfg, gate=False)
+    add(counts)
+    ids, slots = routing_gaps(routing["sdpa"], routing["flash"])
+    print(f"[chip_smoke] {cfg.name} routing decisions that differ between "
+          f"the routes, by MoE layer (of "
+          f"{LM_BATCH * LM_SEQ * cfg.experts_per_tok} each): expert id "
+          f"{ids}, expert id or kept slot {slots}")
+    counts, layer_in = jamba_layers(kbuild, params, cfg)
+    add(counts)
+    # B9 alone at jamba's layer shape, within SSD_REL_TOL of its plain
+    # version: a shape of the ssd_scan row
+    next(r for r in rows if r["name"] == "ssd_scan")["shapes"].append(
+        ssd_case(layer_in, CHUNK, 5, "jamba layer "))
+    with moe.record_routing() as served:
+        st = serve(cfg, device="cuda", params=params, profile=True, **SERVE)
+    print_serve(st, cfg.vocab)
+    kept = sum(int(k.sum()) for _, _, k, _ in served)
+    total = sum(int(k.numel()) for _, _, k, _ in served)
+    cap = max(1, int(1.25 * SERVE["batch"] * cfg.experts_per_tok
+                     / cfg.n_experts))
+    print(f"[chip_smoke] {cfg.name} served: {len(served)} MoE calls at "
+          f"capacity {cap} a step, {total - kept} of {total} choices "
+          f"dropped ({100 * (total - kept) / total:.1f}%)")
+    print_profile("chip_smoke", f"{cfg.name} decode step", st["profile"])
+    del params, out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -2545,7 +2778,8 @@ def main() -> None:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1]
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line \
+                    or "warning" in line:
                 print(f"[chip_smoke] ptxas {name} {fn}: {line.strip()}")
     smi = smi_line()
     print(f"[chip_smoke] card: {smi}")
@@ -2726,6 +2960,12 @@ def main() -> None:
     t0 = time.perf_counter()
     train_lm_phase()
     print(f"[chip_smoke] train-lm phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 15. the zoo ---------------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    by_phase["zoo"] = zoo_phase(kbuild, rows)
+    print(f"[chip_smoke] zoo phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_phase"] = {ph: c.get(row["name"], 0)
                                     for ph, c in by_phase.items()}

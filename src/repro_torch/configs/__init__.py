@@ -1,14 +1,22 @@
 """Architecture configuration registry of the plaintext LM path.
 
 Port of ``repro/configs/__init__.py`` (``SHAPES``, ``ArchConfig``,
-``reduced``, ``register``/``get_config``); the port keeps its own copy.
-Two of the reference's ten architectures are ported: the dense GQA family
-(``tinyllama-1.1b``) and the SSM family (``mamba2-1.3b``).  The others
+``param_count``, ``active_param_count``, ``reduced``,
+``register``/``get_config``); the port keeps its own copy.  Six of the
+reference's ten architectures are ported: the dense GQA family
+(``tinyllama-1.1b``, ``minitron-4b``, ``phi3-mini-3.8b``,
+``deepseek-67b``), the SSM family (``mamba2-1.3b``) and the hybrid
+Mamba / attention / MoE interleave (``jamba-v0.1-52b``).  The others
+(deepseek-v2/v3: MLA; hubert, pixtral: the audio and vision frontends)
 raise ``NotImplementedError`` from :func:`get_config` until their layers
-(MoE, MLA, the jamba interleave, the audio and vision frontends) are
-ported; ROADMAP.md §A lists them.  The reference's ``remat`` field has no
-counterpart: the port's train step keeps every activation
-(``nn/transformer.py``).
+are ported; ROADMAP.md §A item 8 lists them.  The reference's
+``remat`` field has no counterpart: the port's train step keeps every
+activation (``nn/transformer.py``).
+
+``active_param_count`` counts the MoE layers of the port's layer plan
+(``nn/transformer.py``): in a jamba period the odd sub-layers.  The
+reference's condition there never holds at jamba's period 8 and
+``moe_every`` 2, so it returns the full count (ROADMAP.md §C).
 """
 from __future__ import annotations
 
@@ -23,7 +31,8 @@ ARCH_IDS = [
     "deepseek-v2-236b", "deepseek-v3-671b", "jamba-v0.1-52b",
     "hubert-xlarge", "pixtral-12b", "mamba2-1.3b",
 ]
-PORTED_ARCH_IDS = ("tinyllama-1.1b", "mamba2-1.3b")
+PORTED_ARCH_IDS = ("tinyllama-1.1b", "mamba2-1.3b", "minitron-4b",
+                   "phi3-mini-3.8b", "deepseek-67b", "jamba-v0.1-52b")
 
 SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
@@ -99,18 +108,68 @@ class ArchConfig:
         return True, ""
 
     def param_count(self) -> int:
-        """Parameters of the ported families (embedding + blocks)."""
-        d, v = self.d_model, self.vocab
-        total = v * d * (1 if self.tie_embeddings else 2)
-        if self.ssm:
-            di, n = self.mamba_expand * d, self.ssm_state
-            per = (d * (2 * di + 2 * n + di // self.mamba_head_dim)
-                   + di * d + self.mamba_d_conv * (di + 2 * n))
+        """Total parameters (embedding + blocks), analytic."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab
+        h, kv, hd = self.n_heads, self.n_kv_heads, self.head_dim
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        per_ffn = d * ff * (3 if self.gated_mlp else 2)
+        if self.mla:
+            r, rd = self.kv_lora_rank, self.rope_head_dim
+            attn = (d * r + r * h * hd * 2 + d * rd + h * hd * d
+                    + (d * self.q_lora_rank + self.q_lora_rank * h * (hd + rd)
+                       if self.q_lora_rank else d * h * (hd + rd)))
+        elif self.n_heads:
+            attn = d * h * hd + 2 * d * kv * hd + h * hd * d
         else:
-            h, kv, hd = self.n_heads, self.n_kv_heads, self.head_dim
-            per = (d * h * hd + 2 * d * kv * hd + h * hd * d
-                   + d * self.d_ff * (3 if self.gated_mlp else 2))
-        return total + self.n_layers * per
+            attn = 0
+        moe_ffn = 0
+        if self.moe:
+            e_ff = self.moe_d_ff or ff
+            moe_ffn = (self.n_experts * d * e_ff * (3 if self.gated_mlp else 2)
+                       + d * self.n_experts
+                       + self.n_shared_experts * d * e_ff
+                       * (3 if self.gated_mlp else 2))
+        mamba = 0
+        if self.ssm:
+            di = self.mamba_expand * d
+            n = self.ssm_state
+            mamba = (d * (2 * di + 2 * n + di // self.mamba_head_dim)
+                     + di * d + self.mamba_d_conv * (di + 2 * n))
+        total = emb
+        for layer in range(self.n_layers):
+            is_attn = (self.attn_period == 0
+                       or (layer % self.attn_period) == self.attn_period - 1)
+            if self.ssm and not (self.attn_period and is_attn):
+                total += mamba
+            elif self.n_heads:
+                total += attn
+            if self.n_heads or not self.ssm:
+                use_moe = (self.moe and layer >= self.dense_layers
+                           and (layer % self.moe_every) == 0)
+                total += moe_ffn if use_moe else per_ffn
+        return total
+
+    def _moe_layers(self) -> int:
+        """Layers whose FFN is MoE in the layer plan: a jamba period's odd
+        sub-layers (``i % moe_every == 1``), elsewhere every layer from
+        ``dense_layers`` on."""
+        if not self.moe:
+            return 0
+        if self.attn_period:
+            return sum(1 for layer in range(self.n_layers)
+                       if (layer % self.attn_period) % self.moe_every == 1)
+        return sum(1 for layer in range(self.dense_layers, self.n_layers)
+                   if layer % self.moe_every == 0)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE top-k instead of all
+        experts)."""
+        if not self.moe:
+            return self.param_count()
+        e_ff = self.moe_d_ff or self.d_ff
+        per_expert = self.d_model * e_ff * (3 if self.gated_mlp else 2)
+        inactive = (self.n_experts - self.experts_per_tok) * per_expert
+        return self.param_count() - inactive * self._moe_layers()
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (the reference's)."""

@@ -1,0 +1,11 @@
+"""DeepSeek-67B [arXiv:2401.02954; hf].
+95L d_model=8192 64H (GQA kv=8) d_ff=22016 vocab=102400, llama arch.
+Port of ``repro/configs/deepseek_67b.py``."""
+from . import ArchConfig, register
+
+register(ArchConfig(
+    name="deepseek-67b", family="dense",
+    n_layers=95, d_model=8192, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=22016, vocab=102400,
+    act="silu", gated_mlp=True, norm="rmsnorm", rope=True,
+))

@@ -6,8 +6,8 @@
 //
 // q (B, S, H, hd), k/v (B, S, Hkv, hd), bfloat16 or float32, read through
 // their strides (the last dim contiguous); out (B, S, H, hd) contiguous, in
-// q's dtype.  Four instantiations: bf16 at hd 32 and 64 on the tensor
-// cores, and float32 (hd 32 and 64) on the CUDA cores.
+// q's dtype.  Eight instantiations: bf16 at hd 32, 64, 96 and 128 on the
+// tensor cores, and float32 at the same four widths on the CUDA cores.
 //
 // Common to both routes: one block per (q tile, head, batch).  The block
 // walks the K/V tiles up to its causal frontier min(S, (tile + 1) * 64)
@@ -39,25 +39,38 @@
 //  * K/V staging: a two-stage shared-memory ring filled by 16-byte
 //    cp.async (rows past S are zero-filled), so tile t+1 loads while tile t
 //    multiplies; fence.proxy.async hands the tiles to wgmma.  Tiles are in
-//    the GMMA 128-byte (hd 64) or 64-byte (hd 32) swizzle, which also keeps
-//    the copies free of bank conflicts.  The wrapper checks the 16-byte
-//    alignment the copies need (base pointers, strides multiples of 8).
+//    the canonical GMMA layout, cut into column blocks of 64 (hd 64, 128:
+//    128-byte swizzle) or 32 (hd 32, 96: 64-byte swizzle) elements, which
+//    also keeps the copies free of bank conflicts.  A row wider than one
+//    swizzle atom spans two (hd 128) or three (hd 96) blocks: Q·Kᵀ's k16
+//    steps move the descriptors' start address from block to block, and
+//    P·V's V descriptor carries the blocks' distance as its leading byte
+//    offset (N = hd is MN-major there).  hd 96 takes three 32-column blocks
+//    rather than 128 padded columns: every tile is whole swizzle atoms, n96
+//    spans exactly three MN atoms of V, and the shared memory is 62 KB, not
+//    83 KB.  The wrapper checks the 16-byte alignment the copies need (base
+//    pointers, strides multiples of 8).
 //  * Masks: only a block's last K/V tile (the diagonal one, also the
 //    ragged one) is masked, key > row -> -inf.  Key 0 is in every row's
 //    first tile, so the running max is finite after it.
 //  * Registers: each wgmma's accumulator and A registers are pinned around
 //    its fence and wait (reg_fence).  Q stays in shared memory: A fragments
 //    held in registers across loop iterations were corrupted at hd 64.
+//    A thread holds hd / 2 accumulator floats (64 at hd 128) beside its 32
+//    scores and 32 p_hi / p_lo registers.
 //
 // float32 route (flash_f32_kernel): the reference's kernel-test shapes, held
 // to its 2e-5, which no bf16 or TF32 tensor-core product can meet.  One
-// thread per query row keeps its scaled q row and acc in registers; 32-key
-// K/V tiles in shared memory as float32; FMAs on the CUDA cores.  No path
-// of the system passes float32 here.
+// thread per query row keeps its scaled q row and acc in registers (2 hd
+// floats: at hd 128 more than a thread's 255 registers, so part of them
+// spills to local memory, as chip_smoke.py's ptxas lines show); 32-key K/V
+// tiles in shared memory as float32; FMAs on the CUDA cores.  No path of
+// the system passes float32 here.
 //
 // What bounds it: the work is 4 * B * H * hd * S(S+1)/2 flops; at the
 // TinyLlama shape (2, 2048, 32, 4, 64) in bf16 the tensor cores would take
-// ~35 us for it (989 TFLOP/s).  The p_lo product adds half again, and the
+// ~35 us for it (989 TFLOP/s), at deepseek-67b's (2, 2048, 64, 8, 128)
+// ~139 us.  The p_lo product adds half again, and the
 // softmax between the two products is instruction-bound; see PERF.md.
 
 #include <cuda_bf16.h>
@@ -166,22 +179,38 @@ constexpr int TK = 64;           // keys of a K/V tile
 constexpr int THREADS = 128;     // 4 warps, 16 query rows each
 constexpr int STAGES = 2;        // K/V tiles in flight
 
-// Shared tiles hold rows of hd bf16 (ROWB bytes) in the canonical GMMA
-// layout with the 128-byte (hd 64) or 64-byte (hd 32) swizzle: 16-byte
-// chunk c of row r sits at chunk c ^ ((r >> SHIFT) % CHUNKS), and eight rows
-// form one swizzle atom.  The same layout is K-major for Kᵀ (B of Q·Kᵀ)
-// and MN-major for V (B of P·V, transposed by the descriptor).
+// Shared tiles hold 64 rows of hd bf16 in the canonical GMMA layout, cut
+// into NB column blocks of BW elements: BW 64 (hd 64, 128) in the 128-byte
+// swizzle, BW 32 (hd 32, 96) in the 64-byte one.  Block j holds columns
+// [j BW, (j + 1) BW) of every row, ROWB bytes a row; 16-byte chunk c of its
+// row r sits at chunk c ^ ((r >> SHIFT) % CPB), and eight rows form one
+// swizzle atom.  The same layout is K-major for Kᵀ (B of Q·Kᵀ) and
+// MN-major for V (B of P·V, transposed by the descriptor, whose leading
+// byte offset steps from one block to the next).
 template <int HD>
 struct Tile {
-  static constexpr int ROWB = HD * 2;               // bytes of a row
-  static constexpr int CHUNKS = ROWB / 16;
-  static constexpr int SHIFT = HD == 64 ? 0 : 1;
-  static constexpr int ATOM = 8 * ROWB;             // bytes of 8 rows
-  static constexpr int LAYOUT = HD == 64 ? 1 : 2;   // 128B / 64B swizzle
-  static constexpr int BYTES = TK * ROWB;           // one Q, K or V tile
+  static_assert(HD % 32 == 0, "head widths are multiples of 32");
+  static constexpr int BW = HD % 64 == 0 ? 64 : 32;  // columns of a block
+  static constexpr int NB = HD / BW;                 // blocks of a row
+  static constexpr int ROWB = BW * 2;                // bytes of a block row
+  static constexpr int CPB = ROWB / 16;              // its 16-byte chunks
+  static constexpr int CHUNKS = HD / 8;              // chunks of a row
+  static constexpr int SHIFT = BW == 64 ? 0 : 1;
+  static constexpr int ATOM = 8 * ROWB;              // bytes of 8 rows
+  static constexpr int BLOCK = TK * ROWB;            // bytes of a block
+  static constexpr int LAYOUT = BW == 64 ? 1 : 2;    // 128B / 64B swizzle
+  static constexpr int BYTES = NB * BLOCK;           // one Q, K or V tile
   static constexpr int SMEM = (1 + 2 * STAGES) * BYTES + 1024;  // + align
+  // P·V's leading byte offset: the next MN block of V (unused at NB 1)
+  static constexpr int LBO = NB > 1 ? BLOCK : 16;
   __device__ static int off(int r, int c) {
-    return r * ROWB + ((c ^ ((r >> SHIFT) & (CHUNKS - 1))) << 4);
+    return (c / CPB) * BLOCK + r * ROWB
+        + (((c % CPB) ^ ((r >> SHIFT) & (CPB - 1))) << 4);
+  }
+  // where k16 step kk (columns 16 kk ...) of row 0 starts: Q·Kᵀ's K-major
+  // start address moves within a block row, then to the next block
+  __device__ static constexpr int kstep(int kk) {
+    return (16 * kk / BW) * BLOCK + (16 * kk % BW) * 2;
   }
 };
 static_assert(TQ == TK, "a block's last K/V tile is its only diagonal one");
@@ -209,10 +238,12 @@ __device__ __forceinline__ void fence_async_shared() {
 }
 
 // GMMA shared-memory descriptor: start address, leading / stride byte
-// offsets (16-byte units), layout (1 = 128B swizzle, 2 = 64B swizzle)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int sbo,
-                                              int layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+// offsets (stored in 16-byte units), layout (1 = 128B swizzle, 2 = 64B
+// swizzle).  K-major swizzled operands ignore the leading offset (16 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, int lbo,
+                                              int sbo, int layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+      | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
       | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
       | ((uint64_t)layout << 62);
 }
@@ -268,6 +299,38 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
         "r"(accumulate));
 }
 template <>
+__device__ __forceinline__ void wgmma_rs<96>(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}, "
+      "{%48,%49,%50,%51}, %52, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
+        WG_D8(48), WG_D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+template <>
 __device__ __forceinline__ void wgmma_rs<32>(float (&d)[16],
                                              const uint32_t (&a)[4],
                                              uint64_t desc, int accumulate) {
@@ -309,22 +372,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // rows [r0, r0 + 64) of one head's (S, HD) slice -> a swizzled shared tile.
-// Thread tid copies chunk tid % CHUNKS of rows tid / CHUNKS + j * RSTEP, so
-// its swizzled chunk is the same in every row it copies.
+// The tile's 64 x CHUNKS 16-byte chunks are dealt out in row order, so
+// neighbouring threads read neighbouring chunks of a row.
 template <int HD>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long stride, int r0, int S,
                                           int tid) {
   using T = Tile<HD>;
-  constexpr int RSTEP = THREADS / T::CHUNKS;
-  const int r = tid / T::CHUNKS, c = tid % T::CHUNKS;
-  const bf16* p = src + (long long)(r0 + r) * stride + c * 8;
-  dst += T::off(r, c);
+  static_assert(TK * T::CHUNKS % THREADS == 0, "whole copy rounds");
 #pragma unroll
-  for (int j = 0; j < TK / RSTEP; ++j) {
-    const bool ok = r0 + r + j * RSTEP < S;
-    cp_async16(dst + j * RSTEP * T::ROWB, ok ? p + j * RSTEP * stride : src,
-               ok);
+  for (int j = 0; j < TK * T::CHUNKS / THREADS; ++j) {
+    const int i = tid + j * THREADS;
+    const int r = i / T::CHUNKS, c = i % T::CHUNKS;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + T::off(r, c),
+               ok ? src + (long long)(r0 + r) * stride + c * 8 : src, ok);
   }
 }
 
@@ -395,8 +457,8 @@ __global__ void __launch_bounds__(THREADS) flash_bf16_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss(sc, gmma_desc(qs + 32 * kk, T::ATOM, T::LAYOUT),
-               gmma_desc(kt + 32 * kk, T::ATOM, T::LAYOUT), kk);
+      wgmma_ss(sc, gmma_desc(qs + T::kstep(kk), 16, T::ATOM, T::LAYOUT),
+               gmma_desc(kt + T::kstep(kk), 16, T::ATOM, T::LAYOUT), kk);
     wgmma_commit();
     wgmma_wait();
     reg_fence(sc);
@@ -454,7 +516,8 @@ __global__ void __launch_bounds__(THREADS) flash_bf16_kernel(
                                            p1 - __high2float(hi));
         }
 
-    // O += P V: V's 16-key steps are two swizzle atoms apart
+    // O += P V: V's 16-key steps are two swizzle atoms apart, its column
+    // blocks T::LBO bytes
     reg_fence(ph);
     reg_fence(pl);
     reg_fence(acc);
@@ -462,7 +525,7 @@ __global__ void __launch_bounds__(THREADS) flash_bf16_kernel(
 #pragma unroll
     for (int kc = 0; kc < TK / 16; ++kc) {
       const uint64_t dv =
-          gmma_desc(vt + kc * 2 * T::ATOM, T::ATOM, T::LAYOUT);
+          gmma_desc(vt + kc * 2 * T::ATOM, T::LBO, T::ATOM, T::LAYOUT);
       wgmma_rs<HD>(acc, ph[kc], dv, 1);
       wgmma_rs<HD>(acc, pl[kc], dv, 1);
     }
@@ -521,7 +584,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; hd in {32, 64}; strides in elements of
+// dtype: 0 float32, 1 bfloat16; hd in {32, 64, 96, 128}; strides in
+// elements of
 // (batch, seq, head) for q, k, v.  bfloat16 needs 16-byte aligned bases and
 // strides that are multiples of 8 (the wrapper checks).
 extern "C" int flash_attention_launch(
@@ -532,13 +596,16 @@ extern "C" int flash_attention_launch(
     void* stream) {
   const long long st[9] = {sqb, sqs, sqh, skb, sks, skh, svb, svs, svh};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0 && hd == 32)
-    return launch_f32<32>(q, k, v, o, B, S, H, Hkv, st, scale, s);
-  if (dtype == 0 && hd == 64)
-    return launch_f32<64>(q, k, v, o, B, S, H, Hkv, st, scale, s);
-  if (dtype == 1 && hd == 32)
-    return launch_bf16<32>(q, k, v, o, B, S, H, Hkv, st, scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(q, k, v, o, B, S, H, Hkv, st, scale, s);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+#define FLASH_WIDTH(HD)                                                  \
+  if (hd == HD)                                                          \
+    return dtype == 0                                                    \
+        ? launch_f32<HD>(q, k, v, o, B, S, H, Hkv, st, scale, s)         \
+        : launch_bf16<HD>(q, k, v, o, B, S, H, Hkv, st, scale, s);
+  FLASH_WIDTH(32)
+  FLASH_WIDTH(64)
+  FLASH_WIDTH(96)
+  FLASH_WIDTH(128)
+#undef FLASH_WIDTH
   return (int)cudaErrorInvalidValue;
 }

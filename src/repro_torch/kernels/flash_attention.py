@@ -11,7 +11,8 @@ On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
 length, ragged ones included, or raises; on a CPU tensor it runs the plain
 version.  bfloat16 (the prefill step's dtype) runs on the tensor cores and
 needs 16-byte aligned q/k/v (:func:`check_aligned`); float32 runs on the
-CUDA cores.
+CUDA cores.  Both take head widths 32, 64, 96 and 128 (``HEAD_DIMS``); any
+other width raises on the card.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from . import build
 __all__ = ["flash_attention", "flash_attention_ref", "check_aligned",
            "HEAD_DIMS"]
 
-HEAD_DIMS = (32, 64)      # the kernel's instantiated head widths
+HEAD_DIMS = (32, 64, 96, 128)     # the kernel's instantiated head widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,7 +57,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
                          f"k/v {tuple(k.shape)}")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+        raise ValueError(f"flash_attention: head dim {hd} is not one of the "
+                         f"kernel's instantiated widths {HEAD_DIMS}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _DTYPES or t.dtype != q.dtype \
                 or t.device != q.device or t.stride(-1) != 1:

@@ -21,7 +21,7 @@ import time
 
 import torch
 
-from ..configs import get_config
+from ..configs import ArchConfig, get_config
 from ..device import resolve_device
 from ..nn import transformer as tfm
 from . import steps as steps_lib
@@ -46,16 +46,19 @@ def make_prefill_ingest(cfg):
     return prefill
 
 
-def serve(arch: str, reduced: bool = False, batch: int = 4,
+def serve(arch: str | ArchConfig, reduced: bool = False, batch: int = 4,
           prompt_len: int = 16, gen: int = 32, max_seq: int = 128,
           device=None, params=None, profile: bool = False) -> dict:
     """Ingest a random (batch, prompt_len) prompt, then decode ``gen``
     tokens (the first from the prompt's last logits); the prompt, and the
-    weights unless ``params`` are given, come from seed 0.  Returns the stats
-    dict: prefill and decode seconds and tok/s, the sampled tokens
-    (batch, gen), peak device memory on a card; with ``profile``, the
-    device-time breakdown of the last decode step run once more."""
-    cfg = get_config(arch)
+    weights unless ``params`` are given, come from seed 0.  ``arch`` is a
+    registered name or an ``ArchConfig`` (e.g. a published config cut to
+    fewer layers).  Returns the stats dict: prefill and decode seconds
+    and tok/s, the sampled tokens (batch, gen), whether the logits of
+    every sampled token were finite, peak device memory on a card; with
+    ``profile``, the device-time breakdown of the last decode step run
+    once more."""
+    cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced:
         cfg = cfg.reduced()
     if not cfg.supports_decode:
@@ -85,6 +88,7 @@ def serve(arch: str, reduced: bool = False, batch: int = 4,
 
     toks = logits.argmax(-1).to(torch.int64)[:, None]
     out_tokens = [toks]
+    finite = torch.isfinite(logits).all()     # stays on the device
     n_steps = gen - 1      # the first generated token came out of prefill
     last = {"tokens": prompt[:, -1:], "pos": prompt_len - 1}
     t1 = time.perf_counter()
@@ -92,6 +96,7 @@ def serve(arch: str, reduced: bool = False, batch: int = 4,
         last = {"tokens": toks, "pos": pos}
         logits, cache = step(params, cache, last)
         toks = logits.argmax(-1)
+        finite &= torch.isfinite(logits).all()
         out_tokens.append(toks)
     sync(device)
     t_decode = time.perf_counter() - t1
@@ -111,7 +116,7 @@ def serve(arch: str, reduced: bool = False, batch: int = 4,
             "decode_tok_s": d_toks / t_decode if n_steps else None,
             "peak_mem_bytes": (torch.cuda.max_memory_allocated(device)
                                if device.type == "cuda" else None),
-            "profile": prof,
+            "profile": prof, "logits_finite": bool(finite),
             "tokens": torch.cat(out_tokens, dim=1).cpu().numpy()}
 
 

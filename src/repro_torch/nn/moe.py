@@ -1,0 +1,193 @@
+"""Mixture-of-Experts FFN with capacity-based dispatch.
+
+Port of ``repro/nn/moe.py`` (``set_dispatch_mode``, ``moe_init``,
+``set_moe_impl``, ``moe_ffn``, ``_expert_compute``, ``_local_dispatch``,
+``_moe_ffn_dense``).  Experts are stacked on a leading E axis, float32
+``(E, d_in, d_out)``; a call routes each token to its top-k experts
+(softmax over the float32 router logits, the k gates renormalised),
+places each (token, choice) at its rank among the expert's slots in token
+order, drops what lies past the expert's capacity, scatters the kept
+tokens into a zero ``(E, C, d)`` bf16 buffer, runs the expert FFNs as
+batched bf16 products, gathers each choice's row back and combines the k
+rows in float32 by their gates.  The products are plain batched matmuls,
+as in the reference (``jnp.einsum`` there, outside any Pallas kernel).
+
+Capacity is computed over the call's token count, as in the reference:
+prefill (per batch) and decode (per step) drop differently; a decode step
+of 4 tokens with 16 experts and top-2 keeps one slot an expert.
+
+The reference's ``"shardmap"`` implementation (an explicit all-to-all over
+the device mesh's "model" axis) needs the launchers' mesh, which is not
+ported: :func:`set_moe_impl` refuses it (ROADMAP.md §A item 8).
+:func:`record_routing` collects each call's routing, for comparing two
+runs' decisions.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, act_fn, dense_init, mlp,
+                     mlp_init, param)
+
+__all__ = ["MoE", "moe_init", "set_dispatch_mode", "set_moe_impl", "moe_ffn",
+           "record_routing"]
+
+# Dispatch position computation:
+#  "cumsum": one-hot cumsum, an O(T·K·E) int intermediate
+#  "sort":   argsort + searchsorted rank-in-expert, O(T·K) memory
+_DISPATCH_MODE = "sort"
+_ROUTING: list | None = None
+
+
+def set_dispatch_mode(mode: str) -> None:
+    global _DISPATCH_MODE
+    if mode not in ("sort", "cumsum"):
+        raise ValueError(f"dispatch mode {mode!r}: 'sort' or 'cumsum'")
+    _DISPATCH_MODE = mode
+
+
+def set_moe_impl(impl: str) -> None:
+    """Only the single-program "dense" dispatch is ported."""
+    if impl == "shardmap":
+        raise NotImplementedError(
+            "set_moe_impl('shardmap'): the all-to-all expert exchange needs "
+            "the launchers' device mesh, not ported yet (ROADMAP.md §A "
+            "item 8)")
+    if impl != "dense":
+        raise ValueError(f"MoE impl {impl!r}: 'dense' or 'shardmap'")
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Inside the block every ``moe_ffn`` call appends its routing, in
+    call order: ``(expert id, position in the expert, keep)``, each of
+    shape (T * top_k,) in (token, choice) order, and the router
+    probabilities (T, E) in float32 they came from."""
+    global _ROUTING
+    prev, _ROUTING = _ROUTING, []
+    try:
+        yield _ROUTING
+    finally:
+        _ROUTING = prev
+
+
+def _stack(gen, n: int, d_in: int, d_out: int, device) -> torch.Tensor:
+    shape = (n, d_in, d_out)
+    if gen is None:
+        return torch.empty(shape, dtype=PARAM_DTYPE, device=device)
+    return torch.randn(shape, generator=gen, dtype=PARAM_DTYPE,
+                       device=device) / d_in ** 0.5
+
+
+class MoE(nn.Module):
+    """The reference's ``moe_init`` dict: ``router`` (d, E), the stacked
+    expert weights ``w_up`` / ``w_gate`` (E, d, d_ff) and ``w_down``
+    (E, d_ff, d), drawn N(0, 1) / sqrt(d_in), and an optional ``shared``
+    MLP applied to every token."""
+
+    def __init__(self, d: int, d_ff: int, n_experts: int, gated: bool,
+                 n_shared: int = 0, shared_d_ff: int = 0, device=None,
+                 gen=None):
+        super().__init__()
+        self.router = param(dense_init(gen, d, n_experts, device))
+        self.w_up = param(_stack(gen, n_experts, d, d_ff, device))
+        self.w_down = param(_stack(gen, n_experts, d_ff, d, device))
+        self.w_gate = param(_stack(gen, n_experts, d, d_ff, device)) \
+            if gated else None
+        self.shared = mlp_init(gen, d, shared_d_ff or d_ff * n_shared, gated,
+                               device) if n_shared else None
+
+
+def moe_init(gen, d: int, d_ff: int, n_experts: int, gated: bool,
+             n_shared: int = 0, shared_d_ff: int = 0, device=None) -> MoE:
+    return MoE(d, d_ff, n_experts, gated, n_shared, shared_d_ff, device, gen)
+
+
+def _gates(xt: torch.Tensor, router: torch.Tensor, top_k: int):
+    """The float32 router softmax (T, E), its top-k experts (T, K) and
+    their gates renormalised (T, K)."""
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
+    return probs, gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9), \
+        gate_idx
+
+
+def _positions(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Rank of each slot among the slots of its expert, in slot order."""
+    n = flat_e.shape[0]
+    if _DISPATCH_MODE == "sort":
+        # stable-sort slots by expert id; rank within expert = sorted index
+        # - first index of that expert; scatter ranks back to slot order
+        order = torch.argsort(flat_e, stable=True)
+        sorted_e = flat_e[order]
+        first = torch.searchsorted(sorted_e, sorted_e, side="left")
+        pos = torch.zeros(n, dtype=torch.int64, device=flat_e.device)
+        pos[order] = torch.arange(n, device=flat_e.device) - first
+        return pos
+    onehot = F.one_hot(flat_e, n_experts)                          # (T*K, E)
+    return ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+
+
+def _local_dispatch(xt: torch.Tensor, router: torch.Tensor, top_k: int,
+                    capacity: int):
+    """Routing and scatter: (buf (E, C, d) bf16, expert id, slot (the
+    position, or C - 1 where dropped), keep, gates (T, K)), the ids, slots
+    and keep of shape (T * K,)."""
+    t, d = xt.shape
+    e = router.shape[-1]
+    probs, gate_vals, gate_idx = _gates(xt, router, top_k)
+    flat_e = gate_idx.reshape(-1)
+    pos = _positions(flat_e, e)
+    keep = pos < capacity                                          # drops
+    if _ROUTING is not None:
+        _ROUTING.append((flat_e, pos, keep, probs))
+    idx_c = torch.where(keep, pos, capacity - 1)
+    src = xt.to(COMPUTE_DTYPE).repeat_interleave(top_k, dim=0)
+    src = torch.where(keep[:, None], src, 0)
+    buf = torch.zeros((e, capacity, d), dtype=COMPUTE_DTYPE, device=xt.device)
+    buf.index_put_((flat_e, idx_c), src, accumulate=True)
+    return buf, flat_e, idx_c, keep, gate_vals
+
+
+def _expert_compute(p: MoE, buf: torch.Tensor, act: str,
+                    gated: bool) -> torch.Tensor:
+    """buf (E, C, d) -> (E, C, d) through the expert FFNs, bf16 products
+    (each call casts the float32 experts, as the reference's astype)."""
+    up = torch.bmm(buf, p.w_up.to(COMPUTE_DTYPE))
+    if gated:
+        g = torch.bmm(buf, p.w_gate.to(COMPUTE_DTYPE))
+        h = act_fn(act)(g.float()).to(COMPUTE_DTYPE) * up
+    else:
+        h = act_fn(act)(up.float()).to(COMPUTE_DTYPE)
+    return torch.bmm(h, p.w_down.to(COMPUTE_DTYPE))
+
+
+def _moe_ffn_dense(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
+                   gated: bool, capacity_factor: float = 1.25):
+    b, s, d = x.shape
+    e = p.router.shape[-1]
+    t = b * s
+    capacity = max(1, int(capacity_factor * t * top_k / e))
+    buf, idx_e, idx_c, keep, gate_vals = _local_dispatch(
+        x.reshape(t, d), p.router, top_k, capacity)
+    out_e = _expert_compute(p, buf, act, gated)
+    # gather back + weighted combine
+    gathered = torch.where(keep[:, None], out_e[idx_e, idx_c], 0)
+    weighted = gathered.float() * gate_vals.reshape(-1, 1).float()
+    out = weighted.reshape(t, top_k, d).sum(dim=1)
+    y = out.reshape(b, s, d).to(COMPUTE_DTYPE)
+    if p.shared is not None:
+        y = y + mlp(p.shared, x, act, gated)
+    return y
+
+
+def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int, act: str, gated: bool,
+            capacity_factor: float = 1.25) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d) bf16.  Top-k routing with per-expert
+    capacity ``max(1, int(capacity_factor * B * S * top_k / E))``."""
+    return _moe_ffn_dense(p, x, top_k=top_k, act=act, gated=gated,
+                          capacity_factor=capacity_factor)

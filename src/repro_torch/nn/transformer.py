@@ -1,11 +1,13 @@
 """Model assembly of the plaintext LM path: parameters, the prefill forward,
-the training loss and the one-token decode step, for the dense GQA and the
-SSM families.
+the training loss and the one-token decode step, for the dense GQA family,
+the SSM family and the hybrid jamba interleave (Mamba-2 and attention
+sub-layers, MLP and MoE FFNs).
 
-Port of ``repro/nn/transformer.py`` (``layer_groups``, ``_layer_init``,
-``init_params``, ``_ffn_apply``, ``_block_fwd``, ``_embed_inputs`` for text
-tokens, ``forward``, ``_ce``, ``loss_fn``, ``_layer_cache``/``init_cache``,
-``_block_decode``, ``decode_step``, ``prefill_step``).  The reference
+Port of ``repro/nn/transformer.py`` (``layer_groups``, ``_ffn_init``,
+``_layer_init``, ``init_params``, ``_ffn_apply``, ``_block_fwd``,
+``_embed_inputs`` for text tokens, ``forward``, ``_ce``, ``loss_fn``,
+``_layer_cache``/``init_cache``, ``_block_decode``, ``decode_step``,
+``prefill_step``).  The reference
 stacks each group's layers on a leading axis and runs them with
 ``lax.scan`` under ``jax.checkpoint``; here the layers are an
 ``nn.ModuleList`` walked by a Python loop, with no sharding hint (identity
@@ -13,9 +15,17 @@ on one card) and no remat: the train step keeps every activation for the
 backward pass (TinyLlama-1.1B at batch 4 x 256 tokens: ~17.6 GB of float32
 parameters, gradients and AdamW moments, activations on top, on one 80 GB
 card).  Caches are one dict per layer, updated in place by the decode
-step.  MoE, MLA, the jamba interleave, the audio and vision frontends and
-the MTP head and loss raise ``NotImplementedError``: they are queued in
-ROADMAP.md §A item 8.
+step.
+
+A jamba period (``JambaPeriod``, one "layer" of the ``jamba_period``
+group) holds ``attn_period`` pre-norm sub-layers ``sub0`` ...: sub-layer i
+mixes with GQA attention iff ``i == attn_period // 2`` (else Mamba-2) and
+its FFN is MoE iff ``i % moe_every == 1`` (else the MLP).  The
+reference's ``fold_in(kk, 7)`` key of a sub-layer's FFN has no
+counterpart: the port draws every parameter from one generator (the same
+distributions, not the same bits).  MLA, the audio and vision frontends
+and the MTP head and loss raise ``NotImplementedError``: they are queued
+in ROADMAP.md §A item 8.
 """
 from __future__ import annotations
 
@@ -27,24 +37,26 @@ import torch.nn as nn
 from ..configs import ArchConfig
 from ..device import resolve_device
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import (COMPUTE_DTYPE, apply_norm, dense_init, embed,
                      embedding_init, mlp, mlp_init, norm_init, param)
 
-__all__ = ["Group", "layer_groups", "Block", "MambaLayer", "LM",
+__all__ = ["Group", "layer_groups", "Block", "MambaLayer", "JambaLayer",
+           "JambaPeriod", "LM",
            "init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill_step"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Group:
-    kind: str   # block | mamba
+    kind: str   # block | mamba | jamba_period
     count: int
 
 
 def _check_ported(cfg: ArchConfig) -> None:
     missing = [what for what, on in (
-        ("MoE", cfg.moe), ("MLA", cfg.mla), ("jamba_period", cfg.attn_period),
+        ("MLA", cfg.mla),
         (f"{cfg.frontend} frontend", cfg.frontend != "none"),
         ("MTP", cfg.mtp)) if on]
     if missing:
@@ -57,7 +69,19 @@ def layer_groups(cfg: ArchConfig) -> list[Group]:
     _check_ported(cfg)
     if cfg.family == "ssm":
         return [Group("mamba", cfg.n_layers)]
+    if cfg.attn_period:  # jamba: periods of (period - 1) mamba + 1 attention
+        assert cfg.n_layers % cfg.attn_period == 0
+        return [Group("jamba_period", cfg.n_layers // cfg.attn_period)]
     return [Group("block", cfg.n_layers)]
+
+
+def _ffn_init(gen, cfg: ArchConfig, use_moe: bool, device=None):
+    if use_moe:
+        e_ff = cfg.moe_d_ff or cfg.d_ff
+        return moe_mod.moe_init(gen, cfg.d_model, e_ff, cfg.n_experts,
+                                cfg.gated_mlp, cfg.n_shared_experts,
+                                e_ff * max(1, cfg.n_shared_experts), device)
+    return mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp, device)
 
 
 class Block(nn.Module):
@@ -70,7 +94,7 @@ class Block(nn.Module):
         self.norm2 = norm_init(cfg.norm, d, device)
         self.attn = attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                   cfg.head_dim, device)
-        self.ffn = mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, device)
+        self.ffn = _ffn_init(gen, cfg, False, device)
 
 
 class MambaLayer(nn.Module):
@@ -84,7 +108,41 @@ class MambaLayer(nn.Module):
             cfg.ssm_state, cfg.mamba_d_conv, device)
 
 
-_LAYERS = {"block": Block, "mamba": MambaLayer}
+class JambaLayer(nn.Module):
+    """A jamba sub-layer: pre-norm GQA attention or Mamba-2, then a
+    pre-norm MLP or MoE FFN."""
+
+    def __init__(self, cfg: ArchConfig, is_attn: bool, use_moe: bool,
+                 device=None, gen=None):
+        super().__init__()
+        d = cfg.d_model
+        self.is_attn = is_attn
+        self.norm1 = norm_init(cfg.norm, d, device)
+        self.norm2 = norm_init(cfg.norm, d, device)
+        if is_attn:
+            self.attn = attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim, device)
+        else:
+            self.mamba = ssm_mod.mamba2_init(
+                gen, d, cfg.mamba_expand, cfg.mamba_head_dim, cfg.ssm_state,
+                cfg.mamba_d_conv, device)
+        self.ffn = _ffn_init(gen, cfg, use_moe, device)
+
+
+class JambaPeriod(nn.Module):
+    """One period of the jamba interleave: sub-layers ``sub0`` ...
+    ``sub{attn_period - 1}``, its children in that order."""
+
+    def __init__(self, cfg: ArchConfig, device=None, gen=None):
+        super().__init__()
+        per = cfg.attn_period
+        for i in range(per):
+            self.add_module(f"sub{i}", JambaLayer(
+                cfg, i == per // 2, cfg.moe and i % cfg.moe_every == 1,
+                device, gen))
+
+
+_LAYERS = {"block": Block, "mamba": MambaLayer, "jamba_period": JambaPeriod}
 
 
 def _layer_init(gen, cfg: ArchConfig, kind: str, device=None) -> nn.Module:
@@ -123,6 +181,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
 # ---------------------------------------------------------------------------
 
 def _ffn_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if isinstance(p, moe_mod.MoE):
+        return moe_mod.moe_ffn(p, x, top_k=cfg.experts_per_tok, act=cfg.act,
+                               gated=cfg.gated_mlp)
     return mlp(p, x, cfg.act, cfg.gated_mlp)
 
 
@@ -133,6 +194,17 @@ def _block_fwd(p, h: torch.Tensor, cfg: ArchConfig, kind: str,
         y, _ = ssm_mod.ssd_prefill(p.mamba, apply_norm(cfg.norm, p.norm1, h),
                                    cfg)
         return h + y
+    if kind == "jamba_period":
+        for lp in p.children():
+            hin = apply_norm(cfg.norm, lp.norm1, h)
+            if lp.is_attn:
+                y, _ = attn.gqa_prefill(lp.attn, hin, cfg,
+                                        flash_impl=flash_impl)
+            else:
+                y, _ = ssm_mod.ssd_prefill(lp.mamba, hin, cfg)
+            h = h + y
+            h = h + _ffn_apply(lp.ffn, apply_norm(cfg.norm, lp.norm2, h), cfg)
+        return h
     hin = apply_norm(cfg.norm, p.norm1, h)
     y, _ = attn.gqa_prefill(p.attn, hin, cfg, causal=not cfg.encoder_only,
                             flash_impl=flash_impl)
@@ -193,6 +265,11 @@ def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
                 "conv": torch.zeros((batch, cfg.mamba_d_conv - 1,
                                      di + 2 * cfg.ssm_state),
                                     dtype=COMPUTE_DTYPE, device=device)}
+    if kind == "jamba_period":
+        per = cfg.attn_period
+        return {f"sub{i}": _layer_cache(cfg, "block" if i == per // 2
+                                        else "mamba", batch, max_seq, device)
+                for i in range(per)}
     raise ValueError(kind)
 
 
@@ -210,6 +287,18 @@ def _block_decode(p, c: dict, h: torch.Tensor, pos: int, cfg: ArchConfig,
         y, c2 = ssm_mod.ssd_decode(p.mamba, apply_norm(cfg.norm, p.norm1, h),
                                    c, cfg)
         return h + y, c2
+    if kind == "jamba_period":
+        c2 = {}
+        for i, lp in enumerate(p.children()):
+            lc = c[f"sub{i}"]
+            hin = apply_norm(cfg.norm, lp.norm1, h)
+            if lp.is_attn:
+                y, c2[f"sub{i}"] = attn.gqa_decode(lp.attn, hin, lc, pos, cfg)
+            else:
+                y, c2[f"sub{i}"] = ssm_mod.ssd_decode(lp.mamba, hin, lc, cfg)
+            h = h + y
+            h = h + _ffn_apply(lp.ffn, apply_norm(cfg.norm, lp.norm2, h), cfg)
+        return h, c2
     y, c2 = attn.gqa_decode(p.attn, apply_norm(cfg.norm, p.norm1, h), c, pos,
                             cfg)
     h = h + y

@@ -637,7 +637,9 @@ def _normal(shape, seed, scale=1.0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,h,hkv,hd", [(256, 4, 4, 64), (256, 8, 2, 64),
                                         (128, 4, 1, 32), (1000, 4, 2, 64),
-                                        (33, 2, 1, 32), (70, 2, 2, 32)])
+                                        (33, 2, 1, 32), (70, 2, 2, 32),
+                                        (256, 4, 2, 96), (70, 2, 2, 96),
+                                        (256, 4, 4, 128), (1000, 4, 1, 128)])
 def test_flash_attention_cuda_equals_plain(cuda, s, h, hkv, hd):
     """fp32 at the reference's 2e-5 (its kernel-test tolerance), any S."""
     q = _normal((2, s, h, hd), 1)
@@ -676,11 +678,12 @@ def _bf16_gate(got: torch.Tensor, want: torch.Tensor) -> bool:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [33, 70, 1000])
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 96, 128])
 @pytest.mark.parametrize("group", [1, 2, 8])
 def test_flash_attention_cuda_bf16(cuda, s, hd, group):
     """The tensor-core route at ragged S (the diagonal tile is also the
-    ragged one), both head widths and GQA groups 1, 2 and 8, under the
+    ragged one), every head width (96: three 64-byte swizzle blocks a
+    row, 128: two 128-byte ones) and GQA groups 1, 2 and 8, under the
     bf16 gate."""
     hkv = 2
     q = _normal((2, s, group * hkv, hd), 21).to(torch.bfloat16)
@@ -691,6 +694,47 @@ def test_flash_attention_cuda_bf16(cuda, s, hd, group):
     assert kbuild.LAUNCHES["flash_attention"] == launches + 1
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     assert _bf16_gate(got, flash.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [96, 128])
+def test_flash_attention_cuda_bf16_strided_wide(cuda, hd):
+    """Slices of one fused qkv buffer at the wide head widths (GQA 8 / 2,
+    ragged S): rows of two or three swizzle blocks read through strides."""
+    b, s, h, hkv = 2, 300, 8, 2
+    qkv = _normal((b, s, (h + 2 * hkv) * hd), 24).to(torch.bfloat16)
+    q = qkv[..., :h * hd].reshape(b, s, h, hd)
+    k = qkv[..., h * hd:(h + hkv) * hd].reshape(b, s, hkv, hd)
+    v = qkv[..., (h + hkv) * hd:].reshape(b, s, hkv, hd)
+    got = ops.flash_attention_op(q.to(cuda), k.to(cuda), v.to(cuda)).cpu()
+    assert _bf16_gate(got, flash.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_wide_heads_never_take_the_plain_version(
+        cuda, monkeypatch, dtype):
+    """A CUDA tensor at hd 96 or 128 launches the kernel (the counter goes
+    up by one) and never reaches the plain version; a width the kernel
+    has no instantiation for raises before any launch."""
+    monkeypatch.setattr(flash, "flash_attention_ref",
+                        lambda *a, **kw: pytest.fail("plain version on a "
+                                                     "card"))
+    for hd in (96, 128):
+        q = torch.zeros((1, 70, 4, hd), dtype=dtype, device=cuda)
+        kv = torch.zeros((1, 70, 2, hd), dtype=dtype, device=cuda)
+        launches = kbuild.LAUNCHES["flash_attention"]
+        out = ops.flash_attention_op(q, kv, kv)
+        torch.cuda.synchronize()
+        assert kbuild.LAUNCHES["flash_attention"] == launches + 1
+        assert out.shape == q.shape and bool((out == 0).all())
+    for hd in (16, 80, 256):
+        q = torch.zeros((1, 70, 4, hd), dtype=dtype, device=cuda)
+        kv = torch.zeros((1, 70, 2, hd), dtype=dtype, device=cuda)
+        launches = kbuild.LAUNCHES["flash_attention"]
+        with pytest.raises(ValueError, match="instantiated widths"):
+            ops.flash_attention_op(q, kv, kv)
+        assert kbuild.LAUNCHES["flash_attention"] == launches
 
 
 @pytest.mark.cuda

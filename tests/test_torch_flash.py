@@ -29,9 +29,12 @@ from repro_torch.nn import attention as attn
 
 torch.set_num_threads(1)
 
-# the reference's test_kernels.py shapes (S, H, Hkv, hd), then ragged S
+# the reference's test_kernels.py shapes (S, H, Hkv, hd), then ragged S,
+# then the widths of phi3-mini-3.8b (96) and minitron / deepseek-67b /
+# jamba (128)
 SHAPES = [(256, 4, 4, 64), (256, 8, 2, 64), (128, 4, 1, 32), (100, 4, 2, 32),
-          (33, 2, 1, 16)]
+          (33, 2, 1, 16), (100, 4, 2, 96), (70, 4, 4, 96), (64, 4, 1, 128),
+          (100, 8, 2, 128)]
 
 
 def _qkv(s, h, hkv, hd, seed, b=2):

@@ -1,7 +1,10 @@
 """The port's plaintext LM path against the JAX package: configs, layers,
 the weight converter, the prefill step (``_sdpa`` and flash routes), the
-decode step and the serving launcher, on the reduced TinyLlama-1.1B (dense
-GQA) and Mamba2-1.3B (SSM) configs.
+decode step and the serving launcher, on the reduced configs of every
+ported architecture: TinyLlama-1.1B, Minitron-4B, Phi-3-mini and
+DeepSeek-67B (dense GQA), Mamba2-1.3B (SSM) and Jamba-v0.1 (the hybrid
+Mamba / attention / MoE interleave; ``test_torch_zoo.py`` holds its
+routing to the reference's).
 
 Tolerances: float32 layer math (RoPE, the unrounded RMSNorm) at 1e-6 of
 its scale; a bf16 value computed the same way on both sides (RMSNorm,
@@ -35,7 +38,11 @@ from repro_torch.weights import lm_params_from_numpy
 
 torch.set_num_threads(1)
 
-ARCHS = ["tinyllama-1.1b", "mamba2-1.3b"]
+ARCHS = ["tinyllama-1.1b", "mamba2-1.3b", "minitron-4b", "phi3-mini-3.8b",
+         "deepseek-67b", "jamba-v0.1-52b"]
+# the models whose whole-model steps route nothing: jamba's MoE routing
+# needs the reference's expert choices to compare (test_torch_zoo.py)
+STEP_ARCHS = [a for a in ARCHS if a != "jamba-v0.1-52b"]
 LOGIT_TOL = 0.03
 
 
@@ -72,16 +79,21 @@ def test_configs_match_reference(arch):
 
 
 def test_unported_archs_raise():
-    for arch in configs.ARCH_IDS:
-        if arch not in configs.PORTED_ARCH_IDS:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                configs.get_config(arch)
+    """deepseek-v2/v3 (MLA), hubert (audio) and pixtral (vision) raise; so
+    does an MLA layer on a ported config."""
+    unported = [a for a in configs.ARCH_IDS
+                if a not in configs.PORTED_ARCH_IDS]
+    assert sorted(unported) == ["deepseek-v2-236b", "deepseek-v3-671b",
+                                "hubert-xlarge", "pixtral-12b"]
+    for arch in unported:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            configs.get_config(arch)
     with pytest.raises(ValueError):
         configs.get_config("gpt-5")
-    moe = dataclasses.replace(configs.get_config("tinyllama-1.1b").reduced(),
-                              moe=True, n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tfm.init_params(moe, 0, "cpu")
+    mla = dataclasses.replace(configs.get_config("tinyllama-1.1b").reduced(),
+                              mla=True, kv_lora_rank=32)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        tfm.init_params(mla, 0, "cpu")
 
 
 # -- layers ------------------------------------------------------------------
@@ -125,7 +137,7 @@ def test_layers_match_reference():
 
 # -- parameters --------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=STEP_ARCHS)
 def models(request):
     """(port config, reference config, reference params, the port's
     converted copy) for one reduced arch."""
@@ -139,13 +151,14 @@ def models(request):
 
 def test_converter_carries_every_leaf(models):
     """Every reference leaf lands, unchanged, in one port parameter; the
-    stacked group leaves split one layer per module."""
+    stacked group leaves split one layer (or jamba period) per module,
+    nested leaves keep their path."""
     cfg, _, jp, p = models
     sd, seen = p.state_dict(), 0
     for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
         keys = [k.key for k in path]
         if keys[0] == "group0":
-            for i in range(cfg.n_layers):
+            for i in range(leaf.shape[0]):
                 name = ".".join(["layers", str(i)] + keys[1:])
                 assert torch.equal(sd[name], _f32(leaf[i])), name
                 seen += 1
@@ -169,11 +182,13 @@ def test_init_params_distributions(arch):
             cfg).parameters())
     d = cfg.d_model
     assert abs(float(p.embed.std()) - 0.02) < 0.002
-    w = p.layers[0].attn.wq if cfg.family == "dense" else \
-        p.layers[0].mamba.w_in
+    w = {"dense": lambda: p.layers[0].attn.wq,
+         "ssm": lambda: p.layers[0].mamba.w_in,
+         "hybrid": lambda: p.layers[0].sub0.mamba.w_in}[cfg.family]()
     assert float(w.abs().max()) <= 1 / np.sqrt(d)
     assert abs(float(w.std()) - 1 / np.sqrt(3 * d)) < 0.05 / np.sqrt(d)
-    assert torch.equal(p.final_norm, torch.ones(d))
+    gain = p.final_norm if cfg.norm == "rmsnorm" else p.final_norm.g
+    assert torch.equal(gain, torch.ones(d))
     assert not torch.equal(p.embed, tfm.init_params(cfg, 1, "cpu").embed)
 
 
@@ -192,9 +207,10 @@ def test_prefill_step_matches_reference(models):
         p, {"tokens": torch.as_tensor(toks, dtype=torch.long)})
     assert got.shape == (2, cfg.vocab) and got.dtype == torch.bfloat16
     assert _close(got, want.astype(jnp.float32), LOGIT_TOL)
-    if cfg.family == "dense":
+    if cfg.n_heads:
         # the flash route against the reference's _sdpa route (its own
-        # flash route raises, ROADMAP.md §C); 4 layers on the plain B8
+        # flash route raises, ROADMAP.md §C); every attention layer on the
+        # plain B8
         before = dict(kbuild.LAUNCHES)
         flash = steps.make_prefill_step(cfg, ops.flash_attention_op)(
             p, {"tokens": torch.as_tensor(toks, dtype=torch.long)})
@@ -217,11 +233,13 @@ def test_decode_steps_match_reference(models):
                              "pos": pos})
         assert got.shape == (2, 1, cfg.vocab) and got.dtype == torch.float32
         assert _close(got, want, LOGIT_TOL)
-    assert len(c) == cfg.n_layers
+    assert len(c) == tfm.layer_groups(cfg)[0].count
     for i, lc in enumerate(c):
-        for name, t in lc.items():
-            assert _close(t, jc["group0"][name][i].astype(jnp.float32),
-                          LOGIT_TOL)
+        for path, leaf in jax.tree_util.tree_leaves_with_path(jc["group0"]):
+            t = lc
+            for key in path:
+                t = t[key.key]
+            assert _close(t, leaf[i].astype(jnp.float32), LOGIT_TOL)
 
 
 # -- serving -----------------------------------------------------------------
@@ -248,7 +266,7 @@ def test_serve_refuses_what_does_not_fit(monkeypatch):
     with pytest.raises(ValueError, match="max_seq"):
         serve.serve("tinyllama-1.1b", True, 1, 10, 10, 16, device="cpu")
     with pytest.raises(NotImplementedError):
-        serve.serve("deepseek-67b", True, device="cpu")
+        serve.serve("deepseek-v2-236b", True, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "tinyllama-1.1b", "--reduced"])
