@@ -255,10 +255,37 @@ Phases, each fatal on failure:
               tokens in range, logits finite; jamba's decode capacity is 1
               slot an expert (the reference's rule), its drop share
               printed, and one more decode step profiled.
+16. zoo-2   - the rest of the reference's architectures, one model on the
+              card at a time, seed-0 weights drawn there, each printed with
+              its device memory at the start, its peak, its parameters and
+              the full model's: deepseek-v2-236b at full width and 4 of its
+              60 layers (1 dense + 3 MoE of 160 experts, top-6, 2 shared;
+              13.30 G parameters, 49.6 GiB in float32) and deepseek-v3-671b
+              at 4 of 61 (its 3 dense + 1 MoE of 256 experts, top-8, 1
+              shared, and the MTP head; 15.21 G, 56.7 GiB): the prefill
+              step at 2 x 2048 on both routes (MLA never takes the flash
+              hook: no launch, the same routing, logits within 3%), each
+              MoE layer's capacity and dropped-choice share, serve (batch
+              4, prompt 16, gen 16; absorbed MLA decode), one more
+              generation with naive MLA decode fed the same tokens and
+              expert choices (every step's logits within 5% of their
+              scale, the reference's test_mla bound; the largest gap, the
+              choices its own router would change and the first step whose
+              argmax parts printed); v3's decode step profiled and its
+              loss_fn with the MTP term at 1 x 512 (finite, beside
+              ln(vocab)).  Then pixtral-12b at full depth (40 layers, 45.6
+              GiB): the prefill step over 2 x (1,024 N(0, 1) bf16 patch
+              slots + 1,024 tokens) on both routes, B8 exactly 40 times on
+              the flash route and never on _sdpa, logits within 3%; serve
+              from text tokens.  hubert-xlarge at full depth (48 layers):
+              the forward over 2 x 2048 N(0, 1) bf16 frames on both routes,
+              no B8 launch (non-causal: _sdpa), finite logits, tok/s; serve
+              must raise ValueError (encoder-only).
 
 Prints the kernels' JSON line (twelve rows: the nine kernels, B5's batched
 entry and B1's and B2's pair entries, each with its launches by phase,
-phase 13's secure evaluations and phase 15's zoo among them),
+phase 13's secure evaluations and phases 15's and 16's zoo among them;
+B8's launches are TinyLlama's 22, phase 15's 66 and pixtral-12b's 40),
 then the card's name and power limit, then the result line.  Exits
 non-zero without a result when no CUDA device is available or when the
 port's sources are not beside this script.
@@ -420,6 +447,16 @@ RESUME_TOL, RESUME_LOSS_TOL = 2e-4, 2e-3
 # holds 49.4 GiB of a period in float32; four periods are ~192 GiB)
 ZOO_DENSE = ("phi3-mini-3.8b", "minitron-4b")
 JAMBA_LAYERS = 8
+# phase 16: the rest of the zoo at published widths, cut in depth only
+# where float32 parameters would not fit the card: deepseek-v2-236b at 4 of
+# 60 layers (1 dense + 3 MoE: 13.30 G parameters, 49.6 GiB), deepseek-v3-
+# 671b at 4 of 61 (its 3 dense + 1 MoE of 256 experts, and the MTP head:
+# 15.21 G, 56.7 GiB); pixtral-12b (45.6 GiB) and hubert-xlarge (3.5 GiB)
+# at full depth
+DEEPSEEK_LAYERS = {"deepseek-v2-236b": 4, "deepseek-v3-671b": 4}
+ZOO_FULL = ("pixtral-12b", "hubert-xlarge")
+MLA_GAP_TOL = 0.05      # absorbed vs naive decode: the reference's bound
+MTP_SEQ = 512
 
 
 def fail(msg: str) -> None:
@@ -1587,21 +1624,47 @@ def print_serve(st, vocab: int) -> None:
           f"peak memory {st['peak_mem_bytes'] / 2**30:.3f} GiB")
 
 
-def prefill_routes(kbuild, params, cfg, gate: bool = True):
-    """The prefill step at LM_BATCH x LM_SEQ on the _sdpa route and through
+def lm_batch(cfg, batch: int = LM_BATCH) -> dict:
+    """A prefill batch of ``batch`` x LM_SEQ positions on the card, from
+    seeds: tokens; for audio N(0, 1) bf16 frames; for vision N(0, 1) bf16
+    patch embeddings in the first n_patches slots, then tokens."""
+    import torch
+    gen = torch.Generator().manual_seed(1)
+    if cfg.frontend == "audio":
+        return {"frames": torch.randn((batch, LM_SEQ, cfg.d_model),
+                                      generator=gen).bfloat16().cuda()}
+    st = LM_SEQ - cfg.n_patches
+    out = {"tokens": torch.randint(0, cfg.vocab, (batch, st),
+                                   generator=gen).cuda()}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = torch.randn(
+            (batch, cfg.n_patches, cfg.d_model), generator=gen) \
+            .bfloat16().cuda()
+    return out
+
+
+def prefill_routes(kbuild, params, cfg, gate: bool = True, batch=None):
+    """The prefill step at LM_BATCH x LM_SEQ (or on ``batch``, from
+    lm_batch) on the _sdpa route and through
     flash_impl=flash_attention_op: the flash route launches B8 exactly once
-    an attention layer and nothing else, the _sdpa route nothing; the
-    last-position logits of the two are within LM_TOL of their scale
-    (``gate``) or only printed.  Returns ({route: logits}, {route: the MoE
-    calls' routing}, the flash route's launches)."""
+    a causal GQA layer (none for MLA or an encoder) and nothing else, the
+    _sdpa route nothing; the last-position logits of the two are within
+    LM_TOL of their scale (``gate``) or only printed.  Returns ({route:
+    logits}, {route: the MoE calls' routing}, the flash route's
+    launches)."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.nn import moe
 
-    batch = {"tokens": lm_tokens(cfg.vocab)}
-    n_attn = cfg.n_layers // cfg.attn_period if cfg.attn_period \
-        else cfg.n_layers
+    batch = batch or {"tokens": lm_tokens(cfg.vocab)}
+    first = next(iter(batch.values()))
+    n_batch, n_tok = first.shape[0], LM_SEQ * first.shape[0]
+    if cfg.mla or cfg.encoder_only:
+        n_attn = 0
+    else:
+        n_attn = cfg.n_layers // cfg.attn_period if cfg.attn_period \
+            else cfg.n_layers
     routes = {"sdpa": make_prefill_step(cfg),
               "flash": make_prefill_step(cfg,
                                          flash_impl=kops.flash_attention_op)}
@@ -1617,19 +1680,20 @@ def prefill_routes(kbuild, params, cfg, gate: bool = True):
             torch.cuda.synchronize()
             secs[name] = time.perf_counter() - t0
         counts = launched(kbuild)
-        want = {"flash_attention": n_attn} if name == "flash" else {}
+        want = {"flash_attention": n_attn} if name == "flash" and n_attn \
+            else {}
         if counts != want:
             fail(f"{cfg.name} prefill ({name}) launched {counts}, want "
                  f"{want}")
-        print(f"[chip_smoke] {cfg.name} prefill step {LM_BATCH}x{LM_SEQ} "
+        print(f"[chip_smoke] {cfg.name} prefill step {n_batch}x{LM_SEQ} "
               f"({name} route): {secs[name]:.4f} s = "
-              f"{LM_BATCH * LM_SEQ / secs[name]:.0f} tok/s, launches "
+              f"{n_tok / secs[name]:.0f} tok/s, launches "
               f"{counts}, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     got, want = out["flash"], out["sdpa"]
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    if got.shape != (LM_BATCH, cfg.vocab) or not torch.isfinite(got).all() \
+    if got.shape != (n_batch, cfg.vocab) or not torch.isfinite(got).all() \
             or not torch.isfinite(want).all() \
             or (gate and not err <= LM_TOL * scale):
         fail(f"{cfg.name} prefill: flash route differs from the _sdpa route "
@@ -1637,7 +1701,7 @@ def prefill_routes(kbuild, params, cfg, gate: bool = True):
     print(f"[chip_smoke] {cfg.name} last-position logits: flash route vs "
           f"_sdpa route max |err| {err:.4g} of scale {scale:.4g} "
           f"({100 * err / scale:.2f}%{'' if gate else ', not gated'})")
-    return out, routing, {"flash_attention": n_attn}
+    return out, routing, {"flash_attention": n_attn} if n_attn else {}
 
 
 def tinyllama_phase(kbuild, params, cfg) -> dict:
@@ -2756,6 +2820,186 @@ def zoo_phase(kbuild, rows: list) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. the zoo, part 2: deepseek-v2/v3 (MLA), pixtral-12b, hubert-xlarge
+# ---------------------------------------------------------------------------
+
+def moe_drops(cfg, calls: list, what: str) -> None:
+    """Each MoE layer's capacity and dropped-choice share over ``calls``
+    (record_routing lists; layer i's calls are every n-th)."""
+    n_moe, k = cfg.n_layers - cfg.dense_layers, cfg.experts_per_tok
+    parts = []
+    for layer in range(n_moe):
+        mine = calls[layer::n_moe]
+        kept = sum(int(c[2].sum()) for c in mine)
+        total = sum(int(c[2].numel()) for c in mine)
+        caps = sorted({max(1, int(1.25 * (c[2].numel() // k) * k
+                                  / cfg.n_experts)) for c in mine})
+        parts.append(f"layer {cfg.dense_layers + layer}: capacity "
+                     f"{'/'.join(map(str, caps))}, {total - kept} of {total} "
+                     f"dropped ({100 * (total - kept) / total:.1f}%)")
+    print(f"[chip_smoke] {cfg.name} {what}: {len(calls)} MoE calls; "
+          + "; ".join(parts))
+
+
+def mla_decode_gap(params, cfg) -> None:
+    """Absorbed against naive MLA decode from serve's prompt (seed 0, SERVE
+    sizes): the absorbed run generates greedily and the naive one is fed
+    the same tokens and takes the same expert choices (top-k routing is
+    discontinuous, and a capacity of 1 a step turns one flipped choice
+    into other drops: the reference's test_mla turns MoE off for that);
+    every step's logits within MLA_GAP_TOL of their scale (its bound);
+    prints the largest gap, the choices the naive run's own router would
+    have changed and the first step whose argmax parts."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.nn import moe
+    from repro_torch.nn.transformer import init_cache
+
+    b, plen = SERVE["batch"], SERVE["prompt_len"]
+    n = plen + SERVE["gen"] - 1
+    prompt = torch.randint(0, cfg.vocab, (b, plen),
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    runs = {a: (make_decode_step(cfg, mla_absorbed=a),
+                init_cache(cfg, b, n, "cuda")) for a in (True, False)}
+    worst, parted, toks, flips = 0.0, None, None, 0
+    t0 = time.perf_counter()
+    for pos in range(n):
+        feed = prompt[:, pos:pos + 1] if pos < plen else toks
+        lg = {}
+        (step_a, cache_a), (step_n, cache_n) = runs[True], runs[False]
+        with moe.record_routing() as calls:
+            lg[True], _ = step_a(params, cache_a, {"tokens": feed,
+                                                   "pos": pos})
+        with moe.replay_routing([c[0] for c in calls]) as changed:
+            lg[False], _ = step_n(params, cache_n, {"tokens": feed,
+                                                    "pos": pos})
+        flips += sum(changed)
+        err = float((lg[True] - lg[False]).abs().max())
+        scale = float(lg[False].abs().max())
+        worst = max(worst, err / scale)
+        if not err < MLA_GAP_TOL * max(scale, 1.0):
+            fail(f"{cfg.name} step {pos}: absorbed MLA decode differs from "
+                 f"the naive one by {err} (logits scale {scale})")
+        toks = lg[True].argmax(-1)
+        if parted is None and pos >= plen - 1 \
+                and not torch.equal(toks, lg[False].argmax(-1)):
+            parted = pos
+    print(f"[chip_smoke] {cfg.name} absorbed vs naive MLA decode, {n} "
+          f"steps ({time.perf_counter() - t0:.2f} s): largest gap "
+          f"{100 * worst:.3f}% of the logits' scale (bound "
+          f"{100 * MLA_GAP_TOL:.0f}%); {flips} of "
+          f"{n * SERVE['batch'] * (cfg.n_layers - cfg.dense_layers)} "
+          f"(token, MoE layer) choices the naive run's own router would "
+          f"change; argmax "
+          + ("never parts" if parted is None else f"parts at step {parted}"))
+
+
+def mtp_loss(params, cfg) -> None:
+    """deepseek-v3's loss_fn (CE + MTP_WEIGHT x the MTP head's CE) at
+    1 x MTP_SEQ, without gradients: finite, printed beside ln(vocab)."""
+    import torch
+    from repro_torch.nn.transformer import MTP_WEIGHT, loss_fn
+
+    toks = torch.randint(0, cfg.vocab, (1, MTP_SEQ + 1),
+                         generator=torch.Generator().manual_seed(2)).cuda()
+    with torch.no_grad():
+        loss = float(loss_fn(params, {"tokens": toks[:, :-1],
+                                      "labels": toks[:, 1:]}, cfg))
+    if not math.isfinite(loss):
+        fail(f"{cfg.name} MTP loss is {loss}")
+    print(f"[chip_smoke] {cfg.name} loss_fn at 1x{MTP_SEQ} with the MTP "
+          f"term (weight {MTP_WEIGHT}): {loss:.4f}; ln(vocab) = "
+          f"{math.log(cfg.vocab):.4f}, (1 + {MTP_WEIGHT}) ln(vocab) = "
+          f"{(1 + MTP_WEIGHT) * math.log(cfg.vocab):.4f}")
+
+
+def zoo2_phase(kbuild) -> dict:
+    """Phase 16: deepseek-v2-236b and deepseek-v3-671b at full width and
+    DEEPSEEK_LAYERS layers (prefill on both routes, serve, absorbed vs
+    naive decode, MoE drops, v3's decode step profiled and its MTP loss),
+    then pixtral-12b and hubert-xlarge at full width and depth (prefill
+    on both routes; pixtral served, hubert refused).  One model on the
+    card at a time."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.profiling import print_profile
+    from repro_torch.launch.serve import serve
+    from repro_torch.nn import moe
+    from repro_torch.nn.transformer import init_params
+
+    launches = {"flash_attention": 0}
+    gib = 2 ** 30
+
+    def start(cfg, full):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated() / gib
+        params = init_params(cfg, 0, "cuda")
+        held = sum(t.numel() for t in params.parameters())
+        print(f"[chip_smoke] {cfg.name}: {held / 1e9:.2f} G parameters on "
+              f"the card, {held * 4 / gib:.1f} GiB in float32 "
+              f"(param_count {cfg.param_count() / 1e9:.2f} G, without "
+              f"norms, front_proj and the MTP head; the full {full.name}: "
+              f"{full.n_layers} layers, {full.param_count() / 1e9:.2f} G, "
+              f"{full.param_count() * 4 / gib:.0f} GiB); device memory in "
+              f"use at the start {at_start:.3f} GiB")
+        return params
+
+    def peak(cfg):
+        print(f"[chip_smoke] {cfg.name}: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / gib:.3f} GiB")
+
+    for arch, n_layers in DEEPSEEK_LAYERS.items():
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, name=f"{full.name}-{n_layers}L",
+                                  n_layers=n_layers)
+        params = start(cfg, full)
+        _, routing, counts = prefill_routes(kbuild, params, cfg)
+        if counts:
+            fail(f"{cfg.name}: MLA took the flash hook ({counts})")
+        ids, slots = routing_gaps(routing["sdpa"], routing["flash"])
+        if any(ids) or any(slots):
+            fail(f"{cfg.name}: the routes routed differently ({ids}, "
+                 f"{slots}) though MLA never takes the hook")
+        moe_drops(cfg, routing["sdpa"], f"prefill {LM_BATCH}x{LM_SEQ}")
+        with moe.record_routing() as served:
+            st = serve(cfg, device="cuda", params=params,
+                       profile=cfg.mtp, **SERVE)
+        print_serve(st, cfg.vocab)
+        moe_drops(cfg, served, "served")
+        if st["profile"] is not None:
+            print_profile("chip_smoke", f"{cfg.name} decode step",
+                          st["profile"])
+        mla_decode_gap(params, cfg)
+        if cfg.mtp:
+            mtp_loss(params, cfg)
+        peak(cfg)
+        del params
+
+    for arch in ZOO_FULL:
+        cfg = get_config(arch)
+        params = start(cfg, cfg)
+        out, _, counts = prefill_routes(kbuild, params, cfg,
+                                        batch=lm_batch(cfg))
+        for k, v in counts.items():
+            launches[k] += v
+        if cfg.supports_decode:
+            print_serve(serve(cfg, device="cuda", params=params, **SERVE),
+                        cfg.vocab)
+        else:
+            try:
+                serve(cfg, device="cuda", params=params, **SERVE)
+                fail(f"{cfg.name} served, but it is encoder-only")
+            except ValueError as e:
+                print(f"[chip_smoke] {cfg.name}: serve refused ({e})")
+        peak(cfg)
+        del params, out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
@@ -2966,6 +3210,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     by_phase["zoo"] = zoo_phase(kbuild, rows)
     print(f"[chip_smoke] zoo phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 16. the zoo, part 2 -------------------------------------------------
+    t0 = time.perf_counter()
+    by_phase["zoo-2"] = zoo2_phase(kbuild)
+    print(f"[chip_smoke] zoo-2 phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_phase"] = {ph: c.get(row["name"], 0)
                                     for ph, c in by_phase.items()}

@@ -2,14 +2,16 @@
 
 Port of ``repro/configs/__init__.py`` (``SHAPES``, ``ArchConfig``,
 ``param_count``, ``active_param_count``, ``reduced``,
-``register``/``get_config``); the port keeps its own copy.  Six of the
-reference's ten architectures are ported: the dense GQA family
+``register``/``get_config``); the port keeps its own copy.  Every one
+of the reference's ten architectures is ported: the dense GQA family
 (``tinyllama-1.1b``, ``minitron-4b``, ``phi3-mini-3.8b``,
-``deepseek-67b``), the SSM family (``mamba2-1.3b``) and the hybrid
-Mamba / attention / MoE interleave (``jamba-v0.1-52b``).  The others
-(deepseek-v2/v3: MLA; hubert, pixtral: the audio and vision frontends)
-raise ``NotImplementedError`` from :func:`get_config` until their layers
-are ported; ROADMAP.md §A item 8 lists them.  The reference's
+``deepseek-67b``), MLA with the dense -> MoE prefix
+(``deepseek-v2-236b``, ``deepseek-v3-671b`` with its MTP head), the SSM
+family (``mamba2-1.3b``), the hybrid Mamba / attention / MoE interleave
+(``jamba-v0.1-52b``) and the two frontends (``hubert-xlarge``: audio
+frames, encoder-only; ``pixtral-12b``: vision patch slots before the
+text).  As in the reference, ``param_count`` counts neither the audio
+``front_proj`` nor the MTP head.  The reference's
 ``remat`` field has no counterpart: the port's train step keeps every
 activation (``nn/transformer.py``).
 
@@ -23,16 +25,13 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-__all__ = ["ARCH_IDS", "PORTED_ARCH_IDS", "SHAPES", "ArchConfig", "register",
-           "get_config"]
+__all__ = ["ARCH_IDS", "SHAPES", "ArchConfig", "register", "get_config"]
 
 ARCH_IDS = [
     "minitron-4b", "phi3-mini-3.8b", "tinyllama-1.1b", "deepseek-67b",
     "deepseek-v2-236b", "deepseek-v3-671b", "jamba-v0.1-52b",
     "hubert-xlarge", "pixtral-12b", "mamba2-1.3b",
 ]
-PORTED_ARCH_IDS = ("tinyllama-1.1b", "mamba2-1.3b", "minitron-4b",
-                   "phi3-mini-3.8b", "deepseek-67b", "jamba-v0.1-52b")
 
 SHAPES = {
     "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
@@ -212,11 +211,6 @@ def get_config(name: str) -> ArchConfig:
         if name not in ARCH_IDS:
             raise ValueError(f"unknown arch {name!r}; the reference has "
                              + ", ".join(ARCH_IDS))
-        if name not in PORTED_ARCH_IDS:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ported: "
-                f"{', '.join(PORTED_ARCH_IDS)}); ROADMAP.md §A item 8 "
-                f"lists what waits")
         importlib.import_module(
             f"{__name__}.{name.replace('-', '_').replace('.', '_')}")
     return _REGISTRY[name]

@@ -4,7 +4,9 @@ Port of ``repro/launch/serve.py`` (``make_prefill_ingest``, ``main``).
 Prompt ingest runs the decode step over every prompt position, filling the
 cache (the reference compiles that loop into one ``lax.scan``; here it is
 a Python loop of eager steps); decode then takes one step per generated
-token, greedily.  Parameters are random (``nn.transformer.init_params``
+token, greedily (text tokens only, as the reference: pixtral decodes no
+patches; MLA decodes absorbed; an encoder-only model raises
+``ValueError``).  Parameters are random (``nn.transformer.init_params``
 from seed 0, as the reference's ``PRNGKey(0)``) at the config's published
 widths, or the reduced config with ``--reduced``.  Runs on the card unless
 ``--device cpu`` is given; ``--profile`` breaks one more decode step down

@@ -1,16 +1,26 @@
-"""GQA attention (llama family): prefill and one-token decode.
+"""Attention variants: GQA (llama family, and the encoder's non-causal
+attention) and MLA (deepseek v2/v3): prefill and one-token decode.
 
-Port of ``repro/nn/attention.py`` ``:22-103`` (``gqa_init``,
-``_split_heads``, ``_sdpa``, ``gqa_prefill``, ``gqa_decode``); MLA waits
-(ROADMAP.md §A item 8).  Layouts as in the reference: ``(B, S, H, hd)``
-heads, ``(B, Smax, Hkv, hd)`` caches.
+Port of ``repro/nn/attention.py`` (``gqa_init``, ``_split_heads``,
+``_sdpa``, ``gqa_prefill``, ``gqa_decode``, ``mla_init``, ``_mla_q``,
+``mla_prefill``, ``mla_decode``, ``mla_decode_absorbed``).  Layouts as in
+the reference: ``(B, S, H, hd)`` heads, ``(B, Smax, Hkv, hd)`` GQA caches,
+``{"c_kv": (B, Smax, r), "k_rope": (B, Smax, rd)}`` MLA caches.
 
 Prefill takes a ``flash_impl(q, k, v) -> (B, S, H, hd)`` hook for causal
 attention (``kernels.ops.flash_attention_op``, the B8 kernel on the card).
 Its output is flattened to ``(B, S, H*hd)`` in the compute dtype before
 ``wo``, as ``_sdpa``'s is; the reference passes it on unflattened and its
-flash route raises (ROADMAP.md §C).  ``gqa_decode`` writes the new key and
-value into the cache in place and returns that cache.
+flash route raises (ROADMAP.md §C).  The decode steps write the new
+position into the cache in place and return that cache.
+
+MLA keeps a low-rank latent ``c_kv`` (r wide) and one shared RoPE key
+(rd wide) a position.  Its q·k is hd + rd wide and its v hd wide, so it
+always runs ``_sdpa`` in float32 (as the reference: B8's contract has one
+head width for q, k and v), never the flash hook.  ``mla_decode`` expands
+the whole latent cache to per-head K/V; ``mla_decode_absorbed`` folds
+``w_uk`` into q and ``w_uv`` into the output and scores in the latent
+space, scaled by 1/sqrt(hd + rd).
 """
 from __future__ import annotations
 
@@ -21,7 +31,8 @@ import torch.nn as nn
 
 from .layers import COMPUTE_DTYPE, apply_rope, dense, dense_init, param
 
-__all__ = ["NEG_INF", "GQA", "gqa_init", "gqa_prefill", "gqa_decode"]
+__all__ = ["NEG_INF", "GQA", "gqa_init", "gqa_prefill", "gqa_decode", "MLA",
+           "mla_init", "mla_prefill", "mla_decode", "mla_decode_absorbed"]
 
 NEG_INF = -1e9
 
@@ -110,4 +121,123 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, pos: int, cfg):
     cache["v"][:, pos:pos + 1] = v.to(cache["v"].dtype)
     out = _sdpa(q, cache["k"], cache["v"], causal=False, kv_len=pos + 1,
                 sliding_window=cfg.sliding_window)
+    return dense(p, out, "wo"), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek v2/v3): low-rank compressed KV cache
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """The reference's ``mla_init`` dict: ``w_dkv`` (d, r), ``w_uk`` /
+    ``w_uv`` (r, h·hd), ``w_kr`` (d, rd), ``wo`` (h·hd, d), and the query
+    through ``w_dq`` (d, q_lora) and ``w_uq`` (q_lora, h·(hd + rd)), or
+    ``wq`` (d, h·(hd + rd)) where ``q_lora_rank`` is 0."""
+
+    def __init__(self, cfg, device=None, gen=None):
+        super().__init__()
+        d, r = cfg.d_model, cfg.kv_lora_rank
+        h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+        self.w_dkv = param(dense_init(gen, d, r, device))
+        self.w_uk = param(dense_init(gen, r, h * hd, device))
+        self.w_uv = param(dense_init(gen, r, h * hd, device))
+        self.w_kr = param(dense_init(gen, d, rd, device))
+        self.wo = param(dense_init(gen, h * hd, d, device))
+        if cfg.q_lora_rank:
+            self.w_dq = param(dense_init(gen, d, cfg.q_lora_rank, device))
+            self.w_uq = param(dense_init(gen, cfg.q_lora_rank, h * (hd + rd),
+                                         device))
+        else:
+            self.wq = param(dense_init(gen, d, h * (hd + rd), device))
+
+
+def mla_init(gen, cfg, device=None) -> MLA:
+    return MLA(cfg, device, gen)
+
+
+def _mla_q(p: MLA, x: torch.Tensor, cfg):
+    """(q_nope (..., h, hd), q_rope (..., h, rd)), before RoPE."""
+    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    if cfg.q_lora_rank:
+        q = dense(p, dense(p, x, "w_dq"), "w_uq")
+    else:
+        q = dense(p, x, "wq")
+    q = q.reshape(x.shape[:-1] + (h, hd + rd))
+    return q[..., :hd], q[..., hd:]
+
+
+def _mla_new_position(p: MLA, x: torch.Tensor, cache: dict, pos: int, cfg):
+    """The decode steps' common half: q (RoPE'd at ``pos``) and the new
+    latent and RoPE key written into ``cache`` at ``pos``."""
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    posv = torch.full((1,), pos, device=x.device)
+    q_rope = apply_rope(q_rope, posv, cfg.rope_theta)
+    kr_new = apply_rope(dense(p, x, "w_kr")[..., None, :], posv,
+                        cfg.rope_theta)[..., 0, :]
+    cache["c_kv"][:, pos:pos + 1] = dense(p, x, "w_dkv") \
+        .to(cache["c_kv"].dtype)
+    cache["k_rope"][:, pos:pos + 1] = kr_new.to(cache["k_rope"].dtype)
+    return q_nope, q_rope
+
+
+def mla_prefill(p: MLA, x: torch.Tensor, cfg, positions=None):
+    """x: (B,S,d) -> ((B,S,d), (c_kv (B,S,r), k_rope (B,S,rd)))."""
+    b, s, _ = x.shape
+    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    pos = torch.arange(s, device=x.device) if positions is None \
+        else positions
+    q_nope, q_rope = _mla_q(p, x, cfg)
+    q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
+    c_kv = dense(p, x, "w_dkv")
+    k_rope = apply_rope(dense(p, x, "w_kr")[..., None, :], pos,
+                        cfg.rope_theta)                # (B,S,1,rd) shared
+    k_nope = dense(p, c_kv, "w_uk").reshape(b, s, h, hd)
+    v = dense(p, c_kv, "w_uv").reshape(b, s, h, hd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, rd)], dim=-1)
+    out = _sdpa(q, k, v, causal=True)
+    return dense(p, out, "wo"), (c_kv, k_rope[..., 0, :])
+
+
+def mla_decode(p: MLA, x: torch.Tensor, cache: dict, pos: int, cfg):
+    """Naive decode: x (B,1,d); the whole latent cache expanded to per-head
+    K/V, the slots past ``pos`` masked."""
+    b = x.shape[0]
+    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    q_nope, q_rope = _mla_new_position(p, x, cache, pos, cfg)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    s = c_kv.shape[1]
+    k_nope = dense(p, c_kv, "w_uk").reshape(b, s, h, hd)
+    v = dense(p, c_kv, "w_uv").reshape(b, s, h, hd)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)],
+                  dim=-1)
+    out = _sdpa(q, k, v, causal=False, kv_len=pos + 1)
+    return dense(p, out, "wo"), cache
+
+
+def mla_decode_absorbed(p: MLA, x: torch.Tensor, cache: dict, pos: int,
+                        cfg):
+    """Absorbed decode (deepseek-v2 §2.1): q_nope·w_ukᵀ scores against the
+    latent cache itself, the attention output leaves the latent space
+    through ``w_uv``; the cache is never expanded to h heads."""
+    b = x.shape[0]
+    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    r = cfg.kv_lora_rank
+    q_nope, q_rope = _mla_new_position(p, x, cache, pos, cfg)
+    c_kv = cache["c_kv"].float()
+    s = c_kv.shape[1]
+    w_uk = p.w_uk.reshape(r, h, hd).to(COMPUTE_DTYPE)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)   # bf16, as ref
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), c_kv)
+              + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
+                             cache["k_rope"].float()))
+    scores = scores / math.sqrt(hd + rd)
+    scores = scores.masked_fill(torch.arange(s, device=x.device) > pos,
+                                NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", w, c_kv)
+    out = torch.einsum("bqhr,rhd->bqhd", o_lat,
+                       p.w_uv.reshape(r, h, hd).float())
+    out = out.reshape(b, 1, h * hd).to(COMPUTE_DTYPE)
     return dense(p, out, "wo"), cache

@@ -52,11 +52,12 @@ def _uniform(gen, shape, lo, hi, device) -> torch.Tensor:
     if gen is None:
         return torch.empty(shape, dtype=PARAM_DTYPE, device=device)
     u = torch.rand(shape, generator=gen, dtype=PARAM_DTYPE, device=device)
-    return u * (hi - lo) + lo
+    return u.mul_(hi - lo).add_(lo)     # in place: no copy of a large stack
 
 
 def dense_init(gen, d_in: int, d_out: int, device=None) -> torch.Tensor:
-    return _uniform(gen, (d_in, d_out), -1.0, 1.0, device) / math.sqrt(d_in)
+    return _uniform(gen, (d_in, d_out), -1.0, 1.0, device) \
+        .div_(math.sqrt(d_in))
 
 
 def dense(p, x: torch.Tensor, name: str) -> torch.Tensor:

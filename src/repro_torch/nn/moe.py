@@ -20,7 +20,10 @@ The reference's ``"shardmap"`` implementation (an explicit all-to-all over
 the device mesh's "model" axis) needs the launchers' mesh, which is not
 ported: :func:`set_moe_impl` refuses it (ROADMAP.md §A item 8).
 :func:`record_routing` collects each call's routing, for comparing two
-runs' decisions.
+runs' decisions; :func:`replay_routing` makes a run take another run's
+expert choices (top-k routing is discontinuous: an ulp of a hidden state
+can flip a choice, so two numerically different paths are compared on
+the same choices).
 """
 from __future__ import annotations
 
@@ -34,13 +37,14 @@ from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, act_fn, dense_init, mlp,
                      mlp_init, param)
 
 __all__ = ["MoE", "moe_init", "set_dispatch_mode", "set_moe_impl", "moe_ffn",
-           "record_routing"]
+           "record_routing", "replay_routing"]
 
 # Dispatch position computation:
 #  "cumsum": one-hot cumsum, an O(T·K·E) int intermediate
 #  "sort":   argsort + searchsorted rank-in-expert, O(T·K) memory
 _DISPATCH_MODE = "sort"
 _ROUTING: list | None = None
+_REPLAY: tuple | None = None
 
 
 def set_dispatch_mode(mode: str) -> None:
@@ -75,12 +79,30 @@ def record_routing():
         _ROUTING = prev
 
 
+@contextlib.contextmanager
+def replay_routing(choices: list):
+    """Inside the block every ``moe_ffn`` call takes its experts from the
+    front of ``choices`` (each entry the expert ids of one call, (T * top_k)
+    or (T, top_k) in (token, choice) order, as :func:`record_routing`
+    gives them; consumed in call order) in place of its router's top-k;
+    the gates are its own router probabilities of those experts,
+    renormalised.  Yields a list that gets, a call, the number of tokens
+    whose own top-k differs."""
+    global _REPLAY
+    prev, changed = _REPLAY, []
+    _REPLAY = (choices, changed)
+    try:
+        yield changed
+    finally:
+        _REPLAY = prev
+
+
 def _stack(gen, n: int, d_in: int, d_out: int, device) -> torch.Tensor:
     shape = (n, d_in, d_out)
     if gen is None:
         return torch.empty(shape, dtype=PARAM_DTYPE, device=device)
     return torch.randn(shape, generator=gen, dtype=PARAM_DTYPE,
-                       device=device) / d_in ** 0.5
+                       device=device).div_(d_in ** 0.5)   # in place
 
 
 class MoE(nn.Module):
@@ -111,7 +133,15 @@ def _gates(xt: torch.Tensor, router: torch.Tensor, top_k: int):
     """The float32 router softmax (T, E), its top-k experts (T, K) and
     their gates renormalised (T, K)."""
     probs = torch.softmax(xt.float() @ router.float(), dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
+    if _REPLAY is None:
+        gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
+    else:
+        choices, changed = _REPLAY
+        gate_idx = torch.as_tensor(choices.pop(0), device=probs.device) \
+            .reshape(-1, top_k).long()
+        own = torch.topk(probs, top_k, dim=-1).indices
+        changed.append(int((own != gate_idx).any(-1).sum()))
+        gate_vals = probs.gather(-1, gate_idx)
     return probs, gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9), \
         gate_idx
 

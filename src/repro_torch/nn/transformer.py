@@ -1,11 +1,12 @@
 """Model assembly of the plaintext LM path: parameters, the prefill forward,
 the training loss and the one-token decode step, for the dense GQA family,
-the SSM family and the hybrid jamba interleave (Mamba-2 and attention
-sub-layers, MLP and MoE FFNs).
+MLA with deepseek's dense -> MoE prefix and MTP head, the SSM family, the
+hybrid jamba interleave (Mamba-2 and attention sub-layers, MLP and MoE
+FFNs) and the audio and vision frontends.
 
 Port of ``repro/nn/transformer.py`` (``layer_groups``, ``_ffn_init``,
 ``_layer_init``, ``init_params``, ``_ffn_apply``, ``_block_fwd``,
-``_embed_inputs`` for text tokens, ``forward``, ``_ce``, ``loss_fn``,
+``_embed_inputs``, ``forward``, ``_ce``, ``MTP_WEIGHT``, ``loss_fn``,
 ``_layer_cache``/``init_cache``, ``_block_decode``, ``decode_step``,
 ``prefill_step``).  The reference
 stacks each group's layers on a leading axis and runs them with
@@ -23,9 +24,20 @@ mixes with GQA attention iff ``i == attn_period // 2`` (else Mamba-2) and
 its FFN is MoE iff ``i % moe_every == 1`` (else the MLP).  The
 reference's ``fold_in(kk, 7)`` key of a sub-layer's FFN has no
 counterpart: the port draws every parameter from one generator (the same
-distributions, not the same bits).  MLA, the audio and vision frontends
-and the MTP head and loss raise ``NotImplementedError``: they are queued
-in ROADMAP.md §A item 8.
+distributions, not the same bits).
+
+deepseek v2/v3 run ``mla_dense`` layers (MLA attention, MLP) for the first
+``dense_layers`` and ``mla_moe`` layers (MLA, MoE with a shared-expert MLP
+``e_ff · max(1, n_shared_experts)`` wide) after them; MLA never takes the
+flash hook.  An encoder-only model (hubert) attends non-causally, which
+goes to ``_sdpa`` whatever the hook.  The audio frontend is the
+``front_proj`` (d, d) of precomputed frame embeddings; the vision
+frontend puts precomputed patch embeddings in the first ``n_patches``
+slots, before the text, with positions 0 .. S-1 over the whole sequence,
+and the loss counts only the text positions.  deepseek-v3's MTP head
+(``mtp_norm``, ``mtp_proj`` (2d, d)) adds ``MTP_WEIGHT`` times the CE of
+``[norm(h_t); emb(label_t)]`` against the label one further on.  Decode
+feeds text tokens only (the reference's), absorbed MLA by default.
 """
 from __future__ import annotations
 
@@ -39,39 +51,34 @@ from ..device import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (COMPUTE_DTYPE, apply_norm, dense_init, embed,
+from .layers import (COMPUTE_DTYPE, apply_norm, dense, dense_init, embed,
                      embedding_init, mlp, mlp_init, norm_init, param)
 
 __all__ = ["Group", "layer_groups", "Block", "MambaLayer", "JambaLayer",
-           "JambaPeriod", "LM",
+           "JambaPeriod", "LM", "MTP_WEIGHT",
            "init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill_step"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Group:
-    kind: str   # block | mamba | jamba_period
+    kind: str   # block | mla_dense | mla_moe | mamba | jamba_period
     count: int
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    missing = [what for what, on in (
-        ("MLA", cfg.mla),
-        (f"{cfg.frontend} frontend", cfg.frontend != "none"),
-        ("MTP", cfg.mtp)) if on]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet "
-            f"(ROADMAP.md §A item 8)")
-
-
 def layer_groups(cfg: ArchConfig) -> list[Group]:
-    _check_ported(cfg)
     if cfg.family == "ssm":
         return [Group("mamba", cfg.n_layers)]
     if cfg.attn_period:  # jamba: periods of (period - 1) mamba + 1 attention
         assert cfg.n_layers % cfg.attn_period == 0
         return [Group("jamba_period", cfg.n_layers // cfg.attn_period)]
+    if cfg.mla:
+        gs = []
+        if cfg.dense_layers:
+            gs.append(Group("mla_dense", min(cfg.dense_layers, cfg.n_layers)))
+        if cfg.n_layers - cfg.dense_layers > 0:
+            gs.append(Group("mla_moe", cfg.n_layers - cfg.dense_layers))
+        return gs
     return [Group("block", cfg.n_layers)]
 
 
@@ -85,16 +92,21 @@ def _ffn_init(gen, cfg: ArchConfig, use_moe: bool, device=None):
 
 
 class Block(nn.Module):
-    """A pre-norm attention + MLP layer."""
+    """A pre-norm attention + FFN layer: GQA + MLP (``block``), MLA + MLP
+    (``mla_dense``) or MLA + MoE (``mla_moe``)."""
 
-    def __init__(self, cfg: ArchConfig, device=None, gen=None):
+    def __init__(self, cfg: ArchConfig, device=None, gen=None,
+                 kind: str = "block"):
         super().__init__()
+        if kind not in ("block", "mla_dense", "mla_moe"):
+            raise ValueError(kind)
         d = cfg.d_model
         self.norm1 = norm_init(cfg.norm, d, device)
         self.norm2 = norm_init(cfg.norm, d, device)
         self.attn = attn.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                  cfg.head_dim, device)
-        self.ffn = _ffn_init(gen, cfg, False, device)
+                                  cfg.head_dim, device) if kind == "block" \
+            else attn.mla_init(gen, cfg, device)
+        self.ffn = _ffn_init(gen, cfg, kind == "mla_moe", device)
 
 
 class MambaLayer(nn.Module):
@@ -142,24 +154,32 @@ class JambaPeriod(nn.Module):
                 device, gen))
 
 
-_LAYERS = {"block": Block, "mamba": MambaLayer, "jamba_period": JambaPeriod}
-
-
 def _layer_init(gen, cfg: ArchConfig, kind: str, device=None) -> nn.Module:
-    return _LAYERS[kind](cfg, device, gen)
+    if kind == "mamba":
+        return MambaLayer(cfg, device, gen)
+    if kind == "jamba_period":
+        return JambaPeriod(cfg, device, gen)
+    return Block(cfg, device, gen, kind)
 
 
 class LM(nn.Module):
-    """The parameters of one model: embedding, layers in order, final norm
-    and (untied) head.  ``kinds[i]`` is layer i's group kind."""
+    """The parameters of one model: embedding, layers in order, final norm,
+    (untied) head, and where the config has them the audio ``front_proj``
+    and the MTP head's ``mtp_norm`` and ``mtp_proj``.  ``kinds[i]`` is
+    layer i's group kind."""
 
     def __init__(self, cfg: ArchConfig, device=None, gen=None):
         super().__init__()
-        self.embed = param(embedding_init(gen, cfg.vocab, cfg.d_model,
-                                          device))
-        self.final_norm = norm_init(cfg.norm, cfg.d_model, device)
+        d = cfg.d_model
+        self.embed = param(embedding_init(gen, cfg.vocab, d, device))
+        self.final_norm = norm_init(cfg.norm, d, device)
         self.head = None if cfg.tie_embeddings else \
-            param(dense_init(gen, cfg.d_model, cfg.vocab, device))
+            param(dense_init(gen, d, cfg.vocab, device))
+        self.front_proj = param(dense_init(gen, d, d, device)) \
+            if cfg.frontend == "audio" else None
+        self.mtp_norm = norm_init(cfg.norm, d, device) if cfg.mtp else None
+        self.mtp_proj = param(dense_init(gen, 2 * d, d, device)) \
+            if cfg.mtp else None
         self.kinds = [g.kind for g in layer_groups(cfg)
                       for _ in range(g.count)]
         self.layers = nn.ModuleList(_layer_init(gen, cfg, kind, device)
@@ -206,29 +226,42 @@ def _block_fwd(p, h: torch.Tensor, cfg: ArchConfig, kind: str,
             h = h + _ffn_apply(lp.ffn, apply_norm(cfg.norm, lp.norm2, h), cfg)
         return h
     hin = apply_norm(cfg.norm, p.norm1, h)
-    y, _ = attn.gqa_prefill(p.attn, hin, cfg, causal=not cfg.encoder_only,
-                            flash_impl=flash_impl)
+    if kind == "block":
+        y, _ = attn.gqa_prefill(p.attn, hin, cfg,
+                                causal=not cfg.encoder_only,
+                                flash_impl=flash_impl)
+    else:                                 # MLA: _sdpa, never the hook
+        y, _ = attn.mla_prefill(p.attn, hin, cfg)
     h = h + y
     return h + _ffn_apply(p.ffn, apply_norm(cfg.norm, p.norm2, h), cfg)
 
 
 def _embed_inputs(params: LM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    _check_ported(cfg)
-    return embed(params.embed, batch["tokens"])
+    """Audio: ``front_proj`` of "frames" (B, S, d); vision: "patch_embeds"
+    (B, n_patches, d) then the embedded "tokens"; else the tokens."""
+    if cfg.frontend == "audio":
+        return dense(params, batch["frames"].to(COMPUTE_DTYPE), "front_proj")
+    text = embed(params.embed, batch["tokens"])
+    if cfg.frontend == "vision":
+        return torch.cat([batch["patch_embeds"].to(COMPUTE_DTYPE), text],
+                         dim=1)
+    return text
 
 
 def _head(params: LM) -> torch.Tensor:
     return params.embed.T if params.head is None else params.head
 
 
-def forward(params: LM, batch: dict, cfg: ArchConfig,
-            flash_impl=None) -> torch.Tensor:
-    """Full-sequence forward -> logits (B,S,V) in the compute dtype."""
+def forward(params: LM, batch: dict, cfg: ArchConfig, flash_impl=None,
+            return_hidden: bool = False):
+    """Full-sequence forward -> logits (B,S,V) in the compute dtype (and
+    the final-normed hidden states (B,S,d) with ``return_hidden``)."""
     h = _embed_inputs(params, batch, cfg)
     for lp, kind in zip(params.layers, params.kinds):
         h = _block_fwd(lp, h, cfg, kind, flash_impl)
     h = apply_norm(cfg.norm, params.final_norm, h)
-    return h.to(COMPUTE_DTYPE) @ _head(params).to(COMPUTE_DTYPE)
+    logits = h.to(COMPUTE_DTYPE) @ _head(params).to(COMPUTE_DTYPE)
+    return (logits, h) if return_hidden else logits
 
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -241,9 +274,27 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return nll.sum() / mask.sum().clamp(min=1)
 
 
+MTP_WEIGHT = 0.3
+
+
 def loss_fn(params: LM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Training loss of ``batch`` {"tokens", "labels"} (B, S)."""
-    return _ce(forward(params, batch, cfg), batch["labels"])
+    """Training loss of ``batch``: "labels" (B, S_text) beside the model's
+    inputs ("tokens", and "frames" or "patch_embeds" for a frontend)."""
+    labels = batch["labels"]
+    if cfg.mtp:
+        logits, h = forward(params, batch, cfg, return_hidden=True)
+        lab_emb = embed(params.embed, labels.clamp(min=0))
+        h2 = torch.cat([apply_norm(cfg.norm, params.mtp_norm, h)
+                        .to(COMPUTE_DTYPE), lab_emb], dim=-1)
+        h2 = h2 @ params.mtp_proj.to(COMPUTE_DTYPE)
+        logits2 = h2 @ _head(params).to(COMPUTE_DTYPE)
+        labels2 = torch.cat([labels[:, 1:],
+                             torch.full_like(labels[:, :1], -1)], dim=-1)
+        return _ce(logits, labels) + MTP_WEIGHT * _ce(logits2, labels2)
+    logits = forward(params, batch, cfg)
+    if cfg.frontend == "vision":      # the loss counts the text positions
+        logits = logits[:, cfg.n_patches:]
+    return _ce(logits, labels)
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +307,11 @@ def _layer_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
         shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
                 "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+    if kind in ("mla_dense", "mla_moe"):
+        return {"c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank),
+                                    dtype=COMPUTE_DTYPE, device=device),
+                "k_rope": torch.zeros((batch, max_seq, cfg.rope_head_dim),
+                                      dtype=COMPUTE_DTYPE, device=device)}
     if kind == "mamba":
         di = cfg.mamba_expand * cfg.d_model
         h = di // cfg.mamba_head_dim
@@ -282,7 +338,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def _block_decode(p, c: dict, h: torch.Tensor, pos: int, cfg: ArchConfig,
-                  kind: str):
+                  kind: str, mla_absorbed: bool = True):
     if kind == "mamba":
         y, c2 = ssm_mod.ssd_decode(p.mamba, apply_norm(cfg.norm, p.norm1, h),
                                    c, cfg)
@@ -299,20 +355,24 @@ def _block_decode(p, c: dict, h: torch.Tensor, pos: int, cfg: ArchConfig,
             h = h + y
             h = h + _ffn_apply(lp.ffn, apply_norm(cfg.norm, lp.norm2, h), cfg)
         return h, c2
-    y, c2 = attn.gqa_decode(p.attn, apply_norm(cfg.norm, p.norm1, h), c, pos,
-                            cfg)
+    hin = apply_norm(cfg.norm, p.norm1, h)
+    if kind == "block":
+        y, c2 = attn.gqa_decode(p.attn, hin, c, pos, cfg)
+    else:
+        fn = attn.mla_decode_absorbed if mla_absorbed else attn.mla_decode
+        y, c2 = fn(p.attn, hin, c, pos, cfg)
     h = h + y
     return h + _ffn_apply(p.ffn, apply_norm(cfg.norm, p.norm2, h), cfg), c2
 
 
 def decode_step(params: LM, cache: list[dict], tokens: torch.Tensor,
-                pos: int, cfg: ArchConfig):
+                pos: int, cfg: ArchConfig, mla_absorbed: bool = True):
     """One serving step: tokens (B,1) at position ``pos`` -> (logits
-    (B,1,V) in float32, cache)."""
+    (B,1,V) in float32, cache); MLA layers decode absorbed or naive."""
     h = embed(params.embed, tokens)
     new_cache = []
     for lp, lc, kind in zip(params.layers, cache, params.kinds):
-        h, c2 = _block_decode(lp, lc, h, pos, cfg, kind)
+        h, c2 = _block_decode(lp, lc, h, pos, cfg, kind, mla_absorbed)
         new_cache.append(c2)
     h = apply_norm(cfg.norm, params.final_norm, h)
     return h.float() @ _head(params).float(), new_cache

@@ -9,7 +9,10 @@ secure-vs-plaintext tests, under which the secure logits provably equal
 the plaintext forward's to within the fixed-point noise.
 ``lm_params_from_numpy`` takes the JAX package's LM parameters (its
 ``nn.transformer.init_params`` output as numpy arrays) into the port's
-``LM`` module, splitting each stacked layer group along its first axis.
+``LM`` module, splitting each stacked layer group along its first axis
+(deepseek's ``group0`` dense and ``group1`` MoE layers become consecutive
+``layers``; the top-level ``front_proj``, ``mtp_norm`` and ``mtp_proj``
+keep their names).
 ``params_to_numpy`` and ``lm_params_to_numpy`` go the other way (the LM's
 layers restacked per group), for checkpoints either package restores;
 ``lm_tree`` / ``lm_flat`` convert any per-parameter mapping (AdamW's

@@ -754,6 +754,66 @@ def test_flash_attention_cuda_bf16_misaligned_raises(cuda):
     assert kbuild.LAUNCHES["flash_attention"] == launches
 
 
+# -- MLA (deepseek v2/v3): plain torch on the card, no kernel ----------------
+
+def _mla_setup(device):
+    """The reduced deepseek-v2 MLA layer from seed 0 and its latent cache
+    (2 x 8), on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.nn import attention as attn
+    cfg = get_config("deepseek-v2-236b").reduced()
+    p = attn.mla_init(torch.Generator().manual_seed(0), cfg).to(device)
+    cache = {"c_kv": torch.zeros((2, 8, cfg.kv_lora_rank),
+                                 dtype=torch.bfloat16, device=device),
+             "k_rope": torch.zeros((2, 8, cfg.rope_head_dim),
+                                   dtype=torch.bfloat16, device=device)}
+    return cfg, attn, p, cache
+
+
+def _close_card(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Card against CPU: the bf16 products sum in another order there, so
+    a value may round one bf16 ulp apart and carry it one product on:
+    within 2^-6 of the scale."""
+    err = float((got.cpu().float() - want.float()).abs().max())
+    return err <= 2.0 ** -6 * float(want.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_mla_prefill_on_the_card_equals_cpu(cuda):
+    """MLA prefill (float32 _sdpa, q·k 48 wide, v 32) on the card against
+    the CPU: the output and the latent cache; no kernel launches."""
+    outs = {}
+    x = _normal((2, 40, 128), 31).to(torch.bfloat16)
+    for dev in ("cpu", cuda):
+        cfg, attn, p, _ = _mla_setup(dev)
+        before = dict(kbuild.LAUNCHES)
+        out, (c_kv, k_rope) = attn.mla_prefill(p, x.to(dev), cfg)
+        assert kbuild.LAUNCHES == before
+        outs[str(dev)] = (out, c_kv, k_rope)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        assert got.device.type == "cuda" and _close_card(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("absorbed", [False, True])
+def test_mla_decode_on_the_card_equals_cpu(cuda, absorbed):
+    """Four decode steps (naive or absorbed) on the card against the CPU:
+    each step's output and both cache tensors."""
+    runs = {}
+    for dev in ("cpu", cuda):
+        cfg, attn, p, cache = _mla_setup(dev)
+        fn = attn.mla_decode_absorbed if absorbed else attn.mla_decode
+        outs = []
+        for pos in range(4):
+            x = _normal((2, 1, 128), 40 + pos).to(torch.bfloat16).to(dev)
+            out, cache = fn(p, x, cache, pos, cfg)
+            outs.append(out)
+        runs[str(dev)] = (torch.cat(outs, 1), cache["c_kv"],
+                          cache["k_rope"])
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert _close_card(got, want)
+
+
 MNIST4 = [(25088, 25, 32), (6272, 800, 64), (32, 3136, 512), (32, 512, 10)]
 
 

@@ -1,10 +1,13 @@
 """The port's plaintext LM path against the JAX package: configs, layers,
 the weight converter, the prefill step (``_sdpa`` and flash routes), the
-decode step and the serving launcher, on the reduced configs of every
-ported architecture: TinyLlama-1.1B, Minitron-4B, Phi-3-mini and
+decode step and the serving launcher, on the reduced configs of the
+reference's architectures: TinyLlama-1.1B, Minitron-4B, Phi-3-mini and
 DeepSeek-67B (dense GQA), Mamba2-1.3B (SSM) and Jamba-v0.1 (the hybrid
 Mamba / attention / MoE interleave; ``test_torch_zoo.py`` holds its
-routing to the reference's).
+routing to the reference's); the configs, init and serving of
+DeepSeek-V2/V3 (MLA, MoE), HuBERT and Pixtral too (their steps:
+``test_torch_mla.py``, ``test_torch_frontends.py``,
+``test_torch_zoo.py``).
 
 Tolerances: float32 layer math (RoPE, the unrounded RMSNorm) at 1e-6 of
 its scale; a bf16 value computed the same way on both sides (RMSNorm,
@@ -40,9 +43,13 @@ torch.set_num_threads(1)
 
 ARCHS = ["tinyllama-1.1b", "mamba2-1.3b", "minitron-4b", "phi3-mini-3.8b",
          "deepseek-67b", "jamba-v0.1-52b"]
+ALL_ARCHS = ARCHS + ["deepseek-v2-236b", "deepseek-v3-671b", "hubert-xlarge",
+                     "pixtral-12b"]
 # the models whose whole-model steps route nothing: jamba's MoE routing
 # needs the reference's expert choices to compare (test_torch_zoo.py)
 STEP_ARCHS = [a for a in ARCHS if a != "jamba-v0.1-52b"]
+# every model with a decode step (hubert is encoder-only)
+SERVE_ARCHS = [a for a in ALL_ARCHS if a != "hubert-xlarge"]
 LOGIT_TOL = 0.03
 
 
@@ -64,7 +71,7 @@ def _within_bf16(got: torch.Tensor, want) -> bool:
 
 # -- configs -----------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_match_reference(arch):
     ours, ref = configs.get_config(arch), ref_config(arch)
     theirs = {k: v for k, v in dataclasses.asdict(ref).items()
@@ -78,22 +85,19 @@ def test_configs_match_reference(arch):
     assert configs.SHAPES == REF_SHAPES
 
 
-def test_unported_archs_raise():
-    """deepseek-v2/v3 (MLA), hubert (audio) and pixtral (vision) raise; so
-    does an MLA layer on a ported config."""
-    unported = [a for a in configs.ARCH_IDS
-                if a not in configs.PORTED_ARCH_IDS]
-    assert sorted(unported) == ["deepseek-v2-236b", "deepseek-v3-671b",
-                                "hubert-xlarge", "pixtral-12b"]
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            configs.get_config(arch)
+def test_every_arch_resolves():
+    """Every one of the reference's architectures resolves in the port and
+    builds its reduced ``LM`` (on the meta device); an unknown name
+    raises."""
+    assert sorted(configs.ARCH_IDS) == sorted(ALL_ARCHS)
+    for arch in configs.ARCH_IDS:
+        cfg = configs.get_config(arch)
+        assert cfg.name == arch
+        model = tfm.LM(cfg.reduced(), device="meta")
+        assert len(model.layers) == sum(g.count for g in
+                                        tfm.layer_groups(cfg.reduced()))
     with pytest.raises(ValueError):
         configs.get_config("gpt-5")
-    mla = dataclasses.replace(configs.get_config("tinyllama-1.1b").reduced(),
-                              mla=True, kv_lora_rank=32)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tfm.init_params(mla, 0, "cpu")
 
 
 # -- layers ------------------------------------------------------------------
@@ -169,7 +173,7 @@ def test_converter_carries_every_leaf(models):
     assert not any(t.requires_grad for t in p.parameters())
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_init_params_distributions(arch):
     """The port's own init: the reference's shapes and distributions."""
     cfg = configs.get_config(arch).reduced()
@@ -183,6 +187,9 @@ def test_init_params_distributions(arch):
     d = cfg.d_model
     assert abs(float(p.embed.std()) - 0.02) < 0.002
     w = {"dense": lambda: p.layers[0].attn.wq,
+         "moe": lambda: p.layers[0].attn.w_dkv,
+         "audio": lambda: p.front_proj,
+         "vlm": lambda: p.layers[0].attn.wq,
          "ssm": lambda: p.layers[0].mamba.w_in,
          "hybrid": lambda: p.layers[0].sub0.mamba.w_in}[cfg.family]()
     assert float(w.abs().max()) <= 1 / np.sqrt(d)
@@ -244,7 +251,7 @@ def test_decode_steps_match_reference(models):
 
 # -- serving -----------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
 def test_serve_on_cpu(arch, capsys):
     st = serve.main(["--arch", arch, "--reduced", "--batch", "2",
                      "--prompt-len", "5", "--gen", "4", "--max-seq", "16",
@@ -265,8 +272,8 @@ def test_serve_on_cpu(arch, capsys):
 def test_serve_refuses_what_does_not_fit(monkeypatch):
     with pytest.raises(ValueError, match="max_seq"):
         serve.serve("tinyllama-1.1b", True, 1, 10, 10, 16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        serve.serve("deepseek-v2-236b", True, device="cpu")
+    with pytest.raises(ValueError, match="encoder-only"):
+        serve.serve("hubert-xlarge", True, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "tinyllama-1.1b", "--reduced"])

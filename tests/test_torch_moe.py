@@ -170,3 +170,33 @@ def test_shardmap_impl_and_unknown_modes_raise():
         moe.set_moe_impl("ragged")
     with pytest.raises(ValueError):
         moe.set_dispatch_mode("scan")
+
+
+
+def test_replay_routing_takes_the_given_choices():
+    """Inside ``replay_routing`` a call routes to the given experts: the
+    recorded choices of a run give that run's output bit for bit, no token
+    changed; each token's 2nd and 3rd experts in their place route there,
+    gated by its own router probabilities of them, renormalised, and every
+    token counts as changed."""
+    _, p = _params(5, True, 1)
+    xb = torch.as_tensor(_x(6)).bfloat16()
+    run = dict(top_k=K, act="silu", gated=True)
+    with moe.record_routing() as rec:
+        want = moe.moe_ffn(p, xb, **run)
+    queue = [rec[0][0].clone()]
+    with moe.replay_routing(queue) as changed:
+        got = moe.moe_ffn(p, xb, **run)
+    assert torch.equal(got, want) and changed == [0] and not queue
+    probs = rec[0][3]
+    other = probs.topk(K + 1, dim=-1).indices[:, 1:]
+    with moe.replay_routing([other.reshape(-1)]) as changed, \
+            moe.record_routing() as rec2:
+        moe.moe_ffn(p, xb, **run)
+    assert changed == [B * S]
+    assert torch.equal(rec2[0][0], other.reshape(-1))
+    with moe.replay_routing([other]):
+        _, gates, idx = moe._gates(xb.reshape(-1, D), p.router, K)
+    vals = probs.gather(-1, other)
+    assert torch.equal(idx, other)
+    assert torch.equal(gates, vals / (vals.sum(-1, keepdim=True) + 1e-9))

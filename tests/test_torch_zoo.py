@@ -1,10 +1,15 @@
-"""The zoo slice against the JAX package: minitron-4b, phi3-mini-3.8b,
+"""The zoo against the JAX package: minitron-4b, phi3-mini-3.8b,
 deepseek-67b and jamba-v0.1-52b (the jamba interleave with its MoE FFNs),
-on their reduced configs.  ``test_torch_lm.py`` holds the dense three
-(configs, converter, prefill on both routes, decode, serving); this file
-adds what is new with them: ``active_param_count``, jamba's converter,
-routing, prefill and decode, the flash route at head widths 96 and 128,
-serving an ``ArchConfig`` and one train step of each.
+and deepseek-v2-236b and deepseek-v3-671b (MLA, the dense -> MoE prefix,
+v3's MTP head), hubert-xlarge and pixtral-12b (the frontends), on their
+reduced configs.  ``test_torch_lm.py`` holds the dense three (configs,
+converter, prefill on both routes, decode, serving),
+``test_torch_mla.py`` the MLA layer and ``test_torch_frontends.py`` the
+frontends' steps; this file adds ``param_count`` / ``active_param_count``,
+the converter of the nested and multi-group layouts, jamba's and
+deepseek's routing, prefill, decode and (deepseek) loss, the flash route
+at head widths 96 and 128, serving an ``ArchConfig`` and one train step
+of each.
 
 Tolerances.  Whole-model logits within 3% of their scale, as in
 ``test_torch_lm.py`` (bf16 roundings of the two frameworks differ by an
@@ -21,7 +26,9 @@ least router margin asserted above the float32 noise of a router logit,
 and its output is within one bf16 rounding (2^-7 of the scale); and the
 whole model is held to 3% with the port taking the reference's expert
 choices (its own positions, drops, gates and expert products), the
-number of choices its own router would make otherwise printed."""
+number of choices its own router would make otherwise printed.  The
+deepseek models are held the same way (their MoE layers follow the
+dense prefix; their loss within 2e-3, v3's with the MTP term)."""
 import dataclasses
 
 import jax
@@ -45,9 +52,13 @@ from repro_torch.weights import lm_params_from_numpy, lm_params_to_numpy
 
 torch.set_num_threads(1)
 
-ZOO = ["minitron-4b", "phi3-mini-3.8b", "deepseek-67b", "jamba-v0.1-52b"]
+ZOO = ["minitron-4b", "phi3-mini-3.8b", "deepseek-67b", "jamba-v0.1-52b",
+       "deepseek-v2-236b", "deepseek-v3-671b", "hubert-xlarge",
+       "pixtral-12b"]
 JAMBA = "jamba-v0.1-52b"
+DEEPSEEK = ["deepseek-v2-236b", "deepseek-v3-671b"]
 LOGIT_TOL = 0.03
+LOSS_TOL = 2e-3
 ROUTER_NOISE = 1e-5     # far above a float32 router logit's rounding noise
 
 
@@ -84,10 +95,12 @@ def test_active_param_count():
     per_expert = 4096 * 14336 * 3
     assert ours.active_param_count() == 11_999_251_968 == \
         51_459_264_000 - 16 * 14 * per_expert
-    for arch in configs.PORTED_ARCH_IDS:
+    for arch in configs.ARCH_IDS:
         if arch != JAMBA:
-            assert configs.get_config(arch).active_param_count() == \
-                ref_config(arch).active_param_count()
+            port, theirs = configs.get_config(arch), ref_config(arch)
+            for a, b in ((port, theirs), (port.reduced(), theirs.reduced())):
+                assert a.param_count() == b.param_count()
+                assert a.active_param_count() == b.active_param_count()
     cfg = ours.reduced()
     model = tfm.LM(cfg, device="meta")
     moes = [m for m in model.modules() if isinstance(m, moe.MoE)]
@@ -99,19 +112,23 @@ def test_active_param_count():
 
 # -- parameters --------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [JAMBA, "minitron-4b"])
+@pytest.mark.parametrize("arch", [JAMBA, "minitron-4b", *DEEPSEEK,
+                                  "hubert-xlarge", "pixtral-12b"])
 def test_converter_round_trip(arch):
-    """Every reference leaf (jamba's nested ``group0.sub{i}`` leaves and
-    stacked (E, ...) experts among them) lands unchanged in one port
-    parameter, and ``lm_params_to_numpy`` gives the reference's tree
+    """Every reference leaf (jamba's nested ``group0.sub{i}`` leaves,
+    deepseek's two groups, stacked (E, ...) experts, the top-level
+    ``front_proj``, ``mtp_norm`` and ``mtp_proj``) lands unchanged in one
+    port parameter, and ``lm_params_to_numpy`` gives the reference's tree
     back."""
     cfg, _, jp, p = _ref_model(arch)
+    first = np.cumsum([0] + [g.count for g in tfm.layer_groups(cfg)])
     sd, seen = p.state_dict(), 0
     for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
         keys = [k.key for k in path]
-        if keys[0] == "group0":
+        if keys[0].startswith("group"):
             for i in range(leaf.shape[0]):
-                name = ".".join(["layers", str(i)] + keys[1:])
+                layer = first[int(keys[0][len("group"):])] + i
+                name = ".".join(["layers", str(layer)] + keys[1:])
                 assert np.array_equal(sd[name].numpy(), _f32(leaf[i])), name
                 seen += 1
         else:
@@ -176,9 +193,19 @@ def ref_moe_log(monkeypatch):
     return log
 
 
-def _jamba_reference_run(rcfg, jp, toks, n_decode, log):
-    """The reference's prefill logits and ``n_decode`` decode steps' logits,
-    each with its MoE calls (from ``ref_moe_log``)."""
+@pytest.fixture
+def ref_choices():
+    """The port's MoE calls take their expert choices from a queue of the
+    reference's (expert ids of one MoE call, in call order); yields (the
+    queue, the count a call of the tokens whose own top-k differs)."""
+    queue = []
+    with moe.replay_routing(queue) as changed:
+        yield queue, changed
+
+
+def _reference_run(rcfg, jp, toks, n_decode, log):
+    """The reference's prefill logits and ``n_decode`` decode steps' logits
+    (2 x 8 caches), each with its MoE calls (from ``ref_moe_log``)."""
     runs = []
     log.clear()
     want = jsteps.make_prefill_step(rcfg)(jp, {"tokens": jnp.asarray(toks)})
@@ -205,7 +232,7 @@ def test_jamba_moe_layers_route_as_reference(ref_moe_log):
     reference's input routes exactly as the reference and its output is
     within one bf16 rounding of the reference's ``moe_ffn``."""
     cfg, rcfg, jp, p = _ref_model(JAMBA)
-    runs = _jamba_reference_run(rcfg, jp, _tokens(cfg.vocab, 16, 0), 3,
+    runs = _reference_run(rcfg, jp, _tokens(cfg.vocab, 16, 0), 3,
                                 ref_moe_log)
     layers = _moe_layers(p)
     jlayers = [jp["group0"][f"sub{i}"]["ffn"] for i in range(cfg.attn_period)
@@ -239,7 +266,7 @@ def test_jamba_moe_layers_route_as_reference(ref_moe_log):
 
 
 @pytest.mark.parametrize("flash", [False, True])
-def test_jamba_steps_match_reference(ref_moe_log, monkeypatch, flash,
+def test_jamba_steps_match_reference(ref_moe_log, ref_choices, flash,
                                      capsys):
     """The reduced jamba's prefill step (``_sdpa`` or flash route) and
     three decode steps against the reference's, within 3%, with the port
@@ -247,18 +274,8 @@ def test_jamba_steps_match_reference(ref_moe_log, monkeypatch, flash,
     order); the choices the port's router would change are counted."""
     cfg, rcfg, jp, p = _ref_model(JAMBA)
     toks = _tokens(cfg.vocab, 16, 0)
-    runs = _jamba_reference_run(rcfg, jp, toks, 3, ref_moe_log)
-    queue, changed = [], []
-
-    def ref_gates(xt, router, top_k):
-        probs = torch.softmax(xt.float() @ router.float(), dim=-1)
-        idx = torch.as_tensor(queue.pop(0)).reshape(-1, top_k)
-        own = probs.topk(top_k, dim=-1).indices
-        changed.append(int((own != idx).any(-1).sum()))
-        vals = probs.gather(-1, idx)
-        return probs, vals / (vals.sum(-1, keepdim=True) + 1e-9), idx
-
-    monkeypatch.setattr(moe, "_gates", ref_gates)
+    runs = _reference_run(rcfg, jp, toks, 3, ref_moe_log)
+    queue, changed = ref_choices
     (want, moe_calls), *decodes = runs
     queue += [c[1] for c in moe_calls]
     before = dict(kbuild.LAUNCHES)
@@ -279,6 +296,114 @@ def test_jamba_steps_match_reference(ref_moe_log, monkeypatch, flash,
     with capsys.disabled():
         print(f"\n[jamba, flash={flash}] tokens whose own top-2 differs "
               f"from the reference's, by MoE call: {changed}")
+
+
+# -- deepseek v2/v3: the MoE layers after the dense prefix ------------------
+
+def _route_check(layer, x, w_e, w_c, w_keep, jl, cfg):
+    """The port's ``moe_ffn`` on the reference's layer input: routing
+    exact, output within one bf16 rounding; returns (the least router
+    margin, dropped choices)."""
+    with moe.record_routing() as routes:
+        got = moe.moe_ffn(layer, torch.tensor(x).bfloat16(),
+                          top_k=cfg.experts_per_tok, act=cfg.act,
+                          gated=cfg.gated_mlp)
+    (flat_e, pos, keep, probs), = routes
+    assert np.array_equal(flat_e.numpy(), w_e)
+    assert np.array_equal(keep.numpy(), w_keep)
+    assert np.array_equal(pos.numpy()[w_keep], w_c[w_keep])
+    want = jmoe.moe_ffn(jl, jnp.asarray(x, jnp.bfloat16),
+                        top_k=cfg.experts_per_tok, act=cfg.act,
+                        gated=cfg.gated_mlp)
+    assert _rel(got.float(), want.astype(jnp.float32)) <= 2.0 ** -7
+    top = probs.double().topk(cfg.experts_per_tok + 1).values
+    return float((top[:, :-1] - top[:, 1:]).min()), int((~keep).sum())
+
+
+@pytest.mark.parametrize("arch", DEEPSEEK)
+def test_deepseek_moe_layers_route_as_reference(arch, ref_moe_log):
+    """At each of the reduced model's three MoE layers (after its one
+    dense MLA layer), in the prefill step (2 x 16) and four decode steps,
+    the port routes the reference's layer input exactly as the
+    reference; the shared expert is in both outputs."""
+    cfg, rcfg, jp, p = _ref_model(arch)
+    runs = _reference_run(rcfg, jp, _tokens(cfg.vocab, 16, 4), 4,
+                          ref_moe_log)
+    layers = _moe_layers(p)
+    assert len(layers) == 3 and all(m.shared is not None for m in layers)
+    calls, dropped, margin = 0, 0, 1.0
+    for _, moe_calls in runs:
+        assert len(moe_calls) == len(layers)
+        for i, (layer, call) in enumerate(zip(layers, moe_calls)):
+            jl = jax.tree.map(lambda a: a[i], jp["group1"]["ffn"])
+            m, d = _route_check(layer, *call, jl, cfg)
+            margin, dropped, calls = min(margin, m), dropped + d, calls + 1
+    print(f"{calls} MoE calls, {dropped} choices dropped, least router "
+          f"margin {margin:.3g}")
+    assert calls == 5 * len(layers) and dropped > 0
+    assert margin > ROUTER_NOISE
+
+
+@pytest.mark.parametrize("arch", DEEPSEEK)
+def test_deepseek_steps_match_reference(arch, ref_moe_log, ref_choices):
+    """With the reference's expert choices: the prefill step on both
+    routes (MLA never takes the flash hook: the same logits, no hook
+    call), four absorbed decode steps within 3%, and ``loss_fn`` (v3:
+    with the MTP term) within 2e-3 at 2 x 64 tokens."""
+    cfg, rcfg, jp, p = _ref_model(arch)
+    toks = _tokens(cfg.vocab, 16, 5)
+    runs = _reference_run(rcfg, jp, toks, 4, ref_moe_log)
+    queue, _ = ref_choices
+    (want, moe_calls), *decodes = runs
+    batch = {"tokens": torch.as_tensor(toks, dtype=torch.long)}
+    hooked = []
+    got = {}
+    for route, hook in (("sdpa", None),
+                        ("flash", lambda *a: hooked.append(1))):
+        queue += [c[1] for c in moe_calls]
+        got[route] = steps.make_prefill_step(cfg, hook)(p, batch)
+        assert not queue
+    assert not hooked and torch.equal(got["sdpa"], got["flash"])
+    assert _rel(got["sdpa"].float(), want) <= LOGIT_TOL
+    c = tfm.init_cache(cfg, 2, 8, "cpu")
+    step = steps.make_decode_step(cfg)
+    for pos, (want, moe_calls) in enumerate(decodes):
+        queue += [c_[1] for c_ in moe_calls]
+        lg, c = step(p, c, {"tokens": torch.as_tensor(
+            toks[:, pos:pos + 1], dtype=torch.long), "pos": pos})
+        assert lg.shape == (2, 1, cfg.vocab) and not queue
+        assert _rel(lg, want) <= LOGIT_TOL
+    # the loss is a mean of per-position CEs, each off by bf16 noise of
+    # either sign: over 2 x 16 positions the gap read 0.5-3.1e-3 across six
+    # token seeds, over 2 x 64 0.15-1.55e-3; so 2 x 64, three seeds
+    for seed in range(3):
+        toks, labels = (_tokens(cfg.vocab, 64, 20 + 2 * seed + i)
+                        for i in (0, 1))
+        ref_moe_log.clear()
+        want = float(jtfm.loss_fn(jp, {"tokens": jnp.asarray(toks),
+                                       "labels": jnp.asarray(labels)}, rcfg))
+        jax.effects_barrier()
+        queue += [c_[1] for c_ in ref_moe_log]
+        with torch.no_grad():
+            got = float(tfm.loss_fn(p, {
+                "tokens": torch.as_tensor(toks, dtype=torch.long),
+                "labels": torch.as_tensor(labels, dtype=torch.long)}, cfg))
+        assert not queue and abs(got - want) <= LOSS_TOL, (seed, got, want)
+
+
+def test_mtp_term_is_in_the_loss():
+    """v3's loss is its CE plus MTP_WEIGHT times the MTP head's CE against
+    the labels one further on (the last position ignored): dropping the
+    head's projection to zero leaves a uniform CE of ln(vocab) for it."""
+    cfg = configs.get_config("deepseek-v3-671b").reduced()
+    p = tfm.init_params(cfg, 0, "cpu")
+    toks = torch.as_tensor(_tokens(cfg.vocab, 9, 7), dtype=torch.long)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.no_grad():
+        main = float(tfm._ce(tfm.forward(p, batch, cfg), batch["labels"]))
+        p.mtp_proj.zero_()
+        total = float(tfm.loss_fn(p, batch, cfg))
+    assert abs(total - (main + tfm.MTP_WEIGHT * np.log(cfg.vocab))) < 1e-4
 
 
 # -- the flash route at head widths 96 and 128 -------------------------------
@@ -331,6 +456,12 @@ def test_train_step(arch):
     before = {k: v.clone() for k, v in params.named_parameters()}
     toks = torch.as_tensor(_tokens(cfg.vocab, 17, 3), dtype=torch.long)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    embeds = torch.randn((2, 16 + cfg.n_patches, cfg.d_model),
+                         generator=torch.Generator().manual_seed(3))
+    if cfg.frontend == "audio":
+        batch = {"frames": embeds.bfloat16(), "labels": toks[:, 1:]}
+    elif cfg.frontend == "vision":
+        batch["patch_embeds"] = embeds[:, :cfg.n_patches].bfloat16()
     step = steps.make_train_step(cfg, OptConfig(warmup_steps=2))
     params, _, m = step(params, adamw_init(dict(params.named_parameters())),
                         batch)
