@@ -18,7 +18,9 @@ Phases, each fatal on failure:
               taken (on the CUDA cores that is the kernels' earlier IMAD
               design, so each total has it beside it); B2 also runs and
               times its first design (one party a grid row, every share
-              slot read twice) at every shape.  Then the ring kernels (B5
+              slot read twice) at every shape, and B4 its first design
+              (one slot a grid row, every block staging the whole slab
+              before its first x load).  Then the ring kernels (B5
               ring_matmul, B6 bin_weight_matmul, B7 bin_bin_matmul) at the
               reference's kernel-test shapes and MnistNet4's layer shapes at
               batch 32 (B6 also with {0, 1} and full-range int8 weights);
@@ -121,7 +123,9 @@ Phases, each fatal on failure:
               reference's three kernel-test shapes and at Mamba2-1.3B's
               layer shape (1 and 2, 2048, 64, 64, 128; chunk 256) on the
               inputs of a full-width Mamba2 layer, all within 2e-5 of max
-              |y| and bit-identical on repeats, each beside the serial
+              |y| of the plain version's float64 evaluation (the float32
+              one's own gap printed) and bit-identical on repeats, each
+              beside the serial
               kernel (B9's first design, one block per (head, batch);
               held to the same gate and timed), and at the layer
               shapes each of its passes timed alone.  The plain versions
@@ -174,7 +178,10 @@ Phases, each fatal on failure:
               shared weights; the secure LM's decode shapes at 2 blocks)
               == their plain versions, exactly (B1 on both routes, split
               shapes repeated), each timed beside the stacked entry on the
-              same S = 1 inputs.  Then serve(backend="mesh"): CifarNet2
+              same S = 1 inputs, B2's also beside its first design; and
+              B4 at the shapes a rank of the public path gives it (its
+              pair of slots, S = 2) == its plain version, timed beside its
+              first design.  Then serve(backend="mesh"): CifarNet2
               with shared weights (B1 and B2 on their pair entries) and
               public ones (B3 and B4 at S = 2) at batch 32, local and mesh
               in turns (local, mesh, mesh, local; 4 queries a run, the
@@ -333,6 +340,9 @@ BF16_OPS = 989e12          # H100 SXM dense bf16 tensor-core rate
 FP32_OPS = 67e12           # H100 SXM float32 rate outside the tensor cores
 LINEAR_KERNELS = ("rss_matmul", "grouped_rss_matmul", "bin_rss_matmul",
                   "bin_grouped_matmul")
+# the grouped kernels' first designs, timed beside them (the row's key)
+FIRST_DESIGNS = {"grouped_rss_matmul": "per_party",
+                 "bin_grouped_matmul": "per_slot"}
 # int8 limb products a cell of each ring kernel needs on the TPU's route
 RING_DOTS = {"ring_matmul": 10, "bin_weight_matmul": 4, "bin_bin_matmul": 1}
 # the reference's kernel-test shapes, and MnistNet4's layer shapes at batch
@@ -394,10 +404,14 @@ SSD_SHAPES = [(2, 128, 2, 32, 16, 64), (2, 256, 1, 64, 32, 64),
 LM_BATCH, LM_SEQ = 2, 2048                  # prefill at full width
 SERVE = dict(batch=4, prompt_len=16, gen=16)
 LM_TOL, SSD_LAYER_TOL = 0.03, 2.0 ** -6
-# B9 vs its plain version, relative to max |y|: both sides run the same
-# float32 chunk math; the largest reading of a sound kernel is 7.7e-6 (at
-# Mamba2's layer, whose terms cancel to a max |y| of 0.07), so 2e-5 keeps
-# a 2.6x margin for the plain side's summation order on another host CPU
+# B9 vs its plain version, relative to max |y|.  The gate's plain version
+# runs the same chunk math in float64 on the host (ssd_chunked's exact
+# yardstick), not in float32: on some hosts the float32 plain version
+# itself drifts 3.45e-5 of max |y| from the float64 one at the first test
+# shape while the kernel sits at 4.33e-7, so a float32 yardstick refused a
+# sound kernel there.  A sound kernel read at most 7.7e-6 against the
+# float32 plain version (at Mamba2's layer, whose terms cancel to a max
+# |y| of 0.07); 2e-5 keeps that margin.
 SSD_REL_TOL = 2e-5
 SSD_REPEATS = 200          # repeats at each test shape (5 at Mamba2's)
 # phase 6: the tape pool's nets, depth and queries; the fault matrix
@@ -426,6 +440,8 @@ B1_DECODE = {(2048, 2048): 4 * SLM_BLOCKS, (2048, 5632): SLM_BLOCKS,
 # and the secure LM at SLM's widths, 2 blocks
 MESH_PATHS = (("CifarNet2", "shared", "auto", True),
               ("MnistNet1", "shared", "auto", True))
+# the mesh's public-weight path: a rank runs B4 on its pair of slots (S = 2)
+MESH_PUBLIC = ("CifarNet2", "public", "auto", True)
 MESH_QUERIES = 4
 MESH_LM = dict(blocks=2, prompt_len=4, gen=4, buckets=(16,), queries=1)
 # phase 13: run_pipeline at the reference's defaults (BENCH_pareto.json's
@@ -623,7 +639,8 @@ def check_kernels(shapes: dict, timed: bool = True) -> list:
     for name in LINEAR_KERNELS:
         tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0,
                "bytes_bound_ms": 0.0, "ops_bound_ms": 0.0,
-               "word_bound_ms": 0.0}
+               "word_bound_ms": 0.0, "first_ms": 0.0}
+        first_key = FIRST_DESIGNS.get(name)
         detail = []
         for key, per_query in sorted(shapes[name].items()):
             plan = other = first = None
@@ -674,6 +691,7 @@ def check_kernels(shapes: dict, timed: bool = True) -> list:
                 wd = on_card(wl)
                 run = lambda: grp.bin_grouped_matmul_parts(xd, wd)
                 plain = lambda: grp.bin_grouped_matmul_ref(x, wl)
+                first = lambda: grp._launch_bin_grouped(xd, wd, grp.PER_SLOT)
                 nbytes = 4 * s * c * m * k + c * k * n * n_limbs \
                     + 4 * s * c * m * n
                 word_bytes = 4 * (s * c * m * k + c * k * n + s * c * m * n)
@@ -710,12 +728,12 @@ def check_kernels(shapes: dict, timed: bool = True) -> list:
                     fail(f"{name} {desc}: the {alt} route != plain version")
                 desc["other_route_ms"] = median_ms(lambda: other(alt))
                 route += f"; {alt} {desc['other_route_ms']:.5f} ms"
-            if first is not None:   # B2's first design, one party a grid row
+            if first is not None:   # the first design: one slot a grid row
+                label = first_key.replace("_", "-") + " kernel"
                 if not torch.equal(first(), got):
-                    fail(f"{name} {desc}: the per-party kernel != plain "
-                         f"version")
+                    fail(f"{name} {desc}: the {label} != plain version")
                 first_ms = median_ms(first)
-                route += f"; per-party kernel {first_ms:.5f} ms"
+                route += f"; {label} {first_ms:.5f} ms"
             b_ms = nbytes / HBM_BPS * 1e3
             o_ms = ops / INT8_OPS * 1e3
             bound = max(b_ms, o_ms)
@@ -724,7 +742,7 @@ def check_kernels(shapes: dict, timed: bool = True) -> list:
                            "bound_by": "bytes" if b_ms >= o_ms else
                            "operations"})
             if first is not None:
-                detail[-1]["per_party_ms"] = first_ms
+                detail[-1][f"{first_key}_ms"] = first_ms
             print(f"[chip_smoke] {name} {desc} x{per_query}/query: "
                   f"{ms:.5f} ms (bound {bound:.5f} ms, "
                   f"{100 * bound / ms:.1f}% of bound), plain on host "
@@ -743,8 +761,7 @@ def check_kernels(shapes: dict, timed: bool = True) -> list:
                     + per_query * (ms if plan[0] == limbs.CUDA_CORE
                                    else desc["other_route_ms"])
             if first is not None:
-                tot["per_party_ms"] = tot.get("per_party_ms", 0.0) \
-                    + per_query * first_ms
+                tot["first_ms"] += per_query * first_ms
         if not timed:
             continue
         if not detail:
@@ -755,9 +772,10 @@ def check_kernels(shapes: dict, timed: bool = True) -> list:
                  if tot["word_bound_ms"] else "")
               + (f"; all on the CUDA cores {tot['cuda_core_ms']:.5f} ms"
                  if "cuda_core_ms" in tot else "")
-              + (f"; the per-party kernel {tot['per_party_ms']:.5f} ms "
-                 f"({tot['per_party_ms'] / tot['ms']:.2f}x)"
-                 if "per_party_ms" in tot else ""))
+              + (f"; the {first_key.replace('_', '-')} kernel "
+                 f"{tot['first_ms']:.5f} ms "
+                 f"({tot['first_ms'] / tot['ms']:.2f}x)"
+                 if first_key else ""))
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": 0,
                "max_abs_err": tot["err"], "ms": tot["ms"],
@@ -765,8 +783,8 @@ def check_kernels(shapes: dict, timed: bool = True) -> list:
                "bound_by": ("bytes" if tot["bytes_bound_ms"]
                             >= tot["ops_bound_ms"] else "operations"),
                "library_ms": None, "shapes": detail}
-        if "per_party_ms" in tot:
-            row["per_party_ms"] = tot["per_party_ms"]
+        if first_key:
+            row[f"{first_key}_ms"] = tot["first_ms"]
         rows.append(row)
     return rows
 
@@ -1482,10 +1500,10 @@ def ssd_diagnosis(ssd, dev, got, want, f64, chunk: int, tol: float) -> str:
     """What a failed B9 comparison prints beside its error: which side
     drifts from float64, the (batch, chunk, head) cells past the tolerance,
     the serial kernel's error on the same inputs, and the card."""
-    bad = ((got - want).abs() > tol).nonzero()
+    bad = ((got.double() - want).abs() > tol).nonzero()
     cells = sorted({(int(i), int(j) // chunk, int(k))
                     for i, j, k, _ in bad.tolist()})
-    serial = float((ssd._launch(*dev, chunk, "serial").cpu()
+    serial = float((ssd._launch(*dev, chunk, "serial").cpu().double()
                     - want).abs().max())
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,uuid,serial",
                         "--format=csv,noheader"], capture_output=True,
@@ -1498,7 +1516,8 @@ def ssd_diagnosis(ssd, dev, got, want, f64, chunk: int, tol: float) -> str:
 
 def ssd_case(host, chunk: int, reps: int, label: str = "") -> dict:
     """B9 on one input set (host tensors, moved to the card): kernel ==
-    plain version (host CPU) within SSD_REL_TOL of max |y|, ``reps``
+    plain version (host CPU, in float64) within SSD_REL_TOL of max |y|
+    (the float32 plain version's own gap printed beside), ``reps``
     repeats bit-identical, the serial kernel beside it; at chunk CHUNK each
     pass timed alone.  Returns the shape's record (``ms``, ``plain_ms``,
     ``b_ms``, ``o_ms`` and the error among it)."""
@@ -1518,15 +1537,15 @@ def ssd_case(host, chunk: int, reps: int, label: str = "") -> dict:
                  f"launch differ")
     got = got.cpu()
     t0 = time.perf_counter()
-    want = ssd.ssd_scan_ref(*host, chunk=chunk)
+    plain32 = ssd.ssd_scan_ref(*host, chunk=chunk)
     pms = (time.perf_counter() - t0) * 1e3
-    err = float((got - want).abs().max())
+    # the gate's yardstick: the same chunk math in float64
+    want = ssd.ssd_chunked(*host, chunk, dtype=torch.float64)[0]
+    err = float((got.double() - want).abs().max())
     scale = float(want.abs().max())
-    # each float32 side against the same math in float64: which one drifts
-    # (printed, not gated)
-    exact = ssd.ssd_chunked(*host, chunk, dtype=torch.float64)[0]
-    f64 = {side: float((t.double() - exact).abs().max()) / scale
-           for side, t in (("kernel", got), ("plain", want))}
+    # each float32 side against it (the plain one printed, not gated)
+    f64 = {side: float((t.double() - want).abs().max()) / scale
+           for side, t in (("kernel", got), ("plain", plain32))}
     if not err <= SSD_REL_TOL * scale:
         fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: kernel != plain "
              f"version (max abs err {err}, max |y| {scale}); "
@@ -1535,7 +1554,7 @@ def ssd_case(host, chunk: int, reps: int, label: str = "") -> dict:
     ms = median_ms(run)
     # the serial kernel (one block per (head, batch) walks the chunks)
     old_run = lambda: ssd._launch(*dev, chunk, "serial")
-    old_err = float((old_run().cpu() - want).abs().max())
+    old_err = float((old_run().cpu().double() - want).abs().max())
     if not old_err <= SSD_REL_TOL * scale:
         fail(f"ssd_scan {(b, s, h, hd, n, chunk)}: the serial kernel != "
              f"plain version (max abs err {old_err})")
@@ -2089,10 +2108,10 @@ def check_pair_kernels(paths: dict) -> list:
     for name, shapes in (("rss_matmul_pair", dense_shapes),
                          ("grouped_rss_matmul_pair", grouped_shapes)):
         tot = {"ms": 0.0, "stacked_ms": 0.0, "plain_ms": 0.0, "b": 0.0,
-               "o": 0.0}
+               "o": 0.0, "first_ms": 0.0}
         detail = []
         for key, per in sorted(shapes.items()):
-            plan = None
+            plan = first = None
             if name == "rss_matmul_pair":
                 (s, m, k), n = key
                 x, xn = words(s, m, k), words(s, m, k)
@@ -2115,6 +2134,7 @@ def check_pair_kernels(paths: dict) -> list:
                 wd = on_card(wl)
                 run = lambda: grp.grouped_rss_matmul_parts(
                     xd, wd, x_next_stack=xnd)
+                first = lambda: grp._launch(xd, wd, grp.FIRST_PAIR, xnd)
                 stacked = lambda: grp.grouped_rss_matmul_parts(xd, wd)
                 plain = lambda: grp.grouped_rss_matmul_ref(x, wl, xn)
                 nbytes = 4 * (2 * c * m * k + 2 * c * k * n + c * m * n)
@@ -2139,6 +2159,13 @@ def check_pair_kernels(paths: dict) -> list:
                        else limbs.TENSOR_CORE)
                 if not torch.equal(other(alt), got):
                     fail(f"{name} {desc}: the {alt} route != plain version")
+            if first is not None:   # the pair entry's first design
+                if not torch.equal(first(), got):
+                    fail(f"{name} {desc}: the first pair kernel != plain "
+                         f"version")
+                first_ms = median_ms(first)
+                route += f"; the first pair kernel {first_ms:.5f} ms"
+                tot["first_ms"] += per * first_ms
             ms, st_ms = median_ms(run), median_ms(stacked)
             pms = host_ms(plain)
             b_ms, o_ms = nbytes / HBM_BPS * 1e3, ops / INT8_OPS * 1e3
@@ -2146,6 +2173,8 @@ def check_pair_kernels(paths: dict) -> list:
             detail.append({**desc, "per_rank_query": per, "ms": ms,
                            "stacked_s1_ms": st_ms, "plain_ms": pms,
                            "bound_ms": bound})
+            if first is not None:
+                detail[-1]["first_pair_ms"] = first_ms
             print(f"[chip_smoke] {name} {desc} x{per}/rank: {ms:.5f} ms, the "
                   f"stacked entry at S = 1 {st_ms:.5f} ms (bound "
                   f"{bound:.5f} ms, {100 * bound / ms:.1f}%), plain on host "
@@ -2155,15 +2184,64 @@ def check_pair_kernels(paths: dict) -> list:
             tot["plain_ms"] += per * pms
             tot["b"] += per * b_ms
             tot["o"] += per * o_ms
+        bound = max(tot["b"], tot["o"])
         print(f"[chip_smoke] {name} over one rank's query of each mesh path "
               f"and an LM token: {tot['ms']:.5f} ms, the stacked entry "
-              f"{tot['stacked_ms']:.5f} ms, bound "
-              f"{max(tot['b'], tot['o']):.5f} ms")
+              f"{tot['stacked_ms']:.5f} ms, bound {bound:.5f} ms "
+              f"({100 * bound / tot['ms']:.1f}%)"
+              + (f"; the first pair kernel {tot['first_ms']:.5f} ms "
+                 f"({tot['first_ms'] / tot['ms']:.2f}x)"
+                 if tot["first_ms"] else ""))
         row = _row(name, tot["ms"], tot["plain_ms"], tot["b"], tot["o"],
                    None, 0, detail)
         row["stacked_ms"] = tot["stacked_ms"]
+        if tot["first_ms"]:
+            row["first_pair_ms"] = tot["first_ms"]
         rows.append(row)
+    check_mesh_public(paths[MESH_PUBLIC]["bin_grouped_matmul"], words)
     return rows
+
+
+def check_mesh_public(shapes: dict, words) -> None:
+    """Phase 12: B4 at the shapes a rank of the mesh's public path gives
+    it, its pair of slots (S = 2), == its plain version exactly, timed
+    beside its first design, the per-slot kernel.  Prints each shape and
+    the sum over one rank's query."""
+    import torch
+    from repro_torch.kernels import bin_rss_matmul as grp
+
+    g = torch.Generator().manual_seed(2)
+    tot = {"ms": 0.0, "first_ms": 0.0, "bound_ms": 0.0}
+    for ((_, c, m, k), n, c_contig, n_limbs), per in sorted(shapes.items()):
+        s = 2
+        x, xd = _grouped_x(words, s, c, m, k, c_contig)
+        half = 1 << (8 * n_limbs - 2)   # minimal limb count at most L
+        wl = grp.public_grouped_limbs(torch.randint(
+            -half, half, (c, k, n), dtype=torch.int32, generator=g), n_limbs)
+        wd = on_card(wl)
+        run = lambda: grp.bin_grouped_matmul_parts(xd, wd)
+        first = lambda: grp._launch_bin_grouped(xd, wd, grp.PER_SLOT)
+        want = grp.bin_grouped_matmul_ref(x, wl)
+        desc = {"S": s, "C": c, "M": m, "K": k, "N": n, "L": n_limbs}
+        for what, fn in (("kernel", run), ("per-slot kernel", first)):
+            if not torch.equal(fn().cpu(), want):
+                fail(f"bin_grouped_matmul {desc}: the {what} != plain version")
+        ms, first_ms = median_ms(run), median_ms(first)
+        nbytes = 4 * s * c * m * k + c * k * n * n_limbs + 4 * s * c * m * n
+        bound = nbytes / HBM_BPS * 1e3
+        print(f"[chip_smoke] bin_grouped_matmul {desc} x{per}/rank: "
+              f"{ms:.5f} ms (bound {bound:.5f} ms, {100 * bound / ms:.1f}% "
+              f"of bound), exact; per-slot kernel {first_ms:.5f} ms")
+        tot["ms"] += per * ms
+        tot["first_ms"] += per * first_ms
+        tot["bound_ms"] += per * bound
+    if not tot["ms"]:
+        fail("bin_grouped_matmul: the mesh's public path gave no shape")
+    print(f"[chip_smoke] bin_grouped_matmul over one rank's query of the "
+          f"mesh's public path: {tot['ms']:.5f} ms, bound "
+          f"{tot['bound_ms']:.5f} ms ({100 * tot['bound_ms'] / tot['ms']:.1f}"
+          f"%); the per-slot kernel {tot['first_ms']:.5f} ms "
+          f"({tot['first_ms'] / tot['ms']:.2f}x)")
 
 
 def mesh_phase() -> dict:
@@ -3017,7 +3095,10 @@ def main() -> None:
     logs = kbuild.build_all()
     print(f"[chip_smoke] built {sorted(logs)} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
+    stems = {}
+    for name, log in logs.items():   # one report a source
+        stems.setdefault(kbuild.KERNELS[name][0], log)
+    for name, log in stems.items():
         fn = ""
         for line in log.splitlines():
             if "Compiling entry function" in line:

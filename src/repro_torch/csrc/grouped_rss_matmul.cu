@@ -49,15 +49,33 @@
 //
 // At CifarNet2's shapes a launch moves 7–63 MB, so the fixed cost of a
 // launch (about 5 µs between two CUDA events on the H100, whatever the
-// kernel) is a large share of each one.
+// kernel) is a large share of each one.  The row helpers (V-word loads
+// and stores, a row's location, the block cap) are grouped_rows.cuh,
+// shared with B4 (bin_grouped_matmul.cu).
 //
-// pair_kernel is the pair entry (grouped_rss_matmul_pair_launch): the TPU
-// kernel with S = 1 and an explicit neighbour, for a party under the mesh
-// transport that holds [x_i, x_{i+1}] and passes x_{i+1} as its own
-// operand.  With one slot there is no next party to keep in flight, so a
-// thread owns one (m, channel group) row of one slot and reads its x and
-// x_next rows (all loads of a chunk issued first) against the staged wf_s
-// and ws_s slabs.
+// The pair entry (grouped_rss_matmul_pair_launch) is the TPU kernel with
+// S = 1 and an explicit neighbour, for a party under the mesh transport
+// that holds [x_i, x_{i+1}] and passes x_{i+1} as its own operand.  It
+// reads two rows where the stacked entry at S = 1 reads one, and is bound
+// by those bytes in the same way.  With one slot there is no next party
+// to keep in flight; pair_rows_kernel keeps a thread's loads out by
+// other means.  A thread owns one (m, channel group) row of one slot, and
+// all loads of both its rows are issued before the first multiply-add:
+// 4 channels a thread with 16-byte loads at the 3 x 3 windows; at the
+// 5 x 5 ones 2 channels with 8-byte loads (both rows' 50 words at once),
+// where the first design ran K = 25 as three chunks of 9 words, each
+// chunk's loads waiting for the one before.  A thread's first row's x and
+// x_next loads are issued before the wf_s and ws_s slabs are staged, and
+// blocks are capped at those resident at once and stride over the rows.
+// At one channel a thread (4-byte loads) the next grid-stride row is in
+// flight while this one is multiplied; at 4 channels that would take 215
+// registers a thread instead of 128, halve the resident warps and run
+// slower, so there the resident warps keep the bytes in flight.
+//
+// pair_kernel is the pair entry's first design (grouped_rss_matmul_pair_
+// first_launch, kept for chip_smoke.py's same-call comparison): slabs
+// staged before any x load, blocks up to 16 an SM (one row a thread at the
+// nets' shapes), K = 25 in chunks of 9 words.
 //
 // per_party_kernel is the first design (kept for chip_smoke.py's same-call
 // comparison): the party on blockIdx.y, each thread one (channel, m) row of
@@ -68,14 +86,17 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "grouped_rows.cuh"
+
 namespace {
+
+using namespace grouped_rows;
 
 constexpr int THREADS = 128;
 constexpr int K_CHUNK = 25;          // K words of a row in registers
 constexpr int BLOCKS_PER_SM = 16;    // 2048 threads: a full SM
 constexpr int OLD_THREADS = 256;
 constexpr int OLD_MAX_BLOCKS = 132 * 16;
-constexpr size_t SMEM_DEFAULT = 48 * 1024;
 
 struct Args {
   const uint32_t* x;
@@ -87,63 +108,21 @@ struct Args {
   long long sxs, sxc, sxm, sxk;      // x (S, C, M, K) element strides
   long long szs, szc, szm, szn;      // z (S, C, M, N) element strides
   bool c_fast;                       // channels are the contiguous axis
-  bool vec_z;                        // 16-byte z stores (V = 4, N = 1)
+  bool vec_z;                        // V-word z stores (N = 1)
   const uint32_t* xn = nullptr;      // the pair entry's neighbour stack
 };
-
-// V lanes of consecutive words
-template <int V>
-__device__ __forceinline__ void load_global(uint32_t (&r)[V],
-                                            const uint32_t* p) {
-  if constexpr (V == 4) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
-    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
-  } else {
-    r[0] = __ldg(p);
-  }
-}
-template <int V>
-__device__ __forceinline__ void load_shared(uint32_t (&r)[V],
-                                            const uint32_t* p) {
-  if constexpr (V == 4) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    r[0] = q.x; r[1] = q.y; r[2] = q.z; r[3] = q.w;
-  } else {
-    r[0] = *p;
-  }
-}
 
 template <int V>
 __device__ __forceinline__ void store_z(const Args& a, uint32_t* zp,
                                         const uint32_t (&acc)[V]) {
-  if constexpr (V == 4) {
-    if (a.vec_z) {
-      *reinterpret_cast<uint4*>(zp) = make_uint4(acc[0], acc[1], acc[2],
-                                                 acc[3]);
-      return;
-    }
-  }
-#pragma unroll
-  for (int v = 0; v < V; ++v) zp[v * a.szc] = acc[v];
+  store_row<V>(zp, acc, a.vec_z, a.szc);
 }
 
 // the (channel, m) of row-group t: V channels from c
 template <int V>
 __device__ __forceinline__ void locate(const Args& a, long long t, int& c,
                                        long long& m) {
-  const int groups = a.C / V;
-  if (a.c_fast) {
-    c = (int)(t % groups) * V;
-    m = t / groups;
-  } else {
-    m = t % a.M;
-    c = (int)(t / a.M) * V;
-  }
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src));
+  grouped_rows::locate<V>(t, a.C / V, a.M, a.c_fast, c, m);
 }
 
 // the weight slabs of all parties, [S][2][N][K][C] (wf_s, then ws_s), by
@@ -172,7 +151,7 @@ __device__ __forceinline__ void stage_weights(const Args& a, uint32_t* wsh) {
       ++s;
     }
   }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  cp_async_wait_all();
 }
 
 // Any S, K = KT: a thread walks the parties in order, reading each row
@@ -327,10 +306,139 @@ party_walk_any_kernel(const Args a) {
   }
 }
 
-// The pair entry: z_s[c] = x_s[c]·wf_s[c] + xn_s[c]·ws_s[c], xn read
-// through x's strides.  K runs in register chunks of CH words (one chunk
-// at the 3 x 3 windows), the loads of both rows issued before the chunk's
-// first multiply-add.
+// The pair entry, z_s[c] = x_s[c]·wf_s[c] + xn_s[c]·ws_s[c] with xn read
+// through x's strides: one thread a (m, V channels) row of one slot.  Both
+// rows' KT loads are issued before the first multiply-add, the first row's
+// before the slabs are staged; with PIPE the thread's next grid-stride row
+// is in flight while this one is multiplied.
+template <int KT, int V, bool PIPE>
+__global__ void __launch_bounds__(THREADS)
+pair_rows_kernel(const Args a) {
+  extern __shared__ __align__(16) uint32_t wsh[];
+  const int N = a.N, kc = KT * a.C, nkc = N * kc, groups = a.C / V;
+  const long long per_slot = a.M * groups, rows = per_slot * a.S;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t xv[KT][V], yv[KT][V], xq[PIPE ? KT : 1][V], yq[PIPE ? KT : 1][V];
+  auto at = [&](long long r, int& s, int& c, long long& m) {
+    s = (int)(r / per_slot);
+    grouped_rows::locate<V>(r - s * per_slot, groups, a.M, a.c_fast, c, m);
+  };
+  auto load = [&](auto& dx, auto& dy, int s, int c, long long m) {
+    const long long off = s * a.sxs + c * a.sxc + m * a.sxm;
+#pragma unroll
+    for (int k = 0; k < KT; ++k) {
+      load_global<V>(dx[k], a.x + off + k * a.sxk);
+      load_global<V>(dy[k], a.xn + off + k * a.sxk);
+    }
+  };
+  int s = 0, c = 0;
+  long long m = 0;
+  if (t < rows) {
+    at(t, s, c, m);
+    load(xv, yv, s, c, m);
+  }
+  stage_weights(a, wsh);
+  __syncthreads();
+  for (; t < rows; t += stride) {
+    const bool more = t + stride < rows;
+    int s2 = 0, c2 = 0;
+    long long m2 = 0;
+    if (more) {
+      at(t + stride, s2, c2, m2);
+      if constexpr (PIPE) load(xq, yq, s2, c2, m2);
+    }
+    uint32_t* zr = a.z + s * a.szs + c * a.szc + m * a.szm;
+    for (int n = 0; n < N; ++n) {
+      const uint32_t* wo = wsh + 2 * s * nkc + n * kc + c;   // wf_s
+      const uint32_t* wn = wo + nkc;                          // ws_s
+      uint32_t acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0u;
+#pragma unroll
+      for (int k = 0; k < KT; ++k) {
+        uint32_t f[V], g[V];
+        load_shared<V>(f, wo + k * a.C);
+        load_shared<V>(g, wn + k * a.C);
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          acc[v] += xv[k][v] * f[v] + yv[k][v] * g[v];
+      }
+      store_z<V>(a, zr + n * a.szn, acc);
+    }
+    if (more) {
+      if constexpr (PIPE) {
+#pragma unroll
+        for (int k = 0; k < KT; ++k)
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            xv[k][v] = xq[k][v];
+            yv[k][v] = yq[k][v];
+          }
+      } else {
+        load(xv, yv, s2, c2, m2);
+      }
+    }
+    s = s2;
+    c = c2;
+    m = m2;
+  }
+}
+
+// The pair entry at any other K: the same rows, K in register chunks of CH
+// words of both rows, each chunk's loads issued before its first
+// multiply-add.
+template <int CH, int V>
+__global__ void __launch_bounds__(THREADS)
+pair_rows_any_kernel(const Args a) {
+  extern __shared__ __align__(16) uint32_t wsh[];
+  const int C = a.C, K = a.K, N = a.N, kc = K * C, nkc = N * kc;
+  const int groups = C / V;
+  stage_weights(a, wsh);
+  __syncthreads();
+  const long long per_slot = a.M * groups;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < per_slot * a.S; t += (long long)gridDim.x * blockDim.x) {
+    const int s = (int)(t / per_slot);
+    int c;
+    long long m;
+    grouped_rows::locate<V>(t - s * per_slot, groups, a.M, a.c_fast, c, m);
+    const long long off = s * a.sxs + c * a.sxc + m * a.sxm;
+    uint32_t* zr = a.z + s * a.szs + c * a.szc + m * a.szm;
+    for (int n = 0; n < N; ++n) {
+      const uint32_t* wo = wsh + 2 * s * nkc + n * kc + c;
+      const uint32_t* wn = wo + nkc;
+      uint32_t acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0u;
+      for (int k0 = 0; k0 < K; k0 += CH) {
+        uint32_t xv[CH][V], yv[CH][V];
+#pragma unroll
+        for (int j = 0; j < CH; ++j)
+          if (k0 + j < K) {
+            load_global<V>(xv[j], a.x + off + (k0 + j) * a.sxk);
+            load_global<V>(yv[j], a.xn + off + (k0 + j) * a.sxk);
+          }
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          if (k0 + j >= K) continue;
+          uint32_t f[V], g[V];
+          load_shared<V>(f, wo + (k0 + j) * C);
+          load_shared<V>(g, wn + (k0 + j) * C);
+#pragma unroll
+          for (int v = 0; v < V; ++v)
+            acc[v] += xv[j][v] * f[v] + yv[j][v] * g[v];
+        }
+      }
+      store_z<V>(a, zr + n * a.szn, acc);
+    }
+  }
+}
+
+// The pair entry's first design (kept for chip_smoke.py's same-call
+// comparison): the slabs staged before any x load, K in register chunks of
+// CH words (three chunks of 9 at K = 25 with 4 channels a thread, each
+// waiting for the one before), one row a thread in flight.
 template <int CH, int V>
 __global__ void __launch_bounds__(THREADS)
 pair_kernel(const Args a) {
@@ -382,22 +490,9 @@ pair_kernel(const Args a) {
 // number of times).
 int launch_rows(void (*kernel)(const Args), const Args& a, int V,
                 size_t smem, cudaStream_t st) {
-  if (smem > SMEM_DEFAULT) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   // the pair entry's threads take one slot's row each
   const long long rows = a.M * (a.C / V) * (a.xn != nullptr ? a.S : 1);
-  long long blocks = (rows + THREADS - 1) / THREADS;
-  if (blocks > (long long)BLOCKS_PER_SM * sms)
-    blocks = (long long)BLOCKS_PER_SM * sms;
-  void* args[] = {(void*)&a};
-  return (int)cudaLaunchKernel((const void*)kernel, dim3((unsigned)blocks),
-                               dim3(THREADS), args, smem, st);
+  return launch(kernel, a, rows, THREADS, BLOCKS_PER_SM, 1, smem, st);
 }
 
 // the 3 x 3 windows with the next party's row in flight; 5 x 5 too where
@@ -487,17 +582,70 @@ extern "C" int grouped_rss_matmul_launch(
   Args a{(const uint32_t*)x, (const uint32_t*)wf, (const uint32_t*)ws,
          (uint32_t*)z, S, C, K, N, M, sxs, sxc, sxm, sxk, szs, szc, szm, szn,
          sxc <= sxm, false};
-  const bool vec = a.c_fast && sxc == 1 && C % 4 == 0 && sxm % 4 == 0
-      && sxk % 4 == 0 && sxs % 4 == 0 && (uintptr_t)x % 16 == 0;
-  a.vec_z = vec && szc == 1 && szm % 4 == 0 && szs % 4 == 0
-      && (N == 1 || szn % 4 == 0) && (uintptr_t)z % 16 == 0;
+  const bool vec = grouped_rows::vec_x(4, a.c_fast, C, sxs, sxc, sxm, sxk, x);
+  a.vec_z = vec && grouped_rows::vec_z(4, N, szs, szc, szm, szn, z);
   return vec ? launch_all<4>(a, smem, st) : launch_all<1>(a, smem, st);
 }
 
+namespace {
+
+Args pair_args(const void* x, const void* xn, const void* wf, const void* ws,
+               void* z, int S, int C, long long M, int K, int N,
+               long long sxs, long long sxc, long long sxm, long long sxk,
+               long long szs, long long szc, long long szm, long long szn) {
+  return Args{(const uint32_t*)x, (const uint32_t*)wf, (const uint32_t*)ws,
+              (uint32_t*)z, S, C, K, N, M, sxs, sxc, sxm, sxk, szs, szc, szm,
+              szn, sxc <= sxm, false, (const uint32_t*)xn};
+}
+
+// the pair's rows: 4 channels a thread at the 3 x 3 windows; at the 5 x 5
+// ones 2 channels (8-byte loads: both rows' 50 words in registers at
+// once).  The next row is kept in flight only at one channel a thread,
+// where it costs no resident warps: at 4 channels it takes a thread from
+// 128 registers to 215, halves the resident warps and measured slower.
+int launch_pair(Args a, size_t smem, cudaStream_t st) {
+  const void* x = a.x;
+  const void* xn = a.xn;
+  const int C = a.C, K = a.K;
+  const bool v4 = vec_x(4, a.c_fast, C, a.sxs, a.sxc, a.sxm, a.sxk, x, xn);
+  const bool v2 = vec_x(2, a.c_fast, C, a.sxs, a.sxc, a.sxm, a.sxk, x, xn);
+  const int V = K == 25 ? (v2 ? 2 : 1) : (v4 ? 4 : 1);
+  a.vec_z = V > 1 && grouped_rows::vec_z(V, a.N, a.szs, a.szc, a.szm, a.szn,
+                                         a.z);
+  const long long rows = a.M * (C / V) * a.S;
+  void (*kernel)(const Args);
+  if (K == 9)
+    kernel = V == 4 ? pair_rows_kernel<9, 4, false>
+                    : pair_rows_kernel<9, 1, true>;
+  else if (K == 25)
+    kernel = V == 2 ? pair_rows_kernel<25, 2, false>
+                    : pair_rows_kernel<25, 1, true>;
+  else
+    kernel = V == 4 ? pair_rows_any_kernel<8, 4> : pair_rows_any_kernel<16, 1>;
+  return launch(kernel, a, rows, THREADS, 0, 1, smem, st);
+}
+
+}  // namespace
+
 // The pair entry: x and xn (S, C, M, K) with the same element strides sx*,
 // x_{p+1} read from xn; otherwise as grouped_rss_matmul_launch's mode 0
-// (8·S·C·K·N bytes of shared memory).
+// (8·S·C·K·N bytes of shared memory).  pair_rows_kernel, blocks capped at
+// those resident at once.
 extern "C" int grouped_rss_matmul_pair_launch(
+    const void* x, const void* xn, const void* wf, const void* ws, void* z,
+    int S, int C, long long M, int K, int N, long long sxs, long long sxc,
+    long long sxm, long long sxk, long long szs, long long szc, long long szm,
+    long long szn, void* stream) {
+  if (xn == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)S * C * K * N * sizeof(uint32_t);
+  return launch_pair(pair_args(x, xn, wf, ws, z, S, C, M, K, N, sxs, sxc,
+                               sxm, sxk, szs, szc, szm, szn),
+                     smem, (cudaStream_t)stream);
+}
+
+// The pair entry's first design, pair_kernel, for the same-call
+// comparison: the same arguments as grouped_rss_matmul_pair_launch.
+extern "C" int grouped_rss_matmul_pair_first_launch(
     const void* x, const void* xn, const void* wf, const void* ws, void* z,
     int S, int C, long long M, int K, int N, long long sxs, long long sxc,
     long long sxm, long long sxk, long long szs, long long szc, long long szm,
@@ -505,14 +653,11 @@ extern "C" int grouped_rss_matmul_pair_launch(
   cudaStream_t st = (cudaStream_t)stream;
   if (xn == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)S * C * K * N * sizeof(uint32_t);
-  Args a{(const uint32_t*)x, (const uint32_t*)wf, (const uint32_t*)ws,
-         (uint32_t*)z, S, C, K, N, M, sxs, sxc, sxm, sxk, szs, szc, szm, szn,
-         sxc <= sxm, false, (const uint32_t*)xn};
-  const bool vec = a.c_fast && sxc == 1 && C % 4 == 0 && sxm % 4 == 0
-      && sxk % 4 == 0 && sxs % 4 == 0 && (uintptr_t)x % 16 == 0
-      && (uintptr_t)xn % 16 == 0;
-  a.vec_z = vec && szc == 1 && szm % 4 == 0 && szs % 4 == 0
-      && (N == 1 || szn % 4 == 0) && (uintptr_t)z % 16 == 0;
+  Args a = pair_args(x, xn, wf, ws, z, S, C, M, K, N, sxs, sxc, sxm, sxk,
+                     szs, szc, szm, szn);
+  const bool vec =
+      grouped_rows::vec_x(4, a.c_fast, C, sxs, sxc, sxm, sxk, x, xn);
+  a.vec_z = vec && grouped_rows::vec_z(4, N, szs, szc, szm, szn, z);
   // chunks of 9 words with 4 channels a thread (two 9 x 4 rows fit the
   // registers), of 25 with one
   if (vec) return launch_rows(pair_kernel<9, 4>, a, 4, smem, st);

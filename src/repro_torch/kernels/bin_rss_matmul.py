@@ -15,7 +15,8 @@ Port of ``repro/kernels/bin_rss_matmul.py``:
   On a CUDA tensor the wrappers launch the hand-written kernels
   ``csrc/bin_rss_matmul.cu`` (replaces the TPU kernel
   ``_make_bin_kernel``) and ``csrc/bin_grouped_matmul.cu`` (replaces
-  ``_make_grouped_public_kernel``), or raise.
+  ``_make_grouped_public_kernel``: one thread reads a row of every share
+  slot against the public slab, any C), or raise.
 * the grouped shared-weight family (``GroupedWeightLimbs``,
   ``grouped_weight_limbs``, ``grouped_rss_matmul_ref``,
   ``grouped_rss_matmul_parts``).  Per party i and channel c:
@@ -29,6 +30,11 @@ Port of ``repro/kernels/bin_rss_matmul.py``:
   the card's opt-in limit).  The pair entry (``x_next_stack`` given: a
   party under ``MeshTransport``, S = 1) reads x_{i+1}[c] from that operand
   (``grouped_rss_matmul_pair``).
+
+Each grouped kernel keeps its first design behind an explicit ``design``
+argument of its launcher (``_launch_bin_grouped(..., PER_SLOT)``,
+``_launch(..., PER_PARTY)``, and ``FIRST_PAIR`` for the pair entry), which
+only ``chip_smoke.py``'s same-call comparisons and the card tests pass.
 
 On a CPU or meta tensor every wrapper runs its plain version.  The grouped
 kernels read x through its strides, so callers may pass a permuted view
@@ -220,14 +226,28 @@ def bin_rss_matmul_parts(x_stack: torch.Tensor, weights: PublicWeightLimbs,
     raise ValueError(f"bin_rss_matmul: unsupported device {x_stack.device}")
 
 
-def _launch_bin_grouped(x_stack: torch.Tensor,
-                        weights: PublicGroupedLimbs) -> torch.Tensor:
+# B4's two designs (the C entry point's modes): one thread a row of every
+# share slot, or the first design, one slot a grid row
+ALL_SLOTS, PER_SLOT = "all-slots", "per-slot"
+_PUBLIC_GROUPED_MODES = {ALL_SLOTS: 0, PER_SLOT: 1}
+# the words of a slab one block stages (48 KB): the new design stages a
+# range of channels a block, so only K·N is bounded; the first design
+# stages the whole slab
+_SLAB_WORDS = _SMEM_LIMIT // 4
+
+
+def _launch_bin_grouped(x_stack: torch.Tensor, weights: PublicGroupedLimbs,
+                        design: str = ALL_SLOTS) -> torch.Tensor:
+    """Launch B4 (``design`` PER_SLOT: the first design, which
+    ``chip_smoke.py`` times beside it)."""
     s, c, m, k = x_stack.shape
     n = weights.n
     _check_public("bin_grouped_matmul", x_stack, weights.w)
-    if 4 * c * k * n > _SMEM_LIMIT:
+    words = c * k * n if design == PER_SLOT else k * n
+    if words > _SLAB_WORDS:
         raise ValueError(f"bin_grouped_matmul: weight slab of {c}x{k}x{n} "
-                         f"exceeds the kernel's shared-memory stage")
+                         f"exceeds the {design} kernel's shared-memory "
+                         f"stage")
     # (S, M, C, N) buffer, returned as its (S, C, M, N) view
     buf = torch.empty((s, m, c, n), dtype=torch.int32, device=x_stack.device)
     out = buf.permute(0, 2, 1, 3)
@@ -236,7 +256,7 @@ def _launch_bin_grouped(x_stack: torch.Tensor,
     fn = build.library("bin_grouped_matmul")
     err = fn(x_stack.data_ptr(), weights.w.data_ptr(), out.data_ptr(),
              s, c, m, k, n, *x_stack.stride(), *out.stride(),
-             build.stream_ptr(x_stack.device))
+             _PUBLIC_GROUPED_MODES[design], build.stream_ptr(x_stack.device))
     build.check("bin_grouped_matmul", err)
     build.LAUNCHES["bin_grouped_matmul"] += 1
     return out
@@ -316,8 +336,9 @@ def grouped_rss_matmul_ref(x_stack: torch.Tensor,
 
 
 # B2's two designs (the C entry point's modes): every share slot read once
-# by one thread for all parties, or the first design, one party a grid row
-ALL_PARTIES, PER_PARTY = "all-parties", "per-party"
+# by one thread for all parties, or the first design, one party a grid row;
+# and the pair entry's first design (its own C entry point)
+ALL_PARTIES, PER_PARTY, FIRST_PAIR = "all-parties", "per-party", "first-pair"
 _GROUPED_MODES = {ALL_PARTIES: 0, PER_PARTY: 1}
 
 
@@ -326,11 +347,17 @@ def _launch(x_stack: torch.Tensor, weights: GroupedWeightLimbs,
             x_next_stack: torch.Tensor | None = None) -> torch.Tensor:
     """Launch B2 (``design`` PER_PARTY: the first design, which
     ``chip_smoke.py`` times beside it; with ``x_next_stack`` the pair
-    entry, whose neighbour rows share x's strides)."""
+    entry, whose neighbour rows share x's strides, and FIRST_PAIR its
+    first design)."""
     s, c, m, k = x_stack.shape
     n = weights.n
     if x_stack.dtype != torch.int32:
         raise ValueError("grouped_rss_matmul: x must be int32")
+    if design not in ((ALL_PARTIES, PER_PARTY) if x_next_stack is None
+                      else (ALL_PARTIES, FIRST_PAIR)):
+        raise ValueError(f"grouped_rss_matmul: no design {design!r} "
+                         f"{'without' if x_next_stack is None else 'with'} "
+                         f"x_next")
     if x_next_stack is not None and (
             x_next_stack.dtype != torch.int32
             or x_next_stack.shape != x_stack.shape
@@ -347,8 +374,8 @@ def _launch(x_stack: torch.Tensor, weights: GroupedWeightLimbs,
         raise ValueError(f"grouped_rss_matmul: weights "
                          f"{tuple(weights.ws.shape)} do not match x "
                          f"{tuple(x_stack.shape)}")
-    slab, limit = ((8 * s * c * k * n, _SMEM_OPTIN) if design == ALL_PARTIES
-                   else (8 * c * k * n, _SMEM_LIMIT))
+    slab, limit = ((8 * c * k * n, _SMEM_LIMIT) if design == PER_PARTY
+                   else (8 * s * c * k * n, _SMEM_OPTIN))
     if slab > limit:
         raise ValueError(f"grouped_rss_matmul: weight slabs of "
                          f"{s}x{c}x{k}x{n} exceed the kernel's "
@@ -366,7 +393,8 @@ def _launch(x_stack: torch.Tensor, weights: GroupedWeightLimbs,
                                   _GROUPED_MODES[design],
                                   build.stream_ptr(x_stack.device))
     else:
-        name = "grouped_rss_matmul_pair"
+        name = ("grouped_rss_matmul_pair_first" if design == FIRST_PAIR
+                else "grouped_rss_matmul_pair")
         err = build.library(name)(x_stack.data_ptr(), x_next_stack.data_ptr(),
                                   *tail, build.stream_ptr(x_stack.device))
     build.check(name, err)

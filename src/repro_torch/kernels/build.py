@@ -53,12 +53,18 @@ KERNELS = {
                                 "grouped_rss_matmul_pair_launch",
                                 [_P, _P, _P, _P, _P, _I, _I, _L, _I, _I,
                                  _L, _L, _L, _L, _L, _L, _L, _L, _P]),
+    # the pair entry's first design (chip_smoke.py times it beside the new)
+    "grouped_rss_matmul_pair_first": ("grouped_rss_matmul",
+                                      "grouped_rss_matmul_pair_first_launch",
+                                      [_P, _P, _P, _P, _P, _I, _I, _L, _I,
+                                       _I, _L, _L, _L, _L, _L, _L, _L, _L,
+                                       _P]),
     "bin_rss_matmul": ("bin_rss_matmul", "bin_rss_matmul_launch",
                        [_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _I, _I,
                         _I, _P]),
     "bin_grouped_matmul": ("bin_grouped_matmul", "bin_grouped_matmul_launch",
                            [_P, _P, _P, _I, _I, _L, _I, _I,
-                            _L, _L, _L, _L, _L, _L, _L, _L, _P]),
+                            _L, _L, _L, _L, _L, _L, _L, _L, _I, _P]),
     "ring_matmul": ("ring_matmul", "ring_matmul_launch",
                     [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P]),
     "ring_matmul_batched": ("ring_matmul", "ring_matmul_batched_launch",

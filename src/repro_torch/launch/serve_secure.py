@@ -1,7 +1,8 @@
 """Secure serving: batched secure-BNN classifier inference and secure LM
 decode, end to end.
 
-Port of ``repro/launch/serve_secure.py`` on the local backend
+Port of ``repro/launch/serve_secure.py`` on both backends,
+``--backend local|mesh``, each serving the classifiers and the LM
 (``build``, ``make_runner`` and ``make_tape_runner`` with ``verify``,
 ``serve_pool``, ``_serve_bnn`` with ``--offline inline|pool``,
 ``--pool-depth`` and ``--verify off|opens|full``, the ``--deployment``
@@ -9,10 +10,12 @@ path solver, ``make_obs`` / ``emit_obs`` and the ``--trace`` /
 ``--metrics-json`` / ``--metrics-prom`` outputs, and ``--model lm``:
 ``_serve_lm`` with ``--lm-d/heads/ffn/blocks/vocab``, ``--prompt``,
 ``--gen``, ``--buckets``, ``--softmax-attention``, ``--static-norm`` and
-``--quick``; ``--backend mesh`` is ROADMAP item A7 and raises).  The
-model owner compiles once (BN folds, secret sharing or publication,
-cached kernel operands, the cost model's path labels and the autotuner's
-kernel configs); every query batch then runs
+``--quick``).  ``--backend local`` runs the three parties stacked in one
+process; ``--backend mesh`` runs each party in a process of its own
+(core/party_group.py) that exchanges every message over
+``MeshTransport``.  The model owner compiles once (BN folds, secret
+sharing or publication, cached kernel operands, the cost model's path
+labels and the autotuner's kernel configs); every query batch then runs
 the full CBNN protocol stack on the device, its linear layers on the CUDA
 kernels: shared weights on the RSS products (rss_matmul,
 grouped_rss_matmul), public weights on the local public products

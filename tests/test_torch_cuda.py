@@ -92,21 +92,47 @@ def test_rss_matmul_pair_entry_cuda_equals_plain(cuda, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("c,m,k,n", [(5, 40, 9, 1), (7, 24, 25, 2),
-                                     (3, 1000, 9, 1), (64, 512, 9, 1)])
+                                     (3, 1000, 9, 1), (64, 512, 9, 1),
+                                     *[(c, 70, k, n) for c in (3, 16, 96)
+                                       for k in (9, 25, 4) for n in (1, 2)]])
 def test_grouped_pair_entry_cuda_equals_plain(cuda, c, m, k, n):
-    """B2's pair entry == its plain version, in both x layouts."""
-    x = ring_from_numpy(_words((1, m, k, c), 8)).permute(0, 3, 1, 2)
-    xn = ring_from_numpy(_words((1, m, k, c), 9)).permute(0, 3, 1, 2)
+    """B2's pair entry == its plain version on every route: both x layouts
+    and an x view one word past an aligned base (4-byte loads), K = 9 / 25
+    / any, 4, 2 or 1 channels a thread."""
+    x, layouts = _grouped_layouts(1, c, m, k, 8, cuda)
+    xn, next_layouts = _grouped_layouts(1, c, m, k, 9, cuda)
     wl = grp.grouped_weight_limbs(ring_from_numpy(_words((3, c, k, n), 10)))
     own = grp.GroupedWeightLimbs(*(a[1:2] for a in wl))
     wd = grp.GroupedWeightLimbs(*(a.to(cuda) for a in own))
     want = grp.grouped_rss_matmul_ref(x, own, xn)
-    for xd, xnd in ((x.to(cuda), xn.to(cuda)),
-                    (x.contiguous().to(cuda), xn.contiguous().to(cuda))):
+    for name, xd in layouts.items():
         launches = kbuild.LAUNCHES["grouped_rss_matmul_pair"]
-        got = grp.grouped_rss_matmul_parts(xd, wd, x_next_stack=xnd)
+        got = grp.grouped_rss_matmul_parts(xd, wd,
+                                           x_next_stack=next_layouts[name])
+        torch.cuda.synchronize()
         assert kbuild.LAUNCHES["grouped_rss_matmul_pair"] == launches + 1
-        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,m,k,n", [(16, 1000, 9, 1), (3, 70, 9, 1),
+                                     (96, 70, 25, 2), (5, 70, 4, 1)])
+def test_grouped_pair_first_design_equals_new(cuda, c, m, k, n):
+    """The pair entry's first design (timed beside the new one) gives the new
+    kernel's words; the pair entry takes no stacked design."""
+    x, layouts = _grouped_layouts(1, c, m, k, 11, cuda)
+    _, next_layouts = _grouped_layouts(1, c, m, k, 12, cuda)
+    wl = grp.pair_grouped_limbs(ring_from_numpy(_words((2, c, k, n), 13)))
+    wd = grp.GroupedWeightLimbs(*(a.to(cuda) for a in wl))
+    for name, xd in layouts.items():
+        xnd = next_layouts[name]
+        new = grp._launch(xd, wd, x_next_stack=xnd)
+        first = grp._launch(xd, wd, grp.FIRST_PAIR, xnd)
+        assert torch.equal(first.cpu(), new.cpu()), name
+    with pytest.raises(ValueError):
+        grp._launch(xd, wd, grp.PER_PARTY, xnd)
+    with pytest.raises(ValueError):
+        grp._launch(xd, wd, grp.FIRST_PAIR)
 
 
 @pytest.mark.cuda
@@ -168,18 +194,63 @@ def test_bin_rss_matmul_cuda_equals_plain(cuda, s, m, k, n, wmag):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,c,m,k,n", [(3, 5, 40, 9, 1), (2, 7, 24, 25, 2),
                                        (3, 48, 2048, 9, 1),
-                                       (3, 3, 1000, 9, 1)])
+                                       (3, 3, 1000, 9, 1),
+                                       # slabs past 48 KB: channel ranges
+                                       (3, 520, 40, 25, 1),
+                                       (2, 520, 24, 25, 2),
+                                       (1, 1500, 16, 9, 1)])
 def test_bin_grouped_cuda_equals_plain(cuda, s, c, m, k, n):
-    x = ring_from_numpy(_words((s, m, k, c), 7)).permute(0, 3, 1, 2)
+    x, layouts = _grouped_layouts(s, c, m, k, 7, cuda)
     wl = grp.public_grouped_limbs(ring_from_numpy(_public((c, k, n), 4096,
                                                           8)))
-    wd = grp.PublicGroupedLimbs(wl.w.to(cuda), wl.wl.to(cuda), wl.n_limbs)
+    wd = _to(wl, cuda)
     want = grp.bin_grouped_matmul_ref(x, wl)
-    for xd in (x.to(cuda), x.contiguous().to(cuda)):  # both layouts
+    for name, xd in layouts.items():
         launches = kbuild.LAUNCHES["bin_grouped_matmul"]
         got = grp.bin_grouped_matmul_parts(xd, wd)
+        torch.cuda.synchronize()
         assert kbuild.LAUNCHES["bin_grouped_matmul"] == launches + 1
-        assert torch.equal(got.cpu(), want)
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("k", [9, 25, 4])
+@pytest.mark.parametrize("c", [3, 16, 96])
+@pytest.mark.parametrize("s", [1, 2, 3])
+def test_bin_grouped_all_slots_cuda_equals_plain(cuda, s, c, k, n):
+    """B4 on every route (16-byte and 4-byte loads, K = 9 / 25 / any, the
+    next row in flight or not) == its plain version, full-range words."""
+    x, layouts = _grouped_layouts(s, c, 70, k, 71, cuda)
+    wl = grp.public_grouped_limbs(ring_from_numpy(_words((c, k, n), 72)))
+    wd = _to(wl, cuda)
+    want = grp.bin_grouped_matmul_ref(x, wl)
+    for name, xd in layouts.items():
+        got = grp.bin_grouped_matmul_parts(xd, wd)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,c,m,k,n", [(3, 16, 1000, 9, 1), (3, 3, 70, 9, 1),
+                                       (2, 96, 70, 25, 2), (1, 5, 70, 4, 1)])
+def test_bin_grouped_first_design_equals_new(cuda, s, c, m, k, n):
+    """B4's first design (timed beside the new one) gives the new kernel's
+    words; its whole-slab stage still refuses a slab past 48 KB."""
+    x, layouts = _grouped_layouts(s, c, m, k, 73, cuda)
+    wl = grp.public_grouped_limbs(ring_from_numpy(_words((c, k, n), 74)))
+    wd = _to(wl, cuda)
+    for name, xd in layouts.items():
+        new = grp._launch_bin_grouped(xd, wd)
+        first = grp._launch_bin_grouped(xd, wd, grp.PER_SLOT)
+        assert torch.equal(first.cpu(), new.cpu()), name
+    big = _to(grp.public_grouped_limbs(torch.zeros((520, 25, 1),
+                                                   dtype=torch.int32)), cuda)
+    xb = torch.zeros((1, 520, 4, 25), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        grp._launch_bin_grouped(xb, big, grp.PER_SLOT)
+    assert torch.equal(grp._launch_bin_grouped(xb, big).cpu(),
+                       torch.zeros((1, 520, 4, 1), dtype=torch.int32))
 
 
 @pytest.mark.cuda

@@ -119,7 +119,11 @@ def test_bin_rss_matmul_op_folds_leading_dims():
 # -- B4: the depthwise public product -----------------------------------------
 
 @pytest.mark.parametrize("wmag", WMAGS)
-@pytest.mark.parametrize("s,c,m,k,n", [(3, 5, 40, 9, 1), (2, 7, 24, 25, 2)])
+@pytest.mark.parametrize("s,c,m,k,n", [(3, 5, 40, 9, 1), (2, 7, 24, 25, 2),
+                                       (3, 96, 24, 4, 1),
+                                       # a slab past 48 KB (the card's
+                                       # kernel stages it in channel ranges)
+                                       (2, 520, 8, 25, 1)])
 def test_bin_grouped_plain_equals_pallas_kernel(s, c, m, k, n, wmag):
     x, w = _words((s, c, m, k), c + m), _public((c, k, n), wmag, k)
     jwl = jbin.public_grouped_limbs(jnp.asarray(w))
