@@ -146,7 +146,7 @@ Phases, each fatal on failure:
 11. secure lm - the secure decoder LM of core/secure_transformer.py at
               TinyLlama-1.1B's widths (d 2048, 32 heads of 64, d_ff 5632,
               vocab 32000) inside the reference's secure block (MHA, ReLU
-              FFN, no RoPE), 12 of TinyLlama's 22 blocks (a weight element
+              FFN, no RoPE), 8 of TinyLlama's 22 blocks (a weight element
               holds 84 B on the card).  First the batched B5 on its own at
               the decode step's products (96 = 3 parties x 32 heads of
               (1, 128) x (128, bucket) and (1, 2 bucket) x (2 bucket, 64) at
@@ -288,6 +288,46 @@ Phases, each fatal on failure:
               the forward over 2 x 2048 N(0, 1) bf16 frames on both routes,
               no B8 launch (non-causal: _sdpa), finite logits, tok/s; serve
               must raise ValueError (encoder-only).
+17. launch  - the last modules: (1) the roofline terms
+              (repro_torch.roofline.analyze, the H100's peaks) of every LM
+              step phases 10 and 14-16 timed (prefill on both routes, each
+              served decode step, the train step), with the measured
+              model-FLOPs share model_flops / seconds / 989e12: a share
+              above 1.05 fails (the count would be wrong); no new run.
+              (2) The party x data batch axis: CifarNet2 shared and
+              MnistNet1 at batch 32 on 3 x 2 gloo ranks on the card (each
+              data shard a triple of ranks, B1's and B2's pair entries on
+              every rank, each rank's launches exactly one a linear layer a
+              query); logits == the CPU port's batch-axis run bit for bit,
+              every rank's wire beside the ledger (a shard's x 2), q/s
+              beside phase 12's party-only mesh.  (3) TinyLlama-1.1B's
+              train step at full width on a (1, 1) DeviceMesh (parameters
+              and moments DTensors), 4 x 256, 4 steps, held to the
+              mesh-less step at rtol / atol 2e-4 and loss 2e-3, its step
+              time and peak memory beside phase 14's.  (4) One MoE layer
+              at jamba's widths (16 experts, d 4096, d_ff 14336, top-2,
+              capacity factor 8) on the (1, 1) mesh with "shardmap" held
+              to "dense" within 0.15 of max |y|.  (5) Two ranks on the
+              card in one gloo group, where the (1, 1) mesh moves nothing:
+              the "shardmap" MoE (16 experts, d 1024, d_ff 2048, top-2,
+              capacity factor 8, 2 x 512 tokens) on a (1, 2) mesh against
+              "dense" within 0.15 of max |y|, each rank's experts'
+              gradient / 2 within 2^-6 of dense's; int8_psum of CUDA
+              tensors within one int8 step of the host's dequantized
+              sum and within 2 max|g| / 127 of the exact sum; TinyLlama-1.1B at
+              full width and 2 layers, 3 sharded train steps on a (2, 1)
+              mesh (each rank half the batch, gradients reduce-scattered)
+              against the mesh-less steps: loss 2e-3, gradient norm 1e-2
+              relative, parameters 2e-4 + 2·lr a step.  (6) The secure dry
+              run (launch.dryrun_secure) at d 4096, d_ff 14336, 2,048
+              tokens: paper3 / opt2 ring products exactly 1.5 (B5 launches
+              18 / 12), the fused route on B1, each timed.  (7) The dry
+              runs of
+              tinyllama-1.1b train_4k and deepseek-v3-671b decode_32k on
+              the (16, 16) mesh of 256 fake ranks and TinyLlama's 4 x 256
+              train step on the (1, 1) mesh, each a subprocess with a
+              timeout, on the host: their memory and roofline records
+              printed (the last beside (3)'s measured peak), not gated.
 
 Prints the kernels' JSON line (twelve rows: the nine kernels, B5's batched
 entry and B1's and B2's pair entries, each with its launches by phase,
@@ -334,10 +374,8 @@ RELU_NETS = ("MnistNet4", "CifarNet7")
 WEIGHT_MODES = ("shared", "public")
 BATCH = 32
 QUERIES = 4
-HBM_BPS = 3.35e12          # H100 SXM memory rate
-INT8_OPS = 1.979e15        # H100 SXM dense int8 tensor-core rate
-BF16_OPS = 989e12          # H100 SXM dense bf16 tensor-core rate
-FP32_OPS = 67e12           # H100 SXM float32 rate outside the tensor cores
+# the H100's peaks (HBM_BPS, INT8_OPS, BF16_OPS, FP32_OPS) come from
+# repro_torch.peaks, imported by main()
 LINEAR_KERNELS = ("rss_matmul", "grouped_rss_matmul", "bin_rss_matmul",
                   "bin_grouped_matmul")
 # the grouped kernels' first designs, timed beside them (the row's key)
@@ -422,16 +460,17 @@ FAULT_OPS = (("reshare", 1), ("open", 1), ("send", None))
 FAULT_MODES = ("corrupt", "zero", "replay", "drop")
 # phase 11: the secure LM at TinyLlama-1.1B's widths inside the reference's
 # secure block (MHA, ReLU FFN, no RoPE: share_lm_params' architecture, not
-# TinyLlama's), 12 of its 22 blocks: a weight element holds 84 B on the
-# card (12 B of shares, 72 B of WeightLimbs), so 12 blocks are ~46 GB
+# TinyLlama's), 8 of its 22 blocks: a weight element holds 84 B on the
+# card (12 B of shares, 72 B of WeightLimbs), so 12 blocks were ~46 GB;
+# cut from 12 to 8 when phase 17's two-rank part came (the time limit)
 SLM = dict(d=2048, heads=32, d_ff=5632, vocab=32000)
-SLM_BLOCKS = 12
+SLM_BLOCKS = 8
 # one timed generation (two until phase 12 came: the script's time limit)
 SLM_SERVE = dict(prompt_len=8, gen=8, buckets=(16, 64), queries=1)
 SLM_CHECK = dict(blocks=2, prompt_len=4, gen=2)    # card == CPU
 SLM_MODES = ((True, False), (False, False), (True, True))  # custom/softmax
 B5_BATCH = 3 * 32          # one product per (party, head)
-# B1's decode shapes (K, N) at M = 1 and their launches a token at 12
+# B1's decode shapes (K, N) at M = 1 and their launches a token at SLM_BLOCKS
 # blocks: wq wk wv wo, up, down, the head
 B1_DECODE = {(2048, 2048): 4 * SLM_BLOCKS, (2048, 5632): SLM_BLOCKS,
              (5632, 2048): SLM_BLOCKS, (2048, 32000): 1}
@@ -458,6 +497,30 @@ TRAIN_LM = dict(batch=4, seq=256, steps=8, warmup=3)
 RESUME = dict(steps=6, global_batch=2, seq_len=16, ckpt_every=2,
               log_every=100)
 RESUME_TOL, RESUME_LOSS_TOL = 2e-4, 2e-3
+# phase 17: the LM steps phases 10 and 14-16 time, (label, config, shape,
+# seconds), and the readings later phases print beside their own
+STEP_TIMES: list = []
+NOTES: dict = {}
+SHARE_GATE = 1.05          # a model-FLOPs share above this is a miscount
+BATCH_AXIS_DATA = 2        # data shards of the batch-axis phase: 6 ranks
+MESH_TRAIN = dict(batch=4, seq=256, steps=4, warmup=3)
+MOE_LAYER = dict(experts=16, d=4096, d_ff=14336, top_k=2, capacity=8.0,
+                 batch=2, seq=2048)
+MOE_TOL = 0.15             # the reference test's bound, of max |y|
+# phase 17 (5): two ranks on the card in one gloo group (CUDA tensors cross
+# it through host copies): the MoE at cut widths (every rank holds every
+# expert whole, and its gradient), TinyLlama at full width and 2 layers
+TWO_RANK_MOE = dict(experts=16, d=1024, d_ff=2048, top_k=2, capacity=8.0,
+                    batch=2, seq=512)
+TWO_RANK_TRAIN = dict(layers=2, batch=4, seq=256, steps=3, warmup=3)
+TWO_RANK_PSUM = (2, 1024, 1024)   # (ranks, rows, cols) of int8_psum's input
+GRAD_TOL = 2 ** -6         # bf16 products: of the dense gradient's scale
+GNORM_TOL = 1e-2           # a sharded step's gradient norm, relative
+SECURE_DRY = dict(tokens=2048, d=4096, d_ff=14336, reps=1)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
+                ("deepseek-v3-671b", "decode_32k", "single"),
+                ("tinyllama-1.1b", "train:4:256", "one"))
+DRYRUN_TIMEOUT = 300
 # phase 15: the zoo at published widths: phi3-mini-3.8b and minitron-4b at
 # full depth, jamba-v0.1-52b at one period, 8 of its 32 layers (one card
 # holds 49.4 GiB of a period in float32; four periods are ~192 GiB)
@@ -1627,9 +1690,16 @@ def lm_tokens(vocab: int):
                          generator=torch.Generator().manual_seed(1)).cuda()
 
 
-def print_serve(st, vocab: int) -> None:
+def print_serve(st, cfg) -> None:
     """One serve's numbers; the tokens must be in range and of the asked
-    shape, every sampled token's logits finite."""
+    shape, every sampled token's logits finite.  Its decode step joins
+    phase 17's roofline table."""
+    vocab = cfg.vocab
+    if st["decode_steps"]:
+        STEP_TIMES.append((f"{cfg.name} decode", cfg,
+                           {"kind": "decode", "global_batch": st["batch"],
+                            "seq_len": st["prompt_len"] + st["gen"]},
+                           st["decode_s"] / st["decode_steps"]))
     toks = st["tokens"]
     if toks.shape != (SERVE["batch"], SERVE["gen"]):
         fail(f"{st['arch']} served tokens of shape {toks.shape}")
@@ -1698,6 +1768,9 @@ def prefill_routes(kbuild, params, cfg, gate: bool = True, batch=None):
             out[name] = step(params, batch).float()
             torch.cuda.synchronize()
             secs[name] = time.perf_counter() - t0
+        STEP_TIMES.append((f"{cfg.name} prefill ({name})", cfg,
+                           {"kind": "prefill", "global_batch": n_batch,
+                            "seq_len": LM_SEQ}, secs[name]))
         counts = launched(kbuild)
         want = {"flash_attention": n_attn} if name == "flash" and n_attn \
             else {}
@@ -1730,7 +1803,7 @@ def tinyllama_phase(kbuild, params, cfg) -> dict:
 
     _, _, counts = prefill_routes(kbuild, params, cfg)
     print_serve(serve("tinyllama-1.1b", device="cuda", params=params,
-                      **SERVE), cfg.vocab)
+                      **SERVE), cfg)
     return counts
 
 
@@ -1776,7 +1849,7 @@ def mamba_phase(kbuild, params, cfg) -> dict:
           f"each on B9 and on ssd_prefill: {secs:.3f} s, launches {counts}, "
           f"worst layer max |err| {worst:.3g} of its scale")
     print_serve(serve("mamba2-1.3b", device="cuda", params=params,
-                      **SERVE), cfg.vocab)
+                      **SERVE), cfg)
     return {"ssd_scan": cfg.n_layers}
 
 
@@ -2308,6 +2381,7 @@ def mesh_phase() -> dict:
                     take(what, st["rank_launches"],
                          one_query("CifarNet2", *kernels), st["mesh_runs"])
                     runs["mesh_last"] = st
+            NOTES[f"mesh CifarNet2 {weights}"] = qps["mesh"]
             loc, msh = runs["local"], runs["mesh_last"]
             if not np.array_equal(msh["logits"], loc["logits"]):
                 fail(f"{what}: mesh logits != local logits on the card")
@@ -2382,6 +2456,7 @@ def mesh_phase() -> dict:
                     backend="mesh", group=g, verify="full")
         take("MnistNet1 mesh verify", ver["rank_launches"], mnist,
              ver["mesh_runs"])
+        NOTES["mesh MnistNet1 verify full"] = [ver["query_per_s"]]
         if not np.array_equal(ver["logits"], inline["logits"]):
             fail("MnistNet1 mesh verify full: logits != unverified")
         cells = []
@@ -2699,6 +2774,10 @@ def train_lm_phase() -> None:
               f"{times[-1]:.4f} s")
     peak = torch.cuda.max_memory_allocated()
     warm = statistics.median(times[1:])
+    STEP_TIMES.append(("tinyllama-1.1b train", cfg,
+                       {"kind": "train", "global_batch": TRAIN_LM["batch"],
+                        "seq_len": TRAIN_LM["seq"]}, warm))
+    NOTES["train"] = {"step_s": warm, "peak": peak}
     # one more step (the next batch) under the profiler
     print_profile("chip_smoke", "train step", profile_once(
         lambda: step(params, opt, batch), torch.device("cuda"), warm))
@@ -2855,8 +2934,7 @@ def zoo_phase(kbuild, rows: list) -> dict:
         torch.cuda.empty_cache()
         params = init_params(cfg, 0, "cuda")
         add(prefill_routes(kbuild, params, cfg)[2])
-        print_serve(serve(cfg, device="cuda", params=params, **SERVE),
-                    cfg.vocab)
+        print_serve(serve(cfg, device="cuda", params=params, **SERVE), cfg)
         del params
 
     full = get_config("jamba-v0.1-52b")
@@ -2884,7 +2962,7 @@ def zoo_phase(kbuild, rows: list) -> dict:
         ssd_case(layer_in, CHUNK, 5, "jamba layer "))
     with moe.record_routing() as served:
         st = serve(cfg, device="cuda", params=params, profile=True, **SERVE)
-    print_serve(st, cfg.vocab)
+    print_serve(st, cfg)
     kept = sum(int(k.sum()) for _, _, k, _ in served)
     total = sum(int(k.numel()) for _, _, k, _ in served)
     cap = max(1, int(1.25 * SERVE["batch"] * cfg.experts_per_tok
@@ -3045,7 +3123,7 @@ def zoo2_phase(kbuild) -> dict:
         with moe.record_routing() as served:
             st = serve(cfg, device="cuda", params=params,
                        profile=cfg.mtp, **SERVE)
-        print_serve(st, cfg.vocab)
+        print_serve(st, cfg)
         moe_drops(cfg, served, "served")
         if st["profile"] is not None:
             print_profile("chip_smoke", f"{cfg.name} decode step",
@@ -3064,8 +3142,7 @@ def zoo2_phase(kbuild) -> dict:
         for k, v in counts.items():
             launches[k] += v
         if cfg.supports_decode:
-            print_serve(serve(cfg, device="cuda", params=params, **SERVE),
-                        cfg.vocab)
+            print_serve(serve(cfg, device="cuda", params=params, **SERVE), cfg)
         else:
             try:
                 serve(cfg, device="cuda", params=params, **SERVE)
@@ -3078,10 +3155,552 @@ def zoo2_phase(kbuild) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 17. the launchers, the roofline, the batch axis
+# ---------------------------------------------------------------------------
+
+def nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def roofline_phase() -> None:
+    """Phase 17 (1): the roofline terms of every LM step phases 10 and
+    14-16 timed, and the measured model-FLOPs share; a share above
+    SHARE_GATE fails."""
+    from repro_torch.roofline.analyze import model_flops, roofline_terms
+    if not STEP_TIMES:
+        fail("no LM step was timed before the roofline phase")
+    for label, cfg, shape, secs in STEP_TIMES:
+        t = roofline_terms(cfg, shape, None, {}, 1)
+        share = model_flops(cfg, shape) / secs / BF16_OPS
+        print(f"[chip_smoke] roofline {label} {shape['kind']} "
+              f"{shape['global_batch']}x{shape['seq_len']}: "
+              f"{secs * 1e3:.3f} ms; bound {t['step_time_bound_s'] * 1e3:.3f}"
+              f" ms ({t['dominant']}: compute {t['compute_s'] * 1e3:.3f} ms,"
+              f" memory {t['memory_s'] * 1e3:.3f} ms), "
+              f"{100 * t['step_time_bound_s'] / secs:.2f}% of bound; "
+              f"model FLOPs {t['model_flops_global']:.4g}, share "
+              f"{100 * share:.3f}% of 989 TFLOP/s")
+        if not share <= SHARE_GATE:
+            fail(f"{label}: model-FLOPs share {share:.3f} > {SHARE_GATE}: "
+                 f"the FLOP count or the time is wrong")
+
+
+def batch_axis_phase() -> dict:
+    """Phase 17 (2): CifarNet2 shared and MnistNet1 at batch BATCH on 3 x
+    BATCH_AXIS_DATA gloo ranks on the card, held to the CPU port's
+    batch-axis run bit for bit; each rank's launches exactly one a linear
+    layer (and a depthwise half) a query on the pair entries.  Returns
+    the ranks' launches, summed."""
+    import numpy as np
+    from repro_torch.core.party_group import PartyGroup
+    from repro_torch.launch.serve_secure import serve
+    from repro_torch.nn.bnn import ALL_NETS
+
+    ranks = 3 * BATCH_AXIS_DATA
+    cases = (("CifarNet2", "mesh CifarNet2 shared"),
+             ("MnistNet1", "mesh MnistNet1 verify full"))
+    host = {}
+    t0 = time.perf_counter()
+    for net, _ in cases:
+        host[net] = serve(net, BATCH, 1, device="cpu", backend="mesh",
+                          mesh_ranks=ranks)["logits"]
+    print(f"[chip_smoke] batch axis: the CPU port's runs on {ranks} ranks "
+          f"{time.perf_counter() - t0:.1f} s")
+    launches: dict = {}
+    with PartyGroup("cuda", timeout=120, deadline=600, ranks=ranks) as g:
+        for net, beside in cases:
+            spec = ALL_NETS[net]
+            per_run = {"rss_matmul_pair": sum(
+                l.kind in ("conv", "fc", "sepconv") for l in spec),
+                "grouped_rss_matmul_pair": sum(
+                    l.kind == "sepconv" for l in spec)}
+            per_run = {k: v for k, v in per_run.items() if v}
+            st = serve(net, BATCH, MESH_QUERIES, device="cuda",
+                       backend="mesh", group=g)
+            what = f"{net} shared batch {BATCH}, {ranks} ranks"
+            if st["data_shards"] != BATCH_AXIS_DATA:
+                fail(f"{what}: {st['data_shards']} data shards")
+            if not np.array_equal(st["logits"], host[net]):
+                fail(f"{what}: logits != the CPU port's batch-axis run")
+            if not st["wire_rel_diff"] < 0.02:
+                fail(f"{what}: wire {st['wire_bytes']} vs ledger "
+                     f"{st['ledger_bytes']}")
+            for r, got in enumerate(st["rank_launches"]):
+                got = {k: c for k, c in got.items() if c}
+                want = {k: st["mesh_runs"] * c for k, c in per_run.items()}
+                if got != want:
+                    fail(f"{what}: rank {r} launched {got}, want {want}")
+                for k, c in got.items():
+                    launches[k] = launches.get(k, 0) + c
+            print(f"[chip_smoke] batch axis {what}: {BATCH_AXIS_DATA} data "
+                  f"shards, logits == the CPU port's batch-axis run bit "
+                  f"for bit; {st['query_per_s']:.4f} q/s (phase 12's "
+                  f"party-only {beside}: {NOTES.get(beside)}); wire "
+                  f"{st['wire_bytes']:,} B over the ranks "
+                  f"{st['rank_wire_bytes']} vs ledger "
+                  f"{st['ledger_bytes']:,} B (a shard's x "
+                  f"{BATCH_AXIS_DATA}; rel diff {st['wire_rel_diff']:.2e}); "
+                  f"staging ms a query "
+                  f"{[round(v, 4) for v in st['rank_staging_ms_per_query']]}"
+                  f"; rank seconds "
+                  f"{[round(v, 5) for v in st['rank_seconds']]}; launches "
+                  f"a query (all ranks) {nonzero(st['launches_per_query'])}")
+    return launches
+
+
+def train_steps(cfg, opt_cfg, batches: list, plan, device) -> tuple:
+    """``len(batches)`` train steps of ``cfg`` from ``init_params(cfg, 0)``
+    on ``device``, on ``plan``'s mesh (each rank its shard of every
+    batch) or mesh-less (None): (the whole parameters on the host, each
+    step's loss and gradient norm, the median step seconds after the
+    first, the peak bytes)."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.transformer import init_params
+    from repro_torch.optim import adamw_init
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, device)
+    if plan is not None:
+        mesh_lib.shard_params(params, plan)
+    opt = adamw_init(dict(params.named_parameters()), opt_cfg)
+    if plan is not None:
+        opt = mesh_lib.conform_opt(opt, params, plan)
+    step = make_train_step(cfg, opt_cfg, plan)
+    metrics, times = [], []
+    for b in batches:
+        b = {k: v.to(device) for k, v in b.items()}
+        if plan is not None:
+            b = mesh_lib.local_batch(b, plan)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        if cuda:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    whole = {k: mesh_lib.full(p).detach().cpu()
+             for k, p in params.named_parameters()}
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    del params, opt, step
+    if cuda:
+        torch.cuda.empty_cache()
+    return whole, metrics, statistics.median(times[1:]), peak
+
+
+def train_gap(got: dict, metrics: list, ref: dict, ref_metrics: list,
+              atol: float = 0.0) -> tuple:
+    """(max over the parameters of |err| - RESUME_TOL·|ref| - atol, the
+    losses' max |err|, the gradient norms' max relative gap); a missing
+    parameter fails."""
+    if set(got) != set(ref):
+        fail(f"the sharded step's parameters {sorted(set(got) ^ set(ref))}"
+             f" differ from the mesh-less step's")
+    err = max(float(((got[k] - v).abs() - RESUME_TOL * v.abs()).max())
+              for k, v in ref.items()) - atol
+    pairs = list(zip(metrics, ref_metrics))
+    return (err, max(abs(a[0] - b[0]) for a, b in pairs),
+            max(abs(a[1] - b[1]) / b[1] for a, b in pairs))
+
+
+def mesh_train_phase(plan) -> None:
+    """Phase 17 (3): TinyLlama-1.1B's train step on ``plan``'s (1, 1) mesh
+    (parameters and moments DTensors) against the mesh-less step, the same
+    batches; step times and peaks beside phase 14's."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_stream
+    from repro_torch.optim import OptConfig
+
+    cfg = get_config("tinyllama-1.1b")
+    opt_cfg = OptConfig(warmup_steps=MESH_TRAIN["warmup"])
+    stream = token_stream(MESH_TRAIN["batch"], MESH_TRAIN["seq"], cfg.vocab,
+                          seed=0)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in b.items()}
+               for b, _ in (next(stream) for _ in range(MESH_TRAIN["steps"]))]
+    ref, ref_metrics, ref_s, ref_peak = train_steps(cfg, opt_cfg, batches,
+                                                    None, "cuda")
+    got, metrics, secs, peak = train_steps(cfg, opt_cfg, batches, plan,
+                                           "cuda")
+    err, loss_err, gn_err = train_gap(got, metrics, ref, ref_metrics)
+    NOTES["mesh_train_peak"] = peak
+    ph14 = NOTES.get("train", {})
+    print(f"[chip_smoke] sharded training TinyLlama-1.1B on a (1, 1) "
+          f"DeviceMesh, {MESH_TRAIN['batch']} x {MESH_TRAIN['seq']}, "
+          f"{MESH_TRAIN['steps']} steps: params max (|err| - rtol·|ref|) "
+          f"{err:.3g}, loss max |err| {loss_err:.3g}, gradient norm max "
+          f"relative gap {gn_err:.3g}; median step {secs:.4f}"
+          f" s (mesh-less here {ref_s:.4f} s, phase 14 "
+          f"{ph14.get('step_s', float('nan')):.4f} s); peak memory "
+          f"{peak / 2**30:.3f} GiB (mesh-less {ref_peak / 2**30:.3f}, "
+          f"phase 14 {ph14.get('peak', 0) / 2**30:.3f})")
+    if not err <= RESUME_TOL or not loss_err < RESUME_LOSS_TOL \
+            or not gn_err <= GNORM_TOL:
+        fail("the sharded train step differs from the mesh-less one")
+
+
+def moe_shardmap_phase(plan) -> None:
+    """Phase 17 (4): one MoE layer at jamba's widths, "shardmap" on
+    ``plan`` against "dense", within MOE_TOL of max |y|."""
+    import torch
+    from repro_torch.launch.context import use_plan
+    from repro_torch.nn import moe
+
+    c = MOE_LAYER
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.moe_init(gen, c["d"], c["d_ff"], c["experts"], True,
+                     device="cuda")
+    x = (torch.randn((c["batch"], c["seq"], c["d"]), generator=gen,
+                     device="cuda") * 0.5).bfloat16()
+    run = dict(top_k=c["top_k"], act="silu", gated=True,
+               capacity_factor=c["capacity"])
+    out, secs = {}, {}
+    for impl in ("dense", "shardmap", "shardmap", "dense"):
+        moe.set_moe_impl(impl)
+        try:
+            with use_plan(plan), torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out[impl] = moe.moe_ffn(p, x, **run).float()
+                torch.cuda.synchronize()
+                secs.setdefault(impl, []).append(time.perf_counter() - t0)
+        finally:
+            moe.set_moe_impl("dense")
+    err = float((out["shardmap"] - out["dense"]).abs().max())
+    scale = float(out["dense"].abs().max())
+    print(f"[chip_smoke] MoE layer at jamba's widths ({c['experts']} "
+          f"experts, d {c['d']}, d_ff {c['d_ff']}, top-{c['top_k']}, "
+          f"capacity factor {c['capacity']}), {c['batch']} x {c['seq']} "
+          f"tokens on the (1, 1) mesh: shardmap vs dense max |err| "
+          f"{err:.4g} of scale {scale:.4g}; seconds in turns dense "
+          f"{[round(v, 4) for v in secs['dense']]} shardmap "
+          f"{[round(v, 4) for v in secs['shardmap']]}")
+    if not torch.isfinite(out["shardmap"]).all() \
+            or not err <= MOE_TOL * scale:
+        fail("the shardmap MoE differs from the dense dispatch")
+    del p, x, out
+    torch.cuda.empty_cache()
+
+
+def rank_mesh(state, shape: tuple):
+    """A rank's ("data", "model") ``DeviceMesh`` of ``shape`` on its
+    device, one a shape for the group's life (making one is a collective
+    every rank joins)."""
+    from repro_torch.launch import mesh as mesh_lib
+    meshes = state.setdefault("meshes", {})
+    if shape not in meshes:
+        meshes[shape] = mesh_lib.make_mesh(shape, ("data", "model"),
+                                           state["device"].type)
+    return meshes[shape]
+
+
+def two_rank_moe_task(state, c: dict) -> dict:
+    """A rank's "shardmap" MoE on a (1, 2) mesh (its experts' half, the
+    tokens of its sequence half sent through the all-to-all) against the
+    dense dispatch of the same layer, forward and the experts' gradients
+    of the output's sum (its own experts' rows: twice the dense gradient,
+    both ranks' sums reaching them; the rest zero)."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.context import use_plan
+    from repro_torch.nn import moe
+
+    dev = state["device"]
+    plan = mesh_lib.Plan(rank_mesh(state, (1, 2)))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = moe.moe_init(gen, c["d"], c["d_ff"], c["experts"], True, device=dev)
+    x = (torch.randn((c["batch"], c["seq"], c["d"]), generator=gen,
+                     device=dev) * 0.5).bfloat16()
+    run = dict(top_k=c["top_k"], act="silu", gated=True,
+               capacity_factor=c["capacity"])
+    ws = [p.w_up, p.w_gate, p.w_down]
+    for w in ws:
+        w.requires_grad_(True)
+    want = moe.moe_ffn(p, x, **run).float()
+    want_g = torch.autograd.grad(want.sum(), ws)
+    want = want.detach()
+    secs = []
+    moe.set_moe_impl("shardmap")
+    try:
+        with use_plan(plan):
+            for _ in range(2):       # the first call sets the collectives up
+                t0 = time.perf_counter()
+                y = moe.moe_ffn(p, x, **run).float()
+                got_g = torch.autograd.grad(y.sum(), ws)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+    finally:
+        moe.set_moe_impl("dense")
+    y = y.detach()
+    e_loc = c["experts"] // 2
+    mine = slice(state["rank"] * e_loc, (state["rank"] + 1) * e_loc)
+    grad_err, rest = 0.0, 0.0
+    for g, w in zip(got_g, want_g):
+        scale = float(w.abs().max())
+        grad_err = max(grad_err,
+                       float((g[mine] / 2 - w[mine]).abs().max()) / scale)
+        g = g.clone()
+        g[mine] = 0
+        rest = max(rest, float(g.abs().max()))
+    return {"err": float((y - want).abs().max()),
+            "scale": float(want.abs().max()),
+            "finite": bool(torch.isfinite(y).all()),
+            "grad_err": grad_err, "grad_rest": rest, "seconds": secs,
+            "device": str(y.device)}
+
+
+def two_rank_psum_task(state, g):
+    """``int8_psum`` of this rank's row of ``g`` over the whole group, on
+    the rank's device; the sum comes back on the host."""
+    from repro_torch.optim.compress import int8_psum
+    out = int8_psum(g[state["rank"]].to(state["device"]))
+    return str(out.device), out.cpu()
+
+
+def two_rank_train_task(state, c: dict):
+    """TinyLlama at full width and ``c["layers"]`` layers: ``c["steps"]``
+    sharded train steps on a (2, 1) mesh (each rank half of every batch,
+    the gradients reduce-scattered); rank 0 also runs the mesh-less steps
+    on the whole batches and returns both."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_stream
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import OptConfig
+
+    full = get_config("tinyllama-1.1b")
+    cfg = dataclasses.replace(full, name=f"{full.name}-{c['layers']}L",
+                              n_layers=c["layers"])
+    opt_cfg = OptConfig(warmup_steps=c["warmup"])
+    stream = token_stream(c["batch"], c["seq"], cfg.vocab, seed=0)
+    batches = [{k: torch.as_tensor(v) for k, v in b.items()}
+               for b, _ in (next(stream) for _ in range(c["steps"]))]
+    plan = mesh_lib.Plan(rank_mesh(state, (2, 1)))
+    got = train_steps(cfg, opt_cfg, batches, plan, state["device"])
+    if state["rank"] != 0:
+        return None
+    return got, train_steps(cfg, opt_cfg, batches, None, state["device"])
+
+
+def two_rank_phase() -> None:
+    """Phase 17 (5): two ranks on the card, one gloo group: the MoE's
+    all-to-all and sequence gather, ``int8_psum``'s all-gather and the
+    train step's gradient reduce-scatter and parameter gathers on CUDA
+    tensors, each held to its one-rank counterpart."""
+    import torch
+    from repro_torch.core.party_group import PartyGroup
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.compress import _quant_rows
+
+    t0 = time.perf_counter()
+    with PartyGroup("cuda", timeout=120, deadline=600, ranks=2) as grp:
+        c = TWO_RANK_MOE
+        for r, o in enumerate(grp.run(two_rank_moe_task, (c,))):
+            print(f"[chip_smoke] two ranks, MoE rank {r} ({o['device']}, "
+                  f"{c['experts']} experts, d {c['d']}, d_ff {c['d_ff']}, "
+                  f"top-{c['top_k']}, capacity factor {c['capacity']}, "
+                  f"{c['batch']} x {c['seq']} tokens) on a (1, 2) mesh: "
+                  f"shardmap vs dense max |err| {o['err']:.4g} of scale "
+                  f"{o['scale']:.4g}; its experts' gradient / 2 vs dense "
+                  f"{o['grad_err']:.4g} of scale, other experts' "
+                  f"{o['grad_rest']:.3g}; forward + backward "
+                  f"{o['seconds'][1]:.4f} s (the first call "
+                  f"{o['seconds'][0]:.4f} s)")
+            if not o["device"].startswith("cuda") or not o["finite"] \
+                    or not o["err"] <= MOE_TOL * o["scale"] \
+                    or not o["grad_err"] <= GRAD_TOL or o["grad_rest"] != 0:
+                fail(f"the two-rank shardmap MoE differs from dense on "
+                     f"rank {r}")
+
+        g = torch.randn(TWO_RANK_PSUM, generator=torch.Generator()
+                        .manual_seed(0))
+        quant = [_quant_rows(t) for t in g]
+        plain = sum(q.float() * sc for q, sc in quant)
+        # the card's division by the scalar 127 multiplies by its
+        # reciprocal: a row's scale may sit an ulp off the host's, and an
+        # element on a rounding tie one int8 step
+        steps = sum(sc for _, sc in quant)
+        bound = 2 * float(g.abs().max()) / 127
+        for r, (dev, got) in enumerate(grp.run(two_rank_psum_task, (g,))):
+            err = float((got - g.sum(0)).abs().max())
+            off = (got - plain).abs() / steps
+            print(f"[chip_smoke] two ranks, int8_psum rank {r} ({dev}) of "
+                  f"{TWO_RANK_PSUM[1]} x {TWO_RANK_PSUM[2]}: "
+                  f"{int((off > 0).sum())} elements differ from the host's "
+                  f"dequantized sum, by at most {float(off.max()):.3g} of "
+                  f"their rows' int8 steps; max |err| to the exact sum "
+                  f"{err:.4g} (bound 2·max|g|/127 {bound:.4g})")
+            if not dev.startswith("cuda") or not float(off.max()) <= 1.001 \
+                    or not err <= bound:
+                fail(f"two-rank int8_psum on rank {r}")
+
+        c = TWO_RANK_TRAIN
+        (got, metrics, secs, peak), (ref, ref_metrics, ref_s, ref_peak) = \
+            grp.run(two_rank_train_task, (c,))[0]
+        # the halves' bf16 gradients sum in another order: where one is
+        # rounding noise, its sign may flip, and AdamW moves that element
+        # by about lr a step either way (|m^|/sqrt(v^) <= 1.002 over 3
+        # steps at betas 0.9 / 0.95): up to 2·lr_t a step apart
+        lr = OptConfig().lr
+        atol = 2.01 * sum(lr * min(1.0, (t + 1) / c["warmup"])
+                          for t in range(c["steps"]))
+        err, loss_err, gn_err = train_gap(got, metrics, ref, ref_metrics,
+                                          atol)
+        print(f"[chip_smoke] two ranks, sharded training TinyLlama-1.1B at "
+              f"{c['layers']} layers on a (2, 1) DeviceMesh, "
+              f"{c['batch']} x {c['seq']}, {c['steps']} steps: params max "
+              f"(|err| - rtol·|ref| - {atol:.3g}) {err:.3g}, loss max |err| "
+              f"{loss_err:.3g}, gradient norm max relative gap "
+              f"{gn_err:.3g} ({[round(m[1], 5) for m in metrics]} vs "
+              f"{[round(m[1], 5) for m in ref_metrics]}); median step "
+              f"{secs:.4f} s (rank 0's mesh-less {ref_s:.4f} s); rank 0's "
+              f"peak {peak / 2**30:.3f} GiB (mesh-less "
+              f"{ref_peak / 2**30:.3f})")
+        if not err <= RESUME_TOL or not loss_err < RESUME_LOSS_TOL \
+                or not gn_err <= GNORM_TOL:
+            fail("the two-rank sharded train step differs from the "
+                 "mesh-less one")
+    print(f"[chip_smoke] two ranks {time.perf_counter() - t0:.1f} s")
+
+
+def secure_dryrun_phase(kbuild) -> dict:
+    """Phase 17 (6): the secure FFN pair at LM widths in both matmul
+    modes and on the fused route; returns its launches."""
+    import torch
+    from repro_torch.launch import dryrun_secure
+
+    torch.cuda.empty_cache()
+    launches0 = dict(kbuild.LAUNCHES)
+    res = dryrun_secure.run(SECURE_DRY["tokens"], SECURE_DRY["d"],
+                            SECURE_DRY["d_ff"], device="cuda",
+                            reps=SECURE_DRY["reps"])
+    launches = {k: c - launches0[k] for k, c in kbuild.LAUNCHES.items()
+                if c != launches0[k]}
+    want = {"paper3": {"ring_matmul": 18}, "opt2": {"ring_matmul": 12},
+            "fused": {"rss_matmul": 2}}
+    for mode, w in want.items():
+        if res[mode]["launches"] != w:
+            fail(f"secure dry run {mode}: launched {res[mode]['launches']}"
+                 f", want {w}")
+    if res["paper3_over_opt2_products"] != 1.5 \
+            or res["paper3_over_opt2_macs"] != 1.5:
+        fail(f"secure dry run: paper3 / opt2 "
+             f"{res['paper3_over_opt2_products']} products, "
+             f"{res['paper3_over_opt2_macs']} multiply-adds, not 1.5")
+    led = res["opt2"]["ledger"]
+    print(f"[chip_smoke] secure FFN pair T {res['tokens']} d {res['d']} "
+          f"d_ff {res['d_ff']}: paper3 / opt2 ring products "
+          f"{res['paper3']['products']} / {res['opt2']['products']} = "
+          f"{res['paper3_over_opt2_products']} (multiply-adds "
+          f"{res['paper3']['macs']:.4g} / {res['opt2']['macs']:.4g}); "
+          f"seconds paper3 {[round(v, 4) for v in res['paper3']['seconds']]}"
+          f" opt2 {[round(v, 4) for v in res['opt2']['seconds']]} (B5 a "
+          f"product), fused {[round(v, 4) for v in res['fused']['seconds']]}"
+          f" (B1 a matmul); ledger {led['rounds']} rounds / "
+          f"{led['bytes']:,} B online, {led['pre_rounds']} / "
+          f"{led['pre_bytes']:,} B offline, the same in both modes; "
+          f"launches {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_phase() -> None:
+    """Phase 17 (7): the dry-run cells, each a subprocess on the host (the
+    fake process group lives for its process), all started together;
+    their memory and roofline records printed, not gated."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(cell, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)) for cell in DRYRUN_CELLS]
+        end = time.perf_counter() + DRYRUN_TIMEOUT
+        for (arch, shape, mesh), proc in procs:
+            try:
+                _, err = proc.communicate(
+                    timeout=max(1.0, end - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                print(f"[chip_smoke] dry run {arch} {shape} {mesh}: no "
+                      f"record within {DRYRUN_TIMEOUT} s (killed)")
+                continue
+            path = Path(tmp) / (f"{arch}__{shape}__{mesh}__baseline.json"
+                                .replace(":", "-"))
+            if not path.exists():
+                print(f"[chip_smoke] dry run {arch} {shape} {mesh}: exit "
+                      f"{proc.returncode}, {err[-400:]}")
+                continue
+            rec = json.loads(path.read_text())
+            if rec["status"] != "OK":
+                print(f"[chip_smoke] dry run {arch} {shape} {mesh}: "
+                      f"{rec['status']} {rec.get('error', '')[:300]}")
+                continue
+            mem, roof, colls = rec["memory"], rec["roofline"], \
+                rec["collectives"]
+            beside = ""
+            if mesh == "one" and "mesh_train_peak" in NOTES:
+                beside = (f" (the card's (1, 1) mesh step: "
+                          f"{NOTES['mesh_train_peak'] / 2**30:.3f} GiB)")
+            print(f"[chip_smoke] dry run {arch} {shape} on {rec['n_chips']}"
+                  f" ranks ({mesh}), meta step {rec['step_s']} s on the "
+                  f"host: a rank's arguments "
+                  f"{mem['argument_bytes'] / 2**30:.3f} GiB, tracked peak "
+                  f"{mem['tracked_peak_bytes'] / 2**30:.3f} GiB{beside}; "
+                  f"collectives {colls.pop('total_bytes'):,} B "
+                  f"({nonzero({k: v['count'] for k, v in colls.items()})}); "
+                  f"roofline of a rank's step (the whole model on 1 of "
+                  f"{roof['data_shards']} batch shards): compute "
+                  f"{roof['compute_s']:.4g} s, "
+                  f"memory {roof['memory_s']:.4g} s, {roof['dominant']}"
+                  f"-bound, model FLOPs {roof['model_flops_global']:.4g}")
+
+
+def launch_phase(kbuild) -> dict:
+    """Phase 17: (1)-(7) above; returns the kernels' launches by part."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+
+    roofline_phase()
+    by_part = {"batch-axis": batch_axis_phase()}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "cpu:gloo,cuda:nccl", rank=0, world_size=1,
+            store=dist.FileStore(str(Path(tmp) / "store"), 1))
+        try:
+            plan = mesh_lib.Plan(mesh_lib.make_mesh((1, 1),
+                                                    ("data", "model"),
+                                                    "cuda"))
+            mesh_train_phase(plan)
+            moe_shardmap_phase(plan)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    two_rank_phase()
+    by_part["secure-dryrun"] = secure_dryrun_phase(kbuild)
+    dryrun_phase()
+    return by_part
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"the port's sources are not beside this script ({SRC})")
     sys.path.insert(0, str(SRC))
+    global HBM_BPS, INT8_OPS, BF16_OPS, FP32_OPS
+    from repro_torch.peaks import BF16_OPS, FP32_OPS, HBM_BPS, INT8_OPS
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -3296,6 +3915,12 @@ def main() -> None:
     t0 = time.perf_counter()
     by_phase["zoo-2"] = zoo2_phase(kbuild)
     print(f"[chip_smoke] zoo-2 phase {time.perf_counter() - t0:.1f} s")
+
+    # -- 17. the launchers, the roofline, the batch axis -------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    by_phase.update(launch_phase(kbuild))
+    print(f"[chip_smoke] launch phase {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches_by_phase"] = {ph: c.get(row["name"], 0)
                                     for ph, c in by_phase.items()}

@@ -62,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+from ..peaks import INT8_OPS
 from . import comm
 from .linear import fused_rounds
 
@@ -77,7 +78,7 @@ NB_LIMB_DOTS = (4, 7, 9, 10)  # dots for public limb counts L=1..4 (Σ_{q<L} 4-q
 _SHARE_DOTS = 20              # full 4x4 grid, 10 pairs x 2 fused-identity dots
 # dense int8 tensor-core peak of the NVIDIA H100 80GB HBM3 (700.00 W power
 # limit), its datasheet figure: the compute term's default
-H100_INT8_OPS = 1.979e15
+H100_INT8_OPS = INT8_OPS
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Three party processes joined by a gloo process group.
+"""Party processes joined by a gloo process group (three by default).
 
 The reference runs one party's program on each device of a size-3 ``Mesh``
 under ``shard_map`` (``repro/core/secure_model.py::make_secure_infer_mesh``,
@@ -56,14 +56,14 @@ class RankError(RuntimeError):
         self.rank = rank
 
 
-def _rank_main(rank: int, init_file: str, device: str, timeout: float,
-               threads: int, tasks, results) -> None:
+def _rank_main(rank: int, world: int, init_file: str, device: str,
+               timeout: float, threads: int, tasks, results) -> None:
     """One party's process: join the group, then run tasks until ``None``."""
     try:
         torch.set_num_threads(threads)
         dist.init_process_group(
             "gloo", init_method=f"file://{init_file}", rank=rank,
-            world_size=PARTIES,
+            world_size=world,
             timeout=datetime.timedelta(seconds=timeout))
         dev = torch.device(device)
         if dev.type == "cuda":
@@ -71,7 +71,7 @@ def _rank_main(rank: int, init_file: str, device: str, timeout: float,
                 raise RuntimeError(f"rank {rank}: {device} requested and no "
                                    f"CUDA device is visible")
             torch.cuda.set_device(dev)
-        state = {"rank": rank, "device": dev}
+        state = {"rank": rank, "world": world, "device": dev}
         results.put((rank, "ready", None))
     except BaseException:   # noqa: BLE001 (sent to the parent)
         results.put((rank, "error", traceback.format_exc()))
@@ -94,24 +94,30 @@ def _rank_main(rank: int, init_file: str, device: str, timeout: float,
 
 
 class PartyGroup:
-    """Three party processes on ``device`` (``"cpu"`` or ``"cuda"``, all
-    ranks on ``cuda:0``), joined by a gloo group.
+    """``ranks`` processes (three party processes by default) on
+    ``device`` (``"cpu"`` or ``"cuda"``, all ranks on ``cuda:0``), joined
+    by a gloo group.  A mesh of 3 x d ranks serves a batch over d data
+    shards (``secure_model.make_secure_infer_mesh(..., data=d)``); the
+    plaintext launchers run any count (``launch.train --mesh host8``).
 
     ``timeout``: seconds for the group's init and each collective;
     ``deadline``: default seconds a task may take before every rank is
-    killed.  Each rank runs torch with a third of this process's intra-op
-    threads (at least one).  Use as a context manager, or call
+    killed.  Each rank runs torch with a ``ranks``-th of this process's
+    intra-op threads (at least one).  Use as a context manager, or call
     :meth:`close`."""
 
     def __init__(self, device="cpu", timeout: float = 60.0,
-                 deadline: float | None = None):
+                 deadline: float | None = None, ranks: int = PARTIES):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             self.device = torch.device("cuda", 0)
         self.timeout = float(timeout)
         self.deadline = float(deadline if deadline is not None
                               else 2 * timeout)
-        threads = max(1, torch.get_num_threads() // PARTIES)
+        if ranks < 1:
+            raise ValueError(f"a group of {ranks} ranks")
+        self.ranks = int(ranks)
+        threads = max(1, torch.get_num_threads() // self.ranks)
         if self.device.type == "cuda":
             # every kernel built here first: the ranks only load the .so
             from ..kernels import build
@@ -119,13 +125,14 @@ class PartyGroup:
         ctx = mp.get_context("spawn")
         self._dir = tempfile.mkdtemp(prefix="party_group_")
         init_file = os.path.join(self._dir, "store")
-        self._tasks = [ctx.Queue() for _ in range(PARTIES)]
+        self._tasks = [ctx.Queue() for _ in range(self.ranks)]
         self._results = ctx.Queue()
         self._procs = [
             ctx.Process(target=_rank_main, daemon=True,
-                        args=(r, init_file, str(self.device), self.timeout,
-                              threads, self._tasks[r], self._results))
-            for r in range(PARTIES)]
+                        args=(r, self.ranks, init_file, str(self.device),
+                              self.timeout, threads, self._tasks[r],
+                              self._results))
+            for r in range(self.ranks)]
         self.closed = False
         for p in self._procs:
             p.start()
@@ -138,34 +145,35 @@ class PartyGroup:
     # -- tasks -------------------------------------------------------------
     def run(self, fn, args=None, deadline: float | None = None) -> list:
         """Run ``fn(state, *args[r])`` on every rank ``r`` (``args`` a list
-        of three tuples, or one tuple for all); returns the three results
-        in rank order.  Raises :class:`RankError` (every rank killed) if a
+        of a tuple a rank, or one tuple for all); returns the results in
+        rank order.  Raises :class:`RankError` (every rank killed) if a
         rank raises, dies or the task outlives its deadline."""
         if self.closed:
             raise RankError("the party group is closed")
         if args is None:
             args = ()
         per_rank = (list(args) if isinstance(args, list)
-                    else [tuple(args)] * PARTIES)
-        if len(per_rank) != PARTIES:
+                    else [tuple(args)] * self.ranks)
+        if len(per_rank) != self.ranks:
             raise ValueError(f"args for {len(per_rank)} ranks, expected "
-                             f"{PARTIES}")
-        for r in range(PARTIES):
+                             f"{self.ranks}")
+        for r in range(self.ranks):
             self._tasks[r].put((fn, tuple(per_rank[r])))
         return self._collect("ok", self.deadline if deadline is None
                              else float(deadline))
 
     def _collect(self, kind: str, deadline: float) -> list:
-        out: list = [None] * PARTIES
+        out: list = [None] * self.ranks
         got = set()
         end = time.monotonic() + deadline
-        while len(got) < PARTIES:
+        while len(got) < self.ranks:
             left = end - time.monotonic()
             if left <= 0:
                 self.kill()
-                raise RankError(f"ranks {sorted(set(range(PARTIES)) - got)} "
-                                f"missed the {deadline:.0f} s deadline; all "
-                                f"ranks killed")
+                missing = sorted(set(range(self.ranks)) - got)
+                raise RankError(f"ranks {missing} missed the "
+                                f"{deadline:.0f} s deadline; all ranks "
+                                f"killed")
             try:
                 rank, status, val = self._results.get(timeout=min(left, 1.0))
             except queue.Empty:

@@ -669,6 +669,26 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _triple(state) -> tuple:
+    """(party id, the triple's global ranks, its process group) of this
+    rank: rank r is P_{r mod 3} of data shard r // 3.  A group of three
+    ranks is one triple on the default group; a larger one makes a process
+    group a triple the first time (every rank joins every ``new_group``,
+    in the same order)."""
+    if "triple" not in state:
+        world, rank = state.get("world", 3), state["rank"]
+        if world == 3:
+            state["triple"] = (rank, None, None)
+        else:
+            import torch.distributed as dist
+            triples = [list(range(3 * t, 3 * t + 3))
+                       for t in range(world // 3)]
+            groups = [dist.new_group(tr) for tr in triples]
+            state["triple"] = (rank % 3, triples[rank // 3],
+                               groups[rank // 3])
+    return state["triple"]
+
+
 def _rank_setup_infer(state, key, model, spec, reveal_output, verify,
                       transport_wrap):
     """Party side of :class:`MeshSecureInfer`: check that the pair model
@@ -676,9 +696,10 @@ def _rank_setup_infer(state, key, model, spec, reveal_output, verify,
     slot's weight caches there."""
     from . import integrity
     dev = state["device"]
-    check_pairs(model.ops, state["rank"])
+    pid, ranks, grp = _triple(state)
+    check_pairs(model.ops, pid)
     m = _own_slot_caches(comm._to_device(model, dev))
-    t = transport.MeshTransport(state["rank"])
+    t = transport.MeshTransport(pid, ranks=ranks, group=grp)
     state[key] = {"model": m, "spec": spec, "reveal": reveal_output,
                   "wire": t.wire,
                   "transport": transport_wrap(t) if transport_wrap else t,
@@ -724,7 +745,7 @@ def _rank_infer(state, key, keys, inputs, modes, profile=False):
     from ..kernels import build as kbuild
     from . import integrity
     from .preprocessing import TapeParties
-    _check_keys(keys, state["rank"])
+    _check_keys(keys, _triple(state)[0])
     _set_protocol_modes(modes)
     st = state[key]
     dev = state["device"]
@@ -796,47 +817,67 @@ class MeshSecureInfer:
     of secure inference with one party a process.
 
     ``runner(keys, x_stack)`` (or ``runner(keys, x_stack, slabs)`` with a
-    tape spec) runs one query and returns the opened logits (the three
-    ranks' openings, checked equal) or, with ``reveal_output=False``, the
-    output RSS stacked from the ranks' own shares.  :meth:`run` serves a
-    batch of queries and returns every rank's measurements too."""
+    tape spec) runs one query and returns the opened logits (each
+    triple's three openings, checked equal, its data shard's rows in
+    order) or, with ``reveal_output=False``, the output RSS stacked from
+    the ranks' own shares.  :meth:`run` serves a batch of queries and
+    returns every rank's measurements too."""
 
     _count = 0
 
     def __init__(self, model: SecureModel, group, reveal_output, tape_spec,
-                 verifier, transport_wrap):
+                 verifier, transport_wrap, data: int = 1):
+        if group.ranks != 3 * data:
+            raise ValueError(f"{data} data shard(s) run on {3 * data} "
+                             f"ranks; the group has {group.ranks}")
+        if data > 1 and tape_spec is not None:
+            raise ValueError("tape playback is traced at the whole batch: "
+                             "it runs party-only (data=1)")
+        if data > 1 and verifier is not None:
+            raise ValueError("verified mesh serving runs party-only "
+                             "(data=1): the digest report is a party's")
         MeshSecureInfer._count += 1
         self.key = f"infer{MeshSecureInfer._count}"
-        self.model, self.group = model, group
+        self.model, self.group, self.data = model, group, data
         self.reveal_output = reveal_output
         self.tape_spec, self.verifier = tape_spec, verifier
         self.layout = ({k: v.layout for k, v in tape_spec.slabs.items()}
                        if tape_spec is not None else None)
         self.last = None
+        pairs = [_pair_model(model, p) for p in range(3)]
         group.run(_rank_setup_infer, [
-            (self.key, _pair_model(model, r), tape_spec, reveal_output,
+            (self.key, pairs[r % 3], tape_spec, reveal_output,
              verifier.mode if verifier is not None else "off",
-             transport_wrap) for r in range(3)])
+             transport_wrap) for r in range(group.ranks)])
 
     def prepare(self, x_stack: torch.Tensor, slabs: dict | None = None):
         """The dealer's staging of one query, outside the online program:
-        each rank's input pair and tape slabs, on the host."""
+        each rank's input pair (its data shard's rows) and tape slabs, on
+        the host."""
         if (slabs is None) != (self.tape_spec is None):
             raise ValueError("tape slabs go with a tape spec, and only then")
-        return [(_pair(x_stack, r).cpu(),
+        b = x_stack.shape[1]
+        if b % self.data:
+            raise ValueError(f"a batch of {b} does not split into "
+                             f"{self.data} data shards")
+        step = b // self.data
+        shards = [x_stack[:, t * step:(t + 1) * step]
+                  for t in range(self.data)]
+        return [(_pair(shards[r // 3], r % 3).cpu(),
                  None if slabs is None
-                 else _pair_slabs(slabs, self.layout, r))
-                for r in range(3)]
+                 else _pair_slabs(slabs, self.layout, r % 3))
+                for r in range(self.group.ranks)]
 
     def run(self, keys, prepared: list, profile: bool = False) -> dict:
         """Serve ``prepared`` (a list of :meth:`prepare` results, one a
         query) in one batch.  Checks every query's digest report under a
         verifier (raising ``IntegrityError`` before any output is
-        released) and that the ranks opened the same logits; returns
-        ``{"out", "ranks": [each rank's measurements]}``."""
+        released) and that each triple's ranks opened the same logits;
+        returns ``{"out", "ranks": [each rank's measurements]}``."""
+        n = self.group.ranks
         ranks = self.group.run(_rank_infer, [
-            (self.key, party_keys(keys, r), [p[r] for p in prepared],
-             _protocol_modes(), profile) for r in range(3)])
+            (self.key, party_keys(keys, r % 3), [p[r] for p in prepared],
+             _protocol_modes(), profile) for r in range(n)])
         self.last = {"out": None, "ranks": ranks}
         if self.verifier is not None:
             v = self.verifier
@@ -851,12 +892,15 @@ class MeshSecureInfer:
                          for k in rows[0]})
         outs = [rk["out"] for rk in ranks]
         if self.reveal_output:
-            for r in (1, 2):
-                if not torch.equal(outs[r], outs[0]):
-                    raise RuntimeError(f"P{r} opened other logits than P0")
-            out = outs[0]
+            for r in range(n):
+                if not torch.equal(outs[r], outs[r - r % 3]):
+                    raise RuntimeError(f"P{r % 3} of data shard {r // 3} "
+                                       f"opened other logits than P0")
+            out = torch.cat(outs[::3])
         else:
-            out = RSS(torch.cat(outs), self.model.ring)
+            out = RSS(torch.cat([torch.cat(outs[3 * t:3 * t + 3])
+                                 for t in range(self.data)], dim=1),
+                      self.model.ring)
         self.last["out"] = out
         return self.last
 
@@ -870,13 +914,13 @@ class MeshSecureInfer:
 
 def make_secure_infer_mesh(model: SecureModel, group=None, *,
                            reveal_output: bool = True, tape_spec=None,
-                           verifier=None,
-                           transport_wrap=None) -> MeshSecureInfer:
+                           verifier=None, transport_wrap=None,
+                           data: int = 1) -> MeshSecureInfer:
     """Secure inference with each party's program in its own process: a
     :class:`MeshSecureInfer` over ``group`` (a
-    :class:`~.party_group.PartyGroup`; default: a new one on the model's
-    device).  Port of the reference's ``make_secure_infer_mesh`` on a
-    party-only mesh (its ``batch_axis`` is ROADMAP item A7b).
+    :class:`~.party_group.PartyGroup` of 3 x ``data`` ranks; default: a
+    new one on the model's device).  Port of the reference's
+    ``make_secure_infer_mesh``, its ``batch_axis`` as ``data``.
 
     The dealer (this process) splits the model's party-stacked tensors
     from its ``pub_*`` tensors and hands each rank only its pair (own +
@@ -885,8 +929,19 @@ def make_secure_infer_mesh(model: SecureModel, group=None, *,
     :class:`~.transport.MeshTransport` with its own ``Parties`` (or, with
     ``tape_spec``, a ``TapeParties`` on its slabs: stack-pair slabs as
     pairs, parts slabs as its row, replicated slabs whole; no PRF call).
-    Same shapes give the local run's PRF words, so the opened logits equal
-    ``secure_infer``'s on the stacked simulation bit for bit.
+    Same shapes give the local run's PRF words, so on three ranks the
+    opened logits equal ``secure_infer``'s on the stacked simulation bit
+    for bit.
+
+    ``data`` > 1 (the party x data batch axis): rank r is P_{r mod 3} of
+    data shard r // 3; the dealer splits the (3, B, ...) stack along the
+    batch and each triple serves its shard, its reshares and openings
+    within the triple (a process group each).  Every shard starts its
+    parties from the same keys and counter, as the reference's shard body
+    does, so the logits are ``secure_infer`` of each shard, concatenated:
+    the PRF words of a shard's shape, not the whole batch's (the
+    truncation's ulps may differ from a whole-batch run).  No tape and no
+    verifier with ``data`` > 1 (the reference's refusals).
 
     ``verifier`` (an ``integrity.Verifier``): every rank digests its
     message views; the reports come back through the task channel (not
@@ -897,9 +952,9 @@ def make_secure_infer_mesh(model: SecureModel, group=None, *,
     ``functools.partial``)."""
     if group is None:
         from .party_group import PartyGroup
-        group = PartyGroup(_model_device(model))
+        group = PartyGroup(_model_device(model), ranks=3 * data)
     return MeshSecureInfer(model, group, reveal_output, tape_spec, verifier,
-                           transport_wrap)
+                           transport_wrap, data)
 
 
 def _model_device(model: SecureModel) -> torch.device:

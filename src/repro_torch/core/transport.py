@@ -202,23 +202,35 @@ def _nbytes(x: torch.Tensor) -> int:
 
 
 class MeshTransport:
-    """One party's program in a three-rank gloo group (rank = ``pid``).
+    """One party's program in a three-rank gloo group (rank = ``pid``), or
+    in one triple of a larger group (``ranks``: the triple's global ranks,
+    P_0's first; ``group``: its process group; the party x data batch
+    axis, ``secure_model.make_secure_infer_mesh(..., data=)``).
 
     Valid only inside a rank of a :class:`~.party_group.PartyGroup` (or any
-    initialised three-rank ``torch.distributed`` group).  Every movement is
-    a real message: the ring exchange of ``complete`` / ``open_rss``
-    (``batch_isend_irecv``), the all-gather of ``open_parts``, the
-    point-to-point ``send``.  The party id is a Python int here, so the
-    reference's ``where(pid == i, ...)`` selections are plain branches."""
+    initialised ``torch.distributed`` group).  Every movement is a real
+    message within the triple: the ring exchange of ``complete`` /
+    ``open_rss`` (``batch_isend_irecv``), the all-gather of
+    ``open_parts``, the point-to-point ``send``.  The party id is a Python
+    int here, so the reference's ``where(pid == i, ...)`` selections are
+    plain branches."""
 
     name = "mesh"
     carries_pair = True
 
-    def __init__(self, pid: int, wire: WireCounter | None = None):
+    def __init__(self, pid: int, wire: WireCounter | None = None,
+                 ranks: Sequence[int] | None = None, group=None):
         if pid not in range(PARTIES):
             raise ValueError(f"party id {pid} is not in 0..{PARTIES - 1}")
         self.pid = pid
         self.wire = wire if wire is not None else WireCounter()
+        self.ranks = tuple(ranks) if ranks is not None else tuple(
+            range(PARTIES))
+        self.group = group
+
+    def _peer(self, party: int) -> int:
+        """The global rank of party ``party`` of this triple."""
+        return self.ranks[party % PARTIES]
 
     # -- the wire ----------------------------------------------------------
     def _stage(self, x: torch.Tensor) -> torch.Tensor:
@@ -250,8 +262,10 @@ class MeshTransport:
         out = self._stage(x)
         buf = self._buffer(out)
         reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, out, (self.pid - 1) % PARTIES),
-            dist.P2POp(dist.irecv, buf, (self.pid + 1) % PARTIES)])
+            dist.P2POp(dist.isend, out, self._peer(self.pid - 1),
+                       group=self.group),
+            dist.P2POp(dist.irecv, buf, self._peer(self.pid + 1),
+                       group=self.group)])
         for r in reqs:
             r.wait()
         self.wire.sent(op, _nbytes(out))
@@ -298,11 +312,11 @@ class MeshTransport:
         import torch.distributed as dist
         if self.pid == frm:
             out = self._stage(x)
-            dist.send(out, to)
+            dist.send(out, self._peer(to), group=self.group)
             self.wire.sent("send", _nbytes(out))
         elif self.pid == to:
             buf = self._buffer(x)
-            dist.recv(buf, frm)
+            dist.recv(buf, self._peer(frm), group=self.group)
             return self._land(buf, x.device)
         return torch.zeros_like(x)
 
@@ -323,7 +337,7 @@ class MeshTransport:
         import torch.distributed as dist
         out = self._stage(part)
         bufs = [self._buffer(out) for _ in range(PARTIES)]
-        dist.all_gather(bufs, out)
+        dist.all_gather(bufs, out, group=self.group)
         self.wire.sent("open_parts", (PARTIES - 1) * _nbytes(out),
                        PARTIES - 1)
         return [self._land(b, part.device) for b in bufs]

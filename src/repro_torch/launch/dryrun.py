@@ -1,0 +1,355 @@
+"""Multi-pod dry run: each (arch x shape x mesh) cell's step on ``meta``
+tensors over a fake process group of 256 or 512 ranks, allocating
+nothing, recording the memory, collectives and roofline of one rank.
+
+Port of ``repro/launch/dryrun.py`` (``dryrun_cell``, ``main``).  The
+reference lowers and compiles each cell with XLA on 512 fake host
+devices; here this process joins ``torch.distributed``'s "fake" process
+group as rank 0 of ``world_size`` ranks (every collective returns at
+once), lays the cell's parameters, optimizer state or cache and batch
+out as DTensors by ``launch.mesh``'s specs over the production mesh, and
+runs the port's own step on them:
+
+* train: ``launch.steps.make_train_step(..., plan)`` (the whole
+  parameters gathered, this rank's batch shard, the gradient
+  reduce-scattered, AdamW on the shards);
+* prefill / decode: the whole parameters gathered and the step run on
+  this rank's batch shard (a decode step also gathers its cache shard's
+  sequence over "model" and writes it back).
+
+Only the plain versions of the kernels' products run on ``meta``: no
+kernel runs in a dry run.
+
+Recorded (the reference's keys): ``status``, ``n_chips``, ``memory``
+(``roofline.analyze.summarize_memory``: ``argument_bytes`` exact from
+the local shard shapes of the step's inputs, ``output_bytes`` those of
+its outputs that are not its inputs, ``temp_bytes`` the rest of the
+peak that ``torch.distributed._tools.mem_tracker.MemTracker`` reads),
+``collectives`` (per op kind the count and the operand bytes of this
+rank's collectives, the keys of the reference's
+``collective_bytes_from_hlo``), ``roofline`` and ``step_s`` (the
+reference's ``lower_s`` / ``compile_s``: the host seconds of the meta
+step).
+
+The port's steps have no tensor parallelism: the "model" axis shards
+storage only, and every rank runs the whole model on its batch shard (a
+"model" row's ranks repeat the same work).  So the memory record is that
+replicated-compute step's, and the roofline is the step that runs:
+``roofline.analyze.roofline_terms`` of one rank's shape (its batch
+shard, the whole model) on one card, with ``data_shards``, the ranks the
+batch splits over, and ``model_flops_global``, the whole cell's model
+FLOPs, beside it.  The reference's record divides the cell's FLOPs by
+every chip, as a tensor-parallel program would; this one does not.
+
+The fake group lives for the process: run this module as a script, or
+through ``launch.farm`` (a subprocess a cell); never call
+:func:`dryrun_cell` in a process that needs a real group.
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
+      --shape train_4k --mesh single --out dryrun_results/
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+import traceback
+from pathlib import Path
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ..configs import SHAPES, get_config
+from ..roofline.analyze import (model_flops, roofline_terms,
+                                summarize_memory)
+
+__all__ = ["MESHES", "CollectiveCounter", "parse_shape", "dryrun_cell",
+           "rank_roofline", "main"]
+
+MESHES = {"single": ((16, 16), ("data", "model")),
+          "multi": ((2, 16, 16), ("pod", "data", "model")),
+          "one": ((1, 1), ("data", "model"))}
+
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+# torch's collective ops (functional and in-place forms) -> the reference's
+# HLO op names
+_KINDS = {"all_gather_into_tensor": "all-gather", "allgather_": "all-gather",
+          "all_gather_into_tensor_coalesced": "all-gather",
+          "_allgather_base_": "all-gather",
+          "all_reduce": "all-reduce", "allreduce_": "all-reduce",
+          "all_reduce_coalesced": "all-reduce",
+          "reduce_scatter_tensor": "reduce-scatter",
+          "reduce_scatter_": "reduce-scatter",
+          "_reduce_scatter_base_": "reduce-scatter",
+          "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
+          "send": "collective-permute", "recv_": "collective-permute"}
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(t) for t in x)
+    return 0
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Counts the collectives run inside it: ``{op: {"count", "bytes"},
+    "total_bytes"}``, the bytes of each collective's operand on this rank
+    (the per-chip convention of the reference's
+    ``collective_bytes_from_hlo``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.record = {op: {"count": 0, "bytes": 0} for op in COLLECTIVE_OPS}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kind = _KINDS.get(func._schema.name.split("::")[-1])
+        if kind is not None:
+            self.record[kind]["count"] += 1
+            self.record[kind]["bytes"] += _nbytes(args[0])
+        return func(*args, **(kwargs or {}))
+
+    def result(self) -> dict:
+        out = {k: dict(v) for k, v in self.record.items()}
+        out["total_bytes"] = sum(v["bytes"] for v in self.record.values())
+        return out
+
+
+def parse_shape(shape: str) -> tuple[str, dict]:
+    """A ``SHAPES`` name, or "kind:global_batch:seq_len" (a cell off the
+    table, such as "train:4:256") -> (name, its fields)."""
+    if shape in SHAPES:
+        return shape, SHAPES[shape]
+    kind, b, s = shape.split(":")
+    if kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"shape {shape!r}: a SHAPES name or kind:batch:seq")
+    return shape, {"kind": kind, "global_batch": int(b), "seq_len": int(s)}
+
+
+def _fake_group(world: int) -> None:
+    """This process as rank 0 of a fake group of ``world`` ranks."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        if dist.get_backend() != "fake" or dist.get_world_size() != world:
+            raise RuntimeError(
+                f"the dry run needs its own fake group of {world} ranks; "
+                f"this process already joined a {dist.get_backend()} group "
+                f"of {dist.get_world_size()}")
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+
+
+def _local_bytes(tree) -> int:
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_local_bytes(v) for v in tree)
+    if isinstance(tree, DTensor):
+        return _nbytes(tree.to_local())
+    return _nbytes(tree)
+
+
+def _locals(tree) -> list:
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _locals(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _locals(v)]
+    if isinstance(tree, DTensor):
+        return [tree.to_local()]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _whole_params(params):
+    from torch.nn.utils.stateless import _reparametrize_module
+    whole = {k: p.full_tensor() for k, p in params.named_parameters()}
+    return _reparametrize_module(params, whole)
+
+
+def _cache_on_plan(cfg, info, plan):
+    """The decode cache as DTensors by ``cache_specs``."""
+    from ..nn import transformer as tfm
+    from . import mesh as mesh_lib
+    cache = tfm.abstract_cache(cfg, info["global_batch"], info["seq_len"])
+    specs = mesh_lib.cache_specs(cache, plan)
+
+    def lay(tree, spec):
+        return {k: lay(v, spec[k]) if isinstance(v, dict)
+                else mesh_lib.shard(v, plan, spec[k])
+                for k, v in tree.items()}
+    return [lay(c, s) for c, s in zip(cache, specs)], specs
+
+
+def _decode(params, cache, specs, batch, cfg, plan):
+    """One mesh decode step: this rank's batch shard of the cache with its
+    whole sequence, the step, the cache written back to its layout."""
+    from torch.distributed.tensor import DTensor
+
+    from ..nn import transformer as tfm
+
+    def batch_only(spec):
+        return tuple(ax if i == 0 else None for i, ax in enumerate(spec))
+
+    def gather(tree, spec):
+        return {k: gather(v, spec[k]) if isinstance(v, dict)
+                else v.redistribute(plan.mesh, plan.placements(
+                    batch_only(spec[k]))).to_local()
+                for k, v in tree.items()}
+
+    def scatter(tree, like, spec):
+        return {k: scatter(v, like[k], spec[k]) if isinstance(v, dict)
+                else DTensor.from_local(
+                    v, plan.mesh, plan.placements(batch_only(spec[k])),
+                    run_check=False).redistribute(plan.mesh,
+                                                  like[k].placements)
+                for k, v in tree.items()}
+    local = [gather(c, s) for c, s in zip(cache, specs)]
+    with _whole_params(params), torch.no_grad():
+        logits, local = tfm.decode_step(params, local, batch["tokens"], 0,
+                                        cfg)
+    return logits, [scatter(c, like, s)
+                    for c, like, s in zip(local, cache, specs)]
+
+
+def dryrun_cell(arch: str, shape: str, mesh_kind: str,
+                variant: str = "baseline", dispatch: str | None = None,
+                ssd_chunk: int = 0, opt_state_dtype: str = "",
+                moe_impl: str = "") -> dict:
+    import dataclasses
+
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    from ..nn import transformer as tfm
+    from ..optim import OptConfig, adamw_init
+    from . import mesh as mesh_lib
+    from . import steps as steps_lib
+    from .context import use_plan
+    if dispatch:
+        from ..nn.moe import set_dispatch_mode
+        set_dispatch_mode(dispatch)
+    if moe_impl:
+        from ..nn.moe import set_moe_impl
+        set_moe_impl(moe_impl)
+    cfg = get_config(arch)
+    if ssd_chunk:
+        cfg = dataclasses.replace(cfg, ssd_chunk=ssd_chunk)
+    name, info = parse_shape(shape)
+    rec = {"arch": arch, "shape": name, "mesh": mesh_kind,
+           "variant": variant, "ts": time.time()}
+    if name in SHAPES:
+        ok, reason = cfg.shape_supported(name)
+        if not ok:
+            rec.update(status="SKIP", reason=reason)
+            return rec
+    dims, axes = MESHES[mesh_kind]
+    n_chips = math.prod(dims)
+    _fake_group(n_chips)
+    mesh = mesh_lib.make_mesh(dims, axes, "cpu")
+    plan = mesh_lib.Plan(mesh)
+    kind = info["kind"]
+    opt_cfg = OptConfig(state_dtype=opt_state_dtype or "fp32")
+
+    params = tfm.abstract_params(cfg)
+    mesh_lib.shard_params(params, plan)
+    full = steps_lib.input_specs(cfg, info)
+    full.pop("pos", None)            # the decode step writes position 0
+    batch = mesh_lib.local_batch(full, plan)
+    aux = None
+    if kind == "train":
+        aux = mesh_lib.conform_opt(
+            adamw_init(dict(params.named_parameters()), opt_cfg), params,
+            plan)
+    elif kind == "decode":
+        aux, c_specs = _cache_on_plan(cfg, info, plan)
+    arg_bytes = _local_bytes(dict(params.named_parameters())) \
+        + _local_bytes(aux) + _local_bytes(batch)
+
+    tracker = MemTracker()
+    tracker.track_external(params, *_locals(aux), *batch.values())
+    counter = CollectiveCounter()
+    t0 = time.time()
+    with tracker, counter, use_plan(plan):
+        if kind == "train":
+            step = steps_lib.make_train_step(cfg, opt_cfg, plan)
+            _, aux, _ = step(params, aux, batch)
+            out_bytes = 0      # the state is updated in place
+        elif kind == "prefill":
+            with _whole_params(params), torch.no_grad():
+                logits = tfm.prefill_step(params, batch, cfg)
+            out_bytes = _nbytes(logits)
+        else:
+            logits, aux = _decode(params, aux, c_specs, batch, cfg, plan)
+            out_bytes = _nbytes(logits)
+    step_s = time.time() - t0
+    peak = sum(v["Total"] for v in
+               tracker.get_tracker_snapshot("peak").values())
+    colls = counter.result()
+    mem = {"argument_size_in_bytes": arg_bytes,
+           "output_size_in_bytes": out_bytes,
+           "temp_size_in_bytes": max(peak - arg_bytes - out_bytes, 0),
+           "alias_size_in_bytes": 0}
+    rec.update(status="OK", step_s=round(step_s, 2), n_chips=n_chips,
+               memory=dict(summarize_memory(mem), tracked_peak_bytes=peak),
+               collectives=colls, roofline=rank_roofline(cfg, info, batch,
+                                                         colls))
+    return rec
+
+
+def rank_roofline(cfg, info: dict, batch: dict, colls: dict) -> dict:
+    """``roofline_terms`` of the step one rank runs: the whole model on
+    its batch shard (``batch``, local), on one card; plus
+    ``data_shards`` and the cell's ``model_flops_global``."""
+    local_b = next(iter(batch.values())).shape[0]
+    local = dict(info, global_batch=local_b)
+    terms = roofline_terms(cfg, local, None, colls, 1)
+    terms.update(data_shards=info["global_batch"] // local_b,
+                 model_flops_global=model_flops(cfg, info))
+    return terms
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--shape", required=True,
+                    help="a SHAPES name or kind:global_batch:seq_len")
+    ap.add_argument("--mesh", default="single", choices=sorted(MESHES))
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--dispatch", default=None, choices=[None, "sort",
+                                                         "cumsum"])
+    ap.add_argument("--ssd-chunk", type=int, default=0)
+    ap.add_argument("--opt-dtype", default="", choices=["", "fp32", "int8"])
+    ap.add_argument("--moe-impl", default="", choices=["", "dense",
+                                                       "shardmap"])
+    ap.add_argument("--out", default="dryrun_results")
+    args = ap.parse_args(argv)
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    name = f"{args.arch}__{args.shape}__{args.mesh}__{args.variant}.json" \
+        .replace(":", "-")
+    try:
+        rec = dryrun_cell(args.arch, args.shape, args.mesh, args.variant,
+                          dispatch=args.dispatch, ssd_chunk=args.ssd_chunk,
+                          opt_state_dtype=args.opt_dtype,
+                          moe_impl=args.moe_impl)
+    except Exception as e:  # noqa: BLE001 (a failed cell is a record)
+        rec = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,
+               "variant": args.variant, "status": "FAIL",
+               "error": f"{type(e).__name__}: {e}",
+               "trace": traceback.format_exc()[-4000:]}
+    (out_dir / name).write_text(json.dumps(rec, indent=2))
+    print(json.dumps({k: v for k, v in rec.items() if k != "trace"},
+                     indent=2))
+    if rec["status"] == "FAIL":
+        raise SystemExit(1)
+    return rec
+
+
+if __name__ == "__main__":
+    main()

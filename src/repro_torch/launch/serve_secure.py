@@ -217,9 +217,19 @@ def serve_pool(run, gen, spec, keys, xs_shares, queries: int, depth: int,
             "refills": pool.refills, "pool": pool}
 
 
+def mesh_data(batch: int, ranks: int, verify: str = "off",
+              offline: str = "inline") -> int:
+    """The data shards of a mesh run on ``ranks`` ranks: the largest
+    d <= ranks / 3 that divides the batch (the reference's serving rule),
+    and 1 under a verifier or the tape pool (both run party-only)."""
+    if verify != "off" or offline == "pool":
+        return 1
+    return max(d for d in range(1, ranks // 3 + 1) if batch % d == 0)
+
+
 def _mesh_queries(model, spec, parties, xs, queries: int, depth: int,
                   verify: str, device, group, master_key, registry=None,
-                  profile: bool = False) -> dict:
+                  profile: bool = False, data: int = 1) -> dict:
     """``--backend mesh``: one warm-up query, then ``queries`` timed ones,
     each party's program in its own process of ``group``
     (core/party_group.py).  The dealer stages each query (the ranks'
@@ -228,10 +238,11 @@ def _mesh_queries(model, spec, parties, xs, queries: int, depth: int,
     query's device completion.  Under the pool the plant runs here, timed
     as in :func:`serve_pool`.  Returns the warm-up query's ledger (rank
     0's), the last logits, the times, every rank's per-query wire counts
-    and launches, the pool and the verifier."""
+    and launches, the pool and the verifier.  With ``data`` shards the
+    ledger is a shard's (rank 0's) and the logits every shard's."""
     verifier = None if verify == "off" else integrity.Verifier(verify)
     run = make_secure_infer_mesh(model, group, tape_spec=spec,
-                                 verifier=verifier)
+                                 verifier=verifier, data=data)
     plant_s = 0.0
     pool = None
     if spec is not None:
@@ -277,7 +288,8 @@ def _mesh_queries(model, spec, parties, xs, queries: int, depth: int,
             if tr is not None:
                 tr.spans.append(telemetry.Span(
                     f"query[{q}]", "online", rec["start"], rec["seconds"],
-                    lane=f"party{r}",
+                    lane=(f"party{r}" if data == 1
+                          else f"party{r % 3}.shard{r // 3}"),
                     args={"wire_bytes": w["nbytes"],
                           "messages": w["messages"],
                           "staging_ms": w["staging_s"] * 1e3}))
@@ -287,10 +299,10 @@ def _mesh_queries(model, spec, parties, xs, queries: int, depth: int,
     online_s = max(rk["seconds"] for rk in ranks)
     per_slice = plant_s / (pool.generated * depth) if pool else 0.0
     # each rank's launches as it counted them: warm-up, timed, profiled
-    launches = [{} for _ in range(3)]
+    launches = [{} for _ in ranks]
     runs = (warm, timed) + ((prof,) if prof else ())
     for res in runs:
-        for r in range(3):
+        for r in range(len(ranks)):
             for k, c in res["ranks"][r]["launches"].items():
                 launches[r][k] = launches[r].get(k, 0) + c
     return {"ledger": led, "logits": timed["out"], "online_s": online_s,
@@ -298,6 +310,7 @@ def _mesh_queries(model, spec, parties, xs, queries: int, depth: int,
             "amortised_s": online_s + queries * per_slice,
             "refills": pool.refills if pool else 0, "pool": pool,
             "verifier": verifier, "ranks": ranks, "rank_launches": launches,
+            "data": data,
             "runs": sum(len(res["ranks"][0]["queries"]) for res in runs),
             "profile": ([rk["profile"] for rk in prof["ranks"]] if prof
                         else None)}
@@ -306,7 +319,8 @@ def _mesh_queries(model, spec, parties, xs, queries: int, depth: int,
 def _mesh_stats(ms: dict, led) -> dict:
     """The per-rank wire against the ledger (its ``verify.digest`` row
     left out: the digest reports travel by the task channel, not the
-    process group), for the stats."""
+    process group), for the stats; with data shards, every shard's
+    ledger (a shard's times their number) against every rank's wire."""
     ranks = ms["ranks"]
     first = [rk["queries"][0]["wire"] for rk in ranks]
     n = len(ranks[0]["queries"])
@@ -315,7 +329,7 @@ def _mesh_stats(ms: dict, led) -> dict:
                      if t is None or not t.startswith("pre:"))
                  for w in first)
     ledger = (led.nbytes + led.pre_nbytes
-              - led.by_tag.get("verify.digest", (0, 0))[1])
+              - led.by_tag.get("verify.digest", (0, 0))[1]) * ms["data"]
     return {"rank_wire_bytes": [w["nbytes"] for w in first],
             "rank_wire_messages": [w["messages"] for w in first],
             "wire_bytes": wire, "wire_online_bytes": online,
@@ -330,6 +344,7 @@ def _mesh_stats(ms: dict, led) -> dict:
                 sum(q["prf_calls"] for q in rk["queries"]) / n
                 for rk in ranks],
             "rank_launches": ms["rank_launches"], "mesh_runs": ms["runs"],
+            "data_shards": ms["data"],
             "rank_busy_share": ([p["busy_share"] if p else None
                                  for p in ms["profile"]]
                                 if ms["profile"] else None),
@@ -371,7 +386,7 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
           registry: telemetry.MetricsRegistry | None = None,
           offline: str = "inline", pool_depth: int | None = None,
           verify: str = "off", backend: str = "local",
-          group=None) -> dict:
+          group=None, mesh_ranks: int = 3) -> dict:
     """Build, compile, one warm-up query, then ``queries`` timed queries
     (and, with ``profile``, one profiled query after them).  ``x`` (float
     (B, H, W, C)) defaults to random ±0.5 pixels from ``seed``.
@@ -402,7 +417,12 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
     stopped here), with every reshare, send and opening a real message
     (:func:`_mesh_queries`); the stats then add every rank's wire bytes,
     messages, staging time and launches beside the ledger's bytes, and
-    the per-party spans go to the tracer's party lanes."""
+    the per-party spans go to the tracer's party lanes.  The mesh may use
+    ``mesh_ranks`` ranks (``group``'s, when one is given): with 3 x d of
+    them a batch that d divides runs as d data shards, each on a triple
+    of ranks (:func:`mesh_data`; one shard under ``verify`` or the pool).
+    The prediction is then a shard's, held to a shard's ledger, and the
+    stats' bytes are every shard's (a shard's times d)."""
     if net not in INPUT_SHAPES:
         raise ValueError(f"unknown net {net!r}; available: "
                          + ", ".join(sorted(INPUT_SHAPES)))
@@ -420,6 +440,10 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
     dep = cost_model.resolve_deployment(deployment)
     if dep is not None:
         dep = dep.with_batch(batch)
+    data = 1
+    if backend == "mesh":
+        data = mesh_data(batch, group.ranks if group is not None
+                         else mesh_ranks, verify, offline)
     led = pred = model = None
     try:
         with telemetry.tracing(tracer):
@@ -434,7 +458,7 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
             if verify == "full":
                 # structural RSS pair-consistency check on the shares
                 integrity.verify_model_ingest(model)
-            pred = cost_model.model_cost(model, (batch,) + shape)
+            pred = cost_model.model_cost(model, (batch // data,) + shape)
             parties = Parties.setup(prf.PRNGKey(seed + 7), device=device)
             if x is None:
                 rng = np.random.default_rng(seed)
@@ -452,12 +476,12 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
                         spec = trace_material(model, (batch,) + shape)
                 own = group is None
                 if own:
-                    group = PartyGroup(device)
+                    group = PartyGroup(device, ranks=3 * data)
                 try:
                     mesh_st = _mesh_queries(
                         model, spec, parties, xs, queries, pool_depth or 8,
                         verify, device, group, prf.PRNGKey(seed + 11),
-                        registry=registry, profile=profile)
+                        registry=registry, profile=profile, data=data)
                 finally:
                     if own:
                         group.close()
@@ -507,6 +531,8 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
             verifier = (mesh_st["verifier"] if mesh_st is not None
                         else run.verifier)
             got = _check_prediction(pred, led, offline_led, verifier)
+            # every shard sends a shard's bytes, in the same rounds
+            got = (got[0], got[1] * data, got[2], got[3] * data)
     except integrity.IntegrityError as e:
         if registry is not None and not any(
                 k[0] == "integrity_aborts_total" for k in registry.counters):
@@ -545,7 +571,8 @@ def serve(net: str = "MnistNet1", batch: int = 32, queries: int = 4,
           "offline_rounds": got[2], "offline_bytes": got[3],
           "launches_per_query": per_query,
           "deployment": dep.name if dep is not None else None,
-          "predicted_rounds": pred.rounds, "predicted_bytes": pred.nbytes,
+          "predicted_rounds": pred.rounds,
+          "predicted_bytes": pred.nbytes * data,
           "logits": out.float().cpu().numpy(),
           "ledger": led, "predicted": pred, "model": model}
     if verifier is not None:
@@ -931,6 +958,10 @@ def main(argv=None):
                     help="local: the stacked three-party simulation; mesh: "
                          "one party a process (three gloo ranks on the "
                          "same device), every message really sent")
+    ap.add_argument("--mesh-ranks", type=int, default=3, metavar="N",
+                    help="ranks the mesh backend may use: 3 x d serve a "
+                         "batch that d divides as d data shards (one "
+                         "under --verify or --offline pool)")
     ap.add_argument("--net", default="MnistNet1")
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--queries", type=int, default=4)
@@ -1041,7 +1072,8 @@ def main(argv=None):
                    binary_linear=args.binary_linear,
                    deployment=args.deployment, tracer=tracer, registry=reg,
                    offline=args.offline, pool_depth=args.pool_depth,
-                   verify=args.verify, backend=args.backend)
+                   verify=args.verify, backend=args.backend,
+                   mesh_ranks=args.mesh_ranks)
     except integrity.IntegrityError as e:
         # a deviation aborts with diagnostics, never a wrong answer; the
         # trace and metrics are still flushed so the abort can be read
@@ -1067,7 +1099,7 @@ def main(argv=None):
               f"{pred.nbytes / 1e6:.3f} MB, "
               f"{pred.time(dep) * 1e3:.1f} ms/query")
     print(f"[serve_secure] cost model: predicted {pred.rounds} rounds / "
-          f"{pred.nbytes:,} B vs measured {st['online_rounds']} / "
+          f"{st['predicted_bytes']:,} B vs measured {st['online_rounds']} / "
           f"{st['online_bytes']:,} B -> exact")
     print(f"[serve_secure] {st['net']} weights={st['weights']} "
           f"binary_linear={st['binary_linear']} offline={st['offline']} "
@@ -1092,10 +1124,13 @@ def main(argv=None):
                        st["launches_per_query"].items() if v) or "none"))
     if args.backend == "mesh":
         print(f"[serve_secure] mesh wire a query: {st['wire_bytes']:,} B "
-              f"over the three ranks ({st['wire_online_bytes']:,} B online) "
+              f"over {len(st['rank_wire_bytes'])} ranks, "
+              f"{st['data_shards']} data shard(s) "
+              f"({st['wire_online_bytes']:,} B online) "
               f"vs ledger {st['ledger_bytes']:,} B online + offline "
               f"(rel diff {st['wire_rel_diff']:.2e}); per rank "
-              + ", ".join(f"P{r} {b:,} B / {m} msgs / staging {ms:.3f} ms"
+              + ", ".join(f"rank {r} {b:,} B / {m} msgs / staging "
+                          f"{ms:.3f} ms"
                           for r, (b, m, ms) in enumerate(zip(
                               st["rank_wire_bytes"],
                               st["rank_wire_messages"],

@@ -5,9 +5,9 @@ Port of ``repro/launch/steps.py`` (``make_train_step``,
 gradient of ``nn.transformer.loss_fn`` with respect to every parameter of
 the ``LM`` module (``nn.layers.trainable`` turns gradients on for the step
 only) and applies ``optim.adamw_update`` in place.  The prefill and decode
-steps run without autograd.  The abstract input specs of the dry-run path
-(``input_specs``, ``abstract_state``) wait for the launchers of ROADMAP.md
-§A item 8.
+steps run without autograd.  ``input_specs`` and ``abstract_state`` give
+every model input and the state of a ``configs.SHAPES`` cell as ``meta``
+tensors (the reference's shapes, the port's dtypes), for the dry run.
 """
 from __future__ import annotations
 
@@ -15,21 +15,78 @@ import torch
 
 from ..configs import ArchConfig
 from ..nn import transformer as tfm
-from ..nn.layers import trainable
-from ..optim import OptConfig, adamw_update
+from ..nn.layers import COMPUTE_DTYPE, trainable
+from ..optim import OptConfig, adamw_init, adamw_update
+from ..roofline.analyze import shape_info
 
-__all__ = ["make_train_step", "make_prefill_step", "make_decode_step"]
+__all__ = ["input_specs", "abstract_state", "make_train_step",
+           "make_prefill_step", "make_decode_step"]
 
 
-def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig | None = None):
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name) -> dict:
+    """``meta`` stand-ins for every model input of this cell (a ``SHAPES``
+    name, or a dict of its ``kind``, ``global_batch`` and ``seq_len``): a
+    train or prefill batch ("tokens", or "frames" / "patch_embeds" +
+    "tokens" for a frontend, and "labels" to train); a decode step's
+    (B, 1) tokens and 0-d position."""
+    b, s, kind = shape_info(shape_name)
+    if kind in ("train", "prefill"):
+        batch = {}
+        if cfg.frontend == "audio":
+            batch["frames"] = _meta((b, s, cfg.d_model), COMPUTE_DTYPE)
+        elif cfg.frontend == "vision":
+            batch["tokens"] = _meta((b, s - cfg.n_patches), torch.int32)
+            batch["patch_embeds"] = _meta((b, cfg.n_patches, cfg.d_model),
+                                          COMPUTE_DTYPE)
+        else:
+            batch["tokens"] = _meta((b, s), torch.int32)
+        if kind == "train":
+            lab_s = s - cfg.n_patches if cfg.frontend == "vision" else s
+            batch["labels"] = _meta((b, lab_s), torch.int32)
+        return batch
+    # decode: one new token against a seq_len cache
+    return {"tokens": _meta((b, 1), torch.int32),
+            "pos": _meta((), torch.int32)}
+
+
+def abstract_state(cfg: ArchConfig, shape_name,
+                   opt_cfg: OptConfig | None = None):
+    """(the ``LM`` on ``meta``, its AdamW state / decode cache / None) for
+    this cell: the optimizer state for a train cell, the cache of
+    ``seq_len`` positions for a decode cell."""
+    params = tfm.abstract_params(cfg)
+    b, s, kind = shape_info(shape_name)
+    if kind == "train":
+        return params, adamw_init(dict(params.named_parameters()), opt_cfg)
+    if kind == "decode":
+        return params, tfm.abstract_cache(cfg, b, s)
+    return params, None
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig | None = None,
+                    plan=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm"})``: ``params`` is the ``LM`` module, updated in
     place and returned; ``opt_state`` is ``optim.adamw_init`` of
     ``dict(params.named_parameters())``; ``batch`` holds "labels" and the
     model's inputs (``nn.transformer.loss_fn``: "tokens", and "frames" or
     "patch_embeds" for a frontend).  The metrics are 0-d device
-    tensors."""
+    tensors.
+
+    With a ``plan`` (a ``launch.mesh.Plan``) the parameters and moments
+    are DTensors laid out by ``mesh.param_specs`` / ``opt_specs`` and
+    ``batch`` is this rank's shard (``mesh.batch_specs``): the step
+    gathers the whole parameters (FSDP storage), takes the gradient of
+    its shard's loss over the mesh's ranks (see :func:`_mesh_grads`),
+    reduce-scatters it to the parameters' layout and runs AdamW on the
+    shards; the loss is the mean over the ranks."""
     opt_cfg = opt_cfg or OptConfig()
+    if plan is not None:
+        return _mesh_train_step(cfg, opt_cfg, plan)
 
     def train_step(params, opt_state, batch):
         named = dict(params.named_parameters())
@@ -41,6 +98,56 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig | None = None):
         _, opt_state, gnorm = adamw_update(
             named, dict(zip(named, grads)), opt_state, opt_cfg)
         return params, opt_state, {"loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
+
+
+def _mesh_grads(params, batch: dict, cfg: ArchConfig, plan):
+    """(loss of this rank's shard, DTensor gradients in the parameters'
+    layouts).  Every rank differentiates its loss over the number of
+    ranks n; the gradients, partial sums over the mesh, reduce-scatter to
+    each parameter's placements.  Each rank's loss is its data shard's
+    mean (the ranks of a "model" row hold the same shard), so the sum is
+    the gradient of the global mean loss, also where the MoE all-to-all
+    (``nn.moe`` "shardmap") sends part of a rank's gradient to another."""
+    from torch.distributed.tensor import DTensor, Partial
+    from torch.nn.utils.stateless import _reparametrize_module
+
+    from . import mesh as mesh_lib
+    from .context import use_plan
+    mesh = plan.mesh
+    named = dict(params.named_parameters())
+    whole = {k: mesh_lib.full(p).detach().requires_grad_(True)
+             for k, p in named.items()}
+    with _reparametrize_module(params, whole), use_plan(plan):
+        loss = tfm.loss_fn(params, batch, cfg)
+    # hubert's loss never reads its token embedding: None (zeros)
+    grads = torch.autograd.grad(loss / mesh.size(), list(whole.values()),
+                                allow_unused=True)
+    part = [Partial()] * mesh.ndim
+    out = {}
+    for (k, p), g in zip(named.items(), grads):
+        out[k] = None if g is None else DTensor.from_local(
+            g, mesh, part, run_check=False).redistribute(mesh, p.placements)
+    return loss.detach(), out
+
+
+def _mesh_train_step(cfg: ArchConfig, opt_cfg: OptConfig, plan):
+    from torch.distributed.tensor import DTensor, Partial
+
+    from . import mesh as mesh_lib
+
+    def train_step(params, opt_state, batch):
+        loss, grads = _mesh_grads(params, batch, cfg, plan)
+        named = dict(params.named_parameters())
+        _, opt_state, gnorm = adamw_update(named, grads, opt_state, opt_cfg)
+        opt_state = mesh_lib.conform_opt(opt_state, params, plan)
+        mesh = plan.mesh
+        mean = mesh_lib.full(DTensor.from_local(
+            loss.reshape(()), mesh, [Partial()] * mesh.ndim,
+            run_check=False)) / mesh.size()
+        return params, opt_state, {"loss": mean,
+                                   "grad_norm": mesh_lib.full(gnorm)}
 
     return train_step
 

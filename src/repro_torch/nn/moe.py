@@ -2,8 +2,8 @@
 
 Port of ``repro/nn/moe.py`` (``set_dispatch_mode``, ``moe_init``,
 ``set_moe_impl``, ``moe_ffn``, ``_expert_compute``, ``_local_dispatch``,
-``_moe_ffn_dense``).  Experts are stacked on a leading E axis, float32
-``(E, d_in, d_out)``; a call routes each token to its top-k experts
+``_moe_ffn_shardmap``, ``_moe_ffn_dense``).  Experts are stacked on a
+leading E axis, float32 ``(E, d_in, d_out)``; a call routes each token to its top-k experts
 (softmax over the float32 router logits, the k gates renormalised),
 places each (token, choice) at its rank among the expert's slots in token
 order, drops what lies past the expert's capacity, scatters the kept
@@ -16,9 +16,18 @@ Capacity is computed over the call's token count, as in the reference:
 prefill (per batch) and decode (per step) drop differently; a decode step
 of 4 tokens with 16 experts and top-2 keeps one slot an expert.
 
-The reference's ``"shardmap"`` implementation (an explicit all-to-all over
-the device mesh's "model" axis) needs the launchers' mesh, which is not
-ported: :func:`set_moe_impl` refuses it (ROADMAP.md §A item 8).
+``set_moe_impl("shardmap")`` is expert parallelism with an explicit
+all-to-all, used where a ``launch.mesh.Plan`` is active
+(``launch.context.use_plan``; the dense dispatch otherwise, as in the
+reference): each rank holds its data shard's tokens, splits them over the
+mesh's "model" axis, routes its own into per-expert send buffers, one
+``all_to_all_single`` over the "model" group carries them to the experts'
+owners (rank j of the axis owns experts j·E/m ...), the owners run their
+experts, the reverse all-to-all and a local gather combine, and an
+all-gather over "model" gives every rank its whole shard's output.  No
+(E, C, d) buffer of all the tokens exists anywhere.  Both exchanges are
+differentiable (``torch.distributed._functional_collectives``' autograd
+forms); CUDA tensors cross a gloo group through host copies.
 :func:`record_routing` collects each call's routing, for comparing two
 runs' decisions; :func:`replay_routing` makes a run take another run's
 expert choices (top-k routing is discontinuous: an ulp of a hidden state
@@ -28,6 +37,7 @@ the same choices).
 from __future__ import annotations
 
 import contextlib
+import types
 
 import torch
 import torch.nn as nn
@@ -43,6 +53,9 @@ __all__ = ["MoE", "moe_init", "set_dispatch_mode", "set_moe_impl", "moe_ffn",
 #  "cumsum": one-hot cumsum, an O(T·K·E) int intermediate
 #  "sort":   argsort + searchsorted rank-in-expert, O(T·K) memory
 _DISPATCH_MODE = "sort"
+# "dense": single-program scatter/gather dispatch
+# "shardmap": explicit token split + all-to-all expert exchange on a mesh
+_MOE_IMPL = "dense"
 _ROUTING: list | None = None
 _REPLAY: tuple | None = None
 
@@ -55,14 +68,10 @@ def set_dispatch_mode(mode: str) -> None:
 
 
 def set_moe_impl(impl: str) -> None:
-    """Only the single-program "dense" dispatch is ported."""
-    if impl == "shardmap":
-        raise NotImplementedError(
-            "set_moe_impl('shardmap'): the all-to-all expert exchange needs "
-            "the launchers' device mesh, not ported yet (ROADMAP.md §A "
-            "item 8)")
-    if impl != "dense":
+    global _MOE_IMPL
+    if impl not in ("dense", "shardmap"):
         raise ValueError(f"MoE impl {impl!r}: 'dense' or 'shardmap'")
+    _MOE_IMPL = impl
 
 
 @contextlib.contextmanager
@@ -196,6 +205,71 @@ def _expert_compute(p: MoE, buf: torch.Tensor, act: str,
     return torch.bmm(h, p.w_down.to(COMPUTE_DTYPE))
 
 
+def _on_group(fn, x: torch.Tensor, group) -> torch.Tensor:
+    """``fn(x)`` for a collective of ``group``: a CUDA tensor crosses a
+    gloo group as a host copy (both moves differentiable)."""
+    import torch.distributed as dist
+    host = x.device.type == "cuda" \
+        and dist.get_backend(group) == dist.Backend.GLOO
+    out = fn(x.cpu() if host else x.contiguous())
+    return out.to(x.device) if host else out
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable all-to-all over ``group`` along dim 0 (equal
+    splits); the identity on a group of one."""
+    import torch.distributed as dist
+    from torch.distributed import _functional_collectives as fc
+    if dist.get_world_size(group) == 1:
+        return x
+    return _on_group(lambda t: fc.wait_tensor(fc.all_to_all_single_autograd(
+        t, None, None, group)), x, group)
+
+
+def _gather_seq(y: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable all-gather of (b, s_loc, d) pieces along dim 1."""
+    from torch.distributed import _functional_collectives as fc
+    return _on_group(lambda t: fc.wait_tensor(fc.all_gather_tensor_autograd(
+        t, 1, group)), y, group)
+
+
+def _moe_ffn_shardmap(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
+                      gated: bool, capacity_factor: float, plan):
+    """Expert parallelism over the plan's "model" axis; ``x`` (b, s, d) is
+    this rank's data shard (every rank of a "model" row holds the same
+    one)."""
+    b, s, d = x.shape
+    e = p.router.shape[-1]
+    group = plan.mesh.get_group("model")
+    m = plan.model_size
+    if e % m:
+        raise ValueError(f"{e} experts do not split over {m} model ranks")
+    e_loc = e // m
+    j = plan.mesh.get_local_rank("model")
+    split = s % m == 0 and s >= m      # else every model rank routes all
+    xl = x[:, j * (s // m):(j + 1) * (s // m)] if split else x
+    bl, sl, _ = xl.shape
+    capacity = max(1, int(capacity_factor * bl * sl * top_k / e))
+    buf, flat_e, idx_c, keep, gate_vals = _local_dispatch(
+        xl.reshape(bl * sl, d), p.router, top_k, capacity)
+    # send: peer i gets experts i·e_loc ...; the owner sees (peer, e_loc,
+    # C, d), its experts' C slots of every peer side by side
+    recv = _exchange(buf, group).reshape(m, e_loc, capacity, d) \
+        .transpose(0, 1).reshape(e_loc, m * capacity, d)
+    mine = slice(j * e_loc, (j + 1) * e_loc)
+    own = types.SimpleNamespace(
+        w_up=p.w_up[mine], w_down=p.w_down[mine],
+        w_gate=p.w_gate[mine] if gated else None)
+    out = _expert_compute(own, recv, act, gated)
+    back = _exchange(out.reshape(e_loc, m, capacity, d).transpose(0, 1)
+                     .reshape(e, capacity, d), group)    # (E, C, d) own view
+    gathered = torch.where(keep[:, None], back[flat_e, idx_c], 0)
+    weighted = gathered.float() * gate_vals.reshape(-1, 1).float()
+    y = weighted.reshape(bl * sl, top_k, d).sum(dim=1) \
+        .to(COMPUTE_DTYPE).reshape(bl, sl, d)
+    return _gather_seq(y, group) if split and m > 1 else y
+
+
 def _moe_ffn_dense(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
                    gated: bool, capacity_factor: float = 1.25):
     b, s, d = x.shape
@@ -218,6 +292,15 @@ def _moe_ffn_dense(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
 def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int, act: str, gated: bool,
             capacity_factor: float = 1.25) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d) bf16.  Top-k routing with per-expert
-    capacity ``max(1, int(capacity_factor * B * S * top_k / E))``."""
+    capacity ``max(1, int(capacity_factor * T * top_k / E))`` over the
+    call's T tokens (a rank's own under "shardmap")."""
+    from ..launch.context import current_plan
+    plan = current_plan()
+    if _MOE_IMPL == "shardmap" and plan is not None:
+        y = _moe_ffn_shardmap(p, x, top_k=top_k, act=act, gated=gated,
+                              capacity_factor=capacity_factor, plan=plan)
+        if p.shared is not None:
+            y = y + mlp(p.shared, x, act, gated)
+        return y
     return _moe_ffn_dense(p, x, top_k=top_k, act=act, gated=gated,
                           capacity_factor=capacity_factor)

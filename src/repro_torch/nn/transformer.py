@@ -7,8 +7,8 @@ FFNs) and the audio and vision frontends.
 Port of ``repro/nn/transformer.py`` (``layer_groups``, ``_ffn_init``,
 ``_layer_init``, ``init_params``, ``_ffn_apply``, ``_block_fwd``,
 ``_embed_inputs``, ``forward``, ``_ce``, ``MTP_WEIGHT``, ``loss_fn``,
-``_layer_cache``/``init_cache``, ``_block_decode``, ``decode_step``,
-``prefill_step``).  The reference
+``_layer_cache``/``init_cache``, ``abstract_params``, ``abstract_cache``,
+``_block_decode``, ``decode_step``, ``prefill_step``).  The reference
 stacks each group's layers on a leading axis and runs them with
 ``lax.scan`` under ``jax.checkpoint``; here the layers are an
 ``nn.ModuleList`` walked by a Python loop, with no sharding hint (identity
@@ -56,8 +56,8 @@ from .layers import (COMPUTE_DTYPE, apply_norm, dense, dense_init, embed,
 
 __all__ = ["Group", "layer_groups", "Block", "MambaLayer", "JambaLayer",
            "JambaPeriod", "LM", "MTP_WEIGHT",
-           "init_params", "forward", "loss_fn", "init_cache", "decode_step",
-           "prefill_step"]
+           "init_params", "abstract_params", "forward", "loss_fn", "init_cache",
+           "abstract_cache", "decode_step", "prefill_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +184,12 @@ class LM(nn.Module):
                       for _ in range(g.count)]
         self.layers = nn.ModuleList(_layer_init(gen, cfg, kind, device)
                                     for kind in self.kinds)
+
+
+def abstract_params(cfg: ArchConfig) -> LM:
+    """The model's parameters on ``meta``: shapes and dtypes, no storage
+    (the reference's ``abstract_params``, for the dry run)."""
+    return LM(cfg, device="meta")
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None) -> LM:
@@ -334,6 +340,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int,
     """One cache dict per layer, in layer order."""
     device = resolve_device(device)
     return [_layer_cache(cfg, g.kind, batch, max_seq, device)
+            for g in layer_groups(cfg) for _ in range(g.count)]
+
+
+def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> list[dict]:
+    """:func:`init_cache` on ``meta`` (the reference's
+    ``abstract_cache``)."""
+    return [_layer_cache(cfg, g.kind, batch, max_seq, "meta")
             for g in layer_groups(cfg) for _ in range(g.count)]
 
 

@@ -10,7 +10,9 @@ write the parameters and the state in place and return them; the values
 are the reference's.  A gradient that is
 ``None`` (a leaf the loss does not reach, such as BN running statistics in
 training mode) counts as zeros, as the reference's zero cotangent does.
-Weight decay applies to every leaf.
+Weight decay applies to every leaf.  The parameters, gradients and
+moments may be DTensors of one mesh (``Trainer(mesh=...)``): every
+operation here is elementwise or a reduction DTensor carries out.
 """
 from __future__ import annotations
 
@@ -58,7 +60,10 @@ def _dqu8(d: dict) -> torch.Tensor:
 
 
 def _zeros(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """float32 zeros of ``p``'s shape and layout (a DTensor parameter's
+    moments are DTensors with its placements)."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
 
 
 def adamw_init(params: Mapping[str, torch.Tensor],

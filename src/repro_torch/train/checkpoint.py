@@ -13,6 +13,10 @@ Port of ``repro/train/checkpoint.py`` (``_flatten``, ``save_checkpoint``,
     path, the reference's tree paths: a checkpoint either package writes
     restores in the other (the LM's parameters and moments in the
     reference's stacked layout, ``weights.lm_tree``);
+  * elastic: arrays are stored whole, with their logical shapes;
+    ``restore_checkpoint(..., shardings=)`` lays each one out on whatever
+    device mesh the new job runs (a 4-rank checkpoint restores onto 8, or
+    onto one device);
   * retention: keep the last N steps (old ones removed only after the new
     one is durable).
 
@@ -31,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..launch.mesh import lay_out
 from ..weights import to_host
 
 __all__ = ["save_checkpoint", "latest_step", "restore_checkpoint"]
@@ -94,11 +99,18 @@ def _like(arr: np.ndarray, template):
     return arr.astype(template.dtype)
 
 
-def restore_checkpoint(ckpt_dir, template: dict, *, step: int | None = None):
+def restore_checkpoint(ckpt_dir, template: dict, *, step: int | None = None,
+                       shardings: dict | None = None):
     """Rebuild a ``template``-shaped nested dict from disk (the latest step
     unless ``step`` is given).  Returns ``(state, step, extra)``, or
     ``(None, None, None)`` when there is no checkpoint; raises
-    ``ValueError`` on a leaf whose shape differs from the template's."""
+    ``ValueError`` on a leaf whose shape differs from the template's.
+
+    ``shardings``: a nested dict matching ``template`` whose leaves are
+    ``(mesh, placements)`` pairs (a ``DeviceMesh`` and one DTensor
+    placement a mesh dimension) or None: such a leaf comes back as a
+    DTensor on that mesh, each rank keeping its own slices (every rank
+    reads the file) — the elastic-reshape path."""
     ckpt_dir = Path(ckpt_dir)
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
@@ -106,9 +118,10 @@ def restore_checkpoint(ckpt_dir, template: dict, *, step: int | None = None):
     d = ckpt_dir / f"step-{step:09d}"
     manifest = json.loads((d / "manifest.json").read_text())
     with np.load(d / "arrays.npz") as arrays:
-        def rebuild(tree, prefix=""):
+        def rebuild(tree, sh, prefix=""):
             if isinstance(tree, dict):
-                return {k: rebuild(v, f"{prefix}{k}/")
+                return {k: rebuild(v, None if sh is None else sh[k],
+                                   f"{prefix}{k}/")
                         for k, v in tree.items()}
             key = prefix[:-1]
             arr = arrays[key]
@@ -116,6 +129,14 @@ def restore_checkpoint(ckpt_dir, template: dict, *, step: int | None = None):
                 raise ValueError(f"shape mismatch for {key}: ckpt "
                                  f"{arr.shape} vs expected "
                                  f"{tuple(tree.shape)}")
-            return _like(arr, tree)
-        state = rebuild(template)
+            out = _like(arr, tree)
+            return out if sh is None else _place(out, *sh)
+        state = rebuild(template, shardings)
     return state, step, manifest.get("extra", {})
+
+
+def _place(leaf, mesh, placements):
+    """A whole array or tensor (the same on every rank) as a DTensor."""
+    t = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(leaf))
+    return lay_out(t.to(mesh.device_type), mesh, tuple(placements))

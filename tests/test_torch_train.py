@@ -325,13 +325,28 @@ def test_training_loss_decreases(tmp_path, monkeypatch):
     assert after < before - 0.3, (before, after)
 
 
-def test_mesh_is_refused_and_launcher_runs(tmp_path):
+def test_mesh_is_refused_and_launcher_runs(tmp_path, monkeypatch):
+    """The production meshes need torchrun's ranks: without them the
+    launcher names the count it needs; the host mesh's rank task trains
+    on a 4-rank group (the launcher's --mesh host8 runs it on 8) and
+    resumes from its own checkpoint; one device runs and resumes."""
+    from repro_torch.core.party_group import PartyGroup
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for kind, n in (("single", 256), ("multi", 512)):
+        with pytest.raises(RuntimeError, match=f"runs on {n} ranks"):
+            train_cli.main(["--arch", "mamba2-1.3b", "--reduced", "--mesh",
+                            kind, "--device", "cpu"])
     cfg = get_config("mamba2-1.3b").reduced()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Trainer(cfg, TrainerConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_cli.main(["--arch", "mamba2-1.3b", "--reduced", "--mesh",
-                        "single", "--device", "cpu"])
+    tc = TrainerConfig(steps=2, global_batch=4, seq_len=16,
+                       ckpt_dir=str(tmp_path / "mesh"), ckpt_every=2,
+                       log_every=100)
+    with PartyGroup("cpu", timeout=60, deadline=120, ranks=4) as g:
+        ranks = g.run(train_cli._rank_train, (cfg, tc, (2, 2)))
+        assert [m["step"] for m in ranks[0]] == [0, 1]
+        losses = [[m["loss"] for m in r] for r in ranks]
+        assert all(r == losses[0] for r in losses[1:])
+        assert latest_step(tc.ckpt_dir) == 2
+        assert g.run(train_cli._rank_train, (cfg, tc, (1, 4)))[0] == []
     ck = tmp_path / "ck"
     metrics = train_cli.main(["--arch", "mamba2-1.3b", "--reduced",
                               "--steps", "2", "--global-batch", "2",
