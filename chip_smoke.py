@@ -146,8 +146,8 @@ Phases, each fatal on failure:
 11. secure lm - the secure decoder LM of core/secure_transformer.py at
               TinyLlama-1.1B's widths (d 2048, 32 heads of 64, d_ff 5632,
               vocab 32000) inside the reference's secure block (MHA, ReLU
-              FFN, no RoPE), 8 of TinyLlama's 22 blocks (a weight element
-              holds 84 B on the card).  First the batched B5 on its own at
+              FFN, no RoPE), 4 of TinyLlama's 22 blocks (a weight element
+              holds 84 B on the card; the script's time limit).  First the batched B5 on its own at
               the decode step's products (96 = 3 parties x 32 heads of
               (1, 128) x (128, bucket) and (1, 2 bucket) x (2 bucket, 64) at
               buckets 16 and 64: _bmm doubles K) == its plain version on CPU
@@ -318,10 +318,19 @@ Phases, each fatal on failure:
               full width and 2 layers, 3 sharded train steps on a (2, 1)
               mesh (each rank half the batch, gradients reduce-scattered)
               against the mesh-less steps: loss 2e-3, gradient norm 1e-2
-              relative, parameters 2e-4 + 2·lr a step.  (6) The secure dry
-              run (launch.dryrun_secure) at d 4096, d_ff 14336, 2,048
+              relative, parameters 2e-4 + 2·lr a step.  (6) Two ranks on
+              the card, TinyLlama-1.1B at full width and depth
+              tensor-parallel on a (1, 2) mesh: prefill 2 x 2048 with B8
+              on each rank's 16 heads (exactly 22 launches a rank, logits
+              within 3% of the mesh-less B8 prefill's scale); each leaf's
+              first-step gradient against the mesh-less one (norm 1e-2
+              relative, |g - ref| within 0.1 of |ref|); 2 train steps
+              (loss 2e-3, gradient norm 1e-2 relative, parameters 2e-4 +
+              2·lr a step); each rank's widths half; step times, the
+              seconds in collectives and peaks printed.  (7) The secure
+              dry run (launch.dryrun_secure) at d 4096, d_ff 14336, 2,048
               tokens: paper3 / opt2 ring products exactly 1.5 (B5 launches
-              18 / 12), the fused route on B1, each timed.  (7) The dry
+              18 / 12), the fused route on B1, each timed.  (8) The dry
               runs of
               tinyllama-1.1b train_4k and deepseek-v3-671b decode_32k on
               the (16, 16) mesh of 256 fake ranks and TinyLlama's 4 x 256
@@ -416,23 +425,27 @@ SOURCES = {**{name: f"src/repro_torch/csrc/{name}.cu"
 
 # B8: the reference's kernel-test shapes (B, S, H, Hkv, hd) in float32 and
 # a ragged S; in bf16 a ragged S with GQA, hd 32, MHA, and TinyLlama-1.1B's
-# prefill at batch 2 x 2048 (FLASH_ROW: the row's numbers); then the wide
-# heads: float32 and a ragged S with GQA at hd 96 and 128, and the 2 x 2048
-# prefill shapes of phi3-mini-3.8b, minitron-4b, jamba-v0.1-52b and
-# deepseek-67b
+# prefill at batch 2 x 2048 (FLASH_ROW: the row's numbers) and a rank's
+# share of it on the tensor-parallel (1, 2) mesh of phase 17 (6), 16 q and
+# 2 kv heads; then the wide heads: float32 and a ragged S with GQA at hd 96
+# and 128, and the 2 x 2048 prefill shapes of phi3-mini-3.8b, minitron-4b,
+# jamba-v0.1-52b and deepseek-67b; last hd 80 on the padded route (hd 96's
+# instantiation on zero-padded heads), which no model path launches (the
+# one hd-80 model, hubert-xlarge, is an encoder: no causal attention)
 FLASH_ROW = (2, 2048, 32, 4, 64, "bfloat16")
 FLASH_SHAPES = [(2, 256, 4, 4, 64, "float32"), (2, 256, 8, 2, 64, "float32"),
                 (2, 128, 4, 1, 32, "float32"), (2, 1000, 4, 2, 64, "float32"),
                 (2, 1000, 8, 2, 64, "bfloat16"),
                 (2, 128, 4, 1, 32, "bfloat16"), (2, 256, 4, 4, 64, "bfloat16"),
-                FLASH_ROW,
+                FLASH_ROW, (2, 2048, 16, 2, 64, "bfloat16"),
                 (2, 256, 4, 2, 96, "float32"), (2, 256, 4, 2, 128, "float32"),
                 (2, 1000, 8, 2, 96, "bfloat16"),
                 (2, 1000, 8, 2, 128, "bfloat16"),
                 (2, 2048, 32, 32, 96, "bfloat16"),
                 (2, 2048, 24, 8, 128, "bfloat16"),
                 (2, 2048, 32, 8, 128, "bfloat16"),
-                (2, 2048, 64, 8, 128, "bfloat16")]
+                (2, 2048, 64, 8, 128, "bfloat16"),
+                (2, 2048, 16, 16, 80, "bfloat16")]
 BB_REPEATS = 5             # B7 repeats at MnistNet4's shapes, bit for bit
 SPLIT_REPEATS = 5          # B1 / B3 repeats at their split-K shapes
 # B9: the reference's kernel-test shapes (B, S, H, hd, N, chunk); Mamba2's
@@ -460,11 +473,13 @@ FAULT_OPS = (("reshare", 1), ("open", 1), ("send", None))
 FAULT_MODES = ("corrupt", "zero", "replay", "drop")
 # phase 11: the secure LM at TinyLlama-1.1B's widths inside the reference's
 # secure block (MHA, ReLU FFN, no RoPE: share_lm_params' architecture, not
-# TinyLlama's), 8 of its 22 blocks: a weight element holds 84 B on the
+# TinyLlama's), 4 of its 22 blocks: a weight element holds 84 B on the
 # card (12 B of shares, 72 B of WeightLimbs), so 12 blocks were ~46 GB;
-# cut from 12 to 8 when phase 17's two-rank part came (the time limit)
+# cut from 12 to 8 when phase 17's two-rank part came and to 4 when its
+# tensor-parallel gradient gate came (the time limit: a step is ~0.5 s a
+# block, host-bound on the PRF, and the run serves 30 of them)
 SLM = dict(d=2048, heads=32, d_ff=5632, vocab=32000)
-SLM_BLOCKS = 8
+SLM_BLOCKS = 4
 # one timed generation (two until phase 12 came: the script's time limit)
 SLM_SERVE = dict(prompt_len=8, gen=8, buckets=(16, 64), queries=1)
 SLM_CHECK = dict(blocks=2, prompt_len=4, gen=2)    # card == CPU
@@ -516,6 +531,17 @@ TWO_RANK_TRAIN = dict(layers=2, batch=4, seq=256, steps=3, warmup=3)
 TWO_RANK_PSUM = (2, 1024, 1024)   # (ranks, rows, cols) of int8_psum's input
 GRAD_TOL = 2 ** -6         # bf16 products: of the dense gradient's scale
 GNORM_TOL = 1e-2           # a sharded step's gradient norm, relative
+# a leaf's first-step gradient, tensor-parallel against mesh-less: its
+# norm within GNORM_TOL, and |g - g_ref| / |g_ref| within LEAF_GRAD_TOL (a
+# dropped, doubled or misplaced rank's share moves it by 0.5 or more)
+LEAF_GRAD_TOL = 0.1
+# phase 17 (6): TinyLlama-1.1B at full width and depth, tensor-parallel
+# over two ranks on the card ((1, 2) mesh, one gloo group): prefill 2 x
+# 2048 on B8 (16 of 32 heads a rank), the train step at 4 x 256
+TP_TRAIN = dict(batch=4, seq=256, steps=2, warmup=3)
+TP_WIDTHS = {"q_heads": {16}, "kv_heads": {2}, "ffn": {2816},
+             "vocab": {16000}}
+TP_LOGITS_TOL = 0.03       # phase 15's route gate, of the logits' scale
 SECURE_DRY = dict(tokens=2048, d=4096, d_ff=14336, reps=1)
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
                 ("deepseek-v3-671b", "decode_32k", "single"),
@@ -3249,12 +3275,13 @@ def batch_axis_phase() -> dict:
     return launches
 
 
-def train_steps(cfg, opt_cfg, batches: list, plan, device) -> tuple:
+def train_steps(cfg, opt_cfg, batches: list, plan, device,
+                each_step=contextlib.nullcontext) -> tuple:
     """``len(batches)`` train steps of ``cfg`` from ``init_params(cfg, 0)``
     on ``device``, on ``plan``'s mesh (each rank its shard of every
-    batch) or mesh-less (None): (the whole parameters on the host, each
-    step's loss and gradient norm, the median step seconds after the
-    first, the peak bytes)."""
+    batch) or mesh-less (None), each inside ``each_step()``: (the whole
+    parameters on the host, each step's loss and gradient norm, the
+    median step seconds after the first, the peak bytes)."""
     import torch
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.steps import make_train_step
@@ -3280,8 +3307,9 @@ def train_steps(cfg, opt_cfg, batches: list, plan, device) -> tuple:
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, m = step(params, opt, b)
-        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        with each_step():
+            params, opt, m = step(params, opt, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
         if cuda:
             torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
@@ -3573,8 +3601,279 @@ def two_rank_phase() -> None:
     print(f"[chip_smoke] two ranks {time.perf_counter() - t0:.1f} s")
 
 
+@contextlib.contextmanager
+def tp_widths():
+    """The widths a rank computes inside the block: the q and kv heads of
+    each GQA call, the FFN columns of each MLP and the logits' columns."""
+    from repro_torch.nn import attention, layers, transformer
+    seen = {k: set() for k in TP_WIDTHS}
+    attend, hidden, logits = (attention._attend, layers._hidden,
+                              transformer._logits)
+
+    def attend_w(q, k, *a):
+        seen["q_heads"].add(q.shape[2])
+        seen["kv_heads"].add(k.shape[2])
+        return attend(q, k, *a)
+
+    def hidden_w(*a):
+        out = hidden(*a)
+        seen["ffn"].add(out.shape[-1])
+        return out
+
+    def logits_w(*a):
+        out = logits(*a)
+        seen["vocab"].add(out.shape[-1])
+        return out
+    attention._attend, layers._hidden, transformer._logits = (
+        attend_w, hidden_w, logits_w)
+    try:
+        yield seen
+    finally:
+        attention._attend, layers._hidden, transformer._logits = (
+            attend, hidden, logits)
+
+
+@contextlib.contextmanager
+def collective_seconds():
+    """The host seconds inside the tensor-parallel collectives
+    (``tensor_parallel.on_group``) and DTensor moves (``mesh.redistribute``)
+    of the block, the card synchronised before and after each: gloo and
+    its host copies.  Yields {"s", "calls"}."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import tensor_parallel as tp
+    total = {"s": 0.0, "calls": 0}
+    on_group, redistribute = tp.on_group, mesh_lib.redistribute
+
+    def timed(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            total["s"] += time.perf_counter() - t0
+            total["calls"] += 1
+            return out
+        return run
+    tp.on_group, mesh_lib.redistribute = timed(on_group), timed(redistribute)
+    try:
+        yield total
+    finally:
+        tp.on_group, mesh_lib.redistribute = on_group, redistribute
+
+
+def leaf_grad_sums(cfg, batch: dict, plan, device) -> dict:
+    """Per leaf of ``init_params(cfg, 0)``, this rank's share of (|g|^2,
+    |ref|^2, |g - ref|^2) for the gradient of ``loss_fn`` on ``batch``: g
+    the tensor-parallel step's own (``steps._mesh_grads`` on ``plan``,
+    this rank's "model" shard), ref the same slice of the mesh-less
+    gradient; a leaf whole on every rank counts on "model" rank 0 only.
+    Summed over the ranks they are the whole leaves' (no gather)."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.nn.layers import trainable
+    from repro_torch.nn.transformer import init_params, loss_fn
+
+    params = init_params(cfg, 0, device)
+    names = [k for k, _ in params.named_parameters()]
+    with trainable(params) as leaves:
+        ref = torch.autograd.grad(loss_fn(params, batch, cfg), leaves)
+    ref = dict(zip(names, ref))
+    params = init_params(cfg, 0, device)
+    mesh_lib.shard_params(params, plan)
+    _, grads = steps._mesh_grads(params, mesh_lib.local_batch(batch, plan),
+                                 cfg, plan)
+    m, j = plan.model_size, plan.mesh.get_local_rank("model")
+    out = {}
+    for k, g in grads.items():
+        dim, r = mesh_lib.model_dim(g), ref[k].float()
+        g = mesh_lib.model_shard(g).float()
+        if dim is not None:
+            r = r.narrow(dim, j * r.shape[dim] // m, r.shape[dim] // m)
+        w = 1.0 if dim is not None or j == 0 else 0.0
+        out[k] = tuple(w * float(x.square().sum())
+                       for x in (g, r, g - r))
+    del params, grads, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank_task(state, c: dict) -> dict:
+    """Phase 17 (6) on one rank of a (1, 2) mesh: TinyLlama-1.1B's
+    tensor-parallel prefill step on B8 (a warm call, then one counted and
+    timed), its shares of every leaf's first-step gradient against the
+    mesh-less one (:func:`leaf_grad_sums`) and ``c["steps"]``
+    tensor-parallel train steps, the seconds in collectives beside; rank 0
+    also runs the mesh-less B8 prefill and train steps and the gaps."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import token_stream
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn.transformer import init_params
+    from repro_torch.optim import OptConfig
+
+    dev = state["device"]
+    cfg = get_config("tinyllama-1.1b")
+    plan = mesh_lib.Plan(rank_mesh(state, (1, 2)))
+    batch = {"tokens": lm_tokens(cfg.vocab).to(dev)}
+    out = {"device": str(dev)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    params = init_params(cfg, 0, dev)
+    if state["rank"] == 0:
+        step = make_prefill_step(cfg, kops.flash_attention_op)
+        step(params, batch)
+        ref, out["ref_prefill_s"] = timed(lambda: step(params, batch))
+        out["ref_logits"] = ref.float().cpu()
+    mesh_lib.shard_params(params, plan)
+    step = make_prefill_step(cfg, kops.flash_attention_op, plan)
+    step(params, batch)                   # the first call sets up
+    kbuild.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with tp_widths() as seen, collective_seconds() as coll:
+        logits, out["prefill_s"] = timed(lambda: step(params, batch))
+    out["prefill_coll_s"] = coll["s"]
+    out["prefill_launches"] = {k: v for k, v in kbuild.LAUNCHES.items()
+                               if v}
+    out["prefill_peak"] = torch.cuda.max_memory_allocated()
+    out["logits"] = logits.float().cpu()
+    out["prefill_widths"] = {k: sorted(v) for k, v in seen.items()}
+    del params, step, logits
+    torch.cuda.empty_cache()
+
+    opt_cfg = OptConfig(warmup_steps=c["warmup"])
+    stream = token_stream(c["batch"], c["seq"], cfg.vocab, seed=0)
+    batches = [{k: torch.as_tensor(v) for k, v in b.items()}
+               for b, _ in (next(stream) for _ in range(c["steps"]))]
+    # the first step's gradient, leaf by leaf, against the mesh-less one
+    out["leaf_sums"] = leaf_grad_sums(
+        cfg, {k: v.to(dev) for k, v in batches[0].items()}, plan, dev)
+    coll = []
+
+    @contextlib.contextmanager
+    def each_step():
+        with collective_seconds() as s:
+            yield
+        coll.append(s["s"])
+    with tp_widths() as seen:
+        got, metrics, out["train_s"], out["train_peak"] = train_steps(
+            cfg, opt_cfg, batches, plan, dev, each_step)
+    out["train_coll_s"] = statistics.median(coll[1:])
+    out["train_widths"] = {k: sorted(v) for k, v in seen.items()}
+    out["metrics"] = metrics
+    if state["rank"] == 0:
+        ref, ref_metrics, out["ref_train_s"], out["ref_train_peak"] = \
+            train_steps(cfg, opt_cfg, batches, None, dev)
+        # where a gradient is rounding noise its sign may differ between
+        # the two sum orders: AdamW moves such an element about lr_t a step
+        # either way (phase 17 (5)); step t (from 0) runs at
+        # lr·min(1, (t + 2) / warmup) (``optim.adamw._schedule``)
+        atol = 2.01 * sum(opt_cfg.lr * min(1.0, (t + 2) / c["warmup"])
+                          for t in range(c["steps"]))
+        out["atol"] = atol
+        out["gap"] = train_gap(got, metrics, ref, ref_metrics, atol)
+        out["ref_metrics"] = ref_metrics
+    return out
+
+
+def tensor_parallel_phase() -> dict:
+    """Phase 17 (6): TinyLlama-1.1B at full width, tensor-parallel over
+    the two ranks of a (1, 2) mesh on the card: the prefill step with B8
+    on each rank's 16 heads (exactly 22 launches a rank a step, the
+    last-position logits within TP_LOGITS_TOL of the mesh-less B8
+    prefill's scale), each leaf's first-step gradient (its norm within
+    GNORM_TOL, the difference within LEAF_GRAD_TOL of its norm) and the
+    train step against the mesh-less one (loss, gradient norm,
+    parameters); each rank's widths at half.  Returns the ranks'
+    launches, summed."""
+    from repro_torch.core.party_group import PartyGroup
+
+    t0 = time.perf_counter()
+    c = TP_TRAIN
+    with PartyGroup("cuda", timeout=300, deadline=600, ranks=2) as grp:
+        outs = grp.run(tp_rank_task, (c,))
+    ref = outs[0]
+    scale = float(ref["ref_logits"].abs().max())
+    launches: dict = {}
+    for r, o in enumerate(outs):
+        err = float((o["logits"] - ref["ref_logits"]).abs().max())
+        want = {k: sorted(v) for k, v in TP_WIDTHS.items()}
+        print(f"[chip_smoke] tensor parallel rank {r} ({o['device']}), "
+              f"TinyLlama-1.1B on a (1, 2) mesh: prefill {LM_BATCH} x "
+              f"{LM_SEQ} on B8 {o['prefill_s']:.4f} s (collectives "
+              f"{o['prefill_coll_s']:.4f} s; mesh-less "
+              f"{ref['ref_prefill_s']:.4f} s), launches "
+              f"{o['prefill_launches']}, peak "
+              f"{o['prefill_peak'] / 2**30:.3f} GiB, logits vs the "
+              f"mesh-less B8 prefill max |err| {err:.4g} of scale "
+              f"{scale:.4g}; train {c['batch']} x {c['seq']}: median step "
+              f"{o['train_s']:.4f} s (collectives {o['train_coll_s']:.4f} s "
+              f"a step; mesh-less {ref['ref_train_s']:.4f} s), peak {o['train_peak'] / 2**30:.3f} GiB (mesh-less "
+              f"{ref['ref_train_peak'] / 2**30:.3f}); widths "
+              f"{o['train_widths']}")
+        if not o["device"].startswith("cuda"):
+            fail(f"tensor parallel rank {r} ran on {o['device']}")
+        if o["prefill_launches"] != {"flash_attention": 22}:
+            fail(f"tensor parallel rank {r}: prefill launched "
+                 f"{o['prefill_launches']}, want B8 exactly 22")
+        if not err <= TP_LOGITS_TOL * scale:
+            fail(f"tensor parallel rank {r}: prefill logits {err} off the "
+                 f"mesh-less B8 prefill's (scale {scale})")
+        if o["prefill_widths"] != want or o["train_widths"] != want:
+            fail(f"tensor parallel rank {r}: widths {o['prefill_widths']} /"
+                 f" {o['train_widths']}, want {want}")
+        for k, v in o["prefill_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    gaps = {}
+    for k in ref["leaf_sums"]:
+        n_got, n_ref, n_diff = (
+            math.sqrt(sum(o["leaf_sums"][k][i] for o in outs))
+            for i in range(3))
+        gaps[k] = (abs(n_got - n_ref) / n_ref if n_ref else n_got,
+                   n_diff / n_ref if n_ref else n_got)
+    worst_n = max(gaps, key=lambda k: gaps[k][0])
+    worst_d = max(gaps, key=lambda k: gaps[k][1])
+    groups = {"norms": [k for k in gaps if "norm" in k],
+              "embed": ["embed"], "head": ["head"],
+              "attention": [k for k in gaps if ".attn." in k],
+              "ffn": [k for k in gaps if ".ffn." in k]}
+    print(f"[chip_smoke] tensor parallel first-step gradients, {len(gaps)} "
+          f"leaves: norm gap max {gaps[worst_n][0]:.3g} ({worst_n}), "
+          f"|g - ref| / |ref| max {gaps[worst_d][1]:.3g} ({worst_d}); by "
+          f"group (norm gap, |g - ref| / |ref|) " + ", ".join(
+              f"{name} ({max(gaps[k][0] for k in ks):.3g}, "
+              f"{max(gaps[k][1] for k in ks):.3g})"
+              for name, ks in groups.items() if ks))
+    bad = sorted(k for k, (n, d) in gaps.items()
+                 if not (n <= GNORM_TOL and d <= LEAF_GRAD_TOL))
+    if bad:
+        fail(f"tensor parallel first-step gradients of {bad[:8]} differ "
+             f"from the mesh-less step's")
+    err, loss_err, gn_err = ref["gap"]
+    print(f"[chip_smoke] tensor parallel train, {c['steps']} steps: params "
+          f"max (|err| - rtol·|ref| - {ref['atol']:.3g}) {err:.3g}, loss max "
+          f"|err| {loss_err:.3g}, gradient norm max relative gap "
+          f"{gn_err:.3g} ({[round(m[1], 5) for m in ref['metrics']]} vs "
+          f"{[round(m[1], 5) for m in ref['ref_metrics']]})")
+    if not err <= RESUME_TOL or not loss_err < RESUME_LOSS_TOL \
+            or not gn_err <= GNORM_TOL:
+        fail("the tensor-parallel train step differs from the mesh-less one")
+    print(f"[chip_smoke] tensor parallel {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def secure_dryrun_phase(kbuild) -> dict:
-    """Phase 17 (6): the secure FFN pair at LM widths in both matmul
+    """Phase 17 (7): the secure FFN pair at LM widths in both matmul
     modes and on the fused route; returns its launches."""
     import torch
     from repro_torch.launch import dryrun_secure
@@ -3615,7 +3914,7 @@ def secure_dryrun_phase(kbuild) -> dict:
 
 
 def dryrun_phase() -> None:
-    """Phase 17 (7): the dry-run cells, each a subprocess on the host (the
+    """Phase 17 (8): the dry-run cells, each a subprocess on the host (the
     fake process group lives for its process), all started together;
     their memory and roofline records printed, not gated."""
     import os
@@ -3654,22 +3953,24 @@ def dryrun_phase() -> None:
             if mesh == "one" and "mesh_train_peak" in NOTES:
                 beside = (f" (the card's (1, 1) mesh step: "
                           f"{NOTES['mesh_train_peak'] / 2**30:.3f} GiB)")
+            what = (f"the cell over {rec['n_chips']} chips"
+                    if rec["compute"] == "tensor_parallel" else
+                    f"a rank's step (the whole model on 1 of "
+                    f"{roof['data_shards']} batch shards)")
             print(f"[chip_smoke] dry run {arch} {shape} on {rec['n_chips']}"
-                  f" ranks ({mesh}), meta step {rec['step_s']} s on the "
-                  f"host: a rank's arguments "
+                  f" ranks ({mesh}), {rec['compute']} compute, meta step "
+                  f"{rec['step_s']} s on the host: a rank's arguments "
                   f"{mem['argument_bytes'] / 2**30:.3f} GiB, tracked peak "
                   f"{mem['tracked_peak_bytes'] / 2**30:.3f} GiB{beside}; "
                   f"collectives {colls.pop('total_bytes'):,} B "
                   f"({nonzero({k: v['count'] for k, v in colls.items()})}); "
-                  f"roofline of a rank's step (the whole model on 1 of "
-                  f"{roof['data_shards']} batch shards): compute "
-                  f"{roof['compute_s']:.4g} s, "
+                  f"roofline of {what}: compute {roof['compute_s']:.4g} s, "
                   f"memory {roof['memory_s']:.4g} s, {roof['dominant']}"
                   f"-bound, model FLOPs {roof['model_flops_global']:.4g}")
 
 
 def launch_phase(kbuild) -> dict:
-    """Phase 17: (1)-(7) above; returns the kernels' launches by part."""
+    """Phase 17: (1)-(8) above; returns the kernels' launches by part."""
     import torch
     import torch.distributed as dist
     from repro_torch.launch import mesh as mesh_lib
@@ -3690,6 +3991,7 @@ def launch_phase(kbuild) -> dict:
             dist.destroy_process_group()
     torch.cuda.empty_cache()
     two_rank_phase()
+    by_part["tensor-parallel"] = tensor_parallel_phase()
     by_part["secure-dryrun"] = secure_dryrun_phase(kbuild)
     dryrun_phase()
     return by_part

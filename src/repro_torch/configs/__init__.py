@@ -11,9 +11,9 @@ family (``mamba2-1.3b``), the hybrid Mamba / attention / MoE interleave
 (``jamba-v0.1-52b``) and the two frontends (``hubert-xlarge``: audio
 frames, encoder-only; ``pixtral-12b``: vision patch slots before the
 text).  As in the reference, ``param_count`` counts neither the audio
-``front_proj`` nor the MTP head.  The reference's
-``remat`` field has no counterpart: the port's train step keeps every
-activation (``nn/transformer.py``).
+``front_proj`` nor the MTP head.  ``remat`` (True by default, as the
+reference's) recomputes each layer in the backward pass
+(``nn/transformer.py``).
 
 ``active_param_count`` counts the MoE layers of the port's layer plan
 (``nn/transformer.py``): in a jamba period the odd sub-layers.  The
@@ -85,6 +85,9 @@ class ArchConfig:
     mtp: bool = False
     # vlm
     n_patches: int = 0
+    # full remat (save layer boundaries only) is the default, as the
+    # reference's
+    remat: bool = True
 
     def __post_init__(self):
         if self.head_dim == 0 and self.n_heads:

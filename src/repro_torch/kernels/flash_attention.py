@@ -11,8 +11,13 @@ On a CUDA tensor :func:`flash_attention` launches the hand-written kernel
 length, ragged ones included, or raises; on a CPU tensor it runs the plain
 version.  bfloat16 (the prefill step's dtype) runs on the tensor cores and
 needs 16-byte aligned q/k/v (:func:`check_aligned`); float32 runs on the
-CUDA cores.  Both take head widths 32, 64, 96 and 128 (``HEAD_DIMS``); any
-other width raises on the card.
+CUDA cores.  Both are instantiated at head widths 32, 64, 96 and 128
+(``HEAD_DIMS``).  Any other width up to 128 runs the same kernel on
+zero-padded heads (:func:`pad_heads`: q, k and v padded to the next
+instantiated width, the kernel given the true 1/sqrt(hd), the output's
+padding sliced off): a zero column adds nothing to q·k, and v's zero
+columns give output columns that are dropped.  The reference's Pallas
+kernel takes any width (``repro/kernels/flash_attention.py:29,59-61``).
 """
 from __future__ import annotations
 
@@ -24,20 +29,23 @@ import torch
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_ref", "check_aligned",
-           "HEAD_DIMS"]
+           "pad_heads", "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64, 96, 128)     # the kernel's instantiated head widths
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
     """Plain version: q (B,S,H,hd), k/v (B,S,Hkv,hd) -> (B,S,H,hd) in q's
-    dtype; softmax attention in float32 over the whole row (GQA)."""
+    dtype; softmax attention in float32 over the whole row (GQA), scores
+    scaled by ``scale`` (default 1/sqrt(hd))."""
     b, s, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
-    qg = (q.float() / math.sqrt(hd)).reshape(b, s, hkv, g, hd)
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    qg = (q.float() * scale).reshape(b, s, hkv, g, hd)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     if causal:
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
@@ -79,23 +87,40 @@ def check_aligned(t: torch.Tensor, name: str) -> None:
                          f"{t.data_ptr() % 16} bytes")
 
 
+def pad_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(q, k, v) zero-padded along the head dim to the next instantiated
+    width (themselves where hd is one), and the scores' scale
+    1/sqrt(hd) of the true width."""
+    hd = q.shape[-1]
+    wide = [w for w in HEAD_DIMS if w >= hd]
+    if not wide:
+        raise ValueError(f"flash_attention: head dim {hd} is wider than the "
+                         f"kernel's widest instantiation {HEAD_DIMS[-1]}")
+    pad = wide[0] - hd
+    if pad:
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    return q, k, v, 1.0 / math.sqrt(hd)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    hd = q.shape[-1]
+    q, k, v, scale = pad_heads(q, k, v)
     _check(q, k, v)
     if q.dtype == torch.bfloat16:
         for name, t in (("q", q), ("k", k), ("v", v)):
             check_aligned(t, name)
-    b, s, h, hd = q.shape
-    out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+    b, s, h, hp = q.shape
+    out = torch.empty((b, s, h, hp), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out[..., :hd]
     fn = build.library("flash_attention")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, s, h, k.shape[2], hd, _DTYPES[q.dtype],
+             b, s, h, k.shape[2], hp, _DTYPES[q.dtype],
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             ctypes.c_float(1.0 / math.sqrt(hd)), build.stream_ptr(q.device))
+             ctypes.c_float(scale), build.stream_ptr(q.device))
     build.check("flash_attention", err)
     build.LAUNCHES["flash_attention"] += 1
-    return out
+    return out if hp == hd else out[..., :hd].contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,

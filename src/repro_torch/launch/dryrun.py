@@ -10,12 +10,19 @@ once), lays the cell's parameters, optimizer state or cache and batch
 out as DTensors by ``launch.mesh``'s specs over the production mesh, and
 runs the port's own step on them:
 
-* train: ``launch.steps.make_train_step(..., plan)`` (the whole
-  parameters gathered, this rank's batch shard, the gradient
-  reduce-scattered, AdamW on the shards);
-* prefill / decode: the whole parameters gathered and the step run on
-  this rank's batch shard (a decode step also gathers its cache shard's
-  sequence over "model" and writes it back).
+* train: ``launch.steps.make_train_step(..., plan)``: each parameter's
+  "model" shard (its "data" dims gathered), the loss tensor-parallel over
+  "model" (``launch.tensor_parallel``: H/m heads, d_ff/m FFN columns and
+  V/m logits a rank, the residual stream sequence-sharded between
+  layers, each layer recomputed in the backward pass where
+  ``cfg.remat``), the gradient reduce-scattered over "data", AdamW on the
+  shards;
+* prefill: ``launch.steps.make_prefill_step(..., plan=plan)``, the same
+  tensor-parallel forward on this rank's batch shard;
+* decode: the whole parameters gathered and the step run on this rank's
+  batch shard (its cache shard's sequence gathered over "model" and
+  written back): replicated compute, a "model" row's ranks repeating one
+  step.
 
 Only the plain versions of the kernels' products run on ``meta``: no
 kernel runs in a dry run.
@@ -29,17 +36,15 @@ peak that ``torch.distributed._tools.mem_tracker.MemTracker`` reads),
 rank's collectives, the keys of the reference's
 ``collective_bytes_from_hlo``), ``roofline`` and ``step_s`` (the
 reference's ``lower_s`` / ``compile_s``: the host seconds of the meta
-step).
-
-The port's steps have no tensor parallelism: the "model" axis shards
-storage only, and every rank runs the whole model on its batch shard (a
-"model" row's ranks repeat the same work).  So the memory record is that
-replicated-compute step's, and the roofline is the step that runs:
-``roofline.analyze.roofline_terms`` of one rank's shape (its batch
-shard, the whole model) on one card, with ``data_shards``, the ranks the
-batch splits over, and ``model_flops_global``, the whole cell's model
-FLOPs, beside it.  The reference's record divides the cell's FLOPs by
-every chip, as a tensor-parallel program would; this one does not.
+step); and ``compute``: "tensor_parallel" where every layer of a train
+or prefill step splits over "model", else "replicated" (decode; a cell
+with MLA or Mamba-2 layers, or heads or FFN columns that do not split),
+with ``whole_layers``, the kinds of the layers that ran whole.  The
+roofline of a tensor-parallel cell is the reference's
+``roofline_terms(cfg, shape, None, collectives, n_chips)``: the cell's
+work over every chip.  A replicated cell's is one rank's step
+(:func:`rank_roofline`: ``roofline_terms`` of its batch shard on one
+card, beside ``data_shards`` and the cell's ``model_flops_global``).
 
 The fake group lives for the process: run this module as a script, or
 through ``launch.farm`` (a subprocess a cell); never call
@@ -69,6 +74,7 @@ __all__ = ["MESHES", "CollectiveCounter", "parse_shape", "dryrun_cell",
 
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model")),
+          "host8": ((2, 4), ("data", "model")),
           "one": ((1, 1), ("data", "model"))}
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -85,6 +91,9 @@ _KINDS = {"all_gather_into_tensor": "all-gather", "allgather_": "all-gather",
           "_reduce_scatter_base_": "reduce-scatter",
           "all_to_all_single": "all-to-all", "alltoall_base_": "all-to-all",
           "send": "collective-permute", "recv_": "collective-permute"}
+# c10d's ops that take their output first: the operand is the second
+_OUT_FIRST = {"allgather_", "_allgather_base_", "reduce_scatter_",
+              "_reduce_scatter_base_", "alltoall_base_"}
 
 
 def _nbytes(x) -> int:
@@ -106,10 +115,12 @@ class CollectiveCounter(TorchDispatchMode):
         self.record = {op: {"count": 0, "bytes": 0} for op in COLLECTIVE_OPS}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kind = _KINDS.get(func._schema.name.split("::")[-1])
+        name = func._schema.name.split("::")[-1]
+        kind = _KINDS.get(name)
         if kind is not None:
             self.record[kind]["count"] += 1
-            self.record[kind]["bytes"] += _nbytes(args[0])
+            self.record[kind]["bytes"] += _nbytes(
+                args[1] if name in _OUT_FIRST else args[0])
         return func(*args, **(kwargs or {}))
 
     def result(self) -> dict:
@@ -229,6 +240,7 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
     from ..optim import OptConfig, adamw_init
     from . import mesh as mesh_lib
     from . import steps as steps_lib
+    from . import tensor_parallel as tp
     from .context import use_plan
     if dispatch:
         from ..nn.moe import set_dispatch_mode
@@ -280,13 +292,15 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
             _, aux, _ = step(params, aux, batch)
             out_bytes = 0      # the state is updated in place
         elif kind == "prefill":
-            with _whole_params(params), torch.no_grad():
-                logits = tfm.prefill_step(params, batch, cfg)
+            logits = steps_lib.make_prefill_step(cfg, plan=plan)(params,
+                                                                  batch)
             out_bytes = _nbytes(logits)
         else:
             logits, aux = _decode(params, aux, c_specs, batch, cfg, plan)
             out_bytes = _nbytes(logits)
     step_s = time.time() - t0
+    ran_whole = ["all"] if kind == "decode" \
+        else sorted(tp.last().replicated)
     peak = sum(v["Total"] for v in
                tracker.get_tracker_snapshot("peak").values())
     colls = counter.result()
@@ -294,10 +308,14 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
            "output_size_in_bytes": out_bytes,
            "temp_size_in_bytes": max(peak - arg_bytes - out_bytes, 0),
            "alias_size_in_bytes": 0}
+    split = not ran_whole
     rec.update(status="OK", step_s=round(step_s, 2), n_chips=n_chips,
+               compute="tensor_parallel" if split else "replicated",
+               whole_layers=ran_whole,
                memory=dict(summarize_memory(mem), tracked_peak_bytes=peak),
-               collectives=colls, roofline=rank_roofline(cfg, info, batch,
-                                                         colls))
+               collectives=colls,
+               roofline=roofline_terms(cfg, info, None, colls, n_chips)
+               if split else rank_roofline(cfg, info, batch, colls))
     return rec
 
 

@@ -34,7 +34,7 @@ import torch
 __all__ = ["make_production_mesh", "make_mesh", "Plan", "to_placements",
            "param_specs", "opt_specs", "batch_specs", "cache_specs",
            "lay_out", "shard", "like", "shard_params", "conform", "conform_opt", "local_batch",
-           "full"]
+           "model_dim", "model_shard", "redistribute", "full"]
 
 
 def _device_type() -> str:
@@ -323,21 +323,51 @@ def _host_twin(mesh):
         mesh=mesh.mesh, mesh_dim_names=mesh.mesh_dim_names)
 
 
-def full(x):
-    """The whole tensor of a DTensor (an all-gather every rank joins), or
-    ``x`` itself.  On a CUDA mesh over gloo (ranks sharing one card: NCCL
-    refuses them) the shards are gathered as host copies: torch's
-    functional all-gather, which ``full_tensor`` uses, crashes the ranks
-    on CUDA tensors over gloo, where the plain collectives work."""
+def redistribute(x, placements):
+    """The DTensor ``x`` laid out by ``placements`` (the collectives every
+    rank joins).  On a CUDA mesh over gloo (ranks sharing one card: NCCL
+    refuses them) the shards move as host copies: torch's functional
+    collectives, which DTensor uses, crash the ranks on CUDA tensors over
+    gloo."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
-    if not isinstance(x, DTensor):
-        return x
     mesh = x.device_mesh
+    placements = tuple(placements)
+    if placements == tuple(x.placements):
+        return x
     if mesh.device_type != "cuda" \
             or dist.get_backend(mesh.get_group(0)) != dist.Backend.GLOO:
-        return x.full_tensor()
+        return x.redistribute(mesh, placements)
     host = DTensor.from_local(x.to_local().cpu(), _host_twin(mesh),
                               x.placements, run_check=False, shape=x.shape,
                               stride=x.stride())
-    return host.full_tensor().to(x.device)
+    out = host.redistribute(host.device_mesh, placements).to_local()
+    return DTensor.from_local(out.to(x.device), mesh, placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def full(x):
+    """The whole tensor of a DTensor (an all-gather every rank joins), or
+    ``x`` itself (:func:`redistribute`)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    return redistribute(x, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def model_dim(x):
+    """The tensor dim a DTensor is sharded along over "model", or None."""
+    from torch.distributed.tensor import Shard
+    pl = x.placements[x.device_mesh.mesh_dim_names.index("model")]
+    return pl.dim if isinstance(pl, Shard) else None
+
+
+def model_shard(x):
+    """A parameter's "model" shard as a plain tensor: every other mesh
+    axis gathered (FSDP storage), the "model" one kept."""
+    from torch.distributed.tensor import Replicate
+    names = x.device_mesh.mesh_dim_names
+    keep = x.placements[names.index("model")]
+    return redistribute(x, [keep if a == "model" else Replicate()
+                            for a in names]).to_local()

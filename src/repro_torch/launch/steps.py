@@ -79,11 +79,12 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig | None = None,
 
     With a ``plan`` (a ``launch.mesh.Plan``) the parameters and moments
     are DTensors laid out by ``mesh.param_specs`` / ``opt_specs`` and
-    ``batch`` is this rank's shard (``mesh.batch_specs``): the step
-    gathers the whole parameters (FSDP storage), takes the gradient of
-    its shard's loss over the mesh's ranks (see :func:`_mesh_grads`),
-    reduce-scatters it to the parameters' layout and runs AdamW on the
-    shards; the loss is the mean over the ranks."""
+    ``batch`` is this rank's shard (``mesh.batch_specs``): the step takes
+    each parameter's "model" shard (its "data" dims gathered: FSDP
+    storage), runs the loss tensor-parallel over "model"
+    (``launch.tensor_parallel``, see :func:`_mesh_grads`), reduce-
+    scatters the gradients over "data" to the parameters' layout and runs
+    AdamW on the shards; the loss is the mean over the data shards."""
     opt_cfg = opt_cfg or OptConfig()
     if plan is not None:
         return _mesh_train_step(cfg, opt_cfg, plan)
@@ -103,32 +104,42 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig | None = None,
 
 
 def _mesh_grads(params, batch: dict, cfg: ArchConfig, plan):
-    """(loss of this rank's shard, DTensor gradients in the parameters'
-    layouts).  Every rank differentiates its loss over the number of
-    ranks n; the gradients, partial sums over the mesh, reduce-scatter to
-    each parameter's placements.  Each rank's loss is its data shard's
-    mean (the ranks of a "model" row hold the same shard), so the sum is
-    the gradient of the global mean loss, also where the MoE all-to-all
-    (``nn.moe`` "shardmap") sends part of a rank's gradient to another."""
-    from torch.distributed.tensor import DTensor, Partial
-    from torch.nn.utils.stateless import _reparametrize_module
+    """(loss of this rank's data shard, DTensor gradients in the
+    parameters' layouts).  The ranks of a "model" row share their data
+    shard and one loss, computed tensor-parallel on the parameters'
+    "model" shards (``tensor_parallel.local_params``); each local
+    gradient is complete for its shard over "model" (the conjugate
+    collectives sum the row's contributions: the MoE all-to-all's too),
+    partial over the n data ranks ("data", "pod"), so each rank
+    differentiates its loss over n and the gradients reduce-scatter over
+    "data" to each parameter's placements.  The backward pass runs inside
+    the plan (remat recomputes layers there)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     from . import mesh as mesh_lib
+    from . import tensor_parallel as tp
     from .context import use_plan
     mesh = plan.mesh
+    n_data = mesh.size() // plan.model_size
     named = dict(params.named_parameters())
-    whole = {k: mesh_lib.full(p).detach().requires_grad_(True)
-             for k, p in named.items()}
-    with _reparametrize_module(params, whole), use_plan(plan):
+    with tp.local_params(params, plan, tp.stream_len(batch, cfg),
+                         grad=True) as (local, _), use_plan(plan):
         loss = tfm.loss_fn(params, batch, cfg)
-    # hubert's loss never reads its token embedding: None (zeros)
-    grads = torch.autograd.grad(loss / mesh.size(), list(whole.values()),
-                                allow_unused=True)
-    part = [Partial()] * mesh.ndim
+        # hubert's loss never reads its token embedding: None (zeros)
+        grads = torch.autograd.grad(loss / n_data, list(local.values()),
+                                    allow_unused=True)
     out = {}
     for (k, p), g in zip(named.items(), grads):
-        out[k] = None if g is None else DTensor.from_local(
-            g, mesh, part, run_check=False).redistribute(mesh, p.placements)
+        if g is None:
+            out[k] = None
+            continue
+        dim = mesh_lib.model_dim(p)
+        place = [(Replicate() if dim is None else Shard(dim))
+                 if a == "model" else Partial()
+                 for a in mesh.mesh_dim_names]
+        out[k] = mesh_lib.redistribute(DTensor.from_local(
+            g, mesh, place, run_check=False, shape=p.shape,
+            stride=p.stride()), p.placements)
     return loss.detach(), out
 
 
@@ -152,14 +163,24 @@ def _mesh_train_step(cfg: ArchConfig, opt_cfg: OptConfig, plan):
     return train_step
 
 
-def make_prefill_step(cfg: ArchConfig, flash_impl=None):
+def make_prefill_step(cfg: ArchConfig, flash_impl=None, plan=None):
     """``prefill_step(params, batch) -> (B, V)`` last-position logits of
     the batch's inputs ("tokens", "frames" or "patch_embeds" + "tokens");
     ``flash_impl`` (e.g. ``kernels.ops.flash_attention_op``) takes the
-    causal GQA attention of every layer (never MLA's, nor an encoder's)."""
+    causal GQA attention of every layer (never MLA's, nor an encoder's).
+    With a ``plan`` the parameters are DTensors by ``mesh.param_specs``
+    and ``batch`` is this rank's data shard: the step runs tensor-parallel
+    over "model" (the flash hook on the rank's H/m heads) and returns the
+    shard's logits."""
     @torch.no_grad()
     def prefill_step(params, batch):
-        return tfm.prefill_step(params, batch, cfg, flash_impl)
+        if plan is None:
+            return tfm.prefill_step(params, batch, cfg, flash_impl)
+        from . import tensor_parallel as tp
+        from .context import use_plan
+        with tp.local_params(params, plan, tp.stream_len(batch, cfg)), \
+                use_plan(plan):
+            return tfm.prefill_step(params, batch, cfg, flash_impl)
     return prefill_step
 
 

@@ -1,0 +1,389 @@
+"""Tensor- and sequence-parallel compute over a plan's "model" axis.
+
+The reference gets this from XLA: ``repro/launch/dryrun.py:69-90`` jits
+the train, prefill and decode steps with ``in_shardings`` from
+``param_specs``, and GSPMD splits every column- and row-sharded product
+over "model"; ``repro/nn/transformer.py:207,216`` keeps the residual
+stream sharded over the sequence between layers (``shard_hint(h, "batch",
+"seq", None)``, "seq" -> "model" in ``launch/context.py``) and ``:225``,
+``:258`` keep the logits sharded over the vocabulary.  The port writes the
+same program out by hand (Megatron-style sequence parallelism) on plain
+local tensors:
+
+* :func:`local_params` replaces every parameter of the ``LM`` by its
+  "model" shard (``mesh.model_shard``: the "data" dims gathered, FSDP
+  storage), and makes the tensor-parallel plan the one in use;
+* the residual stream between layers is this rank's slice of the
+  sequence (``S / m`` positions of its data shard) where ``m`` divides S
+  (``TPState.sp``); else it is whole on every rank of the row;
+* a tensor-parallel layer enters with :func:`enter` (the sequence
+  all-gathered; in backward its cotangents reduce-scattered), runs its
+  column products on the local columns (q heads, FFN columns) and leaves
+  with :func:`leave` (the row product's float32 partial sums
+  reduce-scattered over the sequence; in backward all-gathered);
+* a layer that does not split (MLA, Mamba-2, heads or ``d_ff`` that ``m``
+  does not divide, the dense MoE dispatch) runs whole on the whole
+  sequence with its weights gathered over "model" (:func:`replicated`:
+  the row's ranks repeat its work, as every rank did before this module);
+* norms run on the sequence slice; their weights pass :func:`on_shard`
+  (identity, their gradient all-reduced over "model" in backward).
+
+Every collective is a c10d op on the plan's "model" group inside a
+``torch.autograd.Function`` whose backward is the conjugate: all-gather
+<-> reduce-scatter, identity <-> all-reduce, slice <-> all-gather.  A
+CUDA tensor crosses a gloo group as a host copy (:func:`on_group`, the
+one route for every collective of the port's mesh code; torch's
+functional collectives crash the ranks on CUDA tensors over gloo).  With
+every leaf's gradient complete for its shard, a leaf's gradient is
+partial over "data" only (``launch.steps._mesh_grads``).
+
+The state in use is a module global, not a context variable: remat
+(``torch.utils.checkpoint``) recomputes a layer inside the backward pass,
+which runs CUDA work on the autograd engine's own thread.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import types
+
+import torch
+
+__all__ = ["TPState", "current", "last", "local_params",
+           "suspended", "on_group",
+           "copy_to_model", "reduce_from_model", "gather_seq", "scatter_seq",
+           "reduce_scatter_seq", "gather_model", "enter", "leave",
+           "enter_whole", "leave_whole", "on_shard", "sliced", "split",
+           "whole", "whole_module", "replicated", "max_over_model",
+           "stream_len"]
+
+
+@dataclasses.dataclass
+class TPState:
+    """The tensor-parallel plan in use: the "model" group, its size ``m``
+    and this rank's index ``j`` in it, whether the stream is sequence-
+    sharded (``sp``), each local leaf's "model" dim (by ``id``; None where
+    the leaf is whole), and the kinds of the modules that ran whole
+    (:func:`replicated`)."""
+    group: object
+    m: int
+    j: int
+    sp: bool
+    dims: dict
+    replicated: set = dataclasses.field(default_factory=set)
+
+
+_STATE: TPState | None = None
+_LAST: TPState | None = None
+
+
+def current() -> TPState | None:
+    return _STATE
+
+
+def last() -> TPState | None:
+    """The state of the last :func:`local_params` block (its
+    ``replicated`` kinds, for the dry run's record)."""
+    return _LAST
+
+
+@contextlib.contextmanager
+def _use(state):
+    global _STATE
+    prev, _STATE = _STATE, state
+    try:
+        yield state
+    finally:
+        _STATE = prev
+
+
+@contextlib.contextmanager
+def suspended():
+    """Inside the block no plan is in use: code runs on whole tensors as
+    it does mesh-less (the body of a :func:`replicated` layer)."""
+    with _use(None):
+        yield
+
+
+def stream_len(batch: dict, cfg) -> int:
+    """The residual stream's sequence length of a batch: the frames, or
+    the patch slots and the text."""
+    if cfg.frontend == "audio":
+        return batch["frames"].shape[1]
+    s = batch["tokens"].shape[1]
+    return s + cfg.n_patches if cfg.frontend == "vision" else s
+
+
+@contextlib.contextmanager
+def local_params(module, plan, seq_len: int, grad: bool = False):
+    """``module``'s parameters (DTensors laid out by ``mesh.param_specs``)
+    replaced by their "model" shards as plain tensors, gradients on where
+    ``grad``, and the tensor-parallel plan of ``plan`` in use for a
+    stream of ``seq_len`` positions (none where "model" has one rank);
+    yields (``{name: local leaf}``, the state)."""
+    from torch.nn.utils.stateless import _reparametrize_module
+
+    from . import mesh as mesh_lib
+    m = plan.model_size
+    local, dims = {}, {}
+    for k, p in module.named_parameters():
+        t = mesh_lib.model_shard(p).detach().requires_grad_(grad)
+        local[k] = t
+        dims[id(t)] = mesh_lib.model_dim(p)
+    global _LAST
+    state = _LAST = TPState(plan.mesh.get_group("model"), m,
+                            plan.mesh.get_local_rank("model"),
+                            seq_len % m == 0, dims)
+    # a "model" axis of one splits nothing: the mesh-less code on the
+    # local (whole) leaves
+    with _reparametrize_module(module, local), \
+            _use(state if m > 1 else None):
+        yield local, state
+
+
+# ---------------------------------------------------------------------------
+# Collectives (c10d, on the "model" group)
+# ---------------------------------------------------------------------------
+
+def on_group(fn, x: torch.Tensor, group) -> torch.Tensor:
+    """``fn(x)`` for a collective of ``group``: a CUDA tensor crosses a
+    gloo group as a host copy."""
+    import torch.distributed as dist
+    host = x.device.type == "cuda" \
+        and dist.get_backend(group) == dist.Backend.GLOO
+    out = fn(x.cpu() if host else x.contiguous())
+    return out.to(x.device) if host else out
+
+
+def _all_gather(x: torch.Tensor, dim: int, st: TPState) -> torch.Tensor:
+    import torch.distributed as dist
+
+    def fn(t):
+        t = t.movedim(dim, 0).contiguous()
+        out = t.new_empty((st.m * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=st.group)
+        # contiguous: every product of the gathered sequence would copy it
+        return out.movedim(0, dim).contiguous()
+    return on_group(fn, x, st.group)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, st: TPState) -> torch.Tensor:
+    """The sum over the ranks, this rank's slice of ``dim``, summed in
+    float32 and returned in ``x``'s dtype."""
+    import torch.distributed as dist
+
+    def fn(t):
+        t = t.float().movedim(dim, 0).contiguous()
+        out = t.new_empty((t.shape[0] // st.m,) + tuple(t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t, group=st.group)
+        return out.movedim(0, dim)
+    return on_group(fn, x, st.group).to(x.dtype)
+
+
+def _all_reduce(x: torch.Tensor, st: TPState, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+
+    def fn(t):
+        t = t.float().clone()
+        dist.all_reduce(t, op or dist.ReduceOp.SUM, group=st.group)
+        return t
+    return on_group(fn, x, st.group).to(x.dtype)
+
+
+def _slice(x: torch.Tensor, dim: int, st: TPState) -> torch.Tensor:
+    n = x.shape[dim] // st.m
+    return x.narrow(dim, st.j * n, n).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, st):
+        ctx.st = st
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.st), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, st, dtype):
+        ctx.dtype = x.dtype
+        return _all_reduce(x, st).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; in backward reduce-scatter (the ranks'
+    cotangents differ) or take this rank's slice (they are equal)."""
+    @staticmethod
+    def forward(ctx, x, dim, reduce_grad, st):
+        ctx.dim, ctx.reduce_grad, ctx.st = dim, reduce_grad, st
+        return _all_gather(x, dim, st)
+
+    @staticmethod
+    def backward(ctx, g):
+        f = _reduce_scatter if ctx.reduce_grad else _slice
+        return f(g, ctx.dim, ctx.st), None, None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, st):
+        ctx.dim, ctx.st = dim, st
+        return _slice(x, dim, st)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.st), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, st, dtype):
+        ctx.dim, ctx.st, ctx.dtype = dim, st, x.dtype
+        return _reduce_scatter(x, dim, st).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.st).to(ctx.dtype), None, None, \
+            None
+
+
+def max_over_model(x):
+    """The elementwise maximum over "model" (no gradient)."""
+    import torch.distributed as dist
+    return _all_reduce(x.detach(), _STATE, dist.ReduceOp.MAX)
+
+
+def copy_to_model(x):
+    """Identity; in backward the cotangent all-reduced over "model"."""
+    return _Copy.apply(x, _STATE)
+
+
+def reduce_from_model(x, dtype=None):
+    """All-reduce over "model" (summed in float32, returned in ``dtype``,
+    default ``x``'s); identity in backward."""
+    return _Reduce.apply(x, _STATE, dtype or x.dtype)
+
+
+def gather_seq(x, reduce_grad: bool = True):
+    """(B, S/m, ...) -> (B, S, ...), all-gathered over "model"; in
+    backward reduce-scattered (``reduce_grad``) or sliced."""
+    return _Gather.apply(x, 1, reduce_grad, _STATE)
+
+
+def scatter_seq(x):
+    """(B, S, ...) -> this rank's (B, S/m, ...); in backward
+    all-gathered."""
+    return _Split.apply(x, 1, _STATE)
+
+
+def reduce_scatter_seq(x, dtype=None):
+    """Partial sums (B, S, ...) -> their sum's (B, S/m, ...) slice (summed
+    in float32, returned in ``dtype``, default ``x``'s); in backward
+    all-gathered."""
+    return _ReduceScatter.apply(x, 1, _STATE, dtype or x.dtype)
+
+
+def gather_model(w, dim: int, reduce_grad: bool):
+    """A leaf's "model" shard -> the whole leaf (all-gather along its
+    "model" dim); in backward reduce-scattered (``reduce_grad``: each
+    rank's use differs) or sliced (every rank's use is the same)."""
+    return _Gather.apply(w, dim, reduce_grad, _STATE)
+
+
+# ---------------------------------------------------------------------------
+# Regions
+# ---------------------------------------------------------------------------
+
+def enter(x):
+    """Into a tensor-parallel layer: the stream slice -> the whole
+    sequence (its cotangents summed over the ranks' columns)."""
+    return gather_seq(x) if _STATE.sp else copy_to_model(x)
+
+
+def leave(partial, dtype):
+    """Out of a tensor-parallel layer: float32 partial sums -> the
+    stream's slice of their sum, rounded once to ``dtype`` (its
+    cotangents move in ``dtype``)."""
+    return reduce_scatter_seq(partial, dtype) if _STATE.sp \
+        else reduce_from_model(partial, dtype)
+
+
+def enter_whole(x):
+    """Into a layer every rank runs whole: the whole sequence, the same
+    on every rank (as are its cotangents)."""
+    return gather_seq(x, reduce_grad=False) if _STATE.sp else x
+
+
+def leave_whole(y):
+    """Out of a whole layer: the stream's slice of its output."""
+    return scatter_seq(y) if _STATE.sp else y
+
+
+def sliced() -> bool:
+    """Whether a plan is in use and the stream is a sequence slice."""
+    return _STATE is not None and _STATE.sp
+
+
+def on_shard(p):
+    """A replicated parameter used on the sequence slice: its gradient
+    all-reduced over "model" in backward (a LayerNorm's ``g`` and ``b``
+    alike); itself where no plan is in use or the stream is whole."""
+    if not sliced():
+        return p
+    if isinstance(p, torch.Tensor):
+        return copy_to_model(p)
+    return types.SimpleNamespace(g=copy_to_model(p.g), b=copy_to_model(p.b))
+
+
+def split(t, dim: int) -> bool:
+    """Whether the leaf ``t`` in use is a "model" shard along ``dim``."""
+    return _STATE is not None and t is not None \
+        and _STATE.dims.get(id(t)) == dim % t.ndim
+
+
+def whole(t, reduce_grad: bool):
+    """The whole leaf of a local one: gathered over "model" where it is a
+    shard (:func:`gather_model`); a replicated leaf itself, its gradient
+    all-reduced where ``reduce_grad`` (each rank's use differs).  ``t``
+    itself where no plan is in use."""
+    if _STATE is None or t is None:
+        return t
+    dim = _STATE.dims.get(id(t))
+    if dim is None:
+        return copy_to_model(t) if reduce_grad else t
+    return gather_model(t, dim, reduce_grad)
+
+
+def whole_module(mod, reduce_grad: bool = False):
+    """A namespace of ``mod``'s whole parameters (children alike), for
+    code run under :func:`suspended`."""
+    out = types.SimpleNamespace()
+    for k, t in mod._parameters.items():
+        setattr(out, k, whole(t, reduce_grad))
+    for k, c in mod._modules.items():
+        setattr(out, k, None if c is None else whole_module(c, reduce_grad))
+    for k, v in vars(mod).items():     # plain attributes (None, is_attn)
+        if not k.startswith("_") and not k == "training":
+            setattr(out, k, v)
+    return out
+
+
+def replicated(fn, mod, x, *args, **kwargs):
+    """``fn(whole weights of mod, whole sequence, ...)`` run on every rank
+    of the row (the layer does not split over "model"), then the stream's
+    slice of its output (the first element where it returns a tuple)."""
+    _STATE.replicated.add(type(mod).__name__)
+    w = whole_module(mod)
+    xf = enter_whole(x)
+    with suspended():
+        out = fn(w, xf, *args, **kwargs)
+    if isinstance(out, tuple):
+        return (leave_whole(out[0]),) + tuple(out[1:])
+    return leave_whole(out)

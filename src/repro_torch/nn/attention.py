@@ -14,6 +14,17 @@ Its output is flattened to ``(B, S, H*hd)`` in the compute dtype before
 flash route raises (ROADMAP.md §C).  The decode steps write the new
 position into the cache in place and return that cache.
 
+Under a tensor-parallel plan (``launch.tensor_parallel``) :func:`gqa_prefill`
+takes the stream's sequence slice and runs H/m q heads on the gathered
+sequence: ``wq`` on its local columns, the kv heads those q heads read,
+``wo`` on its local rows (float32 partial sums reduce-scattered over the
+sequence).  Where ``n_kv_heads`` splits over the m ranks, ``wk`` / ``wv``
+are their local columns; else they are gathered over "model" and each
+rank projects the kv heads its q heads read (its gradient to them
+reduce-scattered back).  Where ``n_heads`` does not split, the layer runs
+whole.  The flash hook (B8) takes the local heads, with k and v
+contiguous.  MLA runs whole (``launch.tensor_parallel.replicated``).
+
 MLA keeps a low-rank latent ``c_kv`` (r wide) and one shared RoPE key
 (rd wide) a position.  Its q·k is hd + rd wide and its v hd wide, so it
 always runs ``_sdpa`` in float32 (as the reference: B8's contract has one
@@ -29,7 +40,8 @@ import math
 import torch
 import torch.nn as nn
 
-from .layers import COMPUTE_DTYPE, apply_rope, dense, dense_init, param
+from .layers import (COMPUTE_DTYPE, apply_rope, dense, dense_init, matmul,
+                     param, partial_matmul)
 
 __all__ = ["NEG_INF", "GQA", "gqa_init", "gqa_prefill", "gqa_decode", "MLA",
            "mla_init", "mla_prefill", "mla_decode", "mla_decode_absorbed"]
@@ -85,25 +97,74 @@ def _sdpa(q, k, v, causal: bool, q_pos=None, kv_len=None,
         .to(COMPUTE_DTYPE)
 
 
-def gqa_prefill(p: GQA, x: torch.Tensor, cfg, positions=None, causal=True,
-                flash_impl=None):
-    """x: (B,S,d) -> ((B,S,d), (k, v))."""
-    b, s, _ = x.shape
-    hd = cfg.head_dim
-    q = _split_heads(dense(p, x, "wq"), cfg.n_heads, hd)
-    k = _split_heads(dense(p, x, "wk"), cfg.n_kv_heads, hd)
-    v = _split_heads(dense(p, x, "wv"), cfg.n_kv_heads, hd)
-    pos = torch.arange(s, device=x.device) if positions is None \
+def _attend(q, k, v, cfg, positions, causal, flash_impl):
+    """RoPE'd q (B,S,H,hd) against k/v (B,S,Hkv,hd) -> (B,S,H*hd) and the
+    RoPE'd k."""
+    b, s = q.shape[:2]
+    pos = torch.arange(s, device=q.device) if positions is None \
         else positions
     if cfg.rope:
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     if flash_impl is not None and causal:
-        attn = flash_impl(q, k, v).reshape(b, s, -1).to(COMPUTE_DTYPE)
-    else:
-        attn = _sdpa(q, k, v, causal=causal,
-                     sliding_window=cfg.sliding_window)
+        out = flash_impl(q, k.contiguous(), v.contiguous())
+        return out.reshape(b, s, -1).to(COMPUTE_DTYPE), k
+    return _sdpa(q, k, v, causal=causal,
+                 sliding_window=cfg.sliding_window), k
+
+
+def _gqa_prefill(p, x: torch.Tensor, cfg, positions=None, causal=True,
+                 flash_impl=None):
+    hd = cfg.head_dim
+    q = _split_heads(dense(p, x, "wq"), cfg.n_heads, hd)
+    k = _split_heads(dense(p, x, "wk"), cfg.n_kv_heads, hd)
+    v = _split_heads(dense(p, x, "wv"), cfg.n_kv_heads, hd)
+    attn, k = _attend(q, k, v, cfg, positions, causal, flash_impl)
     return dense(p, attn, "wo"), (k, v)
+
+
+def _local_kv(p: GQA, cfg, tp):
+    """(wk, wv) columns of the kv heads this rank's q heads read, and the
+    kv head of each local q head where they do not fall in whole groups
+    (else None); ``tp`` is ``launch.tensor_parallel``."""
+    st = tp.current()
+    hd, m = cfg.head_dim, st.m
+    hl, group = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_kv_heads % m == 0 and tp.split(p.wk, 1) and tp.split(p.wv, 1):
+        return p.wk, p.wv, None
+    kv0 = st.j * hl // group
+    kv1 = ((st.j + 1) * hl - 1) // group + 1
+    cols = slice(kv0 * hd, kv1 * hd)
+    wk = tp.whole(p.wk, True)[:, cols]
+    wv = tp.whole(p.wv, True)[:, cols]
+    idx = [(st.j * hl + i) // group - kv0 for i in range(hl)]
+    aligned = hl % group == 0 or group % hl == 0
+    return wk, wv, None if aligned else idx
+
+
+def gqa_prefill(p: GQA, x: torch.Tensor, cfg, positions=None, causal=True,
+                flash_impl=None):
+    """x: (B,S,d) -> ((B,S,d), (k, v)); under a tensor-parallel plan x and
+    the output are the stream's sequence slices and (k, v) the local
+    heads'."""
+    from ..launch import tensor_parallel as tp
+    st = tp.current()
+    if st is None:
+        return _gqa_prefill(p, x, cfg, positions, causal, flash_impl)
+    if cfg.n_heads % st.m or not (tp.split(p.wq, 1) and tp.split(p.wo, 0)):
+        return tp.replicated(_gqa_prefill, p, x, cfg, positions, causal,
+                             flash_impl)
+    hd, hl = cfg.head_dim, cfg.n_heads // st.m
+    xf = tp.enter(x)
+    wk, wv, idx = _local_kv(p, cfg, tp)
+    q = _split_heads(matmul(xf, p.wq), hl, hd)
+    k = _split_heads(matmul(xf, wk), wk.shape[1] // hd, hd)
+    v = _split_heads(matmul(xf, wv), wv.shape[1] // hd, hd)
+    if idx is not None:               # one kv head a q head
+        k, v = k[:, :, idx], v[:, :, idx]
+    attn, k = _attend(q, k, v, cfg, positions, causal, flash_impl)
+    y = tp.leave(partial_matmul(attn, p.wo), COMPUTE_DTYPE)
+    return y, (k, v)
 
 
 def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, pos: int, cfg):
@@ -181,7 +242,15 @@ def _mla_new_position(p: MLA, x: torch.Tensor, cache: dict, pos: int, cfg):
 
 
 def mla_prefill(p: MLA, x: torch.Tensor, cfg, positions=None):
-    """x: (B,S,d) -> ((B,S,d), (c_kv (B,S,r), k_rope (B,S,rd)))."""
+    """x: (B,S,d) -> ((B,S,d), (c_kv (B,S,r), k_rope (B,S,rd))); under a
+    tensor-parallel plan the layer runs whole on the gathered sequence."""
+    from ..launch import tensor_parallel as tp
+    if tp.current() is not None:
+        return tp.replicated(_mla_prefill, p, x, cfg, positions)
+    return _mla_prefill(p, x, cfg, positions)
+
+
+def _mla_prefill(p, x: torch.Tensor, cfg, positions=None):
     b, s, _ = x.shape
     h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     pos = torch.arange(s, device=x.device) if positions is None \

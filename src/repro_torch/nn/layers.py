@@ -10,6 +10,14 @@ reference's pytree leaves become attributes of the same names); an
 initialiser given no ``torch.Generator`` allocates without filling, for
 loading converted weights (``weights.lm_params_from_numpy``).  Parameters
 take no gradient, except inside :func:`trainable` (the train step's).
+
+Under a tensor-parallel plan (``launch.tensor_parallel``) :func:`mlp`
+takes the stream's sequence slice and its weights' "model" shards:
+``w_up`` / ``w_gate`` on their local columns of the gathered sequence,
+``w_down`` on its local rows as float32 partial sums (a bf16 GEMM's
+float32 accumulator, as the mesh-less product's before its one
+rounding), reduce-scattered over the sequence and rounded to bf16
+once.  Where ``d_ff`` does not split, the MLP runs whole.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = ["COMPUTE_DTYPE", "PARAM_DTYPE", "param", "dense_init", "dense",
+           "matmul", "partial_matmul",
            "embedding_init", "embed", "rmsnorm", "LayerNorm", "layernorm",
            "apply_norm", "norm_init", "act_fn", "MLP", "mlp_init", "mlp",
            "rope_freqs", "apply_rope", "trainable"]
@@ -60,9 +69,54 @@ def dense_init(gen, d_in: int, d_out: int, device=None) -> torch.Tensor:
         .div_(math.sqrt(d_in))
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with both operands in bfloat16."""
+    return x.to(COMPUTE_DTYPE) @ w.to(COMPUTE_DTYPE)
+
+
 def dense(p, x: torch.Tensor, name: str) -> torch.Tensor:
     """``x @ p.<name>`` with both operands in bfloat16."""
-    return x.to(COMPUTE_DTYPE) @ getattr(p, name).to(COMPUTE_DTYPE)
+    return matmul(x, getattr(p, name))
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 operands, ``a`` (..., K) and ``b`` (K, N),
+    accumulated and returned in float32: on the card (and ``meta``) one
+    bf16 tensor-core GEMM with a float32 output (``torch.mm(...,
+    out_dtype=)``); on the host, where that op has no kernel, the float32
+    product of the upcast operands (each product exact in float32)."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+class _PartialMatmul(torch.autograd.Function):
+    """``x @ w`` of bf16 operands as a float32 partial sum (its one
+    rounding comes after the sum over ranks); backward in bf16, as the
+    mesh-less product's (the cotangent is a bf16 value's float32 copy)."""
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        gx = g @ w.T if ctx.needs_input_grad[0] else None
+        gw = None
+        if ctx.needs_input_grad[1]:
+            gw = (x.reshape(-1, x.shape[-1]).T
+                  @ g.reshape(-1, g.shape[-1]))
+        return gx, gw
+
+
+def partial_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sum: the bf16 operands' product
+    accumulated and returned in float32, for a sum over ranks before the
+    one rounding to bf16."""
+    return _PartialMatmul.apply(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
 
 
 def embedding_init(gen, vocab: int, d: int, device=None) -> torch.Tensor:
@@ -132,13 +186,26 @@ def mlp_init(gen, d: int, d_ff: int, gated: bool, device=None) -> MLP:
     return MLP(d, d_ff, gated, device, gen)
 
 
-def mlp(p: MLP, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+def _hidden(p, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
     up = dense(p, x, "w_up")
     if gated:
-        h = act_fn(act)(dense(p, x, "w_gate")) * up
-    else:
-        h = act_fn(act)(up)
-    return dense(p, h, "w_down")
+        return act_fn(act)(dense(p, x, "w_gate")) * up
+    return act_fn(act)(up)
+
+
+def _mlp(p, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+    return dense(p, _hidden(p, x, act, gated), "w_down")
+
+
+def mlp(p: MLP, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
+    from ..launch import tensor_parallel as tp
+    if tp.current() is None:
+        return _mlp(p, x, act, gated)
+    if tp.split(p.w_up, 1) and tp.split(p.w_down, 0) \
+            and (not gated or tp.split(p.w_gate, 1)):
+        h = _hidden(p, tp.enter(x), act, gated)    # (B, S, d_ff / m)
+        return tp.leave(partial_matmul(h, p.w_down), COMPUTE_DTYPE)
+    return tp.replicated(_mlp, p, x, act, gated)
 
 
 # -- RoPE --------------------------------------------------------------------

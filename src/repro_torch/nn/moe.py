@@ -27,7 +27,11 @@ experts, the reverse all-to-all and a local gather combine, and an
 all-gather over "model" gives every rank its whole shard's output.  No
 (E, C, d) buffer of all the tokens exists anywhere.  Both exchanges are
 differentiable (``torch.distributed._functional_collectives``' autograd
-forms); CUDA tensors cross a gloo group through host copies.
+forms); CUDA tensors cross a gloo group through host copies.  Under a
+tensor-parallel plan (``launch.tensor_parallel``) the tokens are already
+the stream's sequence slice and the experts the rank's own "model" shard
+of the stacks: "shardmap" routes them without slicing again and returns
+the slice.
 :func:`record_routing` collects each call's routing, for comparing two
 runs' decisions; :func:`replay_routing` makes a run take another run's
 expert choices (top-k routing is discontinuous: an ulp of a hidden state
@@ -47,7 +51,7 @@ from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, act_fn, dense_init, mlp,
                      mlp_init, param)
 
 __all__ = ["MoE", "moe_init", "set_dispatch_mode", "set_moe_impl", "moe_ffn",
-           "record_routing", "replay_routing"]
+           "record_routing", "replay_routing", "routing_hooked"]
 
 # Dispatch position computation:
 #  "cumsum": one-hot cumsum, an O(T·K·E) int intermediate
@@ -104,6 +108,13 @@ def replay_routing(choices: list):
         yield changed
     finally:
         _REPLAY = prev
+
+
+def routing_hooked() -> bool:
+    """Whether :func:`record_routing` or :func:`replay_routing` is active
+    (remat does not recompute a layer then: a recomputation would record
+    or consume its calls twice)."""
+    return _ROUTING is not None or _REPLAY is not None
 
 
 def _stack(gen, n: int, d_in: int, d_out: int, device) -> torch.Tensor:
@@ -205,39 +216,57 @@ def _expert_compute(p: MoE, buf: torch.Tensor, act: str,
     return torch.bmm(h, p.w_down.to(COMPUTE_DTYPE))
 
 
-def _on_group(fn, x: torch.Tensor, group) -> torch.Tensor:
-    """``fn(x)`` for a collective of ``group``: a CUDA tensor crosses a
-    gloo group as a host copy (both moves differentiable)."""
-    import torch.distributed as dist
-    host = x.device.type == "cuda" \
-        and dist.get_backend(group) == dist.Backend.GLOO
-    out = fn(x.cpu() if host else x.contiguous())
-    return out.to(x.device) if host else out
-
-
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     """Differentiable all-to-all over ``group`` along dim 0 (equal
     splits); the identity on a group of one."""
     import torch.distributed as dist
     from torch.distributed import _functional_collectives as fc
+
+    from ..launch.tensor_parallel import on_group
     if dist.get_world_size(group) == 1:
         return x
-    return _on_group(lambda t: fc.wait_tensor(fc.all_to_all_single_autograd(
+    return on_group(lambda t: fc.wait_tensor(fc.all_to_all_single_autograd(
         t, None, None, group)), x, group)
 
 
 def _gather_seq(y: torch.Tensor, group) -> torch.Tensor:
     """Differentiable all-gather of (b, s_loc, d) pieces along dim 1."""
     from torch.distributed import _functional_collectives as fc
-    return _on_group(lambda t: fc.wait_tensor(fc.all_gather_tensor_autograd(
+
+    from ..launch.tensor_parallel import on_group
+    return on_group(lambda t: fc.wait_tensor(fc.all_gather_tensor_autograd(
         t, 1, group)), y, group)
+
+
+def _expert_parallel(router, own, xl: torch.Tensor, *, top_k: int, act: str,
+                     gated: bool, capacity_factor: float, group, m: int):
+    """This rank's tokens ``xl`` (b, s, d) through the experts of every
+    rank of ``group`` (m ranks, E / m experts each; ``own`` holds this
+    rank's stacks): routing, the all-to-all there and back, the combine."""
+    bl, sl, d = xl.shape
+    e = router.shape[-1]
+    e_loc = e // m
+    capacity = max(1, int(capacity_factor * bl * sl * top_k / e))
+    buf, flat_e, idx_c, keep, gate_vals = _local_dispatch(
+        xl.reshape(bl * sl, d), router, top_k, capacity)
+    # send: peer i gets experts i·e_loc ...; the owner sees (peer, e_loc,
+    # C, d), its experts' C slots of every peer side by side
+    recv = _exchange(buf, group).reshape(m, e_loc, capacity, d) \
+        .transpose(0, 1).reshape(e_loc, m * capacity, d)
+    out = _expert_compute(own, recv, act, gated)
+    back = _exchange(out.reshape(e_loc, m, capacity, d).transpose(0, 1)
+                     .reshape(e, capacity, d), group)    # (E, C, d) own view
+    gathered = torch.where(keep[:, None], back[flat_e, idx_c], 0)
+    weighted = gathered.float() * gate_vals.reshape(-1, 1).float()
+    return weighted.reshape(bl * sl, top_k, d).sum(dim=1) \
+        .to(COMPUTE_DTYPE).reshape(bl, sl, d)
 
 
 def _moe_ffn_shardmap(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
                       gated: bool, capacity_factor: float, plan):
     """Expert parallelism over the plan's "model" axis; ``x`` (b, s, d) is
     this rank's data shard (every rank of a "model" row holds the same
-    one)."""
+    one) and ``p`` the whole layer."""
     b, s, d = x.shape
     e = p.router.shape[-1]
     group = plan.mesh.get_group("model")
@@ -248,25 +277,13 @@ def _moe_ffn_shardmap(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
     j = plan.mesh.get_local_rank("model")
     split = s % m == 0 and s >= m      # else every model rank routes all
     xl = x[:, j * (s // m):(j + 1) * (s // m)] if split else x
-    bl, sl, _ = xl.shape
-    capacity = max(1, int(capacity_factor * bl * sl * top_k / e))
-    buf, flat_e, idx_c, keep, gate_vals = _local_dispatch(
-        xl.reshape(bl * sl, d), p.router, top_k, capacity)
-    # send: peer i gets experts i·e_loc ...; the owner sees (peer, e_loc,
-    # C, d), its experts' C slots of every peer side by side
-    recv = _exchange(buf, group).reshape(m, e_loc, capacity, d) \
-        .transpose(0, 1).reshape(e_loc, m * capacity, d)
     mine = slice(j * e_loc, (j + 1) * e_loc)
     own = types.SimpleNamespace(
         w_up=p.w_up[mine], w_down=p.w_down[mine],
         w_gate=p.w_gate[mine] if gated else None)
-    out = _expert_compute(own, recv, act, gated)
-    back = _exchange(out.reshape(e_loc, m, capacity, d).transpose(0, 1)
-                     .reshape(e, capacity, d), group)    # (E, C, d) own view
-    gathered = torch.where(keep[:, None], back[flat_e, idx_c], 0)
-    weighted = gathered.float() * gate_vals.reshape(-1, 1).float()
-    y = weighted.reshape(bl * sl, top_k, d).sum(dim=1) \
-        .to(COMPUTE_DTYPE).reshape(bl, sl, d)
+    y = _expert_parallel(p.router, own, xl, top_k=top_k, act=act,
+                         gated=gated, capacity_factor=capacity_factor,
+                         group=group, m=m)
     return _gather_seq(y, group) if split and m > 1 else y
 
 
@@ -289,12 +306,33 @@ def _moe_ffn_dense(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
     return y
 
 
+def _moe_ffn_tp(p: MoE, x: torch.Tensor, tp, **run) -> torch.Tensor:
+    """Under a tensor-parallel plan ``x`` is the stream's sequence slice:
+    "shardmap" routes it as it is to the local experts' owners (the
+    router gathered, its gradient reduce-scattered back) and returns the
+    slice; the dense dispatch, or a stream that is not sliced, runs the
+    layer whole (the data shard's tokens, every expert)."""
+    st = tp.current()
+    if _MOE_IMPL != "shardmap" or not st.sp \
+            or not tp.split(p.w_up, 0):
+        return tp.replicated(_moe_ffn_dense, p, x, **run)
+    y = _expert_parallel(tp.whole(p.router, True), p, x, group=st.group,
+                         m=st.m, **run)
+    if p.shared is not None:
+        y = y + mlp(p.shared, x, run["act"], run["gated"])
+    return y
+
+
 def moe_ffn(p: MoE, x: torch.Tensor, *, top_k: int, act: str, gated: bool,
             capacity_factor: float = 1.25) -> torch.Tensor:
     """x: (B, S, d) -> (B, S, d) bf16.  Top-k routing with per-expert
     capacity ``max(1, int(capacity_factor * T * top_k / E))`` over the
     call's T tokens (a rank's own under "shardmap")."""
+    from ..launch import tensor_parallel as tp
     from ..launch.context import current_plan
+    if tp.current() is not None:
+        return _moe_ffn_tp(p, x, tp, top_k=top_k, act=act, gated=gated,
+                           capacity_factor=capacity_factor)
     plan = current_plan()
     if _MOE_IMPL == "shardmap" and plan is not None:
         y = _moe_ffn_shardmap(p, x, top_k=top_k, act=act, gated=gated,

@@ -7,7 +7,9 @@ chunked scan: within a chunk the SSM in matrix form, across chunks a
 runs the chunk math as plain tensor code (``kernels.ssd.ssd_chunked``, the
 port of its ``lax.scan`` body), not the B9 kernel.  :func:`ssd_inputs` and
 :func:`ssd_output` are its two halves around the scan, so a caller can put
-``kernels.ssd.ssd_scan`` (B9) between them.
+``kernels.ssd.ssd_scan`` (B9) between them.  Under a tensor-parallel plan
+(``launch.tensor_parallel``) ``ssd_prefill`` runs whole: its weights
+gathered over "model", the whole sequence on every rank of the row.
 """
 from __future__ import annotations
 
@@ -105,6 +107,13 @@ def ssd_output(p: Mamba2, y: torch.Tensor, x: torch.Tensor,
 
 def ssd_prefill(p: Mamba2, u: torch.Tensor, cfg):
     """u: (B, S, d_model) -> ((B, S, d_model), final ssm state (B,H,hd,N))."""
+    from ..launch import tensor_parallel as tp
+    if tp.current() is not None:
+        return tp.replicated(_ssd_prefill, p, u, cfg)
+    return _ssd_prefill(p, u, cfg)
+
+
+def _ssd_prefill(p, u: torch.Tensor, cfg):
     s = u.shape[1]
     z, x, bmat, cmat, da, dt = ssd_inputs(p, u, cfg)
     chunk = cfg.ssd_chunk or CHUNK

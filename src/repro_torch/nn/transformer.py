@@ -10,13 +10,27 @@ Port of ``repro/nn/transformer.py`` (``layer_groups``, ``_ffn_init``,
 ``_layer_cache``/``init_cache``, ``abstract_params``, ``abstract_cache``,
 ``_block_decode``, ``decode_step``, ``prefill_step``).  The reference
 stacks each group's layers on a leading axis and runs them with
-``lax.scan`` under ``jax.checkpoint``; here the layers are an
-``nn.ModuleList`` walked by a Python loop, with no sharding hint (identity
-on one card) and no remat: the train step keeps every activation for the
-backward pass (TinyLlama-1.1B at batch 4 x 256 tokens: ~17.6 GB of float32
-parameters, gradients and AdamW moments, activations on top, on one 80 GB
-card).  Caches are one dict per layer, updated in place by the decode
-step.
+``lax.scan``; here the layers are an ``nn.ModuleList`` walked by a Python
+loop.  Where ``cfg.remat`` (the default, as the reference's) and
+gradients are on, each layer runs under ``torch.utils.checkpoint``
+(non-reentrant; the reference's ``jax.checkpoint`` of the scan body,
+``repro/nn/transformer.py:218-219``) and each jamba sub-layer under a
+nested one (``:169-173``): the backward pass keeps the layer boundaries
+and recomputes the rest.  Caches are one dict per layer, updated in place
+by the decode step.
+
+Under a tensor-parallel plan (``launch.tensor_parallel``: the train and
+prefill steps of a mesh) the residual stream between layers is the
+rank's slice of the sequence (the reference's ``shard_hint(h, "batch",
+"seq", None)``) and norms run on it.  A vocabulary that splits over the
+m "model" ranks gives a vocab-parallel embedding (each rank looks up its
+rows, zeros elsewhere, and the sums reduce-scatter over the sequence), a
+vocab-parallel head (logits (B, S, V/m), the reference's
+``shard_hint(logits, "batch", None, "model")``) and a distributed
+cross-entropy (the log-sum-exp's max and sum all-reduced over "model",
+the gold logit from the rank that owns it), for the MTP term and the
+vision slice too.  MLA, Mamba-2 and the layers whose heads or FFN do not
+split run whole on every rank of the row.
 
 A jamba period (``JambaPeriod``, one "layer" of the ``jamba_period``
 group) holds ``attn_period`` pre-norm sub-layers ``sub0`` ...: sub-layer i
@@ -45,14 +59,17 @@ import dataclasses
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..configs import ArchConfig
 from ..device import resolve_device
+from ..launch import tensor_parallel as tp
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (COMPUTE_DTYPE, apply_norm, dense, dense_init, embed,
-                     embedding_init, mlp, mlp_init, norm_init, param)
+from .layers import (COMPUTE_DTYPE, apply_norm, dense_init,
+                     embed, embedding_init, matmul, mlp, mlp_init, norm_init,
+                     param)
 
 __all__ = ["Group", "layer_groups", "Block", "MambaLayer", "JambaLayer",
            "JambaPeriod", "LM", "MTP_WEIGHT",
@@ -213,25 +230,46 @@ def _ffn_apply(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return mlp(p, x, cfg.act, cfg.gated_mlp)
 
 
+def _norm(cfg: ArchConfig, g, x: torch.Tensor) -> torch.Tensor:
+    """A norm of the stream (on its slice under a tensor-parallel plan,
+    the weight's gradient summed over "model")."""
+    return apply_norm(cfg.norm, tp.on_shard(g), x)
+
+
+def _remat(cfg: ArchConfig) -> bool:
+    return cfg.remat and torch.is_grad_enabled() \
+        and not moe_mod.routing_hooked()
+
+
+def _checkpointed(fn, *args):
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _jamba_sub(lp, h: torch.Tensor, cfg: ArchConfig, flash_impl=None):
+    hin = _norm(cfg, lp.norm1, h)
+    if lp.is_attn:
+        y, _ = attn.gqa_prefill(lp.attn, hin, cfg, flash_impl=flash_impl)
+    else:
+        y, _ = ssm_mod.ssd_prefill(lp.mamba, hin, cfg)
+    h = h + y
+    return h + _ffn_apply(lp.ffn, _norm(cfg, lp.norm2, h), cfg)
+
+
 def _block_fwd(p, h: torch.Tensor, cfg: ArchConfig, kind: str,
                flash_impl=None) -> torch.Tensor:
     """One layer, prefill mode. h: (B,S,d)."""
     if kind == "mamba":
-        y, _ = ssm_mod.ssd_prefill(p.mamba, apply_norm(cfg.norm, p.norm1, h),
-                                   cfg)
+        y, _ = ssm_mod.ssd_prefill(p.mamba, _norm(cfg, p.norm1, h), cfg)
         return h + y
     if kind == "jamba_period":
+        remat = _remat(cfg)          # nested: sub-layer boundaries only
         for lp in p.children():
-            hin = apply_norm(cfg.norm, lp.norm1, h)
-            if lp.is_attn:
-                y, _ = attn.gqa_prefill(lp.attn, hin, cfg,
-                                        flash_impl=flash_impl)
-            else:
-                y, _ = ssm_mod.ssd_prefill(lp.mamba, hin, cfg)
-            h = h + y
-            h = h + _ffn_apply(lp.ffn, apply_norm(cfg.norm, lp.norm2, h), cfg)
+            h = _checkpointed(_jamba_sub, lp, h, cfg, flash_impl) if remat \
+                else _jamba_sub(lp, h, cfg, flash_impl)
         return h
-    hin = apply_norm(cfg.norm, p.norm1, h)
+    hin = _norm(cfg, p.norm1, h)
     if kind == "block":
         y, _ = attn.gqa_prefill(p.attn, hin, cfg,
                                 causal=not cfg.encoder_only,
@@ -239,42 +277,105 @@ def _block_fwd(p, h: torch.Tensor, cfg: ArchConfig, kind: str,
     else:                                 # MLA: _sdpa, never the hook
         y, _ = attn.mla_prefill(p.attn, hin, cfg)
     h = h + y
-    return h + _ffn_apply(p.ffn, apply_norm(cfg.norm, p.norm2, h), cfg)
+    return h + _ffn_apply(p.ffn, _norm(cfg, p.norm2, h), cfg)
+
+
+def _embed_stream(params: LM, tokens: torch.Tensor,
+                  lead: torch.Tensor | None = None) -> torch.Tensor:
+    """The embedded tokens after ``lead`` (B, n, d) as the stream: under
+    a tensor-parallel plan its sequence slice, from the rank's vocabulary
+    rows summed over "model" where the vocabulary splits."""
+    if tp.current() is None:
+        text = embed(params.embed, tokens)
+        return text if lead is None else torch.cat([lead, text], dim=1)
+    if not tp.split(params.embed, 0):              # every rank the same
+        text = embed(tp.whole(params.embed, False), tokens)
+        h = text if lead is None else torch.cat([lead, text], dim=1)
+        return tp.leave_whole(h)
+    st = tp.current()
+    vl = params.embed.shape[0]
+    idx = tokens.long() - st.j * vl
+    own = (idx >= 0) & (idx < vl)
+    part = F.embedding(idx.clamp(0, vl - 1), params.embed) * own[..., None]
+    if lead is not None:                            # once over the ranks
+        lead = lead.float() if st.j == 0 else lead.new_zeros(
+            lead.shape, dtype=part.dtype)
+        part = torch.cat([lead, part], dim=1)
+    return tp.leave(part, COMPUTE_DTYPE)
 
 
 def _embed_inputs(params: LM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Audio: ``front_proj`` of "frames" (B, S, d); vision: "patch_embeds"
-    (B, n_patches, d) then the embedded "tokens"; else the tokens."""
+    (B, n_patches, d) then the embedded "tokens"; else the tokens.  The
+    stream's slice under a tensor-parallel plan."""
     if cfg.frontend == "audio":
-        return dense(params, batch["frames"].to(COMPUTE_DTYPE), "front_proj")
-    text = embed(params.embed, batch["tokens"])
-    if cfg.frontend == "vision":
-        return torch.cat([batch["patch_embeds"].to(COMPUTE_DTYPE), text],
-                         dim=1)
-    return text
+        frames = batch["frames"].to(COMPUTE_DTYPE)
+        if tp.sliced():
+            frames = tp.scatter_seq(frames)
+        return matmul(frames, tp.whole(params.front_proj, tp.sliced()))
+    lead = batch["patch_embeds"].to(COMPUTE_DTYPE) \
+        if cfg.frontend == "vision" else None
+    return _embed_stream(params, batch["tokens"], lead)
+
+
+def _vocab_split(params: LM) -> bool:
+    """Whether the head's columns are this rank's vocabulary slice."""
+    return tp.split(params.embed, 0) if params.head is None \
+        else tp.split(params.head, 1)
 
 
 def _head(params: LM) -> torch.Tensor:
     return params.embed.T if params.head is None else params.head
 
 
+def _logits(params: LM, h: torch.Tensor) -> torch.Tensor:
+    """Logits of the stream: (B,S,V); under a tensor-parallel plan the
+    whole sequence's, (B,S,V/m) where the vocabulary splits."""
+    if tp.current() is None:
+        return matmul(h, _head(params))
+    if _vocab_split(params):
+        return matmul(tp.enter(h), _head(params))
+    leaf = params.embed if params.head is None else params.head
+    head = tp.whole(leaf, False)
+    return matmul(tp.enter_whole(h),
+                  head.T if params.head is None else head)
+
+
 def forward(params: LM, batch: dict, cfg: ArchConfig, flash_impl=None,
             return_hidden: bool = False):
     """Full-sequence forward -> logits (B,S,V) in the compute dtype (and
-    the final-normed hidden states (B,S,d) with ``return_hidden``)."""
+    the final-normed hidden states (B,S,d) with ``return_hidden``); under
+    a tensor-parallel plan (B,S,V/m) where the vocabulary splits, and the
+    hidden states' sequence slice."""
     h = _embed_inputs(params, batch, cfg)
+    remat = _remat(cfg)
     for lp, kind in zip(params.layers, params.kinds):
-        h = _block_fwd(lp, h, cfg, kind, flash_impl)
-    h = apply_norm(cfg.norm, params.final_norm, h)
-    logits = h.to(COMPUTE_DTYPE) @ _head(params).to(COMPUTE_DTYPE)
+        h = _checkpointed(_block_fwd, lp, h, cfg, kind, flash_impl) \
+            if remat else _block_fwd(lp, h, cfg, kind, flash_impl)
+    h = _norm(cfg, params.final_norm, h)
+    logits = _logits(params, h)
     return (logits, h) if return_hidden else logits
 
 
-def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy in float32 over labels >= 0."""
+def _ce(logits: torch.Tensor, labels: torch.Tensor,
+        vocab_split: bool = False) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32 over labels >= 0; with
+    ``vocab_split`` ``logits`` are this rank's vocabulary slice."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    if vocab_split:
+        st = tp.current()
+        vl = logits.shape[-1]
+        mx = tp.max_over_model(logits.amax(-1))
+        lse = mx + torch.log(tp.reduce_from_model(
+            torch.exp(logits - mx[..., None]).sum(-1)))
+        idx = labels.long() - st.j * vl
+        own = (idx >= 0) & (idx < vl)
+        gold = logits.gather(-1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+        gold = tp.reduce_from_model(torch.where(own, gold, 0.0))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp(min=0).long()[..., None])[
+            ..., 0]
     mask = labels >= 0
     nll = torch.where(mask, lse - gold, 0.0)
     return nll.sum() / mask.sum().clamp(min=1)
@@ -287,20 +388,22 @@ def loss_fn(params: LM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Training loss of ``batch``: "labels" (B, S_text) beside the model's
     inputs ("tokens", and "frames" or "patch_embeds" for a frontend)."""
     labels = batch["labels"]
+    vs = _vocab_split(params)
     if cfg.mtp:
         logits, h = forward(params, batch, cfg, return_hidden=True)
-        lab_emb = embed(params.embed, labels.clamp(min=0))
-        h2 = torch.cat([apply_norm(cfg.norm, params.mtp_norm, h)
-                        .to(COMPUTE_DTYPE), lab_emb], dim=-1)
-        h2 = h2 @ params.mtp_proj.to(COMPUTE_DTYPE)
-        logits2 = h2 @ _head(params).to(COMPUTE_DTYPE)
+        lab_emb = _embed_stream(params, labels.clamp(min=0))
+        h2 = torch.cat([_norm(cfg, params.mtp_norm, h).to(COMPUTE_DTYPE),
+                        lab_emb], dim=-1)
+        h2 = matmul(h2, tp.whole(params.mtp_proj, tp.sliced()))
+        logits2 = _logits(params, h2)
         labels2 = torch.cat([labels[:, 1:],
                              torch.full_like(labels[:, :1], -1)], dim=-1)
-        return _ce(logits, labels) + MTP_WEIGHT * _ce(logits2, labels2)
+        return _ce(logits, labels, vs) \
+            + MTP_WEIGHT * _ce(logits2, labels2, vs)
     logits = forward(params, batch, cfg)
     if cfg.frontend == "vision":      # the loss counts the text positions
         logits = logits[:, cfg.n_patches:]
-    return _ce(logits, labels)
+    return _ce(logits, labels, vs)
 
 
 # ---------------------------------------------------------------------------
@@ -393,5 +496,8 @@ def decode_step(params: LM, cache: list[dict], tokens: torch.Tensor,
 
 def prefill_step(params: LM, batch: dict, cfg: ArchConfig,
                  flash_impl=None) -> torch.Tensor:
-    """Prefill: forward over the prompt, last-position logits (B,V)."""
-    return forward(params, batch, cfg, flash_impl)[:, -1]
+    """Prefill: forward over the prompt, last-position logits (B,V) (under
+    a tensor-parallel plan gathered over the vocabulary)."""
+    logits = forward(params, batch, cfg, flash_impl)[:, -1]
+    return tp.gather_model(logits, 1, False) if _vocab_split(params) \
+        else logits

@@ -782,16 +782,29 @@ def test_flash_attention_cuda_bf16_strided_wide(cuda, hd):
 
 
 @pytest.mark.cuda
+def test_flash_attention_cuda_padded_head_width(cuda):
+    """hd 80 (hubert's) runs the hd 96 instantiation on zero-padded heads
+    and equals the plain version at hd 80 within one bf16 rounding."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((2, 300, n, 80), generator=g).bfloat16()
+               for n in (8, 2, 2))
+    got = ops.flash_attention_op(q.to(cuda), k.to(cuda), v.to(cuda)).cpu()
+    assert got.shape == q.shape and got.is_contiguous()
+    assert _bf16_gate(got, flash.flash_attention_ref(q, k, v))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_attention_wide_heads_never_take_the_plain_version(
         cuda, monkeypatch, dtype):
-    """A CUDA tensor at hd 96 or 128 launches the kernel (the counter goes
-    up by one) and never reaches the plain version; a width the kernel
-    has no instantiation for raises before any launch."""
+    """A CUDA tensor at hd 96 or 128, or at a width padded to the next
+    instantiation (16, 80), launches the kernel (the counter goes up by
+    one) and never reaches the plain version; a width past the widest
+    instantiation raises before any launch."""
     monkeypatch.setattr(flash, "flash_attention_ref",
                         lambda *a, **kw: pytest.fail("plain version on a "
                                                      "card"))
-    for hd in (96, 128):
+    for hd in (96, 128, 16, 80):
         q = torch.zeros((1, 70, 4, hd), dtype=dtype, device=cuda)
         kv = torch.zeros((1, 70, 2, hd), dtype=dtype, device=cuda)
         launches = kbuild.LAUNCHES["flash_attention"]
@@ -799,11 +812,11 @@ def test_flash_attention_wide_heads_never_take_the_plain_version(
         torch.cuda.synchronize()
         assert kbuild.LAUNCHES["flash_attention"] == launches + 1
         assert out.shape == q.shape and bool((out == 0).all())
-    for hd in (16, 80, 256):
+    for hd in (136, 256):
         q = torch.zeros((1, 70, 4, hd), dtype=dtype, device=cuda)
         kv = torch.zeros((1, 70, 2, hd), dtype=dtype, device=cuda)
         launches = kbuild.LAUNCHES["flash_attention"]
-        with pytest.raises(ValueError, match="instantiated widths"):
+        with pytest.raises(ValueError, match="widest instantiation"):
             ops.flash_attention_op(q, kv, kv)
         assert kbuild.LAUNCHES["flash_attention"] == launches
 
@@ -1023,8 +1036,8 @@ def test_float_kernels_never_take_the_plain_version(cuda, monkeypatch):
                         lambda *a, **k: pytest.fail("plain version on a card"))
     monkeypatch.setattr(ssd, "ssd_chunked",
                         lambda *a, **k: pytest.fail("plain version on a card"))
-    q = torch.zeros((1, 5, 2, 48), device=cuda)
-    with pytest.raises(ValueError):     # head dim 48 is not instantiated
+    q = torch.zeros((1, 5, 2, 256), device=cuda)
+    with pytest.raises(ValueError):     # wider than any instantiation
         ops.flash_attention_op(q, q, q)
     x = torch.zeros((1, 192, 2, 16), device=cuda)
     bm = torch.zeros((1, 192, 8), device=cuda)

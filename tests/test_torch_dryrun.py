@@ -1,16 +1,18 @@
 """The port's dry run (``repro_torch.launch.dryrun`` through
 ``launch.farm``): one cell, TinyLlama-1.1B's train_4k on the (16, 16)
 production mesh of 256 fake ranks, in a subprocess (the fake process
-group lives for its process), as the reference's farm runs its cells.
+group lives for its process), as the reference's farm runs its cells;
+and an off-table cell on a (2, 4) mesh of 8 fake ranks, tensor-parallel
+against the same cell with every layer whole.
 
 The farm finds every other cell of the mesh already recorded and runs
 only this one (its resume path).  The record carries the reference's
 keys; its argument bytes equal the local shard bytes this test computes
 from the specs, exactly; the all-gathers move at least every sharded
-parameter's shard; the roofline is the step a rank runs (no tensor
-parallelism: the whole model on its batch shard of 16 x 4096 tokens),
-``roofline_terms`` of that shape on one card and the record's own
-collectives, beside the cell's 16 data shards and its model FLOPs.
+parameter's shard; the step is tensor-parallel over "model" (every layer
+splits: 2 of TinyLlama's 32 heads a rank) and its roofline is the
+reference's ``roofline_terms(cfg, shape, None, collectives, 256)``: the
+cell's work over every chip.
 """
 import json
 import os
@@ -87,9 +89,42 @@ def test_farm_runs_the_missing_cell(tmp_path):
     assert colls["reduce-scatter"]["count"] >= len(sharded)
     assert colls["total_bytes"] == sum(
         v["bytes"] for k, v in colls.items() if k != "total_bytes")
-    rank_shape = dict(configs.SHAPES["train_4k"], global_batch=256 // 16)
-    terms = roofline_terms(cfg, rank_shape, None, colls, 1)
-    terms.update(data_shards=16,
-                 model_flops_global=model_flops(cfg, "train_4k"))
+    assert rec["compute"] == "tensor_parallel" and rec["whole_layers"] == []
+    terms = roofline_terms(cfg, "train_4k", None, colls, 256)
     assert rec["roofline"] == json.loads(json.dumps(terms))
+    assert rec["roofline"]["model_flops_global"] \
+        == model_flops(cfg, "train_4k")
     assert rec["roofline"]["dominant"] == "compute"
+    assert rec["memory"]["tracked_peak_bytes"] < 45 * 2 ** 30
+
+
+def test_tensor_parallel_cell_against_replicated(tmp_path):
+    """TinyLlama-1.1B at 8 x 256 on a (2, 4) mesh: the tensor-parallel
+    step's roofline is the reference's over 8 chips, its compute a quarter
+    of the replicated step's (the whole model on a rank's 4 sequences, as
+    before tensor parallelism); its tracked peak sits below the whole
+    model's float32 parameters and gradients, which a replicated step
+    holds on every rank at once."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    arch, shape, mesh = "tinyllama-1.1b", "train:8:256", "host8"
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        "--arch", arch, "--shape", shape, "--mesh", mesh,
+                        "--out", str(tmp_path)], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr[-3000:]
+    name = f"{arch}__{shape}__{mesh}__baseline.json".replace(":", "-")
+    tp = json.loads((tmp_path / name).read_text())
+    assert tp["status"] == "OK" and tp["n_chips"] == 8
+    assert tp["compute"] == "tensor_parallel" and tp["whole_layers"] == []
+    cfg = configs.get_config(arch)
+    info = {"kind": "train", "global_batch": 8, "seq_len": 256}
+    assert tp["roofline"] == json.loads(json.dumps(roofline_terms(
+        cfg, info, None, tp["collectives"], 8)))
+    replicated = roofline_terms(cfg, dict(info, global_batch=4), None,
+                                tp["collectives"], 1)
+    # a "model" row's 4 ranks split the products: a quarter of the FLOPs
+    assert tp["roofline"]["compute_s"] < 0.3 * replicated["compute_s"]
+    params, _ = steps.abstract_state(cfg, info)
+    whole = sum(2 * 4 * p.numel() for p in params.parameters())
+    assert tp["memory"]["tracked_peak_bytes"] < whole, (
+        tp["memory"]["tracked_peak_bytes"], whole)

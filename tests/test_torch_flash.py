@@ -24,7 +24,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (check_aligned,
-                                                 flash_attention_ref)
+                                                 flash_attention_ref,
+                                                 pad_heads)
 from repro_torch.nn import attention as attn
 
 torch.set_num_threads(1)
@@ -82,6 +83,32 @@ def test_plain_flash_bf16_matches_reference_oracle():
     got = flash_attention_ref(*_t(q, k, v, dtype=torch.bfloat16))
     assert got.dtype == torch.bfloat16
     assert _within_bf16(got, want.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_head_route_matches_reference_oracle_at_hd80(dtype):
+    """The route B8 takes on the card at hd 80 (hubert's): q, k, v zero-
+    padded to 96, the true 1/sqrt(80) scale, the padding sliced off; run
+    through the plain version here, it equals the plain version and the
+    reference's oracle at hd 80 (float32 at the oracle's 2e-5, bf16
+    within one rounding)."""
+    q, k, v = _qkv(100, 4, 2, 80, 11)
+    tq, tk, tv = _t(q, k, v, dtype=dtype)
+    qp, kp, vp, scale = pad_heads(tq, tk, tv)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == 96
+    assert scale == 1 / math.sqrt(80)
+    got = flash_attention_ref(qp, kp, vp, scale=scale)[..., :80]
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    want = jref.flash_attention_ref(*_j(q, k, v, dtype=jdt))
+    if dtype == torch.float32:
+        assert np.abs(got.numpy() - np.asarray(want)).max() < 2e-5
+        assert float((got - flash_attention_ref(tq, tk, tv)).abs().max()) \
+            < 2e-6
+    else:
+        assert _within_bf16(got, want.astype(jnp.float32))
+    wide = torch.zeros((1, 4, 2, 136))
+    with pytest.raises(ValueError, match="widest instantiation"):
+        pad_heads(wide, wide, wide)
 
 
 def test_flash_op_on_cpu_runs_the_plain_version():

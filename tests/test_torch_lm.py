@@ -74,12 +74,9 @@ def _within_bf16(got: torch.Tensor, want) -> bool:
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_match_reference(arch):
     ours, ref = configs.get_config(arch), ref_config(arch)
-    theirs = {k: v for k, v in dataclasses.asdict(ref).items()
-              if k != "remat"}
-    assert dataclasses.asdict(ours) == theirs
+    assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
     assert dataclasses.asdict(ours.reduced()) == \
-        {k: v for k, v in dataclasses.asdict(ref.reduced()).items()
-         if k != "remat"}
+        dataclasses.asdict(ref.reduced())
     assert ours.param_count() == ref.param_count()
     assert ours.reduced().param_count() == ref.reduced().param_count()
     assert configs.SHAPES == REF_SHAPES

@@ -1,5 +1,6 @@
 """Rank tasks of the launcher parity tests (test_torch_compress.py,
-test_torch_moe_shardmap.py, test_torch_elastic.py).
+test_torch_moe_shardmap.py, test_torch_elastic.py,
+test_torch_tensor_parallel.py).
 
 A :class:`~repro_torch.core.party_group.PartyGroup` rank unpickles the
 task functions it runs by module, so they live here, in a module that
@@ -7,6 +8,9 @@ imports ``repro_torch`` and torch only (no rank imports JAX).  Each task
 is ``fn(state, *args)`` over the group's gloo ranks and returns CPU
 tensors and plain values.
 """
+import contextlib
+import json
+
 import torch
 
 from repro_torch.launch import mesh as mesh_lib
@@ -125,3 +129,163 @@ def restore_onto(state, ckpt_dir, cfg, shape):
     return ({k: v.full_tensor() for k, v in leaves.items()},
             {k: (str(v.placements), tuple(v.to_local().shape))
              for k, v in leaves.items()}, step)
+
+
+@contextlib.contextmanager
+def widths():
+    """The widths a rank computes inside the block: the q and kv heads of
+    each GQA call, the FFN columns of each MLP and the logits' columns."""
+    from repro_torch.nn import attention, layers, transformer
+    seen = {"q_heads": set(), "kv_heads": set(), "ffn": set(),
+            "vocab": set()}
+    attend, hidden, logits = (attention._attend, layers._hidden,
+                              transformer._logits)
+
+    def attend_w(q, k, *a):
+        seen["q_heads"].add(q.shape[2])
+        seen["kv_heads"].add(k.shape[2])
+        return attend(q, k, *a)
+
+    def hidden_w(*a):
+        out = hidden(*a)
+        seen["ffn"].add(out.shape[-1])
+        return out
+
+    def logits_w(*a):
+        out = logits(*a)
+        seen["vocab"].add(out.shape[-1])
+        return out
+    attention._attend, layers._hidden, transformer._logits = (
+        attend_w, hidden_w, logits_w)
+    try:
+        yield seen
+    finally:
+        attention._attend, layers._hidden, transformer._logits = (
+            attend, hidden, logits)
+
+
+def _sharded_lm(cfg, sd, plan):
+    from repro_torch.nn.transformer import LM
+    model = LM(cfg, device="cpu")
+    model.load_state_dict(sd)
+    mesh_lib.shard_params(model, plan)
+    return model
+
+
+def tp_train(state, cfg, shape, sd, batches, opt_cfg):
+    """``len(batches)`` tensor-parallel train steps of ``cfg`` from the
+    weights ``sd`` on a ("data", "model") mesh of ``shape`` (each rank its
+    data shard of every batch): (whole parameters, each step's (loss,
+    gradient norm), the widths computed)."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init
+    plan = mesh_lib.Plan(_mesh(state, shape, ("data", "model")))
+    model = _sharded_lm(cfg, sd, plan)
+    opt = mesh_lib.conform_opt(adamw_init(dict(model.named_parameters()),
+                                          opt_cfg), model, plan)
+    step = make_train_step(cfg, opt_cfg, plan)
+    metrics = []
+    with widths() as seen:
+        for b in batches:
+            model, opt, m = step(model, opt, mesh_lib.local_batch(b, plan))
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    whole = {k: mesh_lib.full(p).clone()
+             for k, p in model.named_parameters()}
+    return whole, metrics, {k: sorted(v) for k, v in seen.items()}
+
+
+def tp_prefill(state, cfg, shape, sd, batch):
+    """The tensor-parallel prefill step's last-position logits of this
+    rank's data shard of ``batch`` (and the shard's first row), and the
+    widths computed."""
+    from repro_torch.launch.steps import make_prefill_step
+    plan = mesh_lib.Plan(_mesh(state, shape, ("data", "model")))
+    model = _sharded_lm(cfg, sd, plan)
+    local = mesh_lib.local_batch(batch, plan)
+    with widths() as seen:
+        logits = make_prefill_step(cfg, None, plan)(model, local)
+    first = plan.mesh.get_local_rank("data") * next(iter(local.values())).shape[0]
+    return logits, first, {k: sorted(v) for k, v in seen.items()}
+
+
+def tp_dims(state, cfg, sd):
+    """Each parameter's "model" dim on a (1, 2) mesh as the tensor-parallel
+    step reads it: ``mesh.model_dim`` of the DTensor and ``TPState.dims``
+    of its local shard inside ``local_params``."""
+    from repro_torch.launch import tensor_parallel as tp
+    plan = mesh_lib.Plan(_mesh(state, (1, 2), ("data", "model")))
+    model = _sharded_lm(cfg, sd, plan)
+    dims = {k: mesh_lib.model_dim(p) for k, p in model.named_parameters()}
+    with tp.local_params(model, plan, 8) as (local, st):
+        used = {k: st.dims[id(v)] for k, v in local.items()}
+    return dims, used
+
+
+def tp_moe(state, sd, x):
+    """A "shardmap" MoE layer (``sd``) on a (1, 2) mesh two ways: under
+    tensor parallelism (the layer's "model" shards, this rank's sequence
+    slice of ``x`` in, its slice out) and on the mesh route (the whole
+    layer, the whole sequence, gathered out); each with the gradients of
+    its output's sum over the rank's slice with respect to the router and
+    the rank's own experts: [(y, grads)] for both."""
+    from repro_torch.launch import tensor_parallel as tp
+    from repro_torch.launch.context import use_plan
+    from repro_torch.nn import moe
+    plan = mesh_lib.Plan(_mesh(state, (1, 2), ("data", "model")))
+    j, s = plan.mesh.get_local_rank("model"), x.shape[1] // 2
+    own = slice(j * s, (j + 1) * s)
+    root = torch.nn.Module()
+    root.layers = torch.nn.ModuleList([torch.nn.Module()])
+    layer = moe.MoE(16, 32, 8, True, device="cpu")
+    layer.load_state_dict(sd)
+    root.layers[0].ffn = layer
+    xb = x.bfloat16()
+    run = dict(top_k=2, act="silu", gated=True, capacity_factor=8.0)
+    moe.set_moe_impl("shardmap")
+    try:
+        with use_plan(plan):
+            ps = [layer.router, layer.w_up, layer.w_gate, layer.w_down]
+            for t in ps:
+                t.requires_grad_(True)
+            y = moe.moe_ffn(layer, xb, **run)[:, own]
+            g = torch.autograd.grad(y.float().sum(), ps)
+            mesh_route = (y.detach().float(),
+                          [g[0]] + [t[j * 4:(j + 1) * 4] for t in g[1:]])
+            for t in ps:
+                t.requires_grad_(False)
+        mesh_lib.shard_params(root, plan)
+        with tp.local_params(root, plan, x.shape[1], grad=True) as (lv, _):
+            y = moe.moe_ffn(root.layers[0].ffn, xb[:, own], **run)
+            g = torch.autograd.grad(y.float().sum(), [
+                lv["layers.0.ffn." + k] for k in ("router", "w_up",
+                                                   "w_gate", "w_down")])
+            router = tp.gather_model(g[0], 1, False)
+    finally:
+        moe.set_moe_impl("dense")
+    return (y.detach().float(), [router] + list(g[1:])), mesh_route
+
+
+def count_collectives(arch: str, n_layers: int, shape, batch: int,
+                      seq: int, remat: bool) -> None:
+    """Prints (JSON) the collectives of one tensor-parallel loss and
+    gradient of the reduced ``arch`` at ``n_layers`` layers on ``meta``,
+    over a fake group of a ("data", "model") mesh of ``shape``: run in a
+    process of its own (the fake group lives for its process)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.nn import transformer as tfm
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=n_layers,
+                              remat=remat)
+    dryrun._fake_group(shape[0] * shape[1])
+    plan = mesh_lib.Plan(mesh_lib.make_mesh(shape, ("data", "model"),
+                                            "cpu"))
+    params = tfm.abstract_params(cfg)
+    mesh_lib.shard_params(params, plan)
+    info = {"kind": "train", "global_batch": batch, "seq_len": seq}
+    local = mesh_lib.local_batch(steps.input_specs(cfg, info), plan)
+    counter = dryrun.CollectiveCounter()
+    with counter:
+        steps._mesh_grads(params, local, cfg, plan)
+    print(json.dumps(counter.result()))
