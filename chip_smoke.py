@@ -332,16 +332,36 @@ Phases, each fatal on failure:
               tokens: paper3 / opt2 ring products exactly 1.5 (B5 launches
               18 / 12), the fused route on B1, each timed.  (8) The dry
               runs of
-              tinyllama-1.1b train_4k and deepseek-v3-671b decode_32k on
-              the (16, 16) mesh of 256 fake ranks and TinyLlama's 4 x 256
-              train step on the (1, 1) mesh, each a subprocess with a
-              timeout, on the host: their memory and roofline records
-              printed (the last beside (3)'s measured peak), not gated.
+              tinyllama-1.1b train_4k, deepseek-v3-671b decode_32k and
+              phi3-mini-3.8b decode_32k on the (16, 16) mesh of 256 fake
+              ranks and TinyLlama's 4 x 256 train step on the (1, 1)
+              mesh, each a subprocess with a timeout, on the host: their
+              memory and roofline records printed (the last beside (3)'s
+              measured peak), not gated.  (9) In (6)'s group, the layer
+              kinds split over "model" since PR 29: (a) TinyLlama-1.1B's
+              decode, full width and depth, 8 steps from a seeded 2 x
+              4,096 cache, pos on each rank's 2,048 positions in turn
+              and on both sides of the boundary, against the mesh-less
+              card decode: logits within 3% of scale, layer 0's written
+              cache rows within one bf16 ulp, every other layer's finite
+              (gap printed), every position no step wrote unchanged; (b)
+              Mamba2-1.3B at full width and 12 of 48 layers: the prefill
+              2 x 2,048 with each rank's scan on B9 over 32 of 64 heads
+              (exactly 12 launches a rank, each held to its plain
+              version's float64 evaluation), logits within 3% of the
+              mesh-less B9 prefill's; 4 decode steps from a seeded cache;
+              (c) deepseek-v2-236b at full width and 2 layers (1 dense,
+              1 MoE: 80 of 160 experts a rank), prefill 2 x 512 and 4
+              absorbed decode steps from a seeded 2 x 1,024 latent cache
+              on the mesh-less run's expert choices
+              (``moe.replay_routing``), logits within 3%.  Each part's
+              seconds, seconds in collectives and rank peaks printed.
 
 Prints the kernels' JSON line (twelve rows: the nine kernels, B5's batched
 entry and B1's and B2's pair entries, each with its launches by phase,
 phase 13's secure evaluations and phases 15's and 16's zoo among them;
-B8's launches are TinyLlama's 22, phase 15's 66 and pixtral-12b's 40),
+B8's launches are TinyLlama's 22, phase 15's 66, pixtral-12b's 40 and
+phase 17 (6)'s 44; B9's Mamba2's 48, jamba's 7 and phase 17 (9)'s 24),
 then the card's name and power limit, then the result line.  Exits
 non-zero without a result when no CUDA device is available or when the
 port's sources are not beside this script.
@@ -542,9 +562,24 @@ TP_TRAIN = dict(batch=4, seq=256, steps=2, warmup=3)
 TP_WIDTHS = {"q_heads": {16}, "kv_heads": {2}, "ffn": {2816},
              "vocab": {16000}}
 TP_LOGITS_TOL = 0.03       # phase 15's route gate, of the logits' scale
+# phase 17 (9): the decode step and the layer kinds split over "model" on
+# the same two ranks: TinyLlama-1.1B's decode from a seeded 2 x 4,096
+# cache, pos on each rank's 2,048 positions in turn and on both sides of
+# the boundary (inside (6)'s rank task); Mamba2-1.3B at full width and 12
+# of 48 layers (prefill 2 x 2,048, each rank's scan on B9 over 32 of 64
+# heads; decode from a seeded cache); deepseek-v2-236b at full width and
+# 2 layers (1 dense, 1 MoE: 80 of 160 experts a rank), prefill 2 x 512 and
+# absorbed decode from a seeded 2 x 1,024 latent cache, on the mesh-less
+# run's expert choices
+TP_DECODE = dict(batch=2, seq=4096,
+                 positions=(5, 2100, 2047, 2048, 1000, 3000, 0, 4095))
+TP_MAMBA = dict(layers=12, positions=(2047, 2048, 2049, 2050))
+TP_DEEPSEEK = dict(layers=2, batch=2, seq=512, cache=1024,
+                   positions=(511, 512, 513, 1023))
 SECURE_DRY = dict(tokens=2048, d=4096, d_ff=14336, reps=1)
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
                 ("deepseek-v3-671b", "decode_32k", "single"),
+                ("phi3-mini-3.8b", "decode_32k", "single"),
                 ("tinyllama-1.1b", "train:4:256", "one"))
 DRYRUN_TIMEOUT = 300
 # phase 15: the zoo at published widths: phi3-mini-3.8b and minitron-4b at
@@ -3699,13 +3734,187 @@ def leaf_grad_sums(cfg, batch: dict, plan, device) -> dict:
     return out
 
 
+def seeded_cache(cfg, batch: int, seq: int, device, seed: int) -> list:
+    """A decode cache of ``cfg`` on ``device``, every leaf N(0, 0.25) from
+    ``seed`` (the same on every rank of the card)."""
+    import torch
+    from repro_torch.nn.transformer import init_cache
+    cache = init_cache(cfg, batch, seq, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def fill(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                fill(v)
+            else:
+                v.copy_(torch.randn(v.shape, generator=g, device=device)
+                        * 0.5)
+    for c in cache:
+        fill(c)
+    return cache
+
+
+def lay_cache(cache: list, plan) -> list:
+    """A whole cache laid out on ``plan`` by ``cache_specs``."""
+    from repro_torch.launch import mesh as mesh_lib
+    specs = mesh_lib.cache_specs(cache, plan)
+
+    def lay(tree, spec):
+        return {k: lay(v, spec[k]) if isinstance(v, dict)
+                else mesh_lib.shard(v, plan, spec[k])
+                for k, v in tree.items()}
+    return [lay(c, sp) for c, sp in zip(cache, specs)]
+
+
+def decode_run(cfg, params, cache, positions, plan, device, seed: int,
+               mla_absorbed: bool = True) -> dict:
+    """``make_decode_step`` at each of ``positions`` in turn (tokens drawn
+    from ``seed``; mesh-less where ``plan`` is None, else each rank its
+    data shard): each step's float32 logits on the host, the cache, the
+    median step seconds and the seconds inside collectives."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_decode_step
+    step = make_decode_step(cfg, mla_absorbed, plan)
+    b = TP_DECODE["batch"]
+    g = torch.Generator().manual_seed(seed)
+    out = {"logits": [], "s": [], "coll_s": 0.0}
+    for pos in positions:
+        toks = torch.randint(0, cfg.vocab, (b, 1), generator=g,
+                             dtype=torch.int32).to(device)
+        if plan is not None:
+            toks = mesh_lib.local_batch({"tokens": toks}, plan)["tokens"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_seconds() as coll:
+            logits, cache = step(params, cache, {"tokens": toks, "pos": pos})
+        torch.cuda.synchronize()
+        out["s"].append(time.perf_counter() - t0)
+        out["coll_s"] += coll["s"]
+        out["logits"].append(logits.float().cpu())
+    out["cache"] = cache
+    out["step_s"] = statistics.median(out["s"][1:])
+    return out
+
+
+def written_rows(cache: list, positions, first: int = 0) -> dict:
+    """Each sequence leaf's rows at ``positions`` that lie in a cache (or
+    a rank's slice of it starting at position ``first``), on the host:
+    {(layer, leaf, pos): (B, ...) rows}."""
+    rows = {}
+    for i, layer in enumerate(cache):
+        for k, v in layer.items():
+            if k not in ("k", "v", "c_kv", "k_rope"):
+                continue
+            for pos in positions:
+                if first <= pos < first + v.shape[1]:
+                    rows[i, k, pos] = v[:, pos - first].float().cpu()
+    return rows
+
+
+def decode_gate(what: str, outs: list, key: str, ref: dict) -> None:
+    """Each rank's decode logits within TP_LOGITS_TOL of the mesh-less
+    run's scale; its written cache rows of layer 0 (whose input, the
+    embedded token, both runs share) within one bf16 ulp of the mesh-less
+    rows' scale, every other layer's finite and its gap printed (a deeper
+    layer's input carries the stream's roundings: TinyLlama's layer 20
+    read 3.05% of its scale); the rest of its cache slice untouched."""
+    worst_l = worst_r = worst_0 = 0.0
+    for r, o in enumerate(outs):
+        d = o[key]
+        for got, want in zip(d["logits"], ref["logits"]):
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            worst_l = max(worst_l, err / scale)
+            if not err <= TP_LOGITS_TOL * scale:
+                fail(f"{what} decode rank {r}: logits {err} off the "
+                     f"mesh-less decode's (scale {scale})")
+        for k, got in d["rows"].items():
+            want = ref["rows"][k]
+            scale = float(want.abs().max())
+            ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+            err = float((got - want).abs().max())
+            worst_r = max(worst_r, err / scale)
+            if k[0] == 0:
+                worst_0 = max(worst_0, err / ulp)
+            if not math.isfinite(err) or k[0] == 0 and not err <= ulp:
+                fail(f"{what} decode rank {r}: cache row {k} {err} off the "
+                     f"mesh-less row (one bf16 ulp {ulp})")
+        if not d["rest_same"]:
+            fail(f"{what} decode rank {r}: a cache position no step wrote "
+                 f"changed")
+    n_rows = sum(len(o[key]["rows"]) for o in outs)
+    print(f"[chip_smoke] tensor parallel {what} decode: logits max |err| "
+          f"{worst_l:.4g} of scale over {len(ref['logits'])} steps; "
+          f"{n_rows} written cache rows (of {len(ref['rows'])}) max "
+          f"{worst_r:.4g} of scale, layer 0's {worst_0:.3g} bf16 ulps; "
+          f"every other position unchanged; "
+          + "; ".join(f"rank {r} {o[key]['step_s']:.4f} s a step "
+                      f"(collectives "
+                      f"{o[key]['coll_s'] / len(ref['logits']):.4f} s), "
+                      f"peak {o[key]['peak'] / 2**30:.3f} GiB"
+                      for r, o in enumerate(outs))
+          + f"; mesh-less {ref['step_s']:.4f} s a step")
+
+
+def untouched(shards: list, whole: list, positions, plan) -> bool:
+    """Whether every sequence leaf of this rank's cache ``shards`` equals
+    the seeded ``whole`` cache's same slice away from ``positions``."""
+    import torch
+    from repro_torch.launch.steps import _cache_shards
+    mine = _cache_shards(shards, plan)
+    same = True
+    for got, ref in zip(mine, lay_cache(whole, plan)):
+        for k, v in got.items():
+            if k not in ("k", "v", "c_kv", "k_rope"):
+                continue
+            first = plan.mesh.get_local_rank("model") * v.shape[1]
+            keep = [i for i in range(v.shape[1])
+                    if first + i not in positions]
+            same &= torch.equal(v[:, keep], ref[k].to_local()[:, keep])
+    return same
+
+
+def tp_decode_part(state, cfg, params, plan, c: dict, seed: int,
+                   mla_absorbed: bool = True) -> dict:
+    """A rank's tensor-parallel decode of ``c["positions"]`` from the
+    seeded cache ``seed`` (``params`` already sharded): logits, its written
+    rows, whether the rest is untouched, step seconds, seconds in
+    collectives and its peak."""
+    import torch
+    from repro_torch.launch.steps import _cache_shards
+    dev = state["device"]
+    torch.cuda.reset_peak_memory_stats()
+    whole = seeded_cache(cfg, TP_DECODE["batch"], c["seq"], dev, seed)
+    run = decode_run(cfg, params, lay_cache(whole, plan), c["positions"],
+                     plan, dev, seed, mla_absorbed)
+    first = plan.mesh.get_local_rank("model") * c["seq"] // plan.model_size
+    rows = written_rows(_cache_shards(run["cache"], plan), c["positions"],
+                        first)
+    rest = untouched(run.pop("cache"), whole, c["positions"], plan)
+    del whole
+    return dict(run, rows=rows, rest_same=rest,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def ref_decode_part(cfg, params, c: dict, device, seed: int,
+                    mla_absorbed: bool = True) -> dict:
+    """The mesh-less decode of ``tp_decode_part``'s steps."""
+    cache = seeded_cache(cfg, TP_DECODE["batch"], c["seq"], device, seed)
+    run = decode_run(cfg, params, cache, c["positions"], None, device, seed,
+                     mla_absorbed)
+    run["rows"] = written_rows(run.pop("cache"), c["positions"])
+    return run
+
+
 def tp_rank_task(state, c: dict) -> dict:
     """Phase 17 (6) on one rank of a (1, 2) mesh: TinyLlama-1.1B's
     tensor-parallel prefill step on B8 (a warm call, then one counted and
-    timed), its shares of every leaf's first-step gradient against the
-    mesh-less one (:func:`leaf_grad_sums`) and ``c["steps"]``
-    tensor-parallel train steps, the seconds in collectives beside; rank 0
-    also runs the mesh-less B8 prefill and train steps and the gaps."""
+    timed), its decode steps (9a: :func:`tp_decode_part`), its shares of
+    every leaf's first-step gradient against the mesh-less one
+    (:func:`leaf_grad_sums`) and ``c["steps"]`` tensor-parallel train
+    steps, the seconds in collectives beside; rank 0 also runs the
+    mesh-less B8 prefill, decode and train steps and the gaps."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data import token_stream
@@ -3735,7 +3944,10 @@ def tp_rank_task(state, c: dict) -> dict:
         step(params, batch)
         ref, out["ref_prefill_s"] = timed(lambda: step(params, batch))
         out["ref_logits"] = ref.float().cpu()
+        # (9a): the mesh-less decode on the card
+        out["ref_decode"] = ref_decode_part(cfg, params, TP_DECODE, dev, 11)
     mesh_lib.shard_params(params, plan)
+    out["decode"] = tp_decode_part(state, cfg, params, plan, TP_DECODE, 11)
     step = make_prefill_step(cfg, kops.flash_attention_op, plan)
     step(params, batch)                   # the first call sets up
     kbuild.reset_launches()
@@ -3786,23 +3998,220 @@ def tp_rank_task(state, c: dict) -> dict:
     return out
 
 
+def mamba_prefill_b9(cfg, params, tokens, plan=None) -> tuple:
+    """Mamba2's prefill with every layer's scan on B9 (each launch held to
+    the plain version's float64 evaluation of its inputs within
+    SSD_REL_TOL of max |y|), tensor-parallel where ``plan`` is given (the
+    stream the rank's sequence slice, each scan on its H/m heads): the
+    last position's logits (B, V) and the worst launch's error over max
+    |y|."""
+    import torch
+    from repro_torch.kernels import ssd
+    from repro_torch.launch import tensor_parallel as tp
+    from repro_torch.launch.context import use_plan
+    from repro_torch.nn import ssm
+    from repro_torch.nn import transformer as tfm
+    from repro_torch.nn.layers import apply_norm
+    worst = 0.0
+    ctx = contextlib.nullcontext() if plan is None else contextlib.ExitStack()
+    with torch.no_grad(), ctx:
+        if plan is not None:
+            ctx.enter_context(tp.local_params(params, plan, tokens.shape[1]))
+            ctx.enter_context(use_plan(plan))
+        h = tfm._embed_stream(params, tokens)
+        for lp in params.layers:
+            hin = apply_norm(cfg.norm, lp.norm1, h)
+            z, x, bm, cm, da, dt = ssm.ssd_inputs(lp.mamba, hin, cfg)
+            ins = (x.float(), bm.float(), cm.float(), da, dt)
+            y = ssd.ssd_scan(*ins, chunk=ssm.CHUNK)
+            want = ssd.ssd_chunked(*ins, ssm.CHUNK, dtype=torch.float64)[0]
+            scale = float(want.abs().max())
+            err = float((y.double() - want).abs().max()) / scale
+            worst = max(worst, err)
+            if not err <= SSD_REL_TOL:
+                fail(f"Mamba2 prefill on B9 at {tuple(x.shape)}: kernel != "
+                     f"plain version (float64) by {err:.3g} of max |y|")
+            h = h + ssm.ssd_output(lp.mamba, y, x, z, cfg)
+        h = apply_norm(cfg.norm, params.final_norm, h)
+        logits = tfm._logits(params, h)[:, -1]
+        if plan is not None and tfm._vocab_split(params):
+            logits = tp.gather_model(logits, 1, False)
+    return logits.float().cpu(), worst
+
+
+def tp_kinds_task(state, c: dict) -> dict:
+    """Phase 17 (9b, 9c) on one rank of the (1, 2) mesh: Mamba2-1.3B at
+    12 layers (the B9 prefill, counted and timed; decode) and
+    deepseek-v2-236b at 2 layers (prefill; absorbed decode), each
+    tensor-parallel on the mesh-less run's inputs; rank 0 runs the
+    mesh-less card runs first, and deepseek's replay the expert choices
+    rank 0 recorded (broadcast to every rank)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.nn import moe
+    from repro_torch.nn.transformer import init_params
+
+    dev = state["device"]
+    plan = mesh_lib.Plan(rank_mesh(state, (1, 2)))
+    out = {"device": str(dev)}
+
+    def cut(arch, n):
+        full = get_config(arch)
+        return dataclasses.replace(full, name=f"{full.name}-{n}L",
+                                   n_layers=n)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_seconds() as coll:
+            r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0, coll["s"]
+
+    # (9b) Mamba2-1.3B
+    cfg = cut("mamba2-1.3b", TP_MAMBA["layers"])
+    tokens = lm_tokens(cfg.vocab).to(dev)
+    dec = dict(seq=LM_SEQ + 8, positions=TP_MAMBA["positions"])
+    params = init_params(cfg, 0, dev)
+    if state["rank"] == 0:
+        mamba_prefill_b9(cfg, params, tokens)          # warm
+        (out["mamba_ref"], _), out["mamba_ref_s"], _ = timed(
+            lambda: mamba_prefill_b9(cfg, params, tokens))
+        out["mamba_ref_decode"] = ref_decode_part(cfg, params, dec, dev, 12)
+    mesh_lib.shard_params(params, plan)
+    mamba_prefill_b9(cfg, params, tokens, plan)        # warm
+    kbuild.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    (out["mamba_logits"], out["mamba_b9_err"]), out["mamba_s"], \
+        out["mamba_coll_s"] = timed(
+            lambda: mamba_prefill_b9(cfg, params, tokens, plan))
+    out["mamba_launches"] = {k: v for k, v in kbuild.LAUNCHES.items() if v}
+    out["mamba_peak"] = torch.cuda.max_memory_allocated()
+    out["mamba_decode"] = tp_decode_part(state, cfg, params, plan, dec, 12)
+    del params
+    torch.cuda.empty_cache()
+
+    # (9c) deepseek-v2-236b, the mesh-less expert choices replayed
+    cfg = cut("deepseek-v2-236b", TP_DEEPSEEK["layers"])
+    dsc = dict(seq=TP_DEEPSEEK["cache"], positions=TP_DEEPSEEK["positions"])
+    toks = torch.randint(0, cfg.vocab, (TP_DEEPSEEK["batch"],
+                                        TP_DEEPSEEK["seq"]),
+                         generator=torch.Generator().manual_seed(13)).to(dev)
+    choices = [None, None]
+    if state["rank"] == 0:
+        params = init_params(cfg, 0, dev)
+        step = make_prefill_step(cfg)
+        with moe.record_routing() as calls:
+            ref, out["ds_ref_s"], _ = timed(
+                lambda: step(params, {"tokens": toks}))
+        out["ds_ref"] = ref.float().cpu()
+        choices[0] = [t[0].cpu() for t in calls]
+        with moe.record_routing() as calls:
+            out["ds_ref_decode"] = ref_decode_part(cfg, params, dsc, dev, 14)
+        choices[1] = [t[0].cpu() for t in calls]
+        del params, step, ref
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(choices, src=0)
+    params = init_params(cfg, 0, dev)
+    mesh_lib.shard_params(params, plan)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_prefill_step(cfg, None, plan)
+    with moe.replay_routing(list(choices[0])) as changed:
+        got, out["ds_s"], out["ds_coll_s"] = timed(
+            lambda: step(params, {"tokens": toks}))
+    out["ds_logits"], out["ds_changed"] = got.float().cpu(), sum(changed)
+    out["ds_peak"] = torch.cuda.max_memory_allocated()
+    out["ds_experts"] = params.layers[1].ffn.w_up.to_local().shape[0]
+    with moe.replay_routing(list(choices[1])) as changed:
+        out["ds_decode"] = tp_decode_part(state, cfg, params, plan, dsc, 14)
+    out["ds_decode_changed"] = sum(changed)
+    del params, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def kinds_phase(grp) -> dict:
+    """Phase 17 (9b, 9c) on the group's two ranks (:func:`tp_kinds_task`)
+    and its gates; returns the ranks' B9 launches, summed."""
+    import torch
+    t0 = time.perf_counter()
+    outs = grp.run(tp_kinds_task, (None,))
+    ref = outs[0]
+    launches: dict = {}
+    for r, o in enumerate(outs):
+        if not o["device"].startswith("cuda"):
+            fail(f"phase 17 (9) rank {r} ran on {o['device']}")
+        want = {"ssd_scan": TP_MAMBA["layers"]}
+        if o["mamba_launches"] != want:
+            fail(f"tensor-parallel Mamba2 rank {r}: launched "
+                 f"{o['mamba_launches']}, want {want}")
+        for what, got, ref_l in (("Mamba2", o["mamba_logits"],
+                                  ref["mamba_ref"]),
+                                 ("deepseek-v2", o["ds_logits"],
+                                  ref["ds_ref"])):
+            err = float((got - ref_l).abs().max())
+            scale = float(ref_l.abs().max())
+            if not err <= TP_LOGITS_TOL * scale \
+                    or not bool(torch.isfinite(got).all()):
+                fail(f"tensor-parallel {what} prefill rank {r}: logits "
+                     f"{err} off the mesh-less card run's (scale {scale})")
+            print(f"[chip_smoke] tensor parallel rank {r}, {what} prefill "
+                  f"vs the mesh-less card run: max |err| {err:.4g} of "
+                  f"scale {scale:.4g}")
+        if o["ds_experts"] != 80:
+            fail(f"deepseek-v2 rank {r} holds {o['ds_experts']} experts, "
+                 f"want 80 of 160")
+        for k, v in o["mamba_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[chip_smoke] tensor parallel rank {r}: Mamba2-1.3B "
+              f"{TP_MAMBA['layers']} layers prefill {LM_BATCH} x {LM_SEQ} "
+              f"with B9 on 32 of 64 heads {o['mamba_s']:.4f} s "
+              f"(collectives {o['mamba_coll_s']:.4f} s; mesh-less "
+              f"{ref['mamba_ref_s']:.4f} s), launches "
+              f"{o['mamba_launches']}, each launch vs float64 max "
+              f"{o['mamba_b9_err']:.3g} of max |y|, peak "
+              f"{o['mamba_peak'] / 2**30:.3f} GiB; deepseek-v2-236b "
+              f"{TP_DEEPSEEK['layers']} layers ({o['ds_experts']} of 160 "
+              f"experts) prefill {TP_DEEPSEEK['batch']} x "
+              f"{TP_DEEPSEEK['seq']} {o['ds_s']:.4f} s (collectives "
+              f"{o['ds_coll_s']:.4f} s; mesh-less {ref['ds_ref_s']:.4f} s), "
+              f"peak {o['ds_peak'] / 2**30:.3f} GiB, tokens whose own top-k "
+              f"differs from the replayed choice: prefill {o['ds_changed']}"
+              f", decode {o['ds_decode_changed']}")
+    decode_gate("Mamba2-1.3B", outs, "mamba_decode", ref["mamba_ref_decode"])
+    decode_gate("deepseek-v2-236b (absorbed)", outs, "ds_decode",
+                ref["ds_ref_decode"])
+    print(f"[chip_smoke] tensor parallel (9b, 9c) "
+          f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def tensor_parallel_phase() -> dict:
-    """Phase 17 (6): TinyLlama-1.1B at full width, tensor-parallel over
-    the two ranks of a (1, 2) mesh on the card: the prefill step with B8
-    on each rank's 16 heads (exactly 22 launches a rank a step, the
+    """Phase 17 (6) and (9): TinyLlama-1.1B at full width, tensor-parallel
+    over the two ranks of a (1, 2) mesh on the card: the prefill step with
+    B8 on each rank's 16 heads (exactly 22 launches a rank a step, the
     last-position logits within TP_LOGITS_TOL of the mesh-less B8
     prefill's scale), each leaf's first-step gradient (its norm within
     GNORM_TOL, the difference within LEAF_GRAD_TOL of its norm) and the
     train step against the mesh-less one (loss, gradient norm,
-    parameters); each rank's widths at half.  Returns the ranks'
-    launches, summed."""
+    parameters); each rank's widths at half; the decode step (9a) and,
+    in the same group, Mamba2 and deepseek-v2 (9b, 9c:
+    :func:`kinds_phase`).  Returns the ranks' launches, summed."""
     from repro_torch.core.party_group import PartyGroup
 
     t0 = time.perf_counter()
     c = TP_TRAIN
-    with PartyGroup("cuda", timeout=300, deadline=600, ranks=2) as grp:
+    with PartyGroup("cuda", timeout=300, deadline=900, ranks=2) as grp:
         outs = grp.run(tp_rank_task, (c,))
+        kinds = kinds_phase(grp)
     ref = outs[0]
+    decode_gate("TinyLlama-1.1B", outs, "decode", ref["ref_decode"])
     scale = float(ref["ref_logits"].abs().max())
     launches: dict = {}
     for r, o in enumerate(outs):
@@ -3868,6 +4277,8 @@ def tensor_parallel_phase() -> dict:
     if not err <= RESUME_TOL or not loss_err < RESUME_LOSS_TOL \
             or not gn_err <= GNORM_TOL:
         fail("the tensor-parallel train step differs from the mesh-less one")
+    for k, v in kinds.items():
+        launches[k] = launches.get(k, 0) + v
     print(f"[chip_smoke] tensor parallel {time.perf_counter() - t0:.1f} s")
     return launches
 

@@ -19,10 +19,15 @@ runs the port's own step on them:
   shards;
 * prefill: ``launch.steps.make_prefill_step(..., plan=plan)``, the same
   tensor-parallel forward on this rank's batch shard;
-* decode: the whole parameters gathered and the step run on this rank's
-  batch shard (its cache shard's sequence gathered over "model" and
-  written back): replicated compute, a "model" row's ranks repeating one
-  step.
+* decode: ``launch.steps.make_decode_step(..., plan=plan)`` on this
+  rank's cache shards (``cache_specs``: its batch shard's S/m positions,
+  Mamba-2's H/m heads and C/m conv channels): each layer on its "model"
+  shard, the token's projections and the attention's softmax combined
+  over "model", nothing of the cache gathered.
+
+Every layer kind splits (GQA, MLA and Mamba-2 by heads, MLP columns, MoE
+experts); ``--no-remat`` (the reference's flag) runs the cell with
+``cfg.remat`` off.
 
 Only the plain versions of the kernels' products run on ``meta``: no
 kernel runs in a dry run.
@@ -36,10 +41,11 @@ peak that ``torch.distributed._tools.mem_tracker.MemTracker`` reads),
 rank's collectives, the keys of the reference's
 ``collective_bytes_from_hlo``), ``roofline`` and ``step_s`` (the
 reference's ``lower_s`` / ``compile_s``: the host seconds of the meta
-step); and ``compute``: "tensor_parallel" where every layer of a train
-or prefill step splits over "model", else "replicated" (decode; a cell
-with MLA or Mamba-2 layers, or heads or FFN columns that do not split),
-with ``whole_layers``, the kinds of the layers that ran whole.  The
+step); and ``compute``: "tensor_parallel" where every layer of the step
+splits over "model", else "replicated" (heads or FFN columns that ``m``
+does not divide, such as minitron-4b's 24 heads over 16 ranks in train
+and prefill, or MLA's naive decode route), with ``whole_layers``, the
+kinds of the layers that ran whole.  The
 roofline of a tensor-parallel cell is the reference's
 ``roofline_terms(cfg, shape, None, collectives, n_chips)``: the cell's
 work over every chip.  A replicated cell's is one rank's step
@@ -177,12 +183,6 @@ def _locals(tree) -> list:
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
-def _whole_params(params):
-    from torch.nn.utils.stateless import _reparametrize_module
-    whole = {k: p.full_tensor() for k, p in params.named_parameters()}
-    return _reparametrize_module(params, whole)
-
-
 def _cache_on_plan(cfg, info, plan):
     """The decode cache as DTensors by ``cache_specs``."""
     from ..nn import transformer as tfm
@@ -194,44 +194,13 @@ def _cache_on_plan(cfg, info, plan):
         return {k: lay(v, spec[k]) if isinstance(v, dict)
                 else mesh_lib.shard(v, plan, spec[k])
                 for k, v in tree.items()}
-    return [lay(c, s) for c, s in zip(cache, specs)], specs
-
-
-def _decode(params, cache, specs, batch, cfg, plan):
-    """One mesh decode step: this rank's batch shard of the cache with its
-    whole sequence, the step, the cache written back to its layout."""
-    from torch.distributed.tensor import DTensor
-
-    from ..nn import transformer as tfm
-
-    def batch_only(spec):
-        return tuple(ax if i == 0 else None for i, ax in enumerate(spec))
-
-    def gather(tree, spec):
-        return {k: gather(v, spec[k]) if isinstance(v, dict)
-                else v.redistribute(plan.mesh, plan.placements(
-                    batch_only(spec[k]))).to_local()
-                for k, v in tree.items()}
-
-    def scatter(tree, like, spec):
-        return {k: scatter(v, like[k], spec[k]) if isinstance(v, dict)
-                else DTensor.from_local(
-                    v, plan.mesh, plan.placements(batch_only(spec[k])),
-                    run_check=False).redistribute(plan.mesh,
-                                                  like[k].placements)
-                for k, v in tree.items()}
-    local = [gather(c, s) for c, s in zip(cache, specs)]
-    with _whole_params(params), torch.no_grad():
-        logits, local = tfm.decode_step(params, local, batch["tokens"], 0,
-                                        cfg)
-    return logits, [scatter(c, like, s)
-                    for c, like, s in zip(local, cache, specs)]
+    return [lay(c, s) for c, s in zip(cache, specs)]
 
 
 def dryrun_cell(arch: str, shape: str, mesh_kind: str,
                 variant: str = "baseline", dispatch: str | None = None,
                 ssd_chunk: int = 0, opt_state_dtype: str = "",
-                moe_impl: str = "") -> dict:
+                moe_impl: str = "", no_remat: bool = False) -> dict:
     import dataclasses
 
     from torch.distributed._tools.mem_tracker import MemTracker
@@ -251,6 +220,8 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
     cfg = get_config(arch)
     if ssd_chunk:
         cfg = dataclasses.replace(cfg, ssd_chunk=ssd_chunk)
+    if no_remat:
+        cfg = dataclasses.replace(cfg, remat=False)
     name, info = parse_shape(shape)
     rec = {"arch": arch, "shape": name, "mesh": mesh_kind,
            "variant": variant, "ts": time.time()}
@@ -270,7 +241,7 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
     params = tfm.abstract_params(cfg)
     mesh_lib.shard_params(params, plan)
     full = steps_lib.input_specs(cfg, info)
-    full.pop("pos", None)            # the decode step writes position 0
+    full.pop("pos", None)
     batch = mesh_lib.local_batch(full, plan)
     aux = None
     if kind == "train":
@@ -278,7 +249,7 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
             adamw_init(dict(params.named_parameters()), opt_cfg), params,
             plan)
     elif kind == "decode":
-        aux, c_specs = _cache_on_plan(cfg, info, plan)
+        aux = _cache_on_plan(cfg, info, plan)
     arg_bytes = _local_bytes(dict(params.named_parameters())) \
         + _local_bytes(aux) + _local_bytes(batch)
 
@@ -295,12 +266,12 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
             logits = steps_lib.make_prefill_step(cfg, plan=plan)(params,
                                                                   batch)
             out_bytes = _nbytes(logits)
-        else:
-            logits, aux = _decode(params, aux, c_specs, batch, cfg, plan)
+        else:           # the step writes position 0
+            step = steps_lib.make_decode_step(cfg, plan=plan)
+            logits, aux = step(params, aux, dict(batch, pos=0))
             out_bytes = _nbytes(logits)
     step_s = time.time() - t0
-    ran_whole = ["all"] if kind == "decode" \
-        else sorted(tp.last().replicated)
+    ran_whole = sorted(tp.last().replicated)
     peak = sum(v["Total"] for v in
                tracker.get_tracker_snapshot("peak").values())
     colls = counter.result()
@@ -344,6 +315,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--opt-dtype", default="", choices=["", "fp32", "int8"])
     ap.add_argument("--moe-impl", default="", choices=["", "dense",
                                                        "shardmap"])
+    ap.add_argument("--no-remat", action="store_true",
+                    help="run the cell with cfg.remat off")
     ap.add_argument("--out", default="dryrun_results")
     args = ap.parse_args(argv)
 
@@ -355,7 +328,7 @@ def main(argv=None) -> dict:
         rec = dryrun_cell(args.arch, args.shape, args.mesh, args.variant,
                           dispatch=args.dispatch, ssd_chunk=args.ssd_chunk,
                           opt_state_dtype=args.opt_dtype,
-                          moe_impl=args.moe_impl)
+                          moe_impl=args.moe_impl, no_remat=args.no_remat)
     except Exception as e:  # noqa: BLE001 (a failed cell is a record)
         rec = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,
                "variant": args.variant, "status": "FAIL",

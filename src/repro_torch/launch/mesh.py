@@ -325,16 +325,23 @@ def _host_twin(mesh):
 
 def redistribute(x, placements):
     """The DTensor ``x`` laid out by ``placements`` (the collectives every
-    rank joins).  On a CUDA mesh over gloo (ranks sharing one card: NCCL
-    refuses them) the shards move as host copies: torch's functional
-    collectives, which DTensor uses, crash the ranks on CUDA tensors over
-    gloo."""
+    rank joins).  Where they differ only on mesh dims of one rank, the
+    local tensor is already the answer and nothing moves.  On a CUDA mesh
+    over gloo (ranks sharing one card: NCCL refuses them) the shards move
+    as host copies: torch's functional collectives, which DTensor uses,
+    crash the ranks on CUDA tensors over gloo."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     mesh = x.device_mesh
     placements = tuple(placements)
     if placements == tuple(x.placements):
         return x
+    if all(a == b or mesh.size(i) == 1 for i, (a, b) in
+           enumerate(zip(x.placements, placements))):
+        # only mesh dims of one rank differ: the same local tensor
+        return DTensor.from_local(x.to_local(), mesh, placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
     if mesh.device_type != "cuda" \
             or dist.get_backend(mesh.get_group(0)) != dist.Backend.GLOO:
         return x.redistribute(mesh, placements)

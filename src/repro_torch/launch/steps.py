@@ -184,12 +184,66 @@ def make_prefill_step(cfg: ArchConfig, flash_impl=None, plan=None):
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig, mla_absorbed: bool = True):
+def _cache_shards(cache, plan) -> list:
+    """This rank's shards of a cache of DTensors laid out by
+    ``mesh.cache_specs`` (plain tensors; the in-place writes of a decode
+    step land in the DTensors' storage).  A sequence leaf (k, v, c_kv,
+    k_rope) must be split over "model" where "model" has more than one
+    rank: a decode step attends over its rank's slice of positions."""
+    from . import mesh as mesh_lib
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+                continue
+            if plan.model_size > 1 and k in ("k", "v", "c_kv", "k_rope") \
+                    and mesh_lib.model_dim(v) != 1:
+                raise ValueError(
+                    f"cache leaf {k} {tuple(v.shape)}: its sequence does not "
+                    f"split over {plan.model_size} model ranks")
+            out[k] = v.to_local()
+        return out
+    return [walk(c) for c in cache]
+
+
+def _cache_like(local: list, cache: list) -> list:
+    """The step's new shards as DTensors laid out as ``cache``."""
+    from torch.distributed.tensor import DTensor
+
+    def walk(tree, like):
+        return {k: walk(v, like[k]) if isinstance(v, dict)
+                else DTensor.from_local(v, like[k].device_mesh,
+                                        like[k].placements, run_check=False,
+                                        shape=like[k].shape,
+                                        stride=like[k].stride())
+                for k, v in tree.items()}
+    return [walk(t, c) for t, c in zip(local, cache)]
+
+
+def make_decode_step(cfg: ArchConfig, mla_absorbed: bool = True,
+                     plan=None):
     """``serve_step(params, cache, {"tokens": (B,1), "pos": int}) ->
     (logits (B,1,V), cache)``; MLA layers decode absorbed (the default)
-    or naive."""
+    or naive.  With a ``plan`` the parameters are DTensors by
+    ``mesh.param_specs``, the cache DTensors by ``mesh.cache_specs`` and
+    "tokens" this rank's data shard: the step runs tensor-parallel over
+    "model" on the rank's parameter and cache shards (each rank attends
+    over its S/m positions; the owner of ``pos`` writes them) and returns
+    the shard's logits, whole over the vocabulary, and the cache in its
+    layout."""
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        return tfm.decode_step(params, cache, batch["tokens"], batch["pos"],
-                               cfg, mla_absorbed=mla_absorbed)
+        if plan is None:
+            return tfm.decode_step(params, cache, batch["tokens"],
+                                   batch["pos"], cfg,
+                                   mla_absorbed=mla_absorbed)
+        from . import tensor_parallel as tp
+        from .context import use_plan
+        with tp.local_params(params, plan, 1), use_plan(plan):
+            logits, local = tfm.decode_step(
+                params, _cache_shards(cache, plan), batch["tokens"],
+                batch["pos"], cfg, mla_absorbed=mla_absorbed)
+        return logits, _cache_like(local, cache)
     return serve_step

@@ -1,30 +1,42 @@
 """Tensor- and sequence-parallel compute over a plan's "model" axis.
 
-The reference gets this from XLA: ``repro/launch/dryrun.py:69-90`` jits
+The reference gets this from XLA: ``repro/launch/dryrun.py:69-91`` jits
 the train, prefill and decode steps with ``in_shardings`` from
-``param_specs``, and GSPMD splits every column- and row-sharded product
-over "model"; ``repro/nn/transformer.py:207,216`` keeps the residual
-stream sharded over the sequence between layers (``shard_hint(h, "batch",
-"seq", None)``, "seq" -> "model" in ``launch/context.py``) and ``:225``,
-``:258`` keep the logits sharded over the vocabulary.  The port writes the
-same program out by hand (Megatron-style sequence parallelism) on plain
-local tensors:
+``param_specs`` and ``cache_specs``, and GSPMD splits every column- and
+row-sharded product over "model"; ``repro/nn/transformer.py:207,216``
+keeps the residual stream sharded over the sequence between layers
+(``shard_hint(h, "batch", "seq", None)``, "seq" -> "model" in
+``launch/context.py``) and ``:225``, ``:258`` keep the logits sharded over
+the vocabulary.  The port writes the same program out by hand
+(Megatron-style sequence parallelism) on plain local tensors:
 
 * :func:`local_params` replaces every parameter of the ``LM`` by its
   "model" shard (``mesh.model_shard``: the "data" dims gathered, FSDP
   storage), and makes the tensor-parallel plan the one in use;
 * the residual stream between layers is this rank's slice of the
   sequence (``S / m`` positions of its data shard) where ``m`` divides S
-  (``TPState.sp``); else it is whole on every rank of the row;
+  (``TPState.sp``); else (a decode step's one token) it is whole on every
+  rank of the row, and :func:`enter` / :func:`leave` reduce to
+  :func:`copy_to_model` / :func:`reduce_from_model`;
 * a tensor-parallel layer enters with :func:`enter` (the sequence
   all-gathered; in backward its cotangents reduce-scattered), runs its
-  column products on the local columns (q heads, FFN columns) and leaves
-  with :func:`leave` (the row product's float32 partial sums
-  reduce-scattered over the sequence; in backward all-gathered);
-* a layer that does not split (MLA, Mamba-2, heads or ``d_ff`` that ``m``
-  does not divide, the dense MoE dispatch) runs whole on the whole
-  sequence with its weights gathered over "model" (:func:`replicated`:
-  the row's ranks repeat its work, as every rank did before this module);
+  column products on the local columns (q heads, FFN columns, Mamba-2
+  heads, experts) and leaves with :func:`leave` (the row product's
+  float32 partial sums reduce-scattered over the sequence; in backward
+  all-gathered);
+* a weight whose storage split does not line up with the layer's heads
+  (MLA's latent projections, Mamba-2's fused ``w_in`` and ``conv_w``) is
+  taken whole in train and prefill (:func:`whole`: gathered, its
+  gradient reduce-scattered back) and cut to the rank's columns
+  (:func:`block`); in decode the token's products are gathered instead
+  (:func:`columns`: an activation, never a weight);
+* decode attends over the cache's sequence slice (``cache_specs``: S/m
+  positions a rank) for every head and combines the softmax over "model"
+  (:func:`softmax_combine`: one max and one sum);
+* a layer that does not split (heads that ``m`` does not divide, MLA's
+  naive decode) runs whole on the whole sequence with its weights
+  gathered over "model" (:func:`replicated`: the row's ranks repeat its
+  work), and the dry run records its kind;
 * norms run on the sequence slice; their weights pass :func:`on_shard`
   (identity, their gradient all-reduced over "model" in backward).
 
@@ -55,6 +67,7 @@ __all__ = ["TPState", "current", "last", "local_params",
            "reduce_scatter_seq", "gather_model", "enter", "leave",
            "enter_whole", "leave_whole", "on_shard", "sliced", "split",
            "whole", "whole_module", "replicated", "max_over_model",
+           "sum_over_model", "softmax_combine", "columns", "block",
            "stream_len"]
 
 
@@ -254,10 +267,48 @@ class _ReduceScatter(torch.autograd.Function):
             None
 
 
+class _Sum(torch.autograd.Function):
+    """All-reduce in forward and in backward: a sum of the ranks' partial
+    values that each rank then uses on its own columns."""
+    @staticmethod
+    def forward(ctx, x, st):
+        ctx.st = st
+        return _all_reduce(x, st)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.st), None
+
+
 def max_over_model(x):
     """The elementwise maximum over "model" (no gradient)."""
     import torch.distributed as dist
     return _all_reduce(x.detach(), _STATE, dist.ReduceOp.MAX)
+
+
+def sum_over_model(x):
+    """The elementwise sum over "model" of the ranks' partial values (a
+    norm's sum of squares over columns split across the ranks); in
+    backward the cotangents summed too, each rank having used the sum on
+    its own columns."""
+    return _Sum.apply(x, _STATE)
+
+
+def softmax_combine(scores, weigh):
+    """A softmax over a sequence split over "model", applied to values:
+    ``scores`` (..., s) are this rank's slice of the positions (masked
+    slots at ``NEG_INF`` or -inf) and ``weigh(p)`` maps their weights p
+    (..., s) to this rank's weighted values (..., dv).  Returns
+    ``softmax(all scores) @ all values`` (..., dv) in float32, from one
+    max and one sum over "model": the ranks' maxima meet first, so every
+    rank exponentiates against the same finite maximum and a rank whose
+    slice is all masked contributes exact zeros (its own maximum may be
+    -inf, and exp(-inf - -inf) would be NaN)."""
+    mx = max_over_model(scores.float().amax(-1, keepdim=True))
+    p = torch.exp(scores.float() - mx)
+    both = _all_reduce(torch.cat([weigh(p), p.sum(-1, keepdim=True)], -1),
+                       _STATE)
+    return both[..., :-1] / both[..., -1:]
 
 
 def copy_to_model(x):
@@ -291,10 +342,44 @@ def reduce_scatter_seq(x, dtype=None):
 
 
 def gather_model(w, dim: int, reduce_grad: bool):
-    """A leaf's "model" shard -> the whole leaf (all-gather along its
-    "model" dim); in backward reduce-scattered (``reduce_grad``: each
-    rank's use differs) or sliced (every rank's use is the same)."""
+    """The ranks' pieces along ``dim`` -> the whole (all-gather over
+    "model"): a leaf's shard, or a tensor of every rank's heads or
+    columns; in backward reduce-scattered (``reduce_grad``: each rank's
+    use differs) or sliced (every rank's use is the same)."""
     return _Gather.apply(w, dim, reduce_grad, _STATE)
+
+
+def columns(x, *ws):
+    """``x @ w`` (bf16 operands, bf16 out) for each leaf in ``ws`` with
+    all its columns, for the decode step (no gradient): a leaf split over
+    "model" along its columns is multiplied on this rank's columns and
+    the products' columns are all-gathered, one gather for all of them
+    (an activation: a token's is B x sum(d_out) / m); a whole leaf is
+    multiplied whole."""
+    from ..nn.layers import matmul
+    out = [None] * len(ws)
+    mine = [i for i, w in enumerate(ws) if split(w, 1)]
+    for i, w in enumerate(ws):
+        if i not in mine:
+            out[i] = matmul(x, whole(w, False))
+    if mine:
+        widths = [ws[i].shape[1] for i in mine]
+        local = torch.cat([matmul(x, ws[i]) for i in mine], -1)
+        got = gather_model(local, local.ndim - 1, True)
+        got = got.reshape(got.shape[:-1] + (_STATE.m, sum(widths)))
+        for i, part in zip(mine, got.split(widths, -1)):
+            out[i] = part.reshape(part.shape[:-2] + (-1,))
+    return out
+
+
+def block(t, dim: int, n: int):
+    """This rank's block of ``n`` along ``dim`` of the leaf ``t`` (block j
+    of the "model" rank j): the leaf itself where it is that shard, else
+    cut from the whole leaf (gathered, or the replicated leaf with its
+    gradient all-reduced)."""
+    if split(t, dim) and t.shape[dim] == n:
+        return t
+    return whole(t, True).narrow(dim, _STATE.j * n, n)
 
 
 # ---------------------------------------------------------------------------
@@ -348,14 +433,17 @@ def split(t, dim: int) -> bool:
         and _STATE.dims.get(id(t)) == dim % t.ndim
 
 
-def whole(t, reduce_grad: bool):
+def whole(t, reduce_grad: bool, dtype=None):
     """The whole leaf of a local one: gathered over "model" where it is a
     shard (:func:`gather_model`); a replicated leaf itself, its gradient
-    all-reduced where ``reduce_grad`` (each rank's use differs).  ``t``
-    itself where no plan is in use."""
+    all-reduced where ``reduce_grad`` (each rank's use differs).  With
+    ``dtype`` the leaf is cast first (a weight that only feeds bf16
+    products moves in bf16).  ``t`` itself where no plan is in use."""
     if _STATE is None or t is None:
         return t
     dim = _STATE.dims.get(id(t))
+    if dtype is not None:
+        t = t.to(dtype)
     if dim is None:
         return copy_to_model(t) if reduce_grad else t
     return gather_model(t, dim, reduce_grad)

@@ -23,7 +23,29 @@ are their local columns; else they are gathered over "model" and each
 rank projects the kv heads its q heads read (its gradient to them
 reduce-scattered back).  Where ``n_heads`` does not split, the layer runs
 whole.  The flash hook (B8) takes the local heads, with k and v
-contiguous.  MLA runs whole (``launch.tensor_parallel.replicated``).
+contiguous.  MLA in train and prefill runs H/m heads: ``w_uq`` (or
+``wq``), ``w_uk`` and ``w_uv`` on their local columns (contiguous by
+head), ``wo`` on its local rows; its latent projections ``w_dq``,
+``w_dkv`` and ``w_kr``, column-sharded in storage but read whole by
+every head, are gathered over "model" (their gradient reduce-scattered
+back, as ``_local_kv`` does for kv heads), in bf16: they feed bf16
+products only.
+
+A decode step under a plan reads the rank's slice of the cache's
+sequence (``launch.mesh.cache_specs``: positions j·S/m ... of every kv
+head or of the latent) and the whole token: the token's q, k and v (or
+MLA's latents) are column products on the rank's columns, gathered over
+"model" (:func:`launch.tensor_parallel.columns`, a token's activations);
+only the rank that owns ``pos`` writes the cache; every rank scores its
+slice for every head and the softmax combines over "model"
+(``tensor_parallel.softmax_combine``); ``wo`` runs on the rank's rows,
+its float32 partial sums reduced once.  Absorbed MLA gathers the
+absorbed queries of the rank's heads over heads and sums the weighted
+latent (B x h x r) over "model" before ``w_uv`` and ``wo`` run on the
+rank's heads.  The naive MLA decode runs whole on the cache's gathered
+sequence (``tensor_parallel.replicated``).  As in the reference, decode
+masks only the slots past ``pos`` (its ``_sdpa`` call is not causal, so
+``sliding_window`` does not apply there).
 
 MLA keeps a low-rank latent ``c_kv`` (r wide) and one shared RoPE key
 (rd wide) a position.  Its q·k is hd + rd wide and its v hd wide, so it
@@ -169,7 +191,11 @@ def gqa_prefill(p: GQA, x: torch.Tensor, cfg, positions=None, causal=True,
 
 def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, pos: int, cfg):
     """x: (B,1,d); cache: dict(k, v: (B,Smax,Hkv,hd)), updated in place at
-    ``pos``."""
+    ``pos``; under a tensor-parallel plan the cache is the rank's sequence
+    slice (B,Smax/m,Hkv,hd)."""
+    from ..launch import tensor_parallel as tp
+    if tp.current() is not None:
+        return _gqa_decode_tp(p, x, cache, pos, cfg, tp)
     hd = cfg.head_dim
     q = _split_heads(dense(p, x, "wq"), cfg.n_heads, hd)
     k = _split_heads(dense(p, x, "wk"), cfg.n_kv_heads, hd)
@@ -183,6 +209,70 @@ def gqa_decode(p: GQA, x: torch.Tensor, cache: dict, pos: int, cfg):
     out = _sdpa(q, cache["k"], cache["v"], causal=False, kv_len=pos + 1,
                 sliding_window=cfg.sliding_window)
     return dense(p, out, "wo"), cache
+
+
+def _write_own(cache: dict, new: dict, pos: int, first: int) -> None:
+    """The new position's rows written into this rank's cache slice
+    (positions ``first`` ...) where it owns ``pos``."""
+    s = next(iter(cache.values())).shape[1]
+    if first <= pos < first + s:
+        for k, t in new.items():
+            cache[k][:, pos - first:pos - first + 1] = t.to(cache[k].dtype)
+
+
+def _past(scores, first: int, pos: int):
+    """``scores`` (..., s) of positions ``first`` ... with the slots past
+    ``pos`` masked, as ``_sdpa``'s ``kv_len`` mask."""
+    idx = first + torch.arange(scores.shape[-1], device=scores.device)
+    return scores.masked_fill(idx > pos, NEG_INF)
+
+
+def _sdpa_slice(q, k, v, first: int, pos: int, tp) -> torch.Tensor:
+    """``_sdpa`` of a decode token's q (B,1,H,hd) against this rank's cache
+    slice k/v (B,s,Hkv,hd) of positions ``first`` ..., every head, the
+    softmax combined over "model" -> (B,1,H*hd) in float32."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    qg = (q.float() / math.sqrt(hd)).reshape(b, sq, hkv, h // hkv, hd) \
+        .permute(0, 2, 3, 1, 4)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg,
+                          k.float().permute(0, 2, 1, 3))
+    vg = v.float().permute(0, 2, 1, 3)
+    out = tp.softmax_combine(_past(scores, first, pos), lambda w:
+                             torch.einsum("bhgqk,bhkd->bhgqd", w, vg))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * hd)
+
+
+def _row_out(o: torch.Tensor, wo, tp) -> torch.Tensor:
+    """``wo`` of every head's attention output ``o`` (B,1,H*hd), the same
+    on every rank: this rank's rows of ``wo`` on its columns of ``o``,
+    the float32 partial sums reduced over "model" and rounded once; a
+    whole ``wo`` multiplied whole."""
+    o = o.to(COMPUTE_DTYPE)
+    if not tp.split(wo, 0):
+        return matmul(o, tp.whole(wo, False))
+    n = wo.shape[0]
+    return tp.leave(partial_matmul(o.narrow(-1, tp.current().j * n, n), wo),
+                    COMPUTE_DTYPE)
+
+
+def _gqa_decode_tp(p: GQA, x, cache: dict, pos: int, cfg, tp):
+    """The decode step on this rank's cache slice: the token's q, k and v
+    gathered over "model", the owner of ``pos`` writing k and v, every
+    head scored on the slice, ``wo`` on the rank's rows."""
+    hd = cfg.head_dim
+    q, k, v = tp.columns(x, p.wq, p.wk, p.wv)
+    q = _split_heads(q, cfg.n_heads, hd)
+    k = _split_heads(k, cfg.n_kv_heads, hd)
+    v = _split_heads(v, cfg.n_kv_heads, hd)
+    if cfg.rope:
+        posv = torch.full((1,), pos, device=x.device)
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k = apply_rope(k, posv, cfg.rope_theta)
+    first = tp.current().j * cache["k"].shape[1]
+    _write_own(cache, {"k": k, "v": v}, pos, first)
+    out = _sdpa_slice(q, cache["k"], cache["v"], first, pos, tp)
+    return _row_out(out, p.wo, tp), cache
 
 
 # ---------------------------------------------------------------------------
@@ -241,13 +331,26 @@ def _mla_new_position(p: MLA, x: torch.Tensor, cache: dict, pos: int, cfg):
     return q_nope, q_rope
 
 
+def _mla_heads_split(p: MLA, cfg, tp) -> bool:
+    """Whether MLA's heads split over the plan's m ranks: ``m`` divides
+    them and the per-head leaves are this rank's heads' shards."""
+    up = p.w_uq if cfg.q_lora_rank else p.wq
+    return cfg.n_heads % tp.current().m == 0 and tp.split(up, 1) \
+        and tp.split(p.w_uk, 1) and tp.split(p.w_uv, 1) \
+        and tp.split(p.wo, 0)
+
+
 def mla_prefill(p: MLA, x: torch.Tensor, cfg, positions=None):
     """x: (B,S,d) -> ((B,S,d), (c_kv (B,S,r), k_rope (B,S,rd))); under a
-    tensor-parallel plan the layer runs whole on the gathered sequence."""
+    tensor-parallel plan x and the output are the stream's sequence
+    slices, the layer runs H/m heads on the gathered sequence and
+    (c_kv, k_rope) are the whole sequence's."""
     from ..launch import tensor_parallel as tp
-    if tp.current() is not None:
+    if tp.current() is None:
+        return _mla_prefill(p, x, cfg, positions)
+    if not _mla_heads_split(p, cfg, tp):
         return tp.replicated(_mla_prefill, p, x, cfg, positions)
-    return _mla_prefill(p, x, cfg, positions)
+    return _mla_prefill_tp(p, x, cfg, positions, tp)
 
 
 def _mla_prefill(p, x: torch.Tensor, cfg, positions=None):
@@ -268,9 +371,48 @@ def _mla_prefill(p, x: torch.Tensor, cfg, positions=None):
     return dense(p, out, "wo"), (c_kv, k_rope[..., 0, :])
 
 
+def _mla_prefill_tp(p: MLA, x, cfg, positions, tp):
+    """MLA on this rank's H/m heads of the gathered sequence: the latent
+    projections gathered whole in bf16 (their gradient reduce-scattered
+    back),
+    ``w_uq`` / ``w_uk`` / ``w_uv`` on their local columns, the float32
+    ``_sdpa`` on the local heads, ``wo`` on its local rows."""
+    hl = cfg.n_heads // tp.current().m
+    hd, rd = cfg.head_dim, cfg.rope_head_dim
+    xf = tp.enter(x)
+    b, s, _ = xf.shape
+    pos = torch.arange(s, device=x.device) if positions is None \
+        else positions
+    if cfg.q_lora_rank:
+        q = matmul(matmul(xf, tp.whole(p.w_dq, True, COMPUTE_DTYPE)), p.w_uq)
+    else:
+        q = matmul(xf, p.wq)
+    q = q.reshape(b, s, hl, hd + rd)
+    q_rope = apply_rope(q[..., hd:], pos, cfg.rope_theta)
+    c_kv = matmul(xf, tp.whole(p.w_dkv, True, COMPUTE_DTYPE))
+    k_rope = apply_rope(matmul(xf, tp.whole(p.w_kr, True, COMPUTE_DTYPE))[..., None, :],
+                        pos, cfg.rope_theta)
+    k_nope = matmul(c_kv, p.w_uk).reshape(b, s, hl, hd)
+    v = matmul(c_kv, p.w_uv).reshape(b, s, hl, hd)
+    q = torch.cat([q[..., :hd], q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(b, s, hl, rd)], dim=-1)
+    out = _sdpa(q, k, v, causal=True)
+    y = tp.leave(partial_matmul(out, p.wo), COMPUTE_DTYPE)
+    return y, (c_kv, k_rope[..., 0, :])
+
+
 def mla_decode(p: MLA, x: torch.Tensor, cache: dict, pos: int, cfg):
     """Naive decode: x (B,1,d); the whole latent cache expanded to per-head
-    K/V, the slots past ``pos`` masked."""
+    K/V, the slots past ``pos`` masked.  Under a tensor-parallel plan it
+    runs whole on the cache's gathered sequence (every rank the same),
+    then each rank keeps its slice."""
+    from ..launch import tensor_parallel as tp
+    if tp.current() is not None:
+        return _mla_decode_whole(_mla_decode, p, x, cache, pos, cfg, tp)
+    return _mla_decode(p, x, cache, pos, cfg)
+
+
+def _mla_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg):
     b = x.shape[0]
     h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     q_nope, q_rope = _mla_new_position(p, x, cache, pos, cfg)
@@ -285,11 +427,35 @@ def mla_decode(p: MLA, x: torch.Tensor, cache: dict, pos: int, cfg):
     return dense(p, out, "wo"), cache
 
 
+def _mla_decode_whole(fn, p, x, cache: dict, pos: int, cfg, tp):
+    """``fn`` (a mesh-less MLA decode) run whole on every rank of the row
+    (``tensor_parallel.replicated``) on the cache's sequence gathered over
+    "model"; this rank's slice of the updated cache written back."""
+    full = {k: tp.gather_seq(v, reduce_grad=False) for k, v in cache.items()}
+    y, full = tp.replicated(fn, p, x, full, pos, cfg)
+    s, j = cache["c_kv"].shape[1], tp.current().j
+    for k, v in cache.items():
+        v.copy_(full[k][:, j * s:(j + 1) * s])
+    return y, cache
+
+
 def mla_decode_absorbed(p: MLA, x: torch.Tensor, cache: dict, pos: int,
                         cfg):
     """Absorbed decode (deepseek-v2 §2.1): q_nope·w_ukᵀ scores against the
     latent cache itself, the attention output leaves the latent space
-    through ``w_uv``; the cache is never expanded to h heads."""
+    through ``w_uv``; the cache is never expanded to h heads.  Under a
+    tensor-parallel plan the cache is the rank's sequence slice
+    (B,Smax/m,r) / (B,Smax/m,rd)."""
+    from ..launch import tensor_parallel as tp
+    if tp.current() is not None:
+        if not _mla_heads_split(p, cfg, tp):
+            return _mla_decode_whole(_mla_decode_absorbed, p, x, cache, pos,
+                                     cfg, tp)
+        return _mla_decode_absorbed_tp(p, x, cache, pos, cfg, tp)
+    return _mla_decode_absorbed(p, x, cache, pos, cfg)
+
+
+def _mla_decode_absorbed(p, x: torch.Tensor, cache: dict, pos: int, cfg):
     b = x.shape[0]
     h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
     r = cfg.kv_lora_rank
@@ -310,3 +476,42 @@ def mla_decode_absorbed(p: MLA, x: torch.Tensor, cache: dict, pos: int,
                        p.w_uv.reshape(r, h, hd).float())
     out = out.reshape(b, 1, h * hd).to(COMPUTE_DTYPE)
     return dense(p, out, "wo"), cache
+
+
+def _mla_decode_absorbed_tp(p: MLA, x, cache: dict, pos: int, cfg, tp):
+    """Absorbed decode on this rank's cache slice: the token's latents
+    gathered over "model" (the owner of ``pos`` writes them), the
+    absorbed queries of the rank's heads gathered over heads, every head
+    scored on the slice, the weighted latent summed over "model", then
+    ``w_uv`` and ``wo`` on the rank's heads."""
+    st = tp.current()
+    b = x.shape[0]
+    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    r, hl = cfg.kv_lora_rank, cfg.n_heads // st.m
+    if cfg.q_lora_rank:
+        cq, c_new, kr_new = tp.columns(x, p.w_dq, p.w_dkv, p.w_kr)
+        q = matmul(cq, p.w_uq)
+    else:
+        c_new, kr_new = tp.columns(x, p.w_dkv, p.w_kr)
+        q = matmul(x, p.wq)
+    q = q.reshape(b, 1, hl, hd + rd)
+    posv = torch.full((1,), pos, device=x.device)
+    q_rope = apply_rope(q[..., hd:], posv, cfg.rope_theta)
+    kr_new = apply_rope(kr_new[..., None, :], posv, cfg.rope_theta)[..., 0, :]
+    first = st.j * cache["c_kv"].shape[1]
+    _write_own(cache, {"c_kv": c_new, "k_rope": kr_new}, pos, first)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q[..., :hd],
+                         p.w_uk.reshape(r, hl, hd).to(COMPUTE_DTYPE))
+    qa = tp.gather_model(torch.cat([q_lat, q_rope], -1), 2, False)
+    c_kv = cache["c_kv"].float()
+    scores = (torch.einsum("bqhr,bsr->bhqs", qa[..., :r].float(), c_kv)
+              + torch.einsum("bqhr,bsr->bhqs", qa[..., r:].float(),
+                             cache["k_rope"].float()))
+    scores = _past(scores / math.sqrt(hd + rd), first, pos)
+    o_lat = tp.softmax_combine(scores, lambda w: torch.einsum(
+        "bhqs,bsr->bhqr", w, c_kv))                      # (B,h,1,r)
+    o_lat = o_lat[:, st.j * hl:(st.j + 1) * hl].permute(0, 2, 1, 3)
+    out = torch.einsum("bqhr,rhd->bqhd", o_lat,
+                       p.w_uv.reshape(r, hl, hd).float())
+    out = out.reshape(b, 1, hl * hd).to(COMPUTE_DTYPE)
+    return tp.leave(partial_matmul(out, p.wo), COMPUTE_DTYPE), cache

@@ -28,10 +28,16 @@ all-gather over "model" gives every rank its whole shard's output.  No
 (E, C, d) buffer of all the tokens exists anywhere.  Both exchanges are
 differentiable (``torch.distributed._functional_collectives``' autograd
 forms); CUDA tensors cross a gloo group through host copies.  Under a
-tensor-parallel plan (``launch.tensor_parallel``) the tokens are already
-the stream's sequence slice and the experts the rank's own "model" shard
-of the stacks: "shardmap" routes them without slicing again and returns
-the slice.
+tensor-parallel plan (``launch.tensor_parallel``) the experts are the
+rank's own "model" shard of the stacks.  Where the stream is the
+sequence's slice, "shardmap" routes it without slicing again and returns
+the slice.  The dense dispatch, and "shardmap" where the stream is whole
+(a decode token), run expert-parallel: every rank routes the tokens
+``enter`` gives it (the whole sequence of its data shard, or the decode
+token: the mesh-less call's tokens, so capacity, routing and drops are
+the same), scatters only into its E/m experts' buffers, runs them, and
+its gate-weighted rows, summed in float32, leave the layer as partial
+sums over "model".
 :func:`record_routing` collects each call's routing, for comparing two
 runs' decisions; :func:`replay_routing` makes a run take another run's
 expert choices (top-k routing is discontinuous: an ulp of a hidden state
@@ -149,10 +155,14 @@ def moe_init(gen, d: int, d_ff: int, n_experts: int, gated: bool,
     return MoE(d, d_ff, n_experts, gated, n_shared, shared_d_ff, device, gen)
 
 
-def _gates(xt: torch.Tensor, router: torch.Tensor, top_k: int):
+def _gates(xt: torch.Tensor, router: torch.Tensor, top_k: int,
+           logits: torch.Tensor | None = None):
     """The float32 router softmax (T, E), its top-k experts (T, K) and
-    their gates renormalised (T, K)."""
-    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    their gates renormalised (T, K); ``logits`` (T, E), where given, are
+    the float32 router logits ``xt @ router`` already computed."""
+    if logits is None:
+        logits = xt.float() @ router.float()
+    probs = torch.softmax(logits, dim=-1)
     if _REPLAY is None:
         gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
     else:
@@ -182,19 +192,27 @@ def _positions(flat_e: torch.Tensor, n_experts: int) -> torch.Tensor:
     return ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
 
 
-def _local_dispatch(xt: torch.Tensor, router: torch.Tensor, top_k: int,
-                    capacity: int):
+def _local_dispatch(xt: torch.Tensor, router, top_k: int, capacity: int,
+                    own: tuple | None = None, logits=None):
     """Routing and scatter: (buf (E, C, d) bf16, expert id, slot (the
     position, or C - 1 where dropped), keep, gates (T, K)), the ids, slots
-    and keep of shape (T * K,)."""
+    and keep of shape (T * K,).  With ``own`` (first, count) only those
+    experts' rows of the buffer exist (count, C, d): the ids are relative
+    to ``first`` and the other experts' slots are not kept; ``logits`` as
+    :func:`_gates`'s."""
     t, d = xt.shape
-    e = router.shape[-1]
-    probs, gate_vals, gate_idx = _gates(xt, router, top_k)
+    probs, gate_vals, gate_idx = _gates(xt, router, top_k, logits)
+    e = probs.shape[-1]
     flat_e = gate_idx.reshape(-1)
     pos = _positions(flat_e, e)
     keep = pos < capacity                                          # drops
     if _ROUTING is not None:
         _ROUTING.append((flat_e, pos, keep, probs))
+    if own is not None:
+        first, e = own
+        flat_e = flat_e - first
+        keep = keep & (flat_e >= 0) & (flat_e < e)
+        flat_e = flat_e.clamp(0, e - 1)
     idx_c = torch.where(keep, pos, capacity - 1)
     src = xt.to(COMPUTE_DTYPE).repeat_interleave(top_k, dim=0)
     src = torch.where(keep[:, None], src, 0)
@@ -214,6 +232,15 @@ def _expert_compute(p: MoE, buf: torch.Tensor, act: str,
     else:
         h = act_fn(act)(up.float()).to(COMPUTE_DTYPE)
     return torch.bmm(h, p.w_down.to(COMPUTE_DTYPE))
+
+
+def _combine(out_e, idx_e, idx_c, keep, gate_vals, t: int, top_k: int):
+    """Each (token, choice)'s expert row gathered back (zero where not
+    kept), weighted by its gate and summed over the k choices in
+    float32: (T, d)."""
+    gathered = torch.where(keep[:, None], out_e[idx_e, idx_c], 0)
+    weighted = gathered.float() * gate_vals.reshape(-1, 1).float()
+    return weighted.reshape(t, top_k, -1).sum(dim=1)
 
 
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
@@ -256,10 +283,8 @@ def _expert_parallel(router, own, xl: torch.Tensor, *, top_k: int, act: str,
     out = _expert_compute(own, recv, act, gated)
     back = _exchange(out.reshape(e_loc, m, capacity, d).transpose(0, 1)
                      .reshape(e, capacity, d), group)    # (E, C, d) own view
-    gathered = torch.where(keep[:, None], back[flat_e, idx_c], 0)
-    weighted = gathered.float() * gate_vals.reshape(-1, 1).float()
-    return weighted.reshape(bl * sl, top_k, d).sum(dim=1) \
-        .to(COMPUTE_DTYPE).reshape(bl, sl, d)
+    out = _combine(back, flat_e, idx_c, keep, gate_vals, bl * sl, top_k)
+    return out.to(COMPUTE_DTYPE).reshape(bl, sl, d)
 
 
 def _moe_ffn_shardmap(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
@@ -296,30 +321,59 @@ def _moe_ffn_dense(p: MoE, x: torch.Tensor, *, top_k: int, act: str,
     buf, idx_e, idx_c, keep, gate_vals = _local_dispatch(
         x.reshape(t, d), p.router, top_k, capacity)
     out_e = _expert_compute(p, buf, act, gated)
-    # gather back + weighted combine
-    gathered = torch.where(keep[:, None], out_e[idx_e, idx_c], 0)
-    weighted = gathered.float() * gate_vals.reshape(-1, 1).float()
-    out = weighted.reshape(t, top_k, d).sum(dim=1)
+    out = _combine(out_e, idx_e, idx_c, keep, gate_vals, t, top_k)
     y = out.reshape(b, s, d).to(COMPUTE_DTYPE)
     if p.shared is not None:
         y = y + mlp(p.shared, x, act, gated)
     return y
 
 
-def _moe_ffn_tp(p: MoE, x: torch.Tensor, tp, **run) -> torch.Tensor:
-    """Under a tensor-parallel plan ``x`` is the stream's sequence slice:
-    "shardmap" routes it as it is to the local experts' owners (the
-    router gathered, its gradient reduce-scattered back) and returns the
-    slice; the dense dispatch, or a stream that is not sliced, runs the
-    layer whole (the data shard's tokens, every expert)."""
+def _expert_parallel_dense(p: MoE, x: torch.Tensor, tp, *, top_k: int,
+                           act: str, gated: bool, capacity_factor: float):
+    """The dense dispatch over "model": this rank's E/m experts on the
+    tokens ``enter`` gives it, routed with the mesh-less call's capacity
+    by the whole router (gathered, its gradient reduce-scattered back;
+    where the tokens are fewer than d, as a decode step's, their router
+    logits are gathered instead: T x E, not d x E); the float32 sum of
+    its experts' gate-weighted rows leaves the layer."""
     st = tp.current()
-    if _MOE_IMPL != "shardmap" or not st.sp \
-            or not tp.split(p.w_up, 0):
+    xf = tp.enter(x)
+    b, s, d = xf.shape
+    t, e_loc = b * s, p.w_up.shape[0]
+    xt = xf.reshape(t, d)
+    router, logits = p.router, None
+    if tp.split(router, 1) and t < d:    # T x E logits, smaller than d x E
+        logits = tp.gather_model(xt.float() @ router.float(), 1, True)
+    else:
+        router = tp.whole(router, True)
+    e = st.m * e_loc
+    capacity = max(1, int(capacity_factor * t * top_k / e))
+    buf, idx_e, idx_c, keep, gate_vals = _local_dispatch(
+        xt, router, top_k, capacity, (st.j * e_loc, e_loc), logits)
+    out_e = _expert_compute(p, buf, act, gated)
+    part = _combine(out_e, idx_e, idx_c, keep, gate_vals, t, top_k)
+    return tp.leave(part.reshape(b, s, d), COMPUTE_DTYPE)
+
+
+def _moe_ffn_tp(p: MoE, x: torch.Tensor, tp, **run) -> torch.Tensor:
+    """Under a tensor-parallel plan: "shardmap" on a sequence-sliced
+    stream routes the slice as it is to the local experts' owners (the
+    router gathered, its gradient reduce-scattered back) and returns the
+    slice; the dense dispatch, and "shardmap" on a whole stream (decode),
+    run expert-parallel (:func:`_expert_parallel_dense`).  Where the
+    expert stacks do not split over "model", the layer runs whole."""
+    st = tp.current()
+    gated = run["gated"]
+    if not (tp.split(p.w_up, 0) and tp.split(p.w_down, 0)
+            and (not gated or tp.split(p.w_gate, 0))):
         return tp.replicated(_moe_ffn_dense, p, x, **run)
-    y = _expert_parallel(tp.whole(p.router, True), p, x, group=st.group,
-                         m=st.m, **run)
+    if _MOE_IMPL == "shardmap" and st.sp:
+        y = _expert_parallel(tp.whole(p.router, True), p, x, group=st.group,
+                             m=st.m, **run)
+    else:
+        y = _expert_parallel_dense(p, x, tp, **run)
     if p.shared is not None:
-        y = y + mlp(p.shared, x, run["act"], run["gated"])
+        y = y + mlp(p.shared, x, run["act"], gated)
     return y
 
 

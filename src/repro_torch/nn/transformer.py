@@ -19,9 +19,9 @@ nested one (``:169-173``): the backward pass keeps the layer boundaries
 and recomputes the rest.  Caches are one dict per layer, updated in place
 by the decode step.
 
-Under a tensor-parallel plan (``launch.tensor_parallel``: the train and
-prefill steps of a mesh) the residual stream between layers is the
-rank's slice of the sequence (the reference's ``shard_hint(h, "batch",
+Under a tensor-parallel plan (``launch.tensor_parallel``: the train,
+prefill and decode steps of a mesh) the residual stream between layers
+is the rank's slice of the sequence (the reference's ``shard_hint(h, "batch",
 "seq", None)``) and norms run on it.  A vocabulary that splits over the
 m "model" ranks gives a vocab-parallel embedding (each rank looks up its
 rows, zeros elsewhere, and the sums reduce-scatter over the sequence), a
@@ -29,8 +29,13 @@ vocab-parallel head (logits (B, S, V/m), the reference's
 ``shard_hint(logits, "batch", None, "model")``) and a distributed
 cross-entropy (the log-sum-exp's max and sum all-reduced over "model",
 the gold logit from the rank that owns it), for the MTP term and the
-vision slice too.  MLA, Mamba-2 and the layers whose heads or FFN do not
-split run whole on every rank of the row.
+vision slice too.  Every layer kind splits (GQA, MLA and Mamba-2 by
+heads, the MLP by columns, the MoE by experts); a layer whose heads or
+FFN ``m`` does not divide runs whole on every rank of the row.  The
+decode step's stream is the one token, whole on every rank: norms run
+on it, the embedding and the head are vocab-parallel, the float32
+logits gathered over the vocabulary, and each layer reads the rank's
+cache shards (``launch.mesh.cache_specs``).
 
 A jamba period (``JambaPeriod``, one "layer" of the ``jamba_period``
 group) holds ``attn_period`` pre-norm sub-layers ``sub0`` ...: sub-layer i
@@ -481,17 +486,32 @@ def _block_decode(p, c: dict, h: torch.Tensor, pos: int, cfg: ArchConfig,
     return h + _ffn_apply(p.ffn, apply_norm(cfg.norm, p.norm2, h), cfg), c2
 
 
+def _decode_logits(params: LM, h: torch.Tensor) -> torch.Tensor:
+    """float32 logits (B,1,V) of the final-normed token; under a
+    tensor-parallel plan the rank's vocabulary columns gathered over
+    "model" where the vocabulary splits."""
+    if tp.current() is None:
+        return h.float() @ _head(params).float()
+    if _vocab_split(params):
+        return tp.gather_model(h.float() @ _head(params).float(), 2, False)
+    head = tp.whole(params.embed if params.head is None else params.head,
+                    False)
+    return h.float() @ (head.T if params.head is None else head).float()
+
+
 def decode_step(params: LM, cache: list[dict], tokens: torch.Tensor,
                 pos: int, cfg: ArchConfig, mla_absorbed: bool = True):
     """One serving step: tokens (B,1) at position ``pos`` -> (logits
-    (B,1,V) in float32, cache); MLA layers decode absorbed or naive."""
-    h = embed(params.embed, tokens)
+    (B,1,V) in float32, cache); MLA layers decode absorbed or naive.
+    Under a tensor-parallel plan ``cache`` holds this rank's shards
+    (``launch.steps.make_decode_step``)."""
+    h = _embed_stream(params, tokens)
     new_cache = []
     for lp, lc, kind in zip(params.layers, cache, params.kinds):
         h, c2 = _block_decode(lp, lc, h, pos, cfg, kind, mla_absorbed)
         new_cache.append(c2)
     h = apply_norm(cfg.norm, params.final_norm, h)
-    return h.float() @ _head(params).float(), new_cache
+    return _decode_logits(params, h), new_cache
 
 
 def prefill_step(params: LM, batch: dict, cfg: ArchConfig,

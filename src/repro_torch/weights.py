@@ -16,7 +16,11 @@ keep their names).
 ``params_to_numpy`` and ``lm_params_to_numpy`` go the other way (the LM's
 layers restacked per group), for checkpoints either package restores;
 ``lm_tree`` / ``lm_flat`` convert any per-parameter mapping (AdamW's
-moments too) between the two layouts.
+moments too) between the two layouts.  ``lm_cache_from_numpy`` takes the
+reference's decode cache (``init_cache``'s ``group{i}`` leaves stacked
+over the group's layers, jamba's sub-layer dicts nested) into the port's
+one dict a layer, each leaf in the port's dtype; ``lm_cache_to_numpy``
+goes back (bf16 leaves as float32 arrays, which hold them exactly).
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import torch
 from .nn.transformer import LM, layer_groups
 
 __all__ = ["params_from_numpy", "params_to_numpy", "lm_params_from_numpy",
-           "lm_params_to_numpy", "lm_tree", "lm_flat", "ring_from_numpy",
+           "lm_params_to_numpy", "lm_tree", "lm_flat", "lm_cache_from_numpy",
+           "lm_cache_to_numpy", "ring_from_numpy",
            "ring_to_numpy", "grid_quantize", "to_host"]
 
 
@@ -110,6 +115,48 @@ def lm_params_from_numpy(params: dict, cfg, device="cpu") -> LM:
 def lm_params_to_numpy(model: LM, cfg) -> dict:
     """The port's ``LM`` -> the reference's nested float32 numpy layout."""
     return lm_tree(model.state_dict(), cfg)
+
+
+def _map(tree: dict, fn) -> dict:
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(k, v)
+            for k, v in tree.items()}
+
+
+def lm_cache_from_numpy(cache: dict, cfg, device="cpu") -> list[dict]:
+    """The reference's decode cache (``group{i}`` leaves stacked over the
+    group's layers, as numpy arrays or array-likes) -> the port's list of
+    one cache dict a layer; the Mamba-2 state in float32, every other
+    leaf in the compute dtype."""
+    from .nn.layers import COMPUTE_DTYPE
+
+    def leaf(i):
+        return lambda k, a: torch.tensor(
+            np.asarray(a, np.float32)[i], device=device).to(
+                torch.float32 if k == "state" else COMPUTE_DTYPE)
+    return [_map(cache[f"group{gi}"], leaf(i))
+            for gi, g in enumerate(layer_groups(cfg)) for i in range(g.count)]
+
+
+def lm_cache_to_numpy(cache: list, cfg) -> dict:
+    """Inverse of :func:`lm_cache_from_numpy`: each group's layers
+    restacked on a leading axis, every leaf a float32 array."""
+    out, first = {}, 0
+    for gi, g in enumerate(layer_groups(cfg)):
+        layers = cache[first:first + g.count]
+
+        def stack(tree, path):
+            return {k: stack(v, path + [k]) if isinstance(v, dict)
+                    else np.stack([_at(c, path + [k]) for c in layers])
+                    for k, v in tree.items()}
+        out[f"group{gi}"] = stack(layers[0], [])
+        first += g.count
+    return out
+
+
+def _at(tree: dict, path: list) -> np.ndarray:
+    for k in path:
+        tree = tree[k]
+    return to_host(tree.float())
 
 
 def ring_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:

@@ -12,13 +12,18 @@ from the specs, exactly; the all-gathers move at least every sharded
 parameter's shard; the step is tensor-parallel over "model" (every layer
 splits: 2 of TinyLlama's 32 heads a rank) and its roofline is the
 reference's ``roofline_terms(cfg, shape, None, collectives, 256)``: the
-cell's work over every chip.
+cell's work over every chip.  Every layer kind splits: a decode cell and
+jamba's and deepseek-v3's train cells record no whole layer, minitron-4b's
+24 heads over 16 ranks its attention whole; ``--no-remat`` drops the
+recomputed forward gathers.
 """
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 from repro_torch import configs
 from repro_torch.launch import farm
@@ -128,3 +133,73 @@ def test_tensor_parallel_cell_against_replicated(tmp_path):
     whole = sum(2 * 4 * p.numel() for p in params.parameters())
     assert tp["memory"]["tracked_peak_bytes"] < whole, (
         tp["memory"]["tracked_peak_bytes"], whole)
+
+
+# (arch, shape, mesh, extra flags) -> the layers the step runs whole
+SPLIT_CELLS = {
+    ("tinyllama-1.1b", "decode:8:256", "host8", ""): [],
+    ("jamba-v0.1-52b", "train:8:256", "host8", ""): [],
+    ("deepseek-v3-671b", "train:8:256", "host8", ""): [],
+    # 24 heads over 16 "model" ranks: the attention runs whole
+    ("minitron-4b", "train:16:256", "single", ""): ["GQA"],
+    ("tinyllama-1.1b", "train:8:256", "host8", "--no-remat"): [],
+}
+
+
+@pytest.fixture(scope="module")
+def split_records(tmp_path_factory):
+    """Each ``SPLIT_CELLS`` cell's record, the dry runs all started
+    together (a subprocess each, an output directory each)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    runs = {}
+    for i, cell in enumerate(SPLIT_CELLS):
+        arch, shape, mesh, flags = cell
+        out = tmp_path_factory.mktemp(f"cell{i}")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out", str(out)]
+        runs[cell] = (out, subprocess.Popen(
+            cmd + flags.split(), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=str(REPO)))
+    recs = {}
+    for (arch, shape, mesh, flags), (out, proc) in runs.items():
+        _, err = proc.communicate(timeout=600)
+        assert proc.returncode == 0, err[-3000:]
+        name = f"{arch}__{shape}__{mesh}__baseline.json".replace(":", "-")
+        recs[arch, shape, mesh, flags] = json.loads((out / name).read_text())
+    return recs
+
+
+@pytest.mark.parametrize("cell", list(SPLIT_CELLS),
+                         ids=[" ".join(c).strip() for c in SPLIT_CELLS])
+def test_every_layer_kind_splits(split_records, cell):
+    """The decode step and jamba's (Mamba-2, GQA, MLP, dense MoE) and
+    deepseek-v3's (MLA, MLP, dense MoE, MTP) train steps run every layer
+    tensor-parallel over "model"; minitron-4b's 24 heads over 16 ranks
+    still run its attention whole, and the dry run says so."""
+    rec = split_records[cell]
+    assert rec["status"] == "OK"
+    whole = SPLIT_CELLS[cell]
+    assert rec["whole_layers"] == whole
+    assert rec["compute"] == ("replicated" if whole else "tensor_parallel")
+
+
+def test_no_remat_flag(split_records):
+    """``--no-remat`` (the reference's flag) runs the cell with remat off:
+    no layer is recomputed in the backward pass, so each layer's two
+    forward all-gathers of the stream run once, not twice (22 layers:
+    44 fewer than the remat run of the same cell, TinyLlama 8 x 256 on
+    host8; ``test_torch_tensor_parallel.py::test_collectives_per_layer``
+    counts them a layer)."""
+    off = split_records["tinyllama-1.1b", "train:8:256", "host8",
+                        "--no-remat"]
+    assert off["status"] == "OK"
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    code = ("from repro_torch.launch import dryrun; import json; "
+            "print(json.dumps(dryrun.dryrun_cell('tinyllama-1.1b', "
+            "'train:8:256', 'host8')['collectives']))")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300, env=env, cwd=str(REPO))
+    assert r.returncode == 0, r.stderr[-3000:]
+    remat = json.loads(r.stdout.strip().splitlines()[-1])
+    assert remat["all-gather"]["count"] \
+        - off["collectives"]["all-gather"]["count"] == 2 * 22

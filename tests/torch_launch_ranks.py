@@ -134,34 +134,58 @@ def restore_onto(state, ckpt_dir, cfg, shape):
 @contextlib.contextmanager
 def widths():
     """The widths a rank computes inside the block: the q and kv heads of
-    each GQA call, the FFN columns of each MLP and the logits' columns."""
-    from repro_torch.nn import attention, layers, transformer
-    seen = {"q_heads": set(), "kv_heads": set(), "ffn": set(),
-            "vocab": set()}
-    attend, hidden, logits = (attention._attend, layers._hidden,
-                              transformer._logits)
+    each GQA call, MLA's heads (its float32 ``_sdpa``: q wider than v),
+    the FFN columns of each MLP, Mamba-2's heads (the scan's, or the
+    decode state's) and gate columns (the gated norm's), the experts a
+    MoE call runs and the logits' columns."""
+    from repro_torch.nn import attention, layers, moe, ssm, transformer
+    seen = {k: set() for k in ("q_heads", "kv_heads", "mla_heads", "ffn",
+                               "ssm_heads", "gate", "experts", "vocab")}
+    saved = (attention._attend, attention._sdpa, layers._hidden,
+             ssm.ssd_chunked, ssm._gated_norm, moe._expert_compute,
+             transformer._logits)
+    attend, sdpa, hidden, chunked, gated, experts, logits = saved
 
     def attend_w(q, k, *a):
         seen["q_heads"].add(q.shape[2])
         seen["kv_heads"].add(k.shape[2])
         return attend(q, k, *a)
 
+    def sdpa_w(q, k, v, *a, **kw):
+        if q.shape[-1] != v.shape[-1]:
+            seen["mla_heads"].add(q.shape[2])
+        return sdpa(q, k, v, *a, **kw)
+
     def hidden_w(*a):
         out = hidden(*a)
         seen["ffn"].add(out.shape[-1])
         return out
 
+    def chunked_w(x, *a):
+        seen["ssm_heads"].add(x.shape[2])
+        return chunked(x, *a)
+
+    def gated_w(y, *a, **kw):
+        seen["gate"].add(y.shape[-1])
+        return gated(y, *a, **kw)
+
+    def experts_w(p, buf, *a):
+        seen["experts"].add(buf.shape[0])
+        return experts(p, buf, *a)
+
     def logits_w(*a):
         out = logits(*a)
         seen["vocab"].add(out.shape[-1])
         return out
-    attention._attend, layers._hidden, transformer._logits = (
-        attend_w, hidden_w, logits_w)
+    (attention._attend, attention._sdpa, layers._hidden, ssm.ssd_chunked,
+     ssm._gated_norm, moe._expert_compute, transformer._logits) = (
+        attend_w, sdpa_w, hidden_w, chunked_w, gated_w, experts_w, logits_w)
     try:
         yield seen
     finally:
-        attention._attend, layers._hidden, transformer._logits = (
-            attend, hidden, logits)
+        (attention._attend, attention._sdpa, layers._hidden,
+         ssm.ssd_chunked, ssm._gated_norm, moe._expert_compute,
+         transformer._logits) = saved
 
 
 def _sharded_lm(cfg, sd, plan):
@@ -206,6 +230,64 @@ def tp_prefill(state, cfg, shape, sd, batch):
         logits = make_prefill_step(cfg, None, plan)(model, local)
     first = plan.mesh.get_local_rank("data") * next(iter(local.values())).shape[0]
     return logits, first, {k: sorted(v) for k, v in seen.items()}
+
+
+def tp_decode(state, cfg, shape, sd, cache, steps, mla_absorbed=True,
+              choices=None):
+    """Tensor-parallel decode steps of ``cfg`` from the weights ``sd`` and
+    the whole cache ``cache`` (one dict a layer, laid out on a ("data",
+    "model") mesh of ``shape`` by ``cache_specs``), one step a (tokens,
+    pos) of ``steps`` (each rank its data shard of the tokens): each
+    step's logits, the data shard's first row, the rank's "model" index,
+    its cache shards after the last step and the widths computed.  With
+    ``choices`` (``moe.record_routing``'s expert ids of another run) the
+    MoE layers take those experts (``moe.replay_routing``): "changed"
+    counts, a call, the tokens whose own top-k differs."""
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.nn import moe
+    plan = mesh_lib.Plan(_mesh(state, shape, ("data", "model")))
+    model = _sharded_lm(cfg, sd, plan)
+    specs = mesh_lib.cache_specs(cache, plan)
+
+    def lay(tree, spec):
+        return {k: lay(v, spec[k]) if isinstance(v, dict)
+                else mesh_lib.shard(v.clone(), plan, spec[k])
+                for k, v in tree.items()}
+
+    def local(tree):
+        return {k: local(v) if isinstance(v, dict) else v.to_local().clone()
+                for k, v in tree.items()}
+    dcache = [lay(c, s) for c, s in zip(cache, specs)]
+    step = make_decode_step(cfg, mla_absorbed, plan)
+    out = []
+    replay = moe.replay_routing(list(choices)) if choices is not None \
+        else contextlib.nullcontext([])
+    with widths() as seen, replay as changed:
+        for tokens, pos in steps:
+            toks = mesh_lib.local_batch({"tokens": tokens}, plan)["tokens"]
+            logits, dcache = step(model, dcache, {"tokens": toks,
+                                                  "pos": pos})
+            out.append(logits.float())
+    return {"logits": out,
+            "first": plan.mesh.get_local_rank("data") * toks.shape[0],
+            "j": plan.mesh.get_local_rank("model"),
+            "cache": [local(c) for c in dcache], "changed": changed,
+            "widths": {k: sorted(v) for k, v in seen.items()}}
+
+
+def tp_softmax(state, scores, values):
+    """``tensor_parallel.softmax_combine`` of this rank's slice of the
+    positions (``scores`` (..., S), ``values`` (S, dv), split over the
+    ranks of a (1, world) mesh)."""
+    from repro_torch.launch import tensor_parallel as tp
+    plan = mesh_lib.Plan(_mesh(state, (1, state["world"]), ("data",
+                                                            "model")))
+    m, j = plan.model_size, plan.mesh.get_local_rank("model")
+    n = scores.shape[-1] // m
+    root = torch.nn.Module()
+    with tp.local_params(root, plan, 1):
+        return tp.softmax_combine(scores[..., j * n:(j + 1) * n],
+                                  lambda p: p @ values[j * n:(j + 1) * n])
 
 
 def tp_dims(state, cfg, sd):
@@ -263,6 +345,52 @@ def tp_moe(state, sd, x):
     finally:
         moe.set_moe_impl("dense")
     return (y.detach().float(), [router] + list(g[1:])), mesh_route
+
+
+def count_decode_collectives(arch: str, n_layers: tuple, shape, batch: int,
+                             seq: int) -> None:
+    """Prints (JSON) the collectives of one tensor-parallel decode step of
+    the reduced ``arch`` at each layer count of ``n_layers`` on ``meta``
+    over a fake group of a ("data", "model") mesh of ``shape``: per
+    count, each collective's (kind, operand shape, operand bytes)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.dryrun import _KINDS, _OUT_FIRST, _nbytes
+    from repro_torch.nn import transformer as tfm
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Calls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func._schema.name.split("::")[-1]
+            if name in _KINDS:
+                x = args[1] if name in _OUT_FIRST else args[0]
+                x = x[0] if isinstance(x, (list, tuple)) else x
+                self.calls.append((_KINDS[name], list(x.shape), _nbytes(x)))
+            return func(*args, **(kwargs or {}))
+
+    dryrun._fake_group(shape[0] * shape[1])
+    plan = mesh_lib.Plan(mesh_lib.make_mesh(shape, ("data", "model"),
+                                            "cpu"))
+    info = {"kind": "decode", "global_batch": batch, "seq_len": seq}
+    out = {}
+    for n in n_layers:
+        cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=n)
+        params = tfm.abstract_params(cfg)
+        mesh_lib.shard_params(params, plan)
+        cache = dryrun._cache_on_plan(cfg, info, plan)
+        local = mesh_lib.local_batch(steps.input_specs(cfg, info), plan)
+        calls = Calls()
+        with calls:
+            steps.make_decode_step(cfg, plan=plan)(
+                params, cache, {"tokens": local["tokens"], "pos": 0})
+        out[n] = calls.calls
+    print(json.dumps(out))
 
 
 def count_collectives(arch: str, n_layers: int, shape, batch: int,
