@@ -79,7 +79,7 @@ Phases, each fatal on failure:
               alternating runs.
 6. offline + verify - the tape pool: MnistNet1 shared, CifarNet2 shared
               and public at batch 32, each served inline and through
-              serve(offline="pool", pool_depth=4) for 8 queries (and one
+              serve(offline="pool", pool_depth=4) for 4 queries (and one
               profiled query each): the online query's ledger equals the
               inline ledger's online rows and both equal PINNED; every
               online query of the pool run calls the threefry kernel zero
@@ -119,7 +119,9 @@ Phases, each fatal on failure:
               with GQA in bf16, and the 2 x 2048 prefill shapes of
               phi3-mini-3.8b (32 heads of 96), minitron-4b (24 / 8 of
               128), jamba-v0.1-52b (32 / 8 of 128) and deepseek-67b (64 /
-              8 of 128), each timed beside SDPA; B9 ssd_scan at the
+              8 of 128), and minitron-4b's tensor-parallel rank shapes at
+              m = 16 (2 / 1 and 1 / 1 of 128: 24 heads over 16 ranks, 1
+              or 2 a rank), each timed beside SDPA; B9 ssd_scan at the
               reference's three kernel-test shapes and at Mamba2-1.3B's
               layer shape (1 and 2, 2048, 64, 64, 128; chunk 256) on the
               inputs of a full-width Mamba2 layer, all within 2e-5 of max
@@ -146,7 +148,7 @@ Phases, each fatal on failure:
 11. secure lm - the secure decoder LM of core/secure_transformer.py at
               TinyLlama-1.1B's widths (d 2048, 32 heads of 64, d_ff 5632,
               vocab 32000) inside the reference's secure block (MHA, ReLU
-              FFN, no RoPE), 4 of TinyLlama's 22 blocks (a weight element
+              FFN, no RoPE), 2 of TinyLlama's 22 blocks (a weight element
               holds 84 B on the card; the script's time limit).  First the batched B5 on its own at
               the decode step's products (96 = 3 parties x 32 heads of
               (1, 128) x (128, bucket) and (1, 2 bucket) x (2 bucket, 64) at
@@ -156,7 +158,7 @@ Phases, each fatal on failure:
               and B1 at its decode shapes (M = 1: 2048 x 2048, 2048 x 5632,
               5632 x 2048, 2048 x 32000) == its plain version, timed, with
               the sum a token.  Then serve_lm (customized attention, full
-              RMSNorm; prompt 8, gen 8, buckets 16,64, a warm-up and 1 timed
+              RMSNorm; prompt 4, gen 4, buckets 16,64, a warm-up and 1 timed
               generation) with the counts zeroed before
               and read after: it must launch only B1 and the batched B5, at
               their exact counts, and its ledger equals lm_step_cost (or it
@@ -164,7 +166,7 @@ Phases, each fatal on failure:
               token, peak memory, launches a token, threefry calls a step,
               and the logits' largest gap to plaintext_lm_forward relative
               to its scale and the top-1 agreement (reported, not gated).
-              Last, at 2 blocks, a prompt of 4 and 2 tokens under customized
+              Last, at 2 blocks, a prompt of 2 and 2 tokens under customized
               + RMSNorm, softmax + RMSNorm and customized + static norm:
               every step's logits and the KV cache on the card == the
               port's CPU run bit for bit; then one more customized + RMSNorm
@@ -184,7 +186,7 @@ Phases, each fatal on failure:
               first design.  Then serve(backend="mesh"): CifarNet2
               with shared weights (B1 and B2 on their pair entries) and
               public ones (B3 and B4 at S = 2) at batch 32, local and mesh
-              in turns (local, mesh, mesh, local; 4 queries a run, the
+              in turns (local, mesh, mesh, local; 2 queries a run, the
               second mesh run also profiled in every rank): the opened
               logits == local bit for bit, each rank launches the path's
               kernels once a linear layer a query (once a projection a
@@ -198,7 +200,7 @@ Phases, each fatal on failure:
               the logits == unverified, and the carried-pair fault cells
               (reshare P1, open P1, send; corrupt) raise with the local
               backend's (op, index, tag, round, party).  Last the secure
-              LM at SLM's widths and 2 blocks (prompt 4, gen 4, bucket 16)
+              LM at SLM's widths and 1 block (prompt 2, gen 2, bucket 16)
               on both backends: logits, tokens and every rank's pair of
               the KV cache == local bit for bit, tok/s of both, the wire a
               decode step == its ledger.
@@ -315,10 +317,15 @@ Phases, each fatal on failure:
               gradient / 2 within 2^-6 of dense's; int8_psum of CUDA
               tensors within one int8 step of the host's dequantized
               sum and within 2 max|g| / 127 of the exact sum; TinyLlama-1.1B at
-              full width and 2 layers, 3 sharded train steps on a (2, 1)
-              mesh (each rank half the batch, gradients reduce-scattered)
+              full width and 8 of 22 layers, 3 sharded train steps on a
+              (2, 1) mesh (each rank half the batch; each layer's storage
+              shards gathered over "data" for that layer alone, again in
+              its recomputation, exactly 2 x 7 a layer + the embedding's
+              and the head's a step; gradients reduce-scattered back)
               against the mesh-less steps: loss 2e-3, gradient norm 1e-2
-              relative, parameters 2e-4 + 2·lr a step.  (6) Two ranks on
+              relative, parameters 2e-4 + 2·lr a step; rank 0's peak
+              beside the mesh-less step's, the seconds in collectives a
+              step.  (6) Two ranks on
               the card, TinyLlama-1.1B at full width and depth
               tensor-parallel on a (1, 2) mesh: prefill 2 x 2048 with B8
               on each rank's 16 heads (exactly 22 launches a rank, logits
@@ -332,12 +339,14 @@ Phases, each fatal on failure:
               tokens: paper3 / opt2 ring products exactly 1.5 (B5 launches
               18 / 12), the fused route on B1, each timed.  (8) The dry
               runs of
-              tinyllama-1.1b train_4k, deepseek-v3-671b decode_32k and
-              phi3-mini-3.8b decode_32k on the (16, 16) mesh of 256 fake
-              ranks and TinyLlama's 4 x 256 train step on the (1, 1)
-              mesh, each a subprocess with a timeout, on the host: their
-              memory and roofline records printed (the last beside (3)'s
-              measured peak), not gated.  (9) In (6)'s group, the layer
+              tinyllama-1.1b train_4k, deepseek-v3-671b decode_32k,
+              minitron-4b train_4k and phi3-mini-3.8b decode_32k on the
+              (16, 16) mesh of 256 fake ranks and TinyLlama's 4 x 256
+              train step on the (1, 1) mesh, each a subprocess with a
+              timeout, on the host: their memory and roofline records
+              printed (deepseek-v3's and minitron's peaks beside those of
+              the whole-model gather, the last beside (3)'s measured
+              peak), not gated.  (9) In (6)'s group, the layer
               kinds split over "model" since PR 29: (a) TinyLlama-1.1B's
               decode, full width and depth, 8 steps from a seeded 2 x
               4,096 cache, pos on each rank's 2,048 positions in turn
@@ -354,7 +363,11 @@ Phases, each fatal on failure:
               1 MoE: 80 of 160 experts a rank), prefill 2 x 512 and 4
               absorbed decode steps from a seeded 2 x 1,024 latent cache
               on the mesh-less run's expert choices
-              (``moe.replay_routing``), logits within 3%.  Each part's
+              (``moe.replay_routing``), logits within 3%; the same steps
+              on the naive route, split (each rank expands its 512 latent
+              positions to every head), on the same choices: within 3% of
+              the mesh-less card naive decode and within 5% of the split
+              absorbed route (phase 16's bound).  Each part's
               seconds, seconds in collectives and rank peaks printed.
 
 Prints the kernels' JSON line (twelve rows: the nine kernels, B5's batched
@@ -449,9 +462,12 @@ SOURCES = {**{name: f"src/repro_torch/csrc/{name}.cu"
 # share of it on the tensor-parallel (1, 2) mesh of phase 17 (6), 16 q and
 # 2 kv heads; then the wide heads: float32 and a ragged S with GQA at hd 96
 # and 128, and the 2 x 2048 prefill shapes of phi3-mini-3.8b, minitron-4b,
-# jamba-v0.1-52b and deepseek-67b; last hd 80 on the padded route (hd 96's
-# instantiation on zero-padded heads), which no model path launches (the
-# one hd-80 model, hubert-xlarge, is an encoder: no causal attention)
+# jamba-v0.1-52b and deepseek-67b; minitron-4b's tensor-parallel ranks at
+# m = 16 (heads [24j/16, 24(j+1)/16): 2 or 1 of its 24, reading one kv
+# head), which no two-rank run of the card gives a full-width model; last
+# hd 80 on the padded route (hd 96's instantiation on zero-padded heads),
+# which no model path launches (the one hd-80 model, hubert-xlarge, is an
+# encoder: no causal attention)
 FLASH_ROW = (2, 2048, 32, 4, 64, "bfloat16")
 FLASH_SHAPES = [(2, 256, 4, 4, 64, "float32"), (2, 256, 8, 2, 64, "float32"),
                 (2, 128, 4, 1, 32, "float32"), (2, 1000, 4, 2, 64, "float32"),
@@ -465,6 +481,8 @@ FLASH_SHAPES = [(2, 256, 4, 4, 64, "float32"), (2, 256, 8, 2, 64, "float32"),
                 (2, 2048, 24, 8, 128, "bfloat16"),
                 (2, 2048, 32, 8, 128, "bfloat16"),
                 (2, 2048, 64, 8, 128, "bfloat16"),
+                (2, 2048, 2, 1, 128, "bfloat16"),
+                (2, 2048, 1, 1, 128, "bfloat16"),
                 (2, 2048, 16, 16, 80, "bfloat16")]
 BB_REPEATS = 5             # B7 repeats at MnistNet4's shapes, bit for bit
 SPLIT_REPEATS = 5          # B1 / B3 repeats at their split-K shapes
@@ -488,21 +506,25 @@ SSD_REPEATS = 200          # repeats at each test shape (5 at Mamba2's)
 # phase 6: the tape pool's nets, depth and queries; the fault matrix
 POOL_NETS = [("MnistNet1", "shared"), ("CifarNet2", "shared"),
              ("CifarNet2", "public")]
-POOL_DEPTH, POOL_QUERIES = 4, 8
+# 8 queries until phase 17's per-layer FSDP gathers came (the time limit)
+POOL_DEPTH, POOL_QUERIES = 4, 4
 FAULT_OPS = (("reshare", 1), ("open", 1), ("send", None))
 FAULT_MODES = ("corrupt", "zero", "replay", "drop")
 # phase 11: the secure LM at TinyLlama-1.1B's widths inside the reference's
 # secure block (MHA, ReLU FFN, no RoPE: share_lm_params' architecture, not
-# TinyLlama's), 4 of its 22 blocks: a weight element holds 84 B on the
+# TinyLlama's), 2 of its 22 blocks: a weight element holds 84 B on the
 # card (12 B of shares, 72 B of WeightLimbs), so 12 blocks were ~46 GB;
-# cut from 12 to 8 when phase 17's two-rank part came and to 4 when its
-# tensor-parallel gradient gate came (the time limit: a step is ~0.5 s a
-# block, host-bound on the PRF, and the run serves 30 of them)
+# cut from 12 to 8 when phase 17's two-rank part came, to 4 when its
+# tensor-parallel gradient gate came and to 2 when its per-layer FSDP
+# gathers came (the time limit: a step is ~0.5 s a block, host-bound on
+# the PRF, and the run serves 30 of them)
 SLM = dict(d=2048, heads=32, d_ff=5632, vocab=32000)
-SLM_BLOCKS = 4
+SLM_BLOCKS = 2
 # one timed generation (two until phase 12 came: the script's time limit)
-SLM_SERVE = dict(prompt_len=8, gen=8, buckets=(16, 64), queries=1)
-SLM_CHECK = dict(blocks=2, prompt_len=4, gen=2)    # card == CPU
+# (prompt 8, gen 8 and a card == CPU prompt of 4 until phase 17's per-layer
+# FSDP gathers came: the time limit)
+SLM_SERVE = dict(prompt_len=4, gen=4, buckets=(16, 64), queries=1)
+SLM_CHECK = dict(blocks=2, prompt_len=2, gen=2)    # card == CPU
 SLM_MODES = ((True, False), (False, False), (True, True))  # custom/softmax
 B5_BATCH = 3 * 32          # one product per (party, head)
 # B1's decode shapes (K, N) at M = 1 and their launches a token at SLM_BLOCKS
@@ -510,14 +532,16 @@ B5_BATCH = 3 * 32          # one product per (party, head)
 B1_DECODE = {(2048, 2048): 4 * SLM_BLOCKS, (2048, 5632): SLM_BLOCKS,
              (5632, 2048): SLM_BLOCKS, (2048, 32000): 1}
 # phase 12: the classifier paths served with one party a process (their
-# per-party B1 / B2 shapes are the stacked ones at S = 1), queries a run,
-# and the secure LM at SLM's widths, 2 blocks
+# per-party B1 / B2 shapes are the stacked ones at S = 1), queries a run
+# (4 until phase 17's per-layer FSDP gathers came: the time limit), and
+# the secure LM at SLM's widths, 1 block, prompt 2, gen 2 (2 blocks,
+# prompt 4, gen 4 until then: a mesh step was ~6.5 s)
 MESH_PATHS = (("CifarNet2", "shared", "auto", True),
               ("MnistNet1", "shared", "auto", True))
 # the mesh's public-weight path: a rank runs B4 on its pair of slots (S = 2)
 MESH_PUBLIC = ("CifarNet2", "public", "auto", True)
-MESH_QUERIES = 4
-MESH_LM = dict(blocks=2, prompt_len=4, gen=4, buckets=(16,), queries=1)
+MESH_QUERIES = 2
+MESH_LM = dict(blocks=1, prompt_len=2, gen=2, buckets=(16,), queries=1)
 # phase 13: run_pipeline at the reference's defaults (BENCH_pareto.json's
 # meta), secure accuracy in every mode on the first 64 test images; its
 # secure batch; a student's accuracy may sit this far below the reference's
@@ -544,10 +568,13 @@ MOE_LAYER = dict(experts=16, d=4096, d_ff=14336, top_k=2, capacity=8.0,
 MOE_TOL = 0.15             # the reference test's bound, of max |y|
 # phase 17 (5): two ranks on the card in one gloo group (CUDA tensors cross
 # it through host copies): the MoE at cut widths (every rank holds every
-# expert whole, and its gradient), TinyLlama at full width and 2 layers
+# expert whole, and its gradient), TinyLlama at full width and 8 of 22
+# layers on a (2, 1) mesh (each layer's storage gathered over "data" for
+# that layer alone, again in its recomputation: a step is 13-19 s of gloo
+# host copies)
 TWO_RANK_MOE = dict(experts=16, d=1024, d_ff=2048, top_k=2, capacity=8.0,
                     batch=2, seq=512)
-TWO_RANK_TRAIN = dict(layers=2, batch=4, seq=256, steps=3, warmup=3)
+TWO_RANK_TRAIN = dict(layers=8, batch=4, seq=256, steps=3, warmup=3)
 TWO_RANK_PSUM = (2, 1024, 1024)   # (ranks, rows, cols) of int8_psum's input
 GRAD_TOL = 2 ** -6         # bf16 products: of the dense gradient's scale
 GNORM_TOL = 1e-2           # a sharded step's gradient norm, relative
@@ -579,6 +606,7 @@ TP_DEEPSEEK = dict(layers=2, batch=2, seq=512, cache=1024,
 SECURE_DRY = dict(tokens=2048, d=4096, d_ff=14336, reps=1)
 DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
                 ("deepseek-v3-671b", "decode_32k", "single"),
+                ("minitron-4b", "train_4k", "single"),
                 ("phi3-mini-3.8b", "decode_32k", "single"),
                 ("tinyllama-1.1b", "train:4:256", "one"))
 DRYRUN_TIMEOUT = 300
@@ -2120,7 +2148,7 @@ def lm_on_host(lm):
 
 
 def secure_lm_card_vs_cpu() -> None:
-    """Phase 11 (card == CPU): at SLM's widths and 2 blocks, a prompt of 4
+    """Phase 11 (card == CPU): at SLM's widths and 2 blocks, a prompt of 2
     and 2 generated tokens under customized + RMSNorm, softmax + RMSNorm
     and customized + static norm: every step's logits and the final KV
     cache on the card == the port's CPU run, bit for bit.  Then one more
@@ -3528,11 +3556,31 @@ def two_rank_psum_task(state, g):
     return str(out.device), out.cpu()
 
 
+@contextlib.contextmanager
+def storage_gathers():
+    """The all-gathers of the block (``tensor_parallel._gather_on``: on a
+    mesh whose "model" axis has one rank, each a leaf's storage shard
+    gathered over "data").  Yields {"n"}."""
+    from repro_torch.launch import tensor_parallel as tp
+    count, gather = {"n": 0}, tp._gather_on
+
+    def counted(*a, **k):
+        count["n"] += 1
+        return gather(*a, **k)
+    tp._gather_on = counted
+    try:
+        yield count
+    finally:
+        tp._gather_on = gather
+
+
 def two_rank_train_task(state, c: dict):
     """TinyLlama at full width and ``c["layers"]`` layers: ``c["steps"]``
     sharded train steps on a (2, 1) mesh (each rank half of every batch,
-    the gradients reduce-scattered); rank 0 also runs the mesh-less steps
-    on the whole batches and returns both."""
+    each layer's storage shards gathered over "data" for that layer, the
+    gradients reduce-scattered back), each step's seconds in collectives
+    and storage gathers; rank 0 also runs the mesh-less steps on the
+    whole batches and returns both."""
     import dataclasses
 
     import torch
@@ -3549,10 +3597,29 @@ def two_rank_train_task(state, c: dict):
     batches = [{k: torch.as_tensor(v) for k, v in b.items()}
                for b, _ in (next(stream) for _ in range(c["steps"]))]
     plan = mesh_lib.Plan(rank_mesh(state, (2, 1)))
-    got = train_steps(cfg, opt_cfg, batches, plan, state["device"])
+    per_step = []
+
+    @contextlib.contextmanager
+    def each_step():
+        with collective_seconds() as coll, storage_gathers() as n:
+            yield
+        per_step.append((coll["s"], n["n"]))
+    got = train_steps(cfg, opt_cfg, batches, plan, state["device"],
+                      each_step)
     if state["rank"] != 0:
         return None
-    return got, train_steps(cfg, opt_cfg, batches, None, state["device"])
+    return got, per_step, train_steps(cfg, opt_cfg, batches, None,
+                                      state["device"])
+
+
+def lr_sum(opt_cfg, steps: int) -> float:
+    """The sum of AdamW's learning rates over the first ``steps`` steps
+    (``optim.adamw._schedule``: step t from 0 runs at lr·min(1, (t + 2) /
+    warmup))."""
+    import torch
+    from repro_torch.optim.adamw import _schedule
+    return sum(float(_schedule(opt_cfg, torch.tensor(t + 1)))
+               for t in range(steps))
 
 
 def two_rank_phase() -> None:
@@ -3608,15 +3675,18 @@ def two_rank_phase() -> None:
                 fail(f"two-rank int8_psum on rank {r}")
 
         c = TWO_RANK_TRAIN
-        (got, metrics, secs, peak), (ref, ref_metrics, ref_s, ref_peak) = \
+        (got, metrics, secs, peak), per_step, \
+            (ref, ref_metrics, ref_s, ref_peak) = \
             grp.run(two_rank_train_task, (c,))[0]
+        # a layer's 7 matrices, each gathered in the forward pass and again
+        # in its recomputation, and the embedding and the head once each
+        want_gathers = 2 * 7 * c["layers"] + 2
         # the halves' bf16 gradients sum in another order: where one is
         # rounding noise, its sign may flip, and AdamW moves that element
         # by about lr a step either way (|m^|/sqrt(v^) <= 1.002 over 3
         # steps at betas 0.9 / 0.95): up to 2·lr_t a step apart
-        lr = OptConfig().lr
-        atol = 2.01 * sum(lr * min(1.0, (t + 1) / c["warmup"])
-                          for t in range(c["steps"]))
+        atol = 2.01 * lr_sum(OptConfig(warmup_steps=c["warmup"]),
+                             c["steps"])
         err, loss_err, gn_err = train_gap(got, metrics, ref, ref_metrics,
                                           atol)
         print(f"[chip_smoke] two ranks, sharded training TinyLlama-1.1B at "
@@ -3628,11 +3698,18 @@ def two_rank_phase() -> None:
               f"{[round(m[1], 5) for m in ref_metrics]}); median step "
               f"{secs:.4f} s (rank 0's mesh-less {ref_s:.4f} s); rank 0's "
               f"peak {peak / 2**30:.3f} GiB (mesh-less "
-              f"{ref_peak / 2**30:.3f})")
+              f"{ref_peak / 2**30:.3f}, {(ref_peak - peak) / 2**30:.3f} "
+              f"GiB more); storage gathers a step "
+              f"{[n for _, n in per_step]} (want {want_gathers}), seconds "
+              f"in collectives a step {[round(t, 4) for t, _ in per_step]}")
         if not err <= RESUME_TOL or not loss_err < RESUME_LOSS_TOL \
                 or not gn_err <= GNORM_TOL:
             fail("the two-rank sharded train step differs from the "
                  "mesh-less one")
+        if any(n != want_gathers for _, n in per_step):
+            fail(f"the two-rank train step gathered its storage "
+                 f"{[n for _, n in per_step]} times a step, want "
+                 f"{want_gathers} (one layer at a time)")
     print(f"[chip_smoke] two ranks {time.perf_counter() - t0:.1f} s")
 
 
@@ -3988,10 +4065,8 @@ def tp_rank_task(state, c: dict) -> dict:
             train_steps(cfg, opt_cfg, batches, None, dev)
         # where a gradient is rounding noise its sign may differ between
         # the two sum orders: AdamW moves such an element about lr_t a step
-        # either way (phase 17 (5)); step t (from 0) runs at
-        # lr·min(1, (t + 2) / warmup) (``optim.adamw._schedule``)
-        atol = 2.01 * sum(opt_cfg.lr * min(1.0, (t + 2) / c["warmup"])
-                          for t in range(c["steps"]))
+        # either way (phase 17 (5))
+        atol = 2.01 * lr_sum(opt_cfg, c["steps"])
         out["atol"] = atol
         out["gap"] = train_gap(got, metrics, ref, ref_metrics, atol)
         out["ref_metrics"] = ref_metrics
@@ -4042,10 +4117,11 @@ def mamba_prefill_b9(cfg, params, tokens, plan=None) -> tuple:
 def tp_kinds_task(state, c: dict) -> dict:
     """Phase 17 (9b, 9c) on one rank of the (1, 2) mesh: Mamba2-1.3B at
     12 layers (the B9 prefill, counted and timed; decode) and
-    deepseek-v2-236b at 2 layers (prefill; absorbed decode), each
-    tensor-parallel on the mesh-less run's inputs; rank 0 runs the
+    deepseek-v2-236b at 2 layers (prefill; absorbed and naive decode),
+    each tensor-parallel on the mesh-less run's inputs; rank 0 runs the
     mesh-less card runs first, and deepseek's replay the expert choices
-    rank 0 recorded (broadcast to every rank)."""
+    rank 0 recorded (broadcast to every rank; both decode routes the
+    absorbed run's)."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4114,6 +4190,9 @@ def tp_kinds_task(state, c: dict) -> dict:
         with moe.record_routing() as calls:
             out["ds_ref_decode"] = ref_decode_part(cfg, params, dsc, dev, 14)
         choices[1] = [t[0].cpu() for t in calls]
+        with moe.replay_routing(list(choices[1])):      # the naive route
+            out["ds_ref_naive"] = ref_decode_part(cfg, params, dsc, dev, 14,
+                                                  mla_absorbed=False)
         del params, step, ref
         torch.cuda.empty_cache()
     dist.broadcast_object_list(choices, src=0)
@@ -4131,6 +4210,9 @@ def tp_kinds_task(state, c: dict) -> dict:
     with moe.replay_routing(list(choices[1])) as changed:
         out["ds_decode"] = tp_decode_part(state, cfg, params, plan, dsc, 14)
     out["ds_decode_changed"] = sum(changed)
+    with moe.replay_routing(list(choices[1])):
+        out["ds_naive"] = tp_decode_part(state, cfg, params, plan, dsc, 14,
+                                         mla_absorbed=False)
     del params, step
     torch.cuda.empty_cache()
     return out
@@ -4187,6 +4269,19 @@ def kinds_phase(grp) -> dict:
     decode_gate("Mamba2-1.3B", outs, "mamba_decode", ref["mamba_ref_decode"])
     decode_gate("deepseek-v2-236b (absorbed)", outs, "ds_decode",
                 ref["ds_ref_decode"])
+    decode_gate("deepseek-v2-236b (naive)", outs, "ds_naive",
+                ref["ds_ref_naive"])
+    for r, o in enumerate(outs):         # the two split routes, same steps
+        gaps = [float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+                for a, b in zip(o["ds_naive"]["logits"],
+                                o["ds_decode"]["logits"])]
+        print(f"[chip_smoke] tensor parallel rank {r}, deepseek-v2-236b "
+              f"naive vs absorbed decode, both split: max |err| over "
+              f"max(scale, 1) {[round(g, 5) for g in gaps]} (gate "
+              f"{MLA_GAP_TOL})")
+        if not max(gaps) < MLA_GAP_TOL:
+            fail(f"tensor-parallel deepseek-v2 rank {r}: the naive decode "
+                 f"is {max(gaps)} off the absorbed one")
     print(f"[chip_smoke] tensor parallel (9b, 9c) "
           f"{time.perf_counter() - t0:.1f} s")
     return launches
@@ -4324,60 +4419,63 @@ def secure_dryrun_phase(kbuild) -> dict:
     return launches
 
 
-def dryrun_phase() -> None:
-    """Phase 17 (8): the dry-run cells, each a subprocess on the host (the
-    fake process group lives for its process), all started together;
-    their memory and roofline records printed, not gated."""
+def dryrun_start(tmp: str) -> list:
+    """Phase 17 (8)'s dry-run cells started together, each a subprocess on
+    the host (the fake process group lives for its process) writing its
+    record under ``tmp``: [(cell, process)].  They run on one thread each
+    at the lowest priority: the parts timed beside them (gloo's host
+    copies) keep the host's cores."""
     import os
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = [(cell, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", tmp],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            env=env)) for cell in DRYRUN_CELLS]
-        end = time.perf_counter() + DRYRUN_TIMEOUT
-        for (arch, shape, mesh), proc in procs:
-            try:
-                _, err = proc.communicate(
-                    timeout=max(1.0, end - time.perf_counter()))
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.communicate()
-                print(f"[chip_smoke] dry run {arch} {shape} {mesh}: no "
-                      f"record within {DRYRUN_TIMEOUT} s (killed)")
-                continue
-            path = Path(tmp) / (f"{arch}__{shape}__{mesh}__baseline.json"
-                                .replace(":", "-"))
-            if not path.exists():
-                print(f"[chip_smoke] dry run {arch} {shape} {mesh}: exit "
-                      f"{proc.returncode}, {err[-400:]}")
-                continue
-            rec = json.loads(path.read_text())
-            if rec["status"] != "OK":
-                print(f"[chip_smoke] dry run {arch} {shape} {mesh}: "
-                      f"{rec['status']} {rec.get('error', '')[:300]}")
-                continue
-            mem, roof, colls = rec["memory"], rec["roofline"], \
-                rec["collectives"]
-            beside = ""
-            if mesh == "one" and "mesh_train_peak" in NOTES:
-                beside = (f" (the card's (1, 1) mesh step: "
-                          f"{NOTES['mesh_train_peak'] / 2**30:.3f} GiB)")
-            what = (f"the cell over {rec['n_chips']} chips"
-                    if rec["compute"] == "tensor_parallel" else
-                    f"a rank's step (the whole model on 1 of "
-                    f"{roof['data_shards']} batch shards)")
-            print(f"[chip_smoke] dry run {arch} {shape} on {rec['n_chips']}"
-                  f" ranks ({mesh}), {rec['compute']} compute, meta step "
-                  f"{rec['step_s']} s on the host: a rank's arguments "
-                  f"{mem['argument_bytes'] / 2**30:.3f} GiB, tracked peak "
-                  f"{mem['tracked_peak_bytes'] / 2**30:.3f} GiB{beside}; "
-                  f"collectives {colls.pop('total_bytes'):,} B "
-                  f"({nonzero({k: v['count'] for k, v in colls.items()})}); "
-                  f"roofline of {what}: compute {roof['compute_s']:.4g} s, "
-                  f"memory {roof['memory_s']:.4g} s, {roof['dominant']}"
-                  f"-bound, model FLOPs {roof['model_flops_global']:.4g}")
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    return [(cell, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--mesh", cell[2], "--out", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env, preexec_fn=lambda: os.nice(19))) for cell in DRYRUN_CELLS]
+
+
+def dryrun_phase(tmp: str, procs: list) -> None:
+    """Phase 17 (8): the dry-run cells that :func:`dryrun_start` started
+    (``procs``, writing under ``tmp``) collected; their memory and
+    roofline records printed, not gated."""
+    end = time.perf_counter() + DRYRUN_TIMEOUT
+    for (arch, shape, mesh), proc in procs:
+        try:
+            _, err = proc.communicate(
+                timeout=max(1.0, end - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            print(f"[chip_smoke] dry run {arch} {shape} {mesh}: no "
+                  f"record within {DRYRUN_TIMEOUT} s (killed)")
+            continue
+        path = Path(tmp) / (f"{arch}__{shape}__{mesh}__baseline.json"
+                            .replace(":", "-"))
+        if not path.exists():
+            print(f"[chip_smoke] dry run {arch} {shape} {mesh}: exit "
+                  f"{proc.returncode}, {err[-400:]}")
+            continue
+        rec = json.loads(path.read_text())
+        if rec["status"] != "OK":
+            print(f"[chip_smoke] dry run {arch} {shape} {mesh}: "
+                  f"{rec['status']} {rec.get('error', '')[:300]}")
+            continue
+        mem, roof, colls = rec["memory"], rec["roofline"], \
+            rec["collectives"]
+        beside = ""
+        if mesh == "one" and "mesh_train_peak" in NOTES:
+            beside = (f" (the card's (1, 1) mesh step: "
+                      f"{NOTES['mesh_train_peak'] / 2**30:.3f} GiB)")
+        print(f"[chip_smoke] dry run {arch} {shape} on {rec['n_chips']}"
+              f" ranks ({mesh}), tensor-parallel, meta step "
+              f"{rec['step_s']} s on the host: a rank's arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f} GiB, tracked peak "
+              f"{mem['tracked_peak_bytes'] / 2**30:.3f} GiB{beside}; "
+              f"collectives {colls.pop('total_bytes'):,} B "
+              f"({nonzero({k: v['count'] for k, v in colls.items()})}); "
+              f"roofline of the cell over {rec['n_chips']} chips: compute "
+              f"{roof['compute_s']:.4g} s, memory {roof['memory_s']:.4g} s, {roof['dominant']}"
+              f"-bound, model FLOPs {roof['model_flops_global']:.4g}")
 
 
 def launch_phase(kbuild) -> dict:
@@ -4388,23 +4486,32 @@ def launch_phase(kbuild) -> dict:
 
     roofline_phase()
     by_part = {"batch-axis": batch_axis_phase()}
-    with tempfile.TemporaryDirectory() as tmp:
-        dist.init_process_group(
-            "cpu:gloo,cuda:nccl", rank=0, world_size=1,
-            store=dist.FileStore(str(Path(tmp) / "store"), 1))
+    # (8)'s dry runs on the host beside (3)-(7) on the card (the time
+    # limit), collected last; killed if a part fails first
+    with tempfile.TemporaryDirectory() as dry:
+        procs = dryrun_start(dry)
         try:
-            plan = mesh_lib.Plan(mesh_lib.make_mesh((1, 1),
-                                                    ("data", "model"),
-                                                    "cuda"))
-            mesh_train_phase(plan)
-            moe_shardmap_phase(plan)
+            with tempfile.TemporaryDirectory() as tmp:
+                dist.init_process_group(
+                    "cpu:gloo,cuda:nccl", rank=0, world_size=1,
+                    store=dist.FileStore(str(Path(tmp) / "store"), 1))
+                try:
+                    plan = mesh_lib.Plan(mesh_lib.make_mesh(
+                        (1, 1), ("data", "model"), "cuda"))
+                    mesh_train_phase(plan)
+                    moe_shardmap_phase(plan)
+                finally:
+                    dist.destroy_process_group()
+            torch.cuda.empty_cache()
+            two_rank_phase()
+            by_part["tensor-parallel"] = tensor_parallel_phase()
+            by_part["secure-dryrun"] = secure_dryrun_phase(kbuild)
+            dryrun_phase(dry, procs)
         finally:
-            dist.destroy_process_group()
-    torch.cuda.empty_cache()
-    two_rank_phase()
-    by_part["tensor-parallel"] = tensor_parallel_phase()
-    by_part["secure-dryrun"] = secure_dryrun_phase(kbuild)
-    dryrun_phase()
+            for _, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     return by_part
 
 

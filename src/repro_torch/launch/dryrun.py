@@ -10,24 +10,29 @@ once), lays the cell's parameters, optimizer state or cache and batch
 out as DTensors by ``launch.mesh``'s specs over the production mesh, and
 runs the port's own step on them:
 
-* train: ``launch.steps.make_train_step(..., plan)``: each parameter's
-  "model" shard (its "data" dims gathered), the loss tensor-parallel over
-  "model" (``launch.tensor_parallel``: H/m heads, d_ff/m FFN columns and
-  V/m logits a rank, the residual stream sequence-sharded between
-  layers, each layer recomputed in the backward pass where
-  ``cfg.remat``), the gradient reduce-scattered over "data", AdamW on the
-  shards;
+* train: ``launch.steps.make_train_step(..., plan)``: the loss
+  tensor-parallel over "model" (``launch.tensor_parallel``: H/m heads,
+  d_ff/m FFN columns and V/m logits a rank, the residual stream
+  sequence-sharded between layers, each layer recomputed in the backward
+  pass where ``cfg.remat``), each layer's "model" shards gathered over
+  "data" for that layer alone (FSDP storage gathered per layer, again in
+  its recomputation), each gradient reduce-scattered back over "data" by
+  its gather's backward, AdamW on the shards;
 * prefill: ``launch.steps.make_prefill_step(..., plan=plan)``, the same
-  tensor-parallel forward on this rank's batch shard;
+  tensor-parallel forward on this rank's batch shard, one layer's
+  weights gathered at a time;
 * decode: ``launch.steps.make_decode_step(..., plan=plan)`` on this
   rank's cache shards (``cache_specs``: its batch shard's S/m positions,
   Mamba-2's H/m heads and C/m conv channels): each layer on its "model"
-  shard, the token's projections and the attention's softmax combined
-  over "model", nothing of the cache gathered.
+  shard, gathered over "data" for that layer, the token's projections
+  and the attention's softmax combined over "model", nothing of the
+  cache gathered (MLA's naive route gathers ``w_uk`` / ``w_uv`` over
+  "model" to expand the rank's S/m positions).
 
-Every layer kind splits (GQA, MLA and Mamba-2 by heads, MLP columns, MoE
-experts); ``--no-remat`` (the reference's flag) runs the cell with
-``cfg.remat`` off.
+Every layer kind of the zoo splits (GQA, MLA and Mamba-2 by heads, GQA
+heads that ``m`` does not divide unevenly, MLP columns, MoE experts),
+in every step and on both MLA decode routes; ``--no-remat`` (the
+reference's flag) runs the cell with ``cfg.remat`` off.
 
 Only the plain versions of the kernels' products run on ``meta``: no
 kernel runs in a dry run.
@@ -39,18 +44,14 @@ its outputs that are not its inputs, ``temp_bytes`` the rest of the
 peak that ``torch.distributed._tools.mem_tracker.MemTracker`` reads),
 ``collectives`` (per op kind the count and the operand bytes of this
 rank's collectives, the keys of the reference's
-``collective_bytes_from_hlo``), ``roofline`` and ``step_s`` (the
+``collective_bytes_from_hlo``: the per-layer "data" all-gathers and the
+gradients' reduce-scatters among them), ``roofline`` and ``step_s`` (the
 reference's ``lower_s`` / ``compile_s``: the host seconds of the meta
-step); and ``compute``: "tensor_parallel" where every layer of the step
-splits over "model", else "replicated" (heads or FFN columns that ``m``
-does not divide, such as minitron-4b's 24 heads over 16 ranks in train
-and prefill, or MLA's naive decode route), with ``whole_layers``, the
-kinds of the layers that ran whole.  The
-roofline of a tensor-parallel cell is the reference's
-``roofline_terms(cfg, shape, None, collectives, n_chips)``: the cell's
-work over every chip.  A replicated cell's is one rank's step
-(:func:`rank_roofline`: ``roofline_terms`` of its batch shard on one
-card, beside ``data_shards`` and the cell's ``model_flops_global``).
+step).  The roofline is the reference's ``roofline_terms(cfg, shape,
+None, collectives, n_chips)``: the cell's work over every chip.  A layer
+that does not split over "model" (FFN columns, experts, MLA or Mamba-2
+heads that ``m`` does not divide: no cell of the zoo) raises, and the
+cell's record is its error.
 
 The fake group lives for the process: run this module as a script, or
 through ``launch.farm`` (a subprocess a cell); never call
@@ -72,11 +73,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..configs import SHAPES, get_config
-from ..roofline.analyze import (model_flops, roofline_terms,
-                                summarize_memory)
+from ..roofline.analyze import roofline_terms, summarize_memory
 
 __all__ = ["MESHES", "CollectiveCounter", "parse_shape", "dryrun_cell",
-           "rank_roofline", "main"]
+           "main"]
 
 MESHES = {"single": ((16, 16), ("data", "model")),
           "multi": ((2, 16, 16), ("pod", "data", "model")),
@@ -209,7 +209,6 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
     from ..optim import OptConfig, adamw_init
     from . import mesh as mesh_lib
     from . import steps as steps_lib
-    from . import tensor_parallel as tp
     from .context import use_plan
     if dispatch:
         from ..nn.moe import set_dispatch_mode
@@ -271,35 +270,21 @@ def dryrun_cell(arch: str, shape: str, mesh_kind: str,
             logits, aux = step(params, aux, dict(batch, pos=0))
             out_bytes = _nbytes(logits)
     step_s = time.time() - t0
-    ran_whole = sorted(tp.last().replicated)
-    peak = sum(v["Total"] for v in
-               tracker.get_tracker_snapshot("peak").values())
+    # every storage of the step is a ``meta`` one (a DTensor's local
+    # tensor); some torch versions' trackers also list the DTensors'
+    # own outputs under their mesh's device, at the global shape
+    peak = tracker.get_tracker_snapshot("peak").get(
+        torch.device("meta"), {}).get("Total", 0)
     colls = counter.result()
     mem = {"argument_size_in_bytes": arg_bytes,
            "output_size_in_bytes": out_bytes,
            "temp_size_in_bytes": max(peak - arg_bytes - out_bytes, 0),
            "alias_size_in_bytes": 0}
-    split = not ran_whole
     rec.update(status="OK", step_s=round(step_s, 2), n_chips=n_chips,
-               compute="tensor_parallel" if split else "replicated",
-               whole_layers=ran_whole,
                memory=dict(summarize_memory(mem), tracked_peak_bytes=peak),
                collectives=colls,
-               roofline=roofline_terms(cfg, info, None, colls, n_chips)
-               if split else rank_roofline(cfg, info, batch, colls))
+               roofline=roofline_terms(cfg, info, None, colls, n_chips))
     return rec
-
-
-def rank_roofline(cfg, info: dict, batch: dict, colls: dict) -> dict:
-    """``roofline_terms`` of the step one rank runs: the whole model on
-    its batch shard (``batch``, local), on one card; plus
-    ``data_shards`` and the cell's ``model_flops_global``."""
-    local_b = next(iter(batch.values())).shape[0]
-    local = dict(info, global_batch=local_b)
-    terms = roofline_terms(cfg, local, None, colls, 1)
-    terms.update(data_shards=info["global_batch"] // local_b,
-                 model_flops_global=model_flops(cfg, info))
-    return terms
 
 
 def main(argv=None) -> dict:

@@ -371,8 +371,10 @@ def model_dim(x):
 
 
 def model_shard(x):
-    """A parameter's "model" shard as a plain tensor: every other mesh
-    axis gathered (FSDP storage), the "model" one kept."""
+    """A DTensor's "model" shard as a plain tensor: every other mesh axis
+    gathered, the "model" one kept (a whole gradient's shard; the steps
+    gather parameters one layer at a time instead,
+    ``tensor_parallel.gathered``)."""
     from torch.distributed.tensor import Replicate
     names = x.device_mesh.mesh_dim_names
     keep = x.placements[names.index("model")]

@@ -79,12 +79,13 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptConfig | None = None,
 
     With a ``plan`` (a ``launch.mesh.Plan``) the parameters and moments
     are DTensors laid out by ``mesh.param_specs`` / ``opt_specs`` and
-    ``batch`` is this rank's shard (``mesh.batch_specs``): the step takes
-    each parameter's "model" shard (its "data" dims gathered: FSDP
-    storage), runs the loss tensor-parallel over "model"
-    (``launch.tensor_parallel``, see :func:`_mesh_grads`), reduce-
-    scatters the gradients over "data" to the parameters' layout and runs
-    AdamW on the shards; the loss is the mean over the data shards."""
+    ``batch`` is this rank's shard (``mesh.batch_specs``): the step runs
+    the loss tensor-parallel over "model" (``launch.tensor_parallel``,
+    see :func:`_mesh_grads`), each layer's "model" shards gathered over
+    "data" for that layer (FSDP storage gathered per layer), its
+    gradients reduce-scattered back over "data" to the parameters'
+    layout, and AdamW on the shards; the loss is the mean over the data
+    shards."""
     opt_cfg = opt_cfg or OptConfig()
     if plan is not None:
         return _mesh_train_step(cfg, opt_cfg, plan)
@@ -107,16 +108,18 @@ def _mesh_grads(params, batch: dict, cfg: ArchConfig, plan):
     """(loss of this rank's data shard, DTensor gradients in the
     parameters' layouts).  The ranks of a "model" row share their data
     shard and one loss, computed tensor-parallel on the parameters'
-    "model" shards (``tensor_parallel.local_params``); each local
-    gradient is complete for its shard over "model" (the conjugate
-    collectives sum the row's contributions: the MoE all-to-all's too),
-    partial over the n data ranks ("data", "pod"), so each rank
-    differentiates its loss over n and the gradients reduce-scatter over
-    "data" to each parameter's placements.  The backward pass runs inside
-    the plan (remat recomputes layers there)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    storage shards (``tensor_parallel.local_params``), each layer's
+    gathered over "data" for that layer (``tensor_parallel.gathered``);
+    each local gradient is complete for its shard over "model" (the
+    conjugate collectives sum the row's contributions: the MoE
+    all-to-all's too) and partial over the n data ranks ("data", "pod"),
+    so each rank differentiates its loss over n, and each gather's
+    backward reduce-scatters its leaf's gradient over "data" (all-reduces
+    a leaf whole over it): it comes back in the parameter's own
+    placements, summed once.  The backward pass runs inside the plan
+    (remat recomputes layers, and their gathers, there)."""
+    from torch.distributed.tensor import DTensor
 
-    from . import mesh as mesh_lib
     from . import tensor_parallel as tp
     from .context import use_plan
     mesh = plan.mesh
@@ -128,18 +131,16 @@ def _mesh_grads(params, batch: dict, cfg: ArchConfig, plan):
         # hubert's loss never reads its token embedding: None (zeros)
         grads = torch.autograd.grad(loss / n_data, list(local.values()),
                                     allow_unused=True)
+        summed = [tp.reduced(t) for t in local.values()]
     out = {}
-    for (k, p), g in zip(named.items(), grads):
-        if g is None:
-            out[k] = None
-            continue
-        dim = mesh_lib.model_dim(p)
-        place = [(Replicate() if dim is None else Shard(dim))
-                 if a == "model" else Partial()
-                 for a in mesh.mesh_dim_names]
-        out[k] = mesh_lib.redistribute(DTensor.from_local(
-            g, mesh, place, run_check=False, shape=p.shape,
-            stride=p.stride()), p.placements)
+    for (k, p), g, done in zip(named.items(), grads, summed):
+        if g is not None and not done:
+            raise RuntimeError(f"{k} was read outside "
+                               f"tensor_parallel.gathered: its gradient "
+                               f"is not summed over the data ranks")
+        out[k] = None if g is None else DTensor.from_local(
+            g, mesh, p.placements, run_check=False, shape=p.shape,
+            stride=p.stride())
     return loss.detach(), out
 
 
@@ -170,7 +171,8 @@ def make_prefill_step(cfg: ArchConfig, flash_impl=None, plan=None):
     causal GQA attention of every layer (never MLA's, nor an encoder's).
     With a ``plan`` the parameters are DTensors by ``mesh.param_specs``
     and ``batch`` is this rank's data shard: the step runs tensor-parallel
-    over "model" (the flash hook on the rank's H/m heads) and returns the
+    over "model" (the flash hook on the rank's heads), each layer's
+    "model" shards gathered over "data" for that layer, and returns the
     shard's logits."""
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -229,8 +231,9 @@ def make_decode_step(cfg: ArchConfig, mla_absorbed: bool = True,
     or naive.  With a ``plan`` the parameters are DTensors by
     ``mesh.param_specs``, the cache DTensors by ``mesh.cache_specs`` and
     "tokens" this rank's data shard: the step runs tensor-parallel over
-    "model" on the rank's parameter and cache shards (each rank attends
-    over its S/m positions; the owner of ``pos`` writes them) and returns
+    "model" on the rank's parameter and cache shards (each layer's
+    gathered over "data" for that layer; each rank attends over its S/m
+    positions; the owner of ``pos`` writes them) and returns
     the shard's logits, whole over the vocabulary, and the cache in its
     layout."""
     @torch.no_grad()

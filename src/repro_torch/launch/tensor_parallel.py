@@ -11,8 +11,17 @@ the vocabulary.  The port writes the same program out by hand
 (Megatron-style sequence parallelism) on plain local tensors:
 
 * :func:`local_params` replaces every parameter of the ``LM`` by its
-  "model" shard (``mesh.model_shard``: the "data" dims gathered, FSDP
-  storage), and makes the tensor-parallel plan the one in use;
+  storage shard (the DTensor's local tensor, split over "data" / "pod"
+  and "model") and makes the tensor-parallel plan the one in use;
+  :func:`gathered` then takes one layer's (or the embedding's, the
+  head's) "model" shards for the code inside it, gathered over "data"
+  and "pod" (FSDP storage gathered per layer, the reference's
+  ``repro/launch/mesh.py:5-6``, ``repro/nn/transformer.py:207-219``: one
+  layer's gathered weights live at a time, and a layer recomputed under
+  remat gathers them again); in backward each leaf's gradient
+  reduce-scatters back to its storage shard over "data" (a leaf whole
+  over "data", such as a norm's, all-reduces), so it leaves the step
+  already summed over the data ranks;
 * the residual stream between layers is this rank's slice of the
   sequence (``S / m`` positions of its data shard) where ``m`` divides S
   (``TPState.sp``); else (a decode step's one token) it is whole on every
@@ -33,10 +42,12 @@ the vocabulary.  The port writes the same program out by hand
 * decode attends over the cache's sequence slice (``cache_specs``: S/m
   positions a rank) for every head and combines the softmax over "model"
   (:func:`softmax_combine`: one max and one sum);
-* a layer that does not split (heads that ``m`` does not divide, MLA's
-  naive decode) runs whole on the whole sequence with its weights
-  gathered over "model" (:func:`replicated`: the row's ranks repeat its
-  work), and the dry run records its kind;
+* GQA heads that ``m`` does not divide run unevenly (rank j the heads
+  ``[jH/m, (j+1)H/m)``, ``wq`` and ``wo`` gathered whole in bf16 and cut
+  at head boundaries); MLA's naive decode expands the rank's S/m latent
+  positions with ``w_uk`` / ``w_uv`` gathered whole in bf16; a layer
+  whose FFN columns, experts, MLA or Mamba-2 heads ``m`` does not divide
+  (no model of the zoo at m = 16) raises: no layer runs whole;
 * norms run on the sequence slice; their weights pass :func:`on_shard`
   (identity, their gradient all-reduced over "model" in backward).
 
@@ -46,8 +57,8 @@ Every collective is a c10d op on the plan's "model" group inside a
 CUDA tensor crosses a gloo group as a host copy (:func:`on_group`, the
 one route for every collective of the port's mesh code; torch's
 functional collectives crash the ranks on CUDA tensors over gloo).  With
-every leaf's gradient complete for its shard, a leaf's gradient is
-partial over "data" only (``launch.steps._mesh_grads``).
+every leaf's gradient complete for its "model" shard, the gather's
+backward sums it over "data" (``launch.steps._mesh_grads``).
 
 The state in use is a module global, not a context variable: remat
 (``torch.utils.checkpoint``) recomputes a layer inside the backward pass,
@@ -61,43 +72,42 @@ import types
 
 import torch
 
-__all__ = ["TPState", "current", "last", "local_params",
-           "suspended", "on_group",
+__all__ = ["TPState", "current", "local_params", "gathered", "on_group",
            "copy_to_model", "reduce_from_model", "gather_seq", "scatter_seq",
            "reduce_scatter_seq", "gather_model", "enter", "leave",
            "enter_whole", "leave_whole", "on_shard", "sliced", "split",
-           "whole", "whole_module", "replicated", "max_over_model",
+           "whole", "max_over_model",
            "sum_over_model", "softmax_combine", "columns", "block",
-           "stream_len"]
+           "stream_len", "reduced"]
 
 
 @dataclasses.dataclass
 class TPState:
     """The tensor-parallel plan in use: the "model" group, its size ``m``
     and this rank's index ``j`` in it, whether the stream is sequence-
-    sharded (``sp``), each local leaf's "model" dim (by ``id``; None where
-    the leaf is whole), and the kinds of the modules that ran whole
-    (:func:`replicated`)."""
+    sharded (``sp``), each leaf's "model" dim (by ``id``, the storage
+    shards' and those :func:`gathered` gives; None where the leaf is
+    whole).  ``storage`` holds the mesh axes other than
+    "model" with more than one rank ((group, size) each, mesh order),
+    ``shards`` each storage shard's dim along each of them (by ``id``;
+    None where the leaf is whole over it), and ``reduced`` the storage
+    shards whose gradient a gather's backward sums over them."""
     group: object
     m: int
     j: int
     sp: bool
     dims: dict
-    replicated: set = dataclasses.field(default_factory=set)
+    storage: tuple = ()
+    shards: dict = dataclasses.field(default_factory=dict)
+    reduced: set = dataclasses.field(default_factory=set)
 
 
 _STATE: TPState | None = None
-_LAST: TPState | None = None
+_STORE: TPState | None = None      # the state whose storage is gathered
 
 
 def current() -> TPState | None:
     return _STATE
-
-
-def last() -> TPState | None:
-    """The state of the last :func:`local_params` block (its
-    ``replicated`` kinds, for the dry run's record)."""
-    return _LAST
 
 
 @contextlib.contextmanager
@@ -108,14 +118,6 @@ def _use(state):
         yield state
     finally:
         _STATE = prev
-
-
-@contextlib.contextmanager
-def suspended():
-    """Inside the block no plan is in use: code runs on whole tensors as
-    it does mesh-less (the body of a :func:`replicated` layer)."""
-    with _use(None):
-        yield
 
 
 def stream_len(batch: dict, cfg) -> int:
@@ -130,32 +132,105 @@ def stream_len(batch: dict, cfg) -> int:
 @contextlib.contextmanager
 def local_params(module, plan, seq_len: int, grad: bool = False):
     """``module``'s parameters (DTensors laid out by ``mesh.param_specs``)
-    replaced by their "model" shards as plain tensors, gradients on where
+    replaced by their storage shards (the local tensors, split over
+    "data" / "pod" and "model") as plain tensors, gradients on where
     ``grad``, and the tensor-parallel plan of ``plan`` in use for a
     stream of ``seq_len`` positions (none where "model" has one rank);
-    yields (``{name: local leaf}``, the state)."""
+    code reads a leaf inside :func:`gathered`, which gathers its "data"
+    dims.  Yields (``{name: storage shard}``, the state)."""
+    from torch.distributed.tensor import Shard
     from torch.nn.utils.stateless import _reparametrize_module
 
     from . import mesh as mesh_lib
     m = plan.model_size
-    local, dims = {}, {}
+    names = plan.mesh.mesh_dim_names
+    axes = [i for i, a in enumerate(names)
+            if a != "model" and plan.mesh.size(i) > 1]
+    local, dims, shards = {}, {}, {}
     for k, p in module.named_parameters():
-        t = mesh_lib.model_shard(p).detach().requires_grad_(grad)
+        t = p.to_local().detach().requires_grad_(grad)
         local[k] = t
         dims[id(t)] = mesh_lib.model_dim(p)
-    global _LAST
-    state = _LAST = TPState(plan.mesh.get_group("model"), m,
-                            plan.mesh.get_local_rank("model"),
-                            seq_len % m == 0, dims)
+        shards[id(t)] = tuple(p.placements[i].dim if isinstance(
+            p.placements[i], Shard) else None for i in axes)
+    global _STORE
+    state = TPState(
+        plan.mesh.get_group("model"), m, plan.mesh.get_local_rank("model"),
+        seq_len % m == 0, dims,
+        storage=tuple((plan.mesh.get_group(i), plan.mesh.size(i))
+                      for i in axes), shards=shards)
+    prev, _STORE = _STORE, state if axes else None
     # a "model" axis of one splits nothing: the mesh-less code on the
-    # local (whole) leaves
-    with _reparametrize_module(module, local), \
-            _use(state if m > 1 else None):
-        yield local, state
+    # local leaves (gathered over "data" where it has more than one rank)
+    try:
+        with _reparametrize_module(module, local), \
+                _use(state if m > 1 else None):
+            yield local, state
+    finally:
+        _STORE = prev
+
+
+def _leaves(module, names) -> dict:
+    """``{dotted name: leaf in use}`` of ``module``'s parameters: every one
+    where ``names`` is empty, else those of each named attribute (a
+    parameter, or a submodule's every parameter; None skipped)."""
+    if not names:
+        return dict(module.named_parameters())
+    out = {}
+    for n in names:
+        v = getattr(module, n)
+        if isinstance(v, torch.nn.Module):
+            out.update({f"{n}.{k}": t for k, t in v.named_parameters()})
+        elif v is not None:
+            out[n] = v
+    return out
+
+
+@contextlib.contextmanager
+def gathered(module, *names):
+    """Inside the block ``module``'s parameters (or the named attributes'
+    alone: :func:`_leaves`) are their "model" shards, each storage shard
+    gathered over the mesh axes other than "model" (one all-gather a leaf
+    split over one; in backward its gradient reduce-scattered back, a
+    leaf whole over the axis all-reduced), and registered for
+    :func:`split` and :func:`whole`.  Each call gathers again: a layer
+    recomputed under remat gathers inside its recomputation, and nothing
+    gathered is held past the block but what autograd saves.  Nothing
+    moves where no axis but "model" has more than one rank."""
+    st = _STORE
+    if st is None:
+        yield
+        return
+    from torch.nn.utils.stateless import _reparametrize_module
+    swap, made = {}, []
+    for k, t in _leaves(module, names).items():
+        spec = st.shards.get(id(t))
+        if spec is None:
+            raise RuntimeError(f"{k} {tuple(t.shape)} is no storage shard "
+                               f"of the parameters in use: gathered twice?")
+        g = _GatherStorage.apply(t, tuple(zip(st.storage, spec)))
+        if t.requires_grad:
+            st.reduced.add(id(t))
+        st.dims[id(g)] = st.dims[id(t)]
+        swap[k] = g
+        made.append(id(g))
+    try:
+        with _reparametrize_module(module, swap):
+            yield
+    finally:
+        for i in made:
+            st.dims.pop(i, None)
+
+
+def reduced(t) -> bool:
+    """Whether the storage shard ``t``'s gradient comes back summed over
+    the axes other than "model": it went through :func:`gathered`, or no
+    such axis has more than one rank."""
+    return _STORE is None or id(t) in _STORE.reduced
 
 
 # ---------------------------------------------------------------------------
-# Collectives (c10d, on the "model" group)
+# Collectives (c10d, on the "model" group and the storage axes)
 # ---------------------------------------------------------------------------
 
 def on_group(fn, x: torch.Tensor, group) -> torch.Tensor:
@@ -168,39 +243,69 @@ def on_group(fn, x: torch.Tensor, group) -> torch.Tensor:
     return out.to(x.device) if host else out
 
 
-def _all_gather(x: torch.Tensor, dim: int, st: TPState) -> torch.Tensor:
+def _gather_on(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """All-gather of ``x`` along ``dim`` over the ``n`` ranks of
+    ``group``."""
     import torch.distributed as dist
 
     def fn(t):
         t = t.movedim(dim, 0).contiguous()
-        out = t.new_empty((st.m * t.shape[0],) + tuple(t.shape[1:]))
-        dist.all_gather_into_tensor(out, t, group=st.group)
+        out = t.new_empty((n * t.shape[0],) + tuple(t.shape[1:]))
+        dist.all_gather_into_tensor(out, t, group=group)
         # contiguous: every product of the gathered sequence would copy it
         return out.movedim(0, dim).contiguous()
-    return on_group(fn, x, st.group)
+    return on_group(fn, x, group)
 
 
-def _reduce_scatter(x: torch.Tensor, dim: int, st: TPState) -> torch.Tensor:
-    """The sum over the ranks, this rank's slice of ``dim``, summed in
-    float32 and returned in ``x``'s dtype."""
+def _scatter_on(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The sum over the ``n`` ranks of ``group``, this rank's slice of
+    ``dim``, summed in float32 and returned in ``x``'s dtype."""
     import torch.distributed as dist
 
     def fn(t):
         t = t.float().movedim(dim, 0).contiguous()
-        out = t.new_empty((t.shape[0] // st.m,) + tuple(t.shape[1:]))
-        dist.reduce_scatter_tensor(out, t, group=st.group)
+        out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t, group=group)
         return out.movedim(0, dim)
-    return on_group(fn, x, st.group).to(x.dtype)
+    return on_group(fn, x, group).to(x.dtype)
 
 
-def _all_reduce(x: torch.Tensor, st: TPState, op=None) -> torch.Tensor:
+def _sum_on(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """The elementwise sum (or ``op``) over ``group``, in float32,
+    returned in ``x``'s dtype."""
     import torch.distributed as dist
 
     def fn(t):
         t = t.float().clone()
-        dist.all_reduce(t, op or dist.ReduceOp.SUM, group=st.group)
+        dist.all_reduce(t, op or dist.ReduceOp.SUM, group=group)
         return t
-    return on_group(fn, x, st.group).to(x.dtype)
+    return on_group(fn, x, group).to(x.dtype)
+
+
+class _GatherStorage(torch.autograd.Function):
+    """A storage shard -> its "model" shard: gathered along its dim over
+    each axis that splits it (the inner axis first); in backward the
+    gradient reduce-scattered back over each (the outer first), then
+    all-reduced over each axis that leaves the leaf whole (on the
+    scattered shard: the sums commute).  ``axes`` holds ((group, size),
+    dim or None) a storage axis, in mesh order."""
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        for (group, n), dim in reversed(axes):
+            if dim is not None:
+                x = _gather_on(x, dim, group, n)
+        return x if any(d is not None for _, d in axes) else x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for (group, n), dim in ctx.axes:
+            if dim is not None:
+                g = _scatter_on(g, dim, group, n)
+        for (group, _), dim in ctx.axes:
+            if dim is None:
+                g = _sum_on(g, group)
+        return g, None
 
 
 def _slice(x: torch.Tensor, dim: int, st: TPState) -> torch.Tensor:
@@ -216,14 +321,14 @@ class _Copy(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.st), None
+        return _sum_on(g, ctx.st.group), None
 
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, st, dtype):
         ctx.dtype = x.dtype
-        return _all_reduce(x, st).to(dtype)
+        return _sum_on(x, st.group).to(dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -236,12 +341,14 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, reduce_grad, st):
         ctx.dim, ctx.reduce_grad, ctx.st = dim, reduce_grad, st
-        return _all_gather(x, dim, st)
+        return _gather_on(x, dim, st.group, st.m)
 
     @staticmethod
     def backward(ctx, g):
-        f = _reduce_scatter if ctx.reduce_grad else _slice
-        return f(g, ctx.dim, ctx.st), None, None, None
+        st = ctx.st
+        if ctx.reduce_grad:
+            return _scatter_on(g, ctx.dim, st.group, st.m), None, None, None
+        return _slice(g, ctx.dim, st), None, None, None
 
 
 class _Split(torch.autograd.Function):
@@ -252,19 +359,19 @@ class _Split(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.dim, ctx.st), None, None
+        return _gather_on(g, ctx.dim, ctx.st.group, ctx.st.m), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, st, dtype):
         ctx.dim, ctx.st, ctx.dtype = dim, st, x.dtype
-        return _reduce_scatter(x, dim, st).to(dtype)
+        return _scatter_on(x, dim, st.group, st.m).to(dtype)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.dim, ctx.st).to(ctx.dtype), None, None, \
-            None
+        g = _gather_on(g, ctx.dim, ctx.st.group, ctx.st.m)
+        return g.to(ctx.dtype), None, None, None
 
 
 class _Sum(torch.autograd.Function):
@@ -273,17 +380,17 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, st):
         ctx.st = st
-        return _all_reduce(x, st)
+        return _sum_on(x, st.group)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_reduce(g, ctx.st), None
+        return _sum_on(g, ctx.st.group), None
 
 
 def max_over_model(x):
     """The elementwise maximum over "model" (no gradient)."""
     import torch.distributed as dist
-    return _all_reduce(x.detach(), _STATE, dist.ReduceOp.MAX)
+    return _sum_on(x.detach(), _STATE.group, dist.ReduceOp.MAX)
 
 
 def sum_over_model(x):
@@ -306,8 +413,8 @@ def softmax_combine(scores, weigh):
     -inf, and exp(-inf - -inf) would be NaN)."""
     mx = max_over_model(scores.float().amax(-1, keepdim=True))
     p = torch.exp(scores.float() - mx)
-    both = _all_reduce(torch.cat([weigh(p), p.sum(-1, keepdim=True)], -1),
-                       _STATE)
+    both = _sum_on(torch.cat([weigh(p), p.sum(-1, keepdim=True)], -1),
+                   _STATE.group)
     return both[..., :-1] / both[..., -1:]
 
 
@@ -447,31 +554,3 @@ def whole(t, reduce_grad: bool, dtype=None):
     if dim is None:
         return copy_to_model(t) if reduce_grad else t
     return gather_model(t, dim, reduce_grad)
-
-
-def whole_module(mod, reduce_grad: bool = False):
-    """A namespace of ``mod``'s whole parameters (children alike), for
-    code run under :func:`suspended`."""
-    out = types.SimpleNamespace()
-    for k, t in mod._parameters.items():
-        setattr(out, k, whole(t, reduce_grad))
-    for k, c in mod._modules.items():
-        setattr(out, k, None if c is None else whole_module(c, reduce_grad))
-    for k, v in vars(mod).items():     # plain attributes (None, is_attn)
-        if not k.startswith("_") and not k == "training":
-            setattr(out, k, v)
-    return out
-
-
-def replicated(fn, mod, x, *args, **kwargs):
-    """``fn(whole weights of mod, whole sequence, ...)`` run on every rank
-    of the row (the layer does not split over "model"), then the stream's
-    slice of its output (the first element where it returns a tuple)."""
-    _STATE.replicated.add(type(mod).__name__)
-    w = whole_module(mod)
-    xf = enter_whole(x)
-    with suspended():
-        out = fn(w, xf, *args, **kwargs)
-    if isinstance(out, tuple):
-        return (leave_whole(out[0]),) + tuple(out[1:])
-    return leave_whole(out)

@@ -21,9 +21,16 @@ sequence: ``wq`` on its local columns, the kv heads those q heads read,
 sequence).  Where ``n_kv_heads`` splits over the m ranks, ``wk`` / ``wv``
 are their local columns; else they are gathered over "model" and each
 rank projects the kv heads its q heads read (its gradient to them
-reduce-scattered back).  Where ``n_heads`` does not split, the layer runs
-whole.  The flash hook (B8) takes the local heads, with k and v
-contiguous.  MLA in train and prefill runs H/m heads: ``w_uq`` (or
+reduce-scattered back).  Where ``m`` does not divide ``n_heads``
+(minitron-4b's 24 over 16) rank j runs heads ``[jH/m, (j+1)H/m)``, 1 or
+2 of them: ``wq``'s columns and ``wo``'s rows cut at those head
+boundaries from the leaves gathered whole over "model" in bf16 (their
+gradient reduce-scattered back), each local q head reading its own kv
+head where the heads do not fall in whole groups (the reference's
+``_leaf_spec`` splits the storage at 1.5 heads a rank and GSPMD splits
+the products, ``repro/launch/mesh.py:95-132``).  The flash hook (B8)
+takes the local heads, with k and v contiguous.  MLA in train and
+prefill runs H/m heads: ``w_uq`` (or
 ``wq``), ``w_uk`` and ``w_uv`` on their local columns (contiguous by
 head), ``wo`` on its local rows; its latent projections ``w_dq``,
 ``w_dkv`` and ``w_kr``, column-sharded in storage but read whole by
@@ -42,10 +49,13 @@ slice for every head and the softmax combines over "model"
 its float32 partial sums reduced once.  Absorbed MLA gathers the
 absorbed queries of the rank's heads over heads and sums the weighted
 latent (B x h x r) over "model" before ``w_uv`` and ``wo`` run on the
-rank's heads.  The naive MLA decode runs whole on the cache's gathered
-sequence (``tensor_parallel.replicated``).  As in the reference, decode
-masks only the slots past ``pos`` (its ``_sdpa`` call is not causal, so
-``sliding_window`` does not apply there).
+rank's heads.  The naive MLA decode gathers the token's q over heads
+and ``w_uk`` / ``w_uv`` over "model" in bf16 (a weight, token-free:
+2 x r x h·hd x 2 B a layer), expands only the rank's S/m latent
+positions to every head's k and v, and scores them like GQA's slice.
+As in the reference, decode masks only the slots past ``pos`` (its
+``_sdpa`` call is not causal, so ``sliding_window`` does not apply
+there).
 
 MLA keeps a low-rank latent ``c_kv`` (r wide) and one shared RoPE key
 (rd wide) a position.  Its q·k is hd + rd wide and its v hd wide, so it
@@ -145,47 +155,63 @@ def _gqa_prefill(p, x: torch.Tensor, cfg, positions=None, causal=True,
     return dense(p, attn, "wo"), (k, v)
 
 
-def _local_kv(p: GQA, cfg, tp):
-    """(wk, wv) columns of the kv heads this rank's q heads read, and the
-    kv head of each local q head where they do not fall in whole groups
-    (else None); ``tp`` is ``launch.tensor_parallel``."""
-    st = tp.current()
-    hd, m = cfg.head_dim, st.m
-    hl, group = cfg.n_heads // m, cfg.n_heads // cfg.n_kv_heads
-    if cfg.n_kv_heads % m == 0 and tp.split(p.wk, 1) and tp.split(p.wv, 1):
+def _head_range(n_heads: int, st) -> tuple:
+    """The q heads ``[h0, h1)`` of "model" rank ``st.j``: ``[jH/m,
+    (j+1)H/m)``, H/m each where ``m`` divides H, else 1 or 2 (every rank
+    at least one)."""
+    if n_heads < st.m:
+        raise ValueError(f"{n_heads} heads do not split over {st.m} model "
+                         f"ranks: a rank would run none")
+    return st.j * n_heads // st.m, (st.j + 1) * n_heads // st.m
+
+
+def _local_kv(p: GQA, cfg, tp, h0: int, h1: int):
+    """(wk, wv) columns of the kv heads this rank's q heads ``[h0, h1)``
+    read, and the kv head of each local q head where the grouped reshape
+    (``_sdpa``'s, B8's) would not map them so (else None); ``tp`` is
+    ``launch.tensor_parallel``."""
+    hd, m = cfg.head_dim, tp.current().m
+    hl, group = h1 - h0, cfg.n_heads // cfg.n_kv_heads
+    if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0 \
+            and tp.split(p.wk, 1) and tp.split(p.wv, 1):
         return p.wk, p.wv, None
-    kv0 = st.j * hl // group
-    kv1 = ((st.j + 1) * hl - 1) // group + 1
+    kv0, kv1 = h0 // group, (h1 - 1) // group + 1
     cols = slice(kv0 * hd, kv1 * hd)
     wk = tp.whole(p.wk, True)[:, cols]
     wv = tp.whole(p.wv, True)[:, cols]
-    idx = [(st.j * hl + i) // group - kv0 for i in range(hl)]
-    aligned = hl % group == 0 or group % hl == 0
-    return wk, wv, None if aligned else idx
+    idx = [(h0 + i) // group - kv0 for i in range(hl)]
+    n = kv1 - kv0
+    grouped = hl % n == 0 and idx == [i // (hl // n) for i in range(hl)]
+    return wk, wv, None if grouped else idx
 
 
 def gqa_prefill(p: GQA, x: torch.Tensor, cfg, positions=None, causal=True,
                 flash_impl=None):
     """x: (B,S,d) -> ((B,S,d), (k, v)); under a tensor-parallel plan x and
     the output are the stream's sequence slices and (k, v) the local
-    heads'."""
+    heads' (1 or 2 a rank where ``m`` does not divide the heads)."""
     from ..launch import tensor_parallel as tp
     st = tp.current()
     if st is None:
         return _gqa_prefill(p, x, cfg, positions, causal, flash_impl)
-    if cfg.n_heads % st.m or not (tp.split(p.wq, 1) and tp.split(p.wo, 0)):
-        return tp.replicated(_gqa_prefill, p, x, cfg, positions, causal,
-                             flash_impl)
-    hd, hl = cfg.head_dim, cfg.n_heads // st.m
+    hd = cfg.head_dim
+    h0, h1 = _head_range(cfg.n_heads, st)
     xf = tp.enter(x)
-    wk, wv, idx = _local_kv(p, cfg, tp)
-    q = _split_heads(matmul(xf, p.wq), hl, hd)
+    wk, wv, idx = _local_kv(p, cfg, tp, h0, h1)
+    if cfg.n_heads % st.m == 0 and tp.split(p.wq, 1) and tp.split(p.wo, 0):
+        wq, wo = p.wq, p.wo
+    else:                  # uneven: cut at the rank's head boundaries
+        cols = slice(h0 * hd, h1 * hd)
+        wq = tp.whole(p.wq, True, COMPUTE_DTYPE)[:, cols]
+        wo = tp.whole(p.wo, True, COMPUTE_DTYPE)[cols]
+    hl = h1 - h0
+    q = _split_heads(matmul(xf, wq), hl, hd)
     k = _split_heads(matmul(xf, wk), wk.shape[1] // hd, hd)
     v = _split_heads(matmul(xf, wv), wv.shape[1] // hd, hd)
     if idx is not None:               # one kv head a q head
         k, v = k[:, :, idx], v[:, :, idx]
     attn, k = _attend(q, k, v, cfg, positions, causal, flash_impl)
-    y = tp.leave(partial_matmul(attn, p.wo), COMPUTE_DTYPE)
+    y = tp.leave(partial_matmul(attn, wo), COMPUTE_DTYPE)
     return y, (k, v)
 
 
@@ -229,8 +255,9 @@ def _past(scores, first: int, pos: int):
 
 def _sdpa_slice(q, k, v, first: int, pos: int, tp) -> torch.Tensor:
     """``_sdpa`` of a decode token's q (B,1,H,hd) against this rank's cache
-    slice k/v (B,s,Hkv,hd) of positions ``first`` ..., every head, the
-    softmax combined over "model" -> (B,1,H*hd) in float32."""
+    slice k (B,s,Hkv,hd) / v (B,s,Hkv,hv) of positions ``first`` ...,
+    every head, the softmax combined over "model" -> (B,1,H*hv) in
+    float32."""
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     qg = (q.float() / math.sqrt(hd)).reshape(b, sq, hkv, h // hkv, hd) \
@@ -240,7 +267,7 @@ def _sdpa_slice(q, k, v, first: int, pos: int, tp) -> torch.Tensor:
     vg = v.float().permute(0, 2, 1, 3)
     out = tp.softmax_combine(_past(scores, first, pos), lambda w:
                              torch.einsum("bhgqk,bhkd->bhgqd", w, vg))
-    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, -1)
 
 
 def _row_out(o: torch.Tensor, wo, tp) -> torch.Tensor:
@@ -331,25 +358,29 @@ def _mla_new_position(p: MLA, x: torch.Tensor, cache: dict, pos: int, cfg):
     return q_nope, q_rope
 
 
-def _mla_heads_split(p: MLA, cfg, tp) -> bool:
-    """Whether MLA's heads split over the plan's m ranks: ``m`` divides
-    them and the per-head leaves are this rank's heads' shards."""
+def _check_mla_split(p: MLA, cfg, tp) -> None:
+    """Raises unless MLA's heads split over the plan's m ranks: ``m``
+    divides them and the per-head leaves are this rank's heads'
+    shards."""
     up = p.w_uq if cfg.q_lora_rank else p.wq
-    return cfg.n_heads % tp.current().m == 0 and tp.split(up, 1) \
-        and tp.split(p.w_uk, 1) and tp.split(p.w_uv, 1) \
-        and tp.split(p.wo, 0)
+    m = tp.current().m
+    if not (cfg.n_heads % m == 0 and tp.split(up, 1)
+            and tp.split(p.w_uk, 1) and tp.split(p.w_uv, 1)
+            and tp.split(p.wo, 0)):
+        raise ValueError(f"MLA's {cfg.n_heads} heads do not split over "
+                         f"{m} model ranks")
 
 
 def mla_prefill(p: MLA, x: torch.Tensor, cfg, positions=None):
     """x: (B,S,d) -> ((B,S,d), (c_kv (B,S,r), k_rope (B,S,rd))); under a
     tensor-parallel plan x and the output are the stream's sequence
     slices, the layer runs H/m heads on the gathered sequence and
-    (c_kv, k_rope) are the whole sequence's."""
+    (c_kv, k_rope) are the whole sequence's; raises where the heads do
+    not split."""
     from ..launch import tensor_parallel as tp
     if tp.current() is None:
         return _mla_prefill(p, x, cfg, positions)
-    if not _mla_heads_split(p, cfg, tp):
-        return tp.replicated(_mla_prefill, p, x, cfg, positions)
+    _check_mla_split(p, cfg, tp)
     return _mla_prefill_tp(p, x, cfg, positions, tp)
 
 
@@ -403,12 +434,12 @@ def _mla_prefill_tp(p: MLA, x, cfg, positions, tp):
 
 def mla_decode(p: MLA, x: torch.Tensor, cache: dict, pos: int, cfg):
     """Naive decode: x (B,1,d); the whole latent cache expanded to per-head
-    K/V, the slots past ``pos`` masked.  Under a tensor-parallel plan it
-    runs whole on the cache's gathered sequence (every rank the same),
-    then each rank keeps its slice."""
+    K/V, the slots past ``pos`` masked.  Under a tensor-parallel plan the
+    cache is the rank's sequence slice (B,Smax/m,r) / (B,Smax/m,rd), and
+    only that slice is expanded (:func:`_mla_decode_tp`)."""
     from ..launch import tensor_parallel as tp
     if tp.current() is not None:
-        return _mla_decode_whole(_mla_decode, p, x, cache, pos, cfg, tp)
+        return _mla_decode_tp(p, x, cache, pos, cfg, tp)
     return _mla_decode(p, x, cache, pos, cfg)
 
 
@@ -427,16 +458,50 @@ def _mla_decode(p, x: torch.Tensor, cache: dict, pos: int, cfg):
     return dense(p, out, "wo"), cache
 
 
-def _mla_decode_whole(fn, p, x, cache: dict, pos: int, cfg, tp):
-    """``fn`` (a mesh-less MLA decode) run whole on every rank of the row
-    (``tensor_parallel.replicated``) on the cache's sequence gathered over
-    "model"; this rank's slice of the updated cache written back."""
-    full = {k: tp.gather_seq(v, reduce_grad=False) for k, v in cache.items()}
-    y, full = tp.replicated(fn, p, x, full, pos, cfg)
-    s, j = cache["c_kv"].shape[1], tp.current().j
-    for k, v in cache.items():
-        v.copy_(full[k][:, j * s:(j + 1) * s])
-    return y, cache
+def _mla_token_tp(p: MLA, x, cache: dict, pos: int, cfg, tp):
+    """A decode token's half common to both split routes: its q_nope and
+    RoPE'd q_rope on the rank's heads (B,1,h/m,hd) / (B,1,h/m,rd), its
+    latents gathered over "model" (``tensor_parallel.columns``) and
+    written by the owner of ``pos`` into the rank's cache slice, and
+    that slice's first position.  Raises where the heads do not split."""
+    st = tp.current()
+    _check_mla_split(p, cfg, tp)
+    b = x.shape[0]
+    hd, rd, hl = cfg.head_dim, cfg.rope_head_dim, cfg.n_heads // st.m
+    if cfg.q_lora_rank:
+        cq, c_new, kr_new = tp.columns(x, p.w_dq, p.w_dkv, p.w_kr)
+        q = matmul(cq, p.w_uq)
+    else:
+        c_new, kr_new = tp.columns(x, p.w_dkv, p.w_kr)
+        q = matmul(x, p.wq)
+    q = q.reshape(b, 1, hl, hd + rd)
+    posv = torch.full((1,), pos, device=x.device)
+    q_rope = apply_rope(q[..., hd:], posv, cfg.rope_theta)
+    kr_new = apply_rope(kr_new[..., None, :], posv, cfg.rope_theta)[..., 0, :]
+    first = st.j * cache["c_kv"].shape[1]
+    _write_own(cache, {"c_kv": c_new, "k_rope": kr_new}, pos, first)
+    return q[..., :hd], q_rope, first
+
+
+def _mla_decode_tp(p: MLA, x, cache: dict, pos: int, cfg, tp):
+    """Naive decode on this rank's cache slice: the token's q gathered
+    over heads, ``w_uk`` / ``w_uv`` gathered over "model" in bf16 and the
+    slice's S/m latent positions expanded to every head's k and v, every
+    head scored on the slice (the softmax combined over "model"), ``wo``
+    on the rank's rows."""
+    b = x.shape[0]
+    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    q_nope, q_rope, first = _mla_token_tp(p, x, cache, pos, cfg, tp)
+    q = tp.gather_model(torch.cat([q_nope, q_rope], dim=-1), 2, False)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    s = c_kv.shape[1]
+    k_nope = matmul(c_kv, tp.whole(p.w_uk, False, COMPUTE_DTYPE)) \
+        .reshape(b, s, h, hd)
+    v = matmul(c_kv, tp.whole(p.w_uv, False, COMPUTE_DTYPE)) \
+        .reshape(b, s, h, hd)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, rd)],
+                  dim=-1)
+    return _row_out(_sdpa_slice(q, k, v, first, pos, tp), p.wo, tp), cache
 
 
 def mla_decode_absorbed(p: MLA, x: torch.Tensor, cache: dict, pos: int,
@@ -448,9 +513,6 @@ def mla_decode_absorbed(p: MLA, x: torch.Tensor, cache: dict, pos: int,
     (B,Smax/m,r) / (B,Smax/m,rd)."""
     from ..launch import tensor_parallel as tp
     if tp.current() is not None:
-        if not _mla_heads_split(p, cfg, tp):
-            return _mla_decode_whole(_mla_decode_absorbed, p, x, cache, pos,
-                                     cfg, tp)
         return _mla_decode_absorbed_tp(p, x, cache, pos, cfg, tp)
     return _mla_decode_absorbed(p, x, cache, pos, cfg)
 
@@ -486,21 +548,10 @@ def _mla_decode_absorbed_tp(p: MLA, x, cache: dict, pos: int, cfg, tp):
     ``w_uv`` and ``wo`` on the rank's heads."""
     st = tp.current()
     b = x.shape[0]
-    h, hd, rd = cfg.n_heads, cfg.head_dim, cfg.rope_head_dim
+    hd, rd = cfg.head_dim, cfg.rope_head_dim
     r, hl = cfg.kv_lora_rank, cfg.n_heads // st.m
-    if cfg.q_lora_rank:
-        cq, c_new, kr_new = tp.columns(x, p.w_dq, p.w_dkv, p.w_kr)
-        q = matmul(cq, p.w_uq)
-    else:
-        c_new, kr_new = tp.columns(x, p.w_dkv, p.w_kr)
-        q = matmul(x, p.wq)
-    q = q.reshape(b, 1, hl, hd + rd)
-    posv = torch.full((1,), pos, device=x.device)
-    q_rope = apply_rope(q[..., hd:], posv, cfg.rope_theta)
-    kr_new = apply_rope(kr_new[..., None, :], posv, cfg.rope_theta)[..., 0, :]
-    first = st.j * cache["c_kv"].shape[1]
-    _write_own(cache, {"c_kv": c_new, "k_rope": kr_new}, pos, first)
-    q_lat = torch.einsum("bqhd,rhd->bqhr", q[..., :hd],
+    q_nope, q_rope, first = _mla_token_tp(p, x, cache, pos, cfg, tp)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
                          p.w_uk.reshape(r, hl, hd).to(COMPUTE_DTYPE))
     qa = tp.gather_model(torch.cat([q_lat, q_rope], -1), 2, False)
     c_kv = cache["c_kv"].float()

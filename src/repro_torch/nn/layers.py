@@ -205,7 +205,8 @@ def mlp(p: MLP, x: torch.Tensor, act: str, gated: bool) -> torch.Tensor:
             and (not gated or tp.split(p.w_gate, 1)):
         h = _hidden(p, tp.enter(x), act, gated)    # (B, S, d_ff / m)
         return tp.leave(partial_matmul(h, p.w_down), COMPUTE_DTYPE)
-    return tp.replicated(_mlp, p, x, act, gated)
+    raise ValueError(f"the MLP's {p.w_up.shape[1]} columns do not split "
+                     f"over {tp.current().m} model ranks")
 
 
 # -- RoPE --------------------------------------------------------------------

@@ -360,13 +360,14 @@ def _moe_ffn_tp(p: MoE, x: torch.Tensor, tp, **run) -> torch.Tensor:
     stream routes the slice as it is to the local experts' owners (the
     router gathered, its gradient reduce-scattered back) and returns the
     slice; the dense dispatch, and "shardmap" on a whole stream (decode),
-    run expert-parallel (:func:`_expert_parallel_dense`).  Where the
-    expert stacks do not split over "model", the layer runs whole."""
+    run expert-parallel (:func:`_expert_parallel_dense`).  Raises where
+    the expert stacks do not split over "model"."""
     st = tp.current()
     gated = run["gated"]
     if not (tp.split(p.w_up, 0) and tp.split(p.w_down, 0)
             and (not gated or tp.split(p.w_gate, 0))):
-        return tp.replicated(_moe_ffn_dense, p, x, **run)
+        raise ValueError(f"{p.w_up.shape[0]} experts do not split over "
+                         f"{st.m} model ranks")
     if _MOE_IMPL == "shardmap" and st.sp:
         y = _expert_parallel(tp.whole(p.router, True), p, x, group=st.group,
                              m=st.m, **run)

@@ -30,8 +30,7 @@ and writes its own window back in the spec's layout, and the conv's
 output (B x C, an activation) is gathered and cut to the rank's x
 channels and the whole B and C; the gated norm gathers the token's
 squares (B x d_inner) and averages them in the mesh-less order.
-Where ``m`` does not divide the heads, prefill runs whole
-(``tensor_parallel.replicated``) and decode raises.
+Where ``m`` does not divide the heads, prefill and decode raise.
 """
 from __future__ import annotations
 
@@ -207,14 +206,8 @@ def ssd_output(p: Mamba2, y: torch.Tensor, x: torch.Tensor,
 def ssd_prefill(p: Mamba2, u: torch.Tensor, cfg):
     """u: (B, S, d_model) -> ((B, S, d_model), final ssm state (B,H,hd,N));
     under a tensor-parallel plan u and the output are the stream's
-    sequence slices and the state holds the rank's H/m heads."""
-    from ..launch import tensor_parallel as tp
-    if tp.current() is not None and not _splits(cfg, tp):
-        return tp.replicated(_ssd_prefill, p, u, cfg)
-    return _ssd_prefill(p, u, cfg)
-
-
-def _ssd_prefill(p, u: torch.Tensor, cfg):
+    sequence slices and the state holds the rank's H/m heads (raises
+    where ``m`` does not divide them)."""
     z, x, bmat, cmat, da, dt = ssd_inputs(p, u, cfg)
     s = x.shape[1]
     chunk = cfg.ssd_chunk or CHUNK

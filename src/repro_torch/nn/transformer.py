@@ -30,12 +30,20 @@ vocab-parallel head (logits (B, S, V/m), the reference's
 cross-entropy (the log-sum-exp's max and sum all-reduced over "model",
 the gold logit from the rank that owns it), for the MTP term and the
 vision slice too.  Every layer kind splits (GQA, MLA and Mamba-2 by
-heads, the MLP by columns, the MoE by experts); a layer whose heads or
-FFN ``m`` does not divide runs whole on every rank of the row.  The
-decode step's stream is the one token, whole on every rank: norms run
-on it, the embedding and the head are vocab-parallel, the float32
-logits gathered over the vocabulary, and each layer reads the rank's
-cache shards (``launch.mesh.cache_specs``).
+heads, GQA heads that ``m`` does not divide unevenly, the MLP by
+columns, the MoE by experts); a layer whose FFN ``m`` does not divide
+runs whole on every rank of the row.  The decode step's stream is the
+one token, whole on every rank: norms run on it, the embedding and the
+head are vocab-parallel, the float32 logits gathered over the
+vocabulary, and each layer reads the rank's cache shards
+(``launch.mesh.cache_specs``).  Each layer (a jamba period: each
+sub-layer, the unit its nested checkpoint keeps) reads its parameters
+inside ``tensor_parallel.gathered``: their storage shards gathered over
+"data" for that layer alone, inside the function remat recomputes, so
+the recomputation gathers them again (the reference gathers inside its
+``jax.checkpoint``-ed scan body, ``repro/nn/transformer.py:207-219``);
+the embedding, ``final_norm``, the head and the MTP head are gathered
+where they are used, the head after the last layer.
 
 A jamba period (``JambaPeriod``, one "layer" of the ``jamba_period``
 group) holds ``attn_period`` pre-norm sub-layers ``sub0`` ...: sub-layer i
@@ -253,36 +261,39 @@ def _checkpointed(fn, *args):
 
 
 def _jamba_sub(lp, h: torch.Tensor, cfg: ArchConfig, flash_impl=None):
-    hin = _norm(cfg, lp.norm1, h)
-    if lp.is_attn:
-        y, _ = attn.gqa_prefill(lp.attn, hin, cfg, flash_impl=flash_impl)
-    else:
-        y, _ = ssm_mod.ssd_prefill(lp.mamba, hin, cfg)
-    h = h + y
-    return h + _ffn_apply(lp.ffn, _norm(cfg, lp.norm2, h), cfg)
+    with tp.gathered(lp):
+        hin = _norm(cfg, lp.norm1, h)
+        if lp.is_attn:
+            y, _ = attn.gqa_prefill(lp.attn, hin, cfg, flash_impl=flash_impl)
+        else:
+            y, _ = ssm_mod.ssd_prefill(lp.mamba, hin, cfg)
+        h = h + y
+        return h + _ffn_apply(lp.ffn, _norm(cfg, lp.norm2, h), cfg)
 
 
 def _block_fwd(p, h: torch.Tensor, cfg: ArchConfig, kind: str,
                flash_impl=None) -> torch.Tensor:
-    """One layer, prefill mode. h: (B,S,d)."""
-    if kind == "mamba":
-        y, _ = ssm_mod.ssd_prefill(p.mamba, _norm(cfg, p.norm1, h), cfg)
-        return h + y
+    """One layer, prefill mode, its parameters gathered for it. h:
+    (B,S,d)."""
     if kind == "jamba_period":
         remat = _remat(cfg)          # nested: sub-layer boundaries only
         for lp in p.children():
             h = _checkpointed(_jamba_sub, lp, h, cfg, flash_impl) if remat \
                 else _jamba_sub(lp, h, cfg, flash_impl)
         return h
-    hin = _norm(cfg, p.norm1, h)
-    if kind == "block":
-        y, _ = attn.gqa_prefill(p.attn, hin, cfg,
-                                causal=not cfg.encoder_only,
-                                flash_impl=flash_impl)
-    else:                                 # MLA: _sdpa, never the hook
-        y, _ = attn.mla_prefill(p.attn, hin, cfg)
-    h = h + y
-    return h + _ffn_apply(p.ffn, _norm(cfg, p.norm2, h), cfg)
+    with tp.gathered(p):
+        if kind == "mamba":
+            y, _ = ssm_mod.ssd_prefill(p.mamba, _norm(cfg, p.norm1, h), cfg)
+            return h + y
+        hin = _norm(cfg, p.norm1, h)
+        if kind == "block":
+            y, _ = attn.gqa_prefill(p.attn, hin, cfg,
+                                    causal=not cfg.encoder_only,
+                                    flash_impl=flash_impl)
+        else:                             # MLA: _sdpa, never the hook
+            y, _ = attn.mla_prefill(p.attn, hin, cfg)
+        h = h + y
+        return h + _ffn_apply(p.ffn, _norm(cfg, p.norm2, h), cfg)
 
 
 def _embed_stream(params: LM, tokens: torch.Tensor,
@@ -333,6 +344,12 @@ def _head(params: LM) -> torch.Tensor:
     return params.embed.T if params.head is None else params.head
 
 
+def _head_leaves(params: LM, *more: str) -> tuple:
+    """The names of the head's leaf (the embedding where tied) and
+    ``more``, for ``tensor_parallel.gathered``."""
+    return ("embed" if params.head is None else "head",) + more
+
+
 def _logits(params: LM, h: torch.Tensor) -> torch.Tensor:
     """Logits of the stream: (B,S,V); under a tensor-parallel plan the
     whole sequence's, (B,S,V/m) where the vocabulary splits."""
@@ -352,13 +369,16 @@ def forward(params: LM, batch: dict, cfg: ArchConfig, flash_impl=None,
     the final-normed hidden states (B,S,d) with ``return_hidden``); under
     a tensor-parallel plan (B,S,V/m) where the vocabulary splits, and the
     hidden states' sequence slice."""
-    h = _embed_inputs(params, batch, cfg)
+    with tp.gathered(params, "front_proj" if cfg.frontend == "audio"
+                     else "embed"):
+        h = _embed_inputs(params, batch, cfg)
     remat = _remat(cfg)
     for lp, kind in zip(params.layers, params.kinds):
         h = _checkpointed(_block_fwd, lp, h, cfg, kind, flash_impl) \
             if remat else _block_fwd(lp, h, cfg, kind, flash_impl)
-    h = _norm(cfg, params.final_norm, h)
-    logits = _logits(params, h)
+    with tp.gathered(params, *_head_leaves(params, "final_norm")):
+        h = _norm(cfg, params.final_norm, h)
+        logits = _logits(params, h)
     return (logits, h) if return_hidden else logits
 
 
@@ -396,11 +416,14 @@ def loss_fn(params: LM, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     vs = _vocab_split(params)
     if cfg.mtp:
         logits, h = forward(params, batch, cfg, return_hidden=True)
-        lab_emb = _embed_stream(params, labels.clamp(min=0))
-        h2 = torch.cat([_norm(cfg, params.mtp_norm, h).to(COMPUTE_DTYPE),
-                        lab_emb], dim=-1)
-        h2 = matmul(h2, tp.whole(params.mtp_proj, tp.sliced()))
-        logits2 = _logits(params, h2)
+        with tp.gathered(params, "embed"):
+            lab_emb = _embed_stream(params, labels.clamp(min=0))
+        with tp.gathered(params, *_head_leaves(params, "mtp_norm",
+                                               "mtp_proj")):
+            h2 = torch.cat([_norm(cfg, params.mtp_norm, h)
+                            .to(COMPUTE_DTYPE), lab_emb], dim=-1)
+            h2 = matmul(h2, tp.whole(params.mtp_proj, tp.sliced()))
+            logits2 = _logits(params, h2)
         labels2 = torch.cat([labels[:, 1:],
                              torch.full_like(labels[:, :1], -1)], dim=-1)
         return _ce(logits, labels, vs) \
@@ -460,30 +483,39 @@ def abstract_cache(cfg: ArchConfig, batch: int, max_seq: int) -> list[dict]:
 
 def _block_decode(p, c: dict, h: torch.Tensor, pos: int, cfg: ArchConfig,
                   kind: str, mla_absorbed: bool = True):
-    if kind == "mamba":
-        y, c2 = ssm_mod.ssd_decode(p.mamba, apply_norm(cfg.norm, p.norm1, h),
-                                   c, cfg)
-        return h + y, c2
+    """One layer's decode step, its parameters (a jamba sub-layer's)
+    gathered for it."""
     if kind == "jamba_period":
         c2 = {}
         for i, lp in enumerate(p.children()):
             lc = c[f"sub{i}"]
-            hin = apply_norm(cfg.norm, lp.norm1, h)
-            if lp.is_attn:
-                y, c2[f"sub{i}"] = attn.gqa_decode(lp.attn, hin, lc, pos, cfg)
-            else:
-                y, c2[f"sub{i}"] = ssm_mod.ssd_decode(lp.mamba, hin, lc, cfg)
-            h = h + y
-            h = h + _ffn_apply(lp.ffn, apply_norm(cfg.norm, lp.norm2, h), cfg)
+            with tp.gathered(lp):
+                hin = apply_norm(cfg.norm, lp.norm1, h)
+                if lp.is_attn:
+                    y, c2[f"sub{i}"] = attn.gqa_decode(lp.attn, hin, lc, pos,
+                                                       cfg)
+                else:
+                    y, c2[f"sub{i}"] = ssm_mod.ssd_decode(lp.mamba, hin, lc,
+                                                          cfg)
+                h = h + y
+                h = h + _ffn_apply(lp.ffn,
+                                   apply_norm(cfg.norm, lp.norm2, h), cfg)
         return h, c2
-    hin = apply_norm(cfg.norm, p.norm1, h)
-    if kind == "block":
-        y, c2 = attn.gqa_decode(p.attn, hin, c, pos, cfg)
-    else:
-        fn = attn.mla_decode_absorbed if mla_absorbed else attn.mla_decode
-        y, c2 = fn(p.attn, hin, c, pos, cfg)
-    h = h + y
-    return h + _ffn_apply(p.ffn, apply_norm(cfg.norm, p.norm2, h), cfg), c2
+    with tp.gathered(p):
+        if kind == "mamba":
+            y, c2 = ssm_mod.ssd_decode(
+                p.mamba, apply_norm(cfg.norm, p.norm1, h), c, cfg)
+            return h + y, c2
+        hin = apply_norm(cfg.norm, p.norm1, h)
+        if kind == "block":
+            y, c2 = attn.gqa_decode(p.attn, hin, c, pos, cfg)
+        else:
+            fn = attn.mla_decode_absorbed if mla_absorbed \
+                else attn.mla_decode
+            y, c2 = fn(p.attn, hin, c, pos, cfg)
+        h = h + y
+        return h + _ffn_apply(p.ffn, apply_norm(cfg.norm, p.norm2, h),
+                              cfg), c2
 
 
 def _decode_logits(params: LM, h: torch.Tensor) -> torch.Tensor:
@@ -505,13 +537,15 @@ def decode_step(params: LM, cache: list[dict], tokens: torch.Tensor,
     (B,1,V) in float32, cache); MLA layers decode absorbed or naive.
     Under a tensor-parallel plan ``cache`` holds this rank's shards
     (``launch.steps.make_decode_step``)."""
-    h = _embed_stream(params, tokens)
+    with tp.gathered(params, "embed"):
+        h = _embed_stream(params, tokens)
     new_cache = []
     for lp, lc, kind in zip(params.layers, cache, params.kinds):
         h, c2 = _block_decode(lp, lc, h, pos, cfg, kind, mla_absorbed)
         new_cache.append(c2)
-    h = apply_norm(cfg.norm, params.final_norm, h)
-    return _decode_logits(params, h), new_cache
+    with tp.gathered(params, *_head_leaves(params, "final_norm")):
+        h = apply_norm(cfg.norm, params.final_norm, h)
+        return _decode_logits(params, h), new_cache
 
 
 def prefill_step(params: LM, batch: dict, cfg: ArchConfig,

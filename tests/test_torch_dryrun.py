@@ -12,10 +12,12 @@ from the specs, exactly; the all-gathers move at least every sharded
 parameter's shard; the step is tensor-parallel over "model" (every layer
 splits: 2 of TinyLlama's 32 heads a rank) and its roofline is the
 reference's ``roofline_terms(cfg, shape, None, collectives, 256)``: the
-cell's work over every chip.  Every layer kind splits: a decode cell and
-jamba's and deepseek-v3's train cells record no whole layer, minitron-4b's
-24 heads over 16 ranks its attention whole; ``--no-remat`` drops the
-recomputed forward gathers.
+cell's work over every chip.  Every layer kind splits: a decode cell,
+jamba's and deepseek-v3's train cells, minitron-4b's train and prefill
+(24 heads over 16 ranks: 1 or 2 a rank) and an MLA decode cell on the
+naive route run (a layer that does not split raises); ``--no-remat`` drops the recomputed
+forward gathers: the stream's, and each layer's "data" gathers of its
+parameters.
 """
 import json
 import os
@@ -29,6 +31,7 @@ from repro_torch import configs
 from repro_torch.launch import farm
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
+from repro_torch.launch.dryrun import parse_shape
 from repro_torch.roofline.analyze import model_flops, roofline_terms
 
 REPO = Path(__file__).resolve().parent.parent
@@ -40,6 +43,10 @@ class _Mesh:
 
     def size(self, i):
         return self.shape[i]
+
+
+class _Host8(_Mesh):
+    shape = (2, 4)
 
 
 def _local_numel(shape, spec, sizes):
@@ -94,7 +101,6 @@ def test_farm_runs_the_missing_cell(tmp_path):
     assert colls["reduce-scatter"]["count"] >= len(sharded)
     assert colls["total_bytes"] == sum(
         v["bytes"] for k, v in colls.items() if k != "total_bytes")
-    assert rec["compute"] == "tensor_parallel" and rec["whole_layers"] == []
     terms = roofline_terms(cfg, "train_4k", None, colls, 256)
     assert rec["roofline"] == json.loads(json.dumps(terms))
     assert rec["roofline"]["model_flops_global"] \
@@ -120,7 +126,6 @@ def test_tensor_parallel_cell_against_replicated(tmp_path):
     name = f"{arch}__{shape}__{mesh}__baseline.json".replace(":", "-")
     tp = json.loads((tmp_path / name).read_text())
     assert tp["status"] == "OK" and tp["n_chips"] == 8
-    assert tp["compute"] == "tensor_parallel" and tp["whole_layers"] == []
     cfg = configs.get_config(arch)
     info = {"kind": "train", "global_batch": 8, "seq_len": 256}
     assert tp["roofline"] == json.loads(json.dumps(roofline_terms(
@@ -135,15 +140,24 @@ def test_tensor_parallel_cell_against_replicated(tmp_path):
         tp["memory"]["tracked_peak_bytes"], whole)
 
 
-# (arch, shape, mesh, extra flags) -> the layers the step runs whole
-SPLIT_CELLS = {
-    ("tinyllama-1.1b", "decode:8:256", "host8", ""): [],
-    ("jamba-v0.1-52b", "train:8:256", "host8", ""): [],
-    ("deepseek-v3-671b", "train:8:256", "host8", ""): [],
-    # 24 heads over 16 "model" ranks: the attention runs whole
-    ("minitron-4b", "train:16:256", "single", ""): ["GQA"],
-    ("tinyllama-1.1b", "train:8:256", "host8", "--no-remat"): [],
-}
+# (arch, shape, mesh, extra flags); NAIVE runs the decode step's MLA
+# layers on the naive route (the dry run has no flag for it: the cell's
+# process patches ``make_decode_step``)
+NAIVE = "naive-mla"
+SPLIT_CELLS = [
+    ("tinyllama-1.1b", "decode:8:256", "host8", ""),
+    ("jamba-v0.1-52b", "train:8:256", "host8", ""),
+    ("deepseek-v3-671b", "train:8:256", "host8", ""),
+    # 24 heads over 16 "model" ranks: 1 or 2 a rank
+    ("minitron-4b", "train:16:256", "single", ""),
+    ("minitron-4b", "prefill:16:256", "single", ""),
+    ("deepseek-v2-236b", "decode:16:256", "single", NAIVE),
+    ("tinyllama-1.1b", "train:8:256", "host8", "--no-remat"),
+]
+_NAIVE_RUN = ("import sys; from repro_torch.launch import dryrun, steps; "
+              "f = steps.make_decode_step; steps.make_decode_step = "
+              "lambda cfg, mla_absorbed=True, plan=None: f(cfg, False, "
+              "plan); dryrun.main(sys.argv[1:])")
 
 
 @pytest.fixture(scope="module")
@@ -155,10 +169,12 @@ def split_records(tmp_path_factory):
     for i, cell in enumerate(SPLIT_CELLS):
         arch, shape, mesh, flags = cell
         out = tmp_path_factory.mktemp(f"cell{i}")
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-               arch, "--shape", shape, "--mesh", mesh, "--out", str(out)]
+        run = ["-c", _NAIVE_RUN] if flags == NAIVE \
+            else ["-m", "repro_torch.launch.dryrun"] + flags.split()
+        cmd = [sys.executable] + run + ["--arch", arch, "--shape", shape,
+                                        "--mesh", mesh, "--out", str(out)]
         runs[cell] = (out, subprocess.Popen(
-            cmd + flags.split(), stdout=subprocess.PIPE,
+            cmd, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, env=env, cwd=str(REPO)))
     recs = {}
     for (arch, shape, mesh, flags), (out, proc) in runs.items():
@@ -169,27 +185,32 @@ def split_records(tmp_path_factory):
     return recs
 
 
-@pytest.mark.parametrize("cell", list(SPLIT_CELLS),
+@pytest.mark.parametrize("cell", SPLIT_CELLS,
                          ids=[" ".join(c).strip() for c in SPLIT_CELLS])
 def test_every_layer_kind_splits(split_records, cell):
     """The decode step and jamba's (Mamba-2, GQA, MLP, dense MoE) and
     deepseek-v3's (MLA, MLP, dense MoE, MTP) train steps run every layer
-    tensor-parallel over "model"; minitron-4b's 24 heads over 16 ranks
-    still run its attention whole, and the dry run says so."""
+    tensor-parallel over "model"; so do minitron-4b's train and prefill
+    steps (24 heads over 16 ranks: 1 or 2 a rank) and deepseek-v2's
+    decode step on the naive MLA route: the step runs (a layer that does
+    not split raises) and its roofline is the cell's over every chip."""
     rec = split_records[cell]
-    assert rec["status"] == "OK"
-    whole = SPLIT_CELLS[cell]
-    assert rec["whole_layers"] == whole
-    assert rec["compute"] == ("replicated" if whole else "tensor_parallel")
+    assert rec["status"] == "OK", rec.get("error")
+    arch, shape, mesh, _ = cell
+    assert rec["roofline"] == json.loads(json.dumps(roofline_terms(
+        configs.get_config(arch), parse_shape(shape)[1], None,
+        rec["collectives"], rec["n_chips"])))
 
 
 def test_no_remat_flag(split_records):
     """``--no-remat`` (the reference's flag) runs the cell with remat off:
     no layer is recomputed in the backward pass, so each layer's two
-    forward all-gathers of the stream run once, not twice (22 layers:
-    44 fewer than the remat run of the same cell, TinyLlama 8 x 256 on
-    host8; ``test_torch_tensor_parallel.py::test_collectives_per_layer``
-    counts them a layer)."""
+    forward all-gathers of the stream and its "data" gathers of its
+    parameters (one a leaf split over "data": host8 has 2 data ranks)
+    run once, not twice (TinyLlama 8 x 256 on host8, 22 layers;
+    ``test_torch_tensor_parallel.py::test_collectives_per_layer`` counts
+    the stream's a layer, ``test_torch_fsdp_layers.py`` the
+    parameters')."""
     off = split_records["tinyllama-1.1b", "train:8:256", "host8",
                         "--no-remat"]
     assert off["status"] == "OK"
@@ -201,5 +222,11 @@ def test_no_remat_flag(split_records):
                        text=True, timeout=300, env=env, cwd=str(REPO))
     assert r.returncode == 0, r.stderr[-3000:]
     remat = json.loads(r.stdout.strip().splitlines()[-1])
+    cfg = configs.get_config("tinyllama-1.1b")
+    params, _ = steps.abstract_state(cfg, "train_4k")
+    specs = mesh_lib.param_specs(params, mesh_lib.Plan(_Host8()))
+    split = sum("data" in specs[k] for k in specs
+                if k.startswith("layers.0."))
+    assert split == 7           # q, k, v, o and the MLP's three
     assert remat["all-gather"]["count"] \
-        - off["collectives"]["all-gather"]["count"] == 2 * 22
+        - off["collectives"]["all-gather"]["count"] == (2 + split) * 22

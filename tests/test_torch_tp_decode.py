@@ -80,7 +80,10 @@ CASES = [
                                        "experts": [4]}),
     ("deepseek-v2-236b", (1, 2), False, {"ffn": [64, 128], "experts": [4]}),
     ("deepseek-v2-236b", (1, 2), True, {"ffn": [64, 128], "experts": [4]}),
+    ("deepseek-v2-236b", (1, 4), True, {"ffn": [32, 64], "experts": [2]}),
     ("deepseek-v3-671b", (1, 4), False, {"ffn": [16, 64], "experts": [2]}),
+    ("deepseek-v3-671b", (1, 2), True, {"ffn": [32, 128], "experts": [4]}),
+    ("deepseek-v3-671b", (1, 4), True, {"ffn": [16, 64], "experts": [2]}),
 ]
 
 
@@ -187,8 +190,9 @@ def test_decode_matches_mesh_less(groups, arch, shape, naive, widths):
                              m, POSITIONS)
         full = {k: [] for k in ("ffn", "gate", "experts")}
         assert {k: o["widths"][k] for k in full} == dict(full, **widths)
-        # MLA's naive decode runs whole (every head on the whole cache)
-        assert o["widths"]["mla_heads"] == ([cfg.n_heads] if naive else [])
+        # MLA's naive decode splits too: no head runs ``_sdpa`` on the
+        # whole cache (every head is scored on the rank's S/m positions)
+        assert o["widths"]["mla_heads"] == []
 
 
 def test_all_masked_slice_contributes_zeros(groups):
@@ -208,12 +212,12 @@ def test_all_masked_slice_contributes_zeros(groups):
                 torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-def _decode_calls(arch, shape):
+def _decode_calls(arch, shape, absorbed=True):
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(REPO / "src"), str(REPO / "tests")]))
     n = 2 if arch == "deepseek-v2-236b" else 1   # + an MLA / MoE layer
     code = ("import torch_launch_ranks as t; t.count_decode_collectives("
-            f"{arch!r}, ({n}, {n + 1}), {shape}, 2, 64)")
+            f"{arch!r}, ({n}, {n + 1}), {shape}, 2, 64, {absorbed})")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, env=env, cwd=str(REPO))
     assert r.returncode == 0, r.stderr[-3000:]
@@ -259,16 +263,39 @@ DECODE_CALLS = {
         ("all-gather", (4, 2), 32),
         ("all-reduce", (2, 1, 128), 1024),
         ("all-reduce", (2, 1, 128), 1024)],
+    # MLA naive + MoE: the latents' columns, the token's q gathered over
+    # heads ((hd + rd) wide, bf16), then the one weight the route gathers:
+    # w_uk and w_uv over "model" in bf16 (r x h·hd / m each, token-free),
+    # to expand the rank's S/m latent positions; the softmax's max and
+    # sums (B x h x (hd + 1): every head a kv head), wo's partials; the
+    # MoE as above
+    "deepseek-v2-236b-naive": [
+        ("all-gather", (48, 2, 1), 192),
+        ("all-gather", (2, 2, 1, 48), 384),
+        ("all-gather", (64, 32), 4096),
+        ("all-gather", (64, 32), 4096),
+        ("all-reduce", (2, 4, 1, 1, 1), 32),
+        ("all-reduce", (2, 4, 1, 1, 33), 1056),
+        ("all-reduce", (2, 1, 128), 1024),
+        ("all-gather", (4, 2), 32),
+        ("all-reduce", (2, 1, 128), 1024),
+        ("all-reduce", (2, 1, 128), 1024)],
 }
+# the naive route's weight gathers (w_uk, w_uv: r x h·hd / m bf16 each)
+NAIVE_WEIGHT_GATHERS = [("all-gather", (64, 32), 4096)] * 2
 
 
 @pytest.mark.parametrize("arch", sorted(DECODE_CALLS))
 def test_decode_collectives_per_layer(arch):
     """One more layer adds exactly the design's collectives, each a
-    token's operand: a (1, 2) mesh's decode step on ``meta`` at B 2 over
-    a 64-position cache."""
-    calls = _decode_calls(arch, (1, 2))
+    token's operand but the naive MLA route's two weight gathers
+    (``NAIVE_WEIGHT_GATHERS``): a (1, 2) mesh's decode step on ``meta``
+    at B 2 over a 64-position cache."""
+    naive = arch.endswith("-naive")
+    calls = _decode_calls(arch.removesuffix("-naive"), (1, 2), not naive)
     assert calls == [(k, s, b) for k, s, b in DECODE_CALLS[arch]]
+    weights = [c for c in calls if c[2] >= 4096]
+    assert weights == (NAIVE_WEIGHT_GATHERS if naive else [])
 
 
 REF_SCRIPT = r"""

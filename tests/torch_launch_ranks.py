@@ -232,6 +232,20 @@ def tp_prefill(state, cfg, shape, sd, batch):
     return logits, first, {k: sorted(v) for k, v in seen.items()}
 
 
+def tp_unsplit(state, cfg, shape, sd, batch):
+    """The message of the error the tensor-parallel prefill step raises
+    on a ("data", "model") mesh of ``shape``, or None where it runs."""
+    from repro_torch.launch.steps import make_prefill_step
+    plan = mesh_lib.Plan(_mesh(state, shape, ("data", "model")))
+    model = _sharded_lm(cfg, sd, plan)
+    try:
+        make_prefill_step(cfg, None, plan)(model,
+                                          mesh_lib.local_batch(batch, plan))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def tp_decode(state, cfg, shape, sd, cache, steps, mla_absorbed=True,
               choices=None):
     """Tensor-parallel decode steps of ``cfg`` from the weights ``sd`` and
@@ -347,18 +361,10 @@ def tp_moe(state, sd, x):
     return (y.detach().float(), [router] + list(g[1:])), mesh_route
 
 
-def count_decode_collectives(arch: str, n_layers: tuple, shape, batch: int,
-                             seq: int) -> None:
-    """Prints (JSON) the collectives of one tensor-parallel decode step of
-    the reduced ``arch`` at each layer count of ``n_layers`` on ``meta``
-    over a fake group of a ("data", "model") mesh of ``shape``: per
-    count, each collective's (kind, operand shape, operand bytes)."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.launch import dryrun, steps
+def _calls():
+    """A dispatch mode recording each collective run inside it, in order:
+    (kind, operand shape as c10d takes it, operand bytes) in ``.calls``."""
     from repro_torch.launch.dryrun import _KINDS, _OUT_FIRST, _nbytes
-    from repro_torch.nn import transformer as tfm
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Calls(TorchDispatchMode):
@@ -373,6 +379,21 @@ def count_decode_collectives(arch: str, n_layers: tuple, shape, batch: int,
                 x = x[0] if isinstance(x, (list, tuple)) else x
                 self.calls.append((_KINDS[name], list(x.shape), _nbytes(x)))
             return func(*args, **(kwargs or {}))
+    return Calls()
+
+
+def count_decode_collectives(arch: str, n_layers: tuple, shape, batch: int,
+                             seq: int, mla_absorbed: bool = True) -> None:
+    """Prints (JSON) the collectives of one tensor-parallel decode step of
+    the reduced ``arch`` at each layer count of ``n_layers`` on ``meta``
+    over a fake group of a ("data", "model") mesh of ``shape`` (MLA on
+    the absorbed or the naive route): per count, each collective's
+    (kind, operand shape, operand bytes)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.nn import transformer as tfm
 
     dryrun._fake_group(shape[0] * shape[1])
     plan = mesh_lib.Plan(mesh_lib.make_mesh(shape, ("data", "model"),
@@ -385,9 +406,9 @@ def count_decode_collectives(arch: str, n_layers: tuple, shape, batch: int,
         mesh_lib.shard_params(params, plan)
         cache = dryrun._cache_on_plan(cfg, info, plan)
         local = mesh_lib.local_batch(steps.input_specs(cfg, info), plan)
-        calls = Calls()
+        calls = _calls()
         with calls:
-            steps.make_decode_step(cfg, plan=plan)(
+            steps.make_decode_step(cfg, mla_absorbed, plan)(
                 params, cache, {"tokens": local["tokens"], "pos": 0})
         out[n] = calls.calls
     print(json.dumps(out))
@@ -417,3 +438,67 @@ def count_collectives(arch: str, n_layers: int, shape, batch: int,
     with counter:
         steps._mesh_grads(params, local, cfg, plan)
     print(json.dumps(counter.result()))
+
+
+
+def count_step_calls(arch: str, n_layers: tuple, shape, runs: list,
+                     batch: int = 4, seq: int = 64) -> None:
+    """Prints (JSON) the collectives of tensor-parallel steps of the
+    reduced ``arch`` on ``meta`` over a fake group of a ("data", "model")
+    mesh of ``shape``, at each layer count of ``n_layers``, for each
+    (kind, remat) of ``runs`` (a train step's loss and gradient, a
+    prefill or a decode step at ``batch`` x ``seq``): per run and count,
+    each collective's (kind, operand shape as c10d takes it, operand
+    bytes); and per count each parameter's storage shard shape and the
+    dim "data" splits (None where it is whole over "data")."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.nn import transformer as tfm
+    from torch.distributed.tensor import Shard
+
+    dryrun._fake_group(shape[0] * shape[1])
+    plan = mesh_lib.Plan(mesh_lib.make_mesh(shape, ("data", "model"),
+                                            "cpu"))
+    out = {}
+    for kind, remat in runs:
+        info = {"kind": kind, "global_batch": batch, "seq_len": seq}
+        for n in n_layers:
+            cfg = dataclasses.replace(get_config(arch).reduced(),
+                                      n_layers=n, remat=remat)
+            params = tfm.abstract_params(cfg)
+            mesh_lib.shard_params(params, plan)
+            local = mesh_lib.local_batch(steps.input_specs(cfg, info), plan)
+            calls = _calls()
+            with calls:
+                if kind == "train":
+                    steps._mesh_grads(params, local, cfg, plan)
+                elif kind == "prefill":
+                    steps.make_prefill_step(cfg, plan=plan)(params, local)
+                else:
+                    cache = dryrun._cache_on_plan(cfg, info, plan)
+                    steps.make_decode_step(cfg, plan=plan)(
+                        params, cache, {"tokens": local["tokens"], "pos": 0})
+            out[f"{kind} {remat} {n}"] = calls.calls
+            out[f"leaves {n}"] = {
+                k: (list(p.to_local().shape), p.placements[0].dim
+                    if isinstance(p.placements[0], Shard) else None)
+                for k, p in params.named_parameters()}
+    print(json.dumps(out))
+
+
+def tp_grads(state, cfg, shape, sd, batch):
+    """``steps._mesh_grads`` of ``cfg`` from the weights ``sd`` on a
+    ("data", "model") mesh of ``shape``, or ("pod", "data", "model") where
+    it has three dims (each rank its data shard of ``batch``): (the loss,
+    every whole gradient) on rank 0."""
+    from repro_torch.launch.steps import _mesh_grads
+    axes = ("pod", "data", "model")[-len(shape):]
+    plan = mesh_lib.Plan(_mesh(state, shape, axes))
+    model = _sharded_lm(cfg, sd, plan)
+    loss, grads = _mesh_grads(model, mesh_lib.local_batch(batch, plan), cfg,
+                              plan)
+    whole = {k: None if g is None else mesh_lib.full(g).clone()
+             for k, g in grads.items()}
+    return (float(loss), whole) if state["rank"] == 0 else None
